@@ -1,0 +1,103 @@
+"""Run CLI: ``python -m enterprise_warp_tpu_torch.cli --prfile <paramfile>
+--num N``.
+
+Counterpart of ``enterprise_warp_tpu/cli.py`` for the ``ptmcmcsampler``
+branch with one model: parse the paramfile, load pulsar ``--num``, build
+its walker-batched likelihood on the card and run the adaptive PT-MCMC,
+writing the reference's output-directory contract so
+``python -m enterprise_warp_tpu.results`` post-processes the run
+unchanged. The other samplers, product-space model selection, the
+``serve`` subcommand and the ``psr_shard``/``chain_shard`` knobs are later
+slices of the port and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import sys
+
+_LATER = "is a later slice of the port (see ROADMAP.md)"
+
+
+def import_custom_models(py_path: str, class_name: str):
+    """Dynamic import of a user model file (custom-models contract)."""
+    spec = importlib.util.spec_from_file_location("custom_models_module",
+                                                  py_path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, class_name)
+
+
+def _parser():
+    parser = argparse.ArgumentParser(
+        description="enterprise_warp_tpu_torch run")
+    parser.add_argument("-n", "--num", type=int, default=0)
+    parser.add_argument("-p", "--prfile", type=str, required=True)
+    parser.add_argument("-d", "--drop", type=int, default=0)
+    parser.add_argument("-c", "--clearcache", type=int, default=0)
+    parser.add_argument("-m", "--mpi_regime", type=int, default=0)
+    parser.add_argument("-w", "--wipe_old_output", type=int, default=0)
+    parser.add_argument("-x", "--extra_model_terms", type=str,
+                        default=None)
+    parser.add_argument("--custom_models_py", type=str, default=None)
+    parser.add_argument("--custom_models", type=str, default=None)
+    parser.add_argument("--gram_mode", type=str, default="split",
+                        choices=("split", "f32", "f64"))
+    return parser
+
+
+def main(argv=None, device="cuda"):
+    """Run one paramfile; returns the process exit status. ``device``
+    selects where the likelihood and the sampler run (the card unless the
+    caller asks for the CPU)."""
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv and argv[0] == "serve":
+        raise NotImplementedError(f"the serve subcommand {_LATER}")
+    opts = _parser().parse_args(argv)
+
+    from . import resolve_device
+    from .config import Params
+    from .io.errors import ParseError
+    from .models.assemble import init_model_likelihoods
+    from .resilience.integrity import EXIT_QUARANTINED, DataQuarantine
+    from .samplers import run_ptmcmc
+
+    device = resolve_device(device)
+    custom = None
+    if opts.custom_models_py and opts.custom_models:
+        custom = import_custom_models(opts.custom_models_py,
+                                      opts.custom_models)
+    try:
+        params = Params(opts.prfile, opts=opts, custom_models_obj=custom)
+    except DataQuarantine as q:
+        print(f"data quarantine: {q}", file=sys.stderr)
+        return EXIT_QUARANTINED
+    except ParseError as exc:
+        print(f"malformed input file: {exc}", file=sys.stderr)
+        return EXIT_QUARANTINED
+    if params.sampler != "ptmcmcsampler":
+        raise NotImplementedError(f"sampler '{params.sampler}' {_LATER}")
+    for knob in ("psr_shard", "chain_shard"):
+        if params.sampler_kwargs.get(knob):
+            raise NotImplementedError(f"{knob} {_LATER}")
+    if len(params.models) != 1:
+        raise NotImplementedError(
+            f"product-space model selection ({len(params.models)} models) "
+            + _LATER)
+    likes = init_model_likelihoods(params, gram_mode=opts.gram_mode,
+                                   device=device)
+    if params.setupsamp or opts.mpi_regime == 1:
+        print("Preparations for the sampling are complete "
+              "(setup-only mode)")
+        return 0
+    like = likes[min(likes)]
+    nsamp = int(getattr(params, "nsamp",
+                        params.sampler_kwargs.get("nsamp", 1000000)))
+    run_ptmcmc(like, params.output_dir, nsamp, params=params,
+               resume=not bool(opts.wipe_old_output))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,447 @@
+// Likelihood megakernels for NVIDIA Hopper (sm_90a), plain C interface.
+//
+// Two __global__ kernels share one set of block-level device routines:
+//
+//   mega_solve_kernel  replaces  enterprise_warp_tpu/ops/megakernel.py:
+//                                _mega_solve_kernel (pallas_call in
+//                                _mega_solve_raw)
+//   mega_like_kernel   replaces  enterprise_warp_tpu/ops/megakernel.py:
+//                                _mega_like_kernel (pallas_call in
+//                                _mega_like_raw)
+//
+// Per walker (one thread block, 256 threads), on an equilibrated float32
+// Sn (n x n) and right-hand side Bn (n x k):
+//   1. three-tier jittered right-looking Cholesky Sn + j I = U^T U
+//      (tier 2 re-factors with j2 only in blocks whose tier-1 factor went
+//      non-finite; tier 3 is the identity);
+//   2. V = U^-1 by back substitution;
+//   3. the preconditioner solve Z0 = V V^T Bn and `refine` float32
+//      residual passes Z += V V^T (Bn - Sn Z);
+//   4. the divergence guard: keep Z only if its true residual is no
+//      larger than the first pass's, else Z0;
+//   5. ld = 2 sum log diag U + the 4-term trace expansion of
+//      E = V^T (Sn - U^T U) V, applied only when ||E||_F^2 < 0.09.
+// mega_like_kernel first forms Ss = S sqrt(w) from the shared (ntoa, nb)
+// basis, G = Ss^T Ss and Sn = s G s + diag(ivb), then runs the same chain.
+// Every product is a float32 FMA loop: no tensor cores, no TF32 (the
+// reference's dots run at Precision.HIGHEST).
+//
+// Bound on an H100 SXM: float32 work outside the tensor cores, peak
+// 67 TFLOP/s. Counting only what the function needs, the solve chain is
+// ~4 n^3 FLOP per walker: n^3/3 per Cholesky tier, n^3/3 for the
+// triangular inverse, n^3/3 for U^T U (triangle times triangle), n^3
+// each for V^T D and (V^T D) V, n^3 for the symmetric E E, plus the skinny
+// solves. At the main path's shape (8 walkers, n = 250) that is
+// ~0.53 GFLOP, ~8 us at peak, against ~2 MB of input and output (~0.6 us
+// at 3.35 TB/s): operations bound. The likelihood kernel at (8 walkers,
+// nb = 120, ntoa = 122) adds the symmetric ntoa nb^2 Gram: ~0.077 GFLOP,
+// ~1.2 us at peak. (chip_smoke.py computes both bounds from each run's
+// inputs.)
+//
+// What holds this simple design back (work for later): one block per
+// walker fills only 8 (16 with two temperatures) of 132 SMs; the factorization and the inverse are
+// 2n sequential steps with a block barrier each; the working matrices
+// (n = 250: 250 KB each) live in global memory (L2-resident) rather than
+// shared memory, and the dense products run on CUDA cores instead of
+// the tensor cores.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int NT = 256;      // threads per block
+constexpr int MAXN = 448;    // largest matrix order (the reference's cap)
+constexpr int KMAX = 8;      // widest right-hand side
+constexpr int TILE = 64;     // block GEMM output tile
+constexpr int KT = 16;       // block GEMM depth step
+
+struct Smem {
+  float As[KT][TILE + 1];
+  float Bs[KT][TILE + 1];
+  float lvec[MAXN];
+  float rhs[MAXN * KMAX];
+  float red[NT / 32];
+  int flag[2];   // one non-finite flag per Cholesky tier
+};
+
+__device__ float block_sum(float v, Smem& sm) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) sm.red[wid] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float t = (threadIdx.x < NT / 32) ? sm.red[threadIdx.x] : 0.f;
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(0xffffffffu, t, o);
+    if (threadIdx.x == 0) sm.red[0] = t;
+  }
+  __syncthreads();
+  const float r = sm.red[0];
+  __syncthreads();
+  return r;
+}
+
+// C (M x N, ldc) = C0 + alpha * op(A) op(B)   (C0 may be null: C = alpha AB)
+// op(A)(i, m) = ta ? A[m * lda + i] : A[i * lda + m]
+// op(B)(m, j) = tb ? B[j * ldb + m] : B[m * ldb + j]
+// 64 x 64 output tiles, 4 x 4 outputs per thread, depth steps of 16.
+__device__ void block_gemm(int M, int N, int K, const float* A, int lda,
+                           bool ta, const float* B, int ldb, bool tb,
+                           float* C, int ldc, float alpha, const float* C0,
+                           int ldc0, Smem& sm) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tilesM = (M + TILE - 1) / TILE, tilesN = (N + TILE - 1) / TILE;
+  for (int tile = 0; tile < tilesM * tilesN; ++tile) {
+    const int i0 = (tile / tilesN) * TILE, j0 = (tile % tilesN) * TILE;
+    float acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += KT) {
+#pragma unroll
+      for (int r = 0; r < (TILE * KT) / NT; ++r) {
+        const int e = tid + r * NT;
+        int il, ml;
+        if (ta) { il = e % TILE; ml = e / TILE; }
+        else    { ml = e % KT;   il = e / KT; }
+        const int i = i0 + il, m = k0 + ml;
+        float v = 0.f;
+        if (i < M && m < K) v = ta ? A[(size_t)m * lda + i] : A[(size_t)i * lda + m];
+        sm.As[ml][il] = v;
+        int jl, ml2;
+        if (tb) { ml2 = e % KT;   jl = e / KT; }
+        else    { jl = e % TILE;  ml2 = e / TILE; }
+        const int j = j0 + jl, m2 = k0 + ml2;
+        float u = 0.f;
+        if (j < N && m2 < K) u = tb ? B[(size_t)j * ldb + m2] : B[(size_t)m2 * ldb + j];
+        sm.Bs[ml2][jl] = u;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        float ar[4], br[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) ar[a] = sm.As[kk][ty + 16 * a];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) br[b] = sm.Bs[kk][tx + 16 * b];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ar[a], br[b], acc[a][b]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = i0 + ty + 16 * a;
+      if (i >= M) continue;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = j0 + tx + 16 * b;
+        if (j >= N) continue;
+        C[(size_t)i * ldc + j] =
+            C0 ? fmaf(alpha, acc[a][b], C0[(size_t)i * ldc0 + j]) : alpha * acc[a][b];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+__device__ void load_rhs(const float* src, int count, Smem& sm) {
+  for (int e = threadIdx.x; e < count; e += NT) sm.rhs[e] = src[e];
+  __syncthreads();
+}
+
+// C[i][c] = sum_m A[m * lda + i] * rhs[m][c]; `upper`: A upper triangular
+// (only m <= i contribute). One thread per output row.
+__device__ void skinny_t(int rows, int K, const float* A, int lda, int k,
+                         bool upper, float* C, Smem& sm) {
+  for (int i = threadIdx.x; i < rows; i += NT) {
+    float acc[KMAX];
+#pragma unroll
+    for (int c = 0; c < KMAX; ++c) acc[c] = 0.f;
+    const int mend = upper ? min(i + 1, K) : K;
+    for (int m = 0; m < mend; ++m) {
+      const float a = A[(size_t)m * lda + i];
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c)
+        if (c < k) acc[c] = fmaf(a, sm.rhs[m * k + c], acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < KMAX; ++c)
+      if (c < k) C[i * k + c] = acc[c];
+  }
+  __syncthreads();
+}
+
+// C[i][c] = (sub ? sub[i][c] - acc : acc), acc = sum_m A[i * lda + m] rhs[m][c];
+// `upper`: A upper triangular (only m >= i contribute). One warp per row.
+__device__ void skinny_n(int rows, int K, const float* A, int lda, int k,
+                         bool upper, const float* sub, float* C, Smem& sm) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int i = wid; i < rows; i += NT / 32) {
+    float acc[KMAX];
+#pragma unroll
+    for (int c = 0; c < KMAX; ++c) acc[c] = 0.f;
+    const float* Ai = A + (size_t)i * lda;
+    for (int m = (upper ? i : 0) + lane; m < K; m += 32) {
+      const float a = Ai[m];
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c)
+        if (c < k) acc[c] = fmaf(a, sm.rhs[m * k + c], acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < KMAX; ++c)
+      for (int o = 16; o > 0; o >>= 1) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], o);
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c)
+        if (c < k) C[i * k + c] = sub ? sub[i * k + c] - acc[c] : acc[c];
+    }
+  }
+  __syncthreads();
+}
+
+// Right-looking Cholesky of Sn + jit I into the upper factor U (row k of U
+// is column k of L). X is the working copy; only its upper triangle is
+// maintained. Returns false as soon as a factor entry is non-finite (the
+// reference's "any non-finite in U" test for the tier ladder). `tier` picks
+// the flag slot; the caller zeroes both slots once, behind a barrier, so no
+// thread can reset a flag another thread has still to read.
+__device__ bool chol_upper(const float* Sn, float jit, float* X, float* U,
+                           int n, int tier, Smem& sm) {
+  for (int e = threadIdx.x; e < n * n; e += NT) {
+    const int i = e / n, j = e - i * n;
+    X[e] = Sn[e] + (i == j ? jit : 0.f);
+    U[e] = 0.f;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int k = 0; k < n; ++k) {
+    const float dkk = X[(size_t)k * n + k];
+    const float ipiv = 1.0f / sqrtf(dkk);
+    for (int j = k + threadIdx.x; j < n; j += NT) {
+      const float v = X[(size_t)k * n + j] * ipiv;
+      sm.lvec[j] = v;
+      U[(size_t)k * n + j] = v;
+      if (!isfinite(v)) sm.flag[tier] = 1;
+    }
+    __syncthreads();
+    if (sm.flag[tier]) return false;
+    for (int i = k + 1 + wid; i < n; i += NT / 32) {
+      const float li = sm.lvec[i];
+      float* Xi = X + (size_t)i * n;
+      for (int j = i + lane; j < n; j += 32) Xi[j] = fmaf(-li, sm.lvec[j], Xi[j]);
+    }
+    __syncthreads();
+  }
+  return true;
+}
+
+// V = U^-1 (upper) by back substitution: row i from rows > i.
+__device__ void backsub_inv(const float* U, float* V, int n, Smem& sm) {
+  for (int e = threadIdx.x; e < n * n; e += NT) V[e] = 0.f;
+  __syncthreads();
+  for (int i = n - 1; i >= 0; --i) {
+    for (int m = i + threadIdx.x; m < n; m += NT) sm.lvec[m] = U[(size_t)i * n + m];
+    __syncthreads();
+    const float dii = sm.lvec[i];
+    for (int j = i + threadIdx.x; j < n; j += NT) {
+      float acc = 0.f;
+      for (int m = i + 1; m <= j; ++m) acc = fmaf(sm.lvec[m], V[(size_t)m * n + j], acc);
+      V[(size_t)i * n + j] = ((i == j ? 1.f : 0.f) - acc) / dii;
+    }
+    __syncthreads();
+  }
+}
+
+// out = V (V^T R), R and out (n x k) in global memory, Tb scratch.
+__device__ void psolve(const float* V, const float* R, float* Tb, float* out,
+                       int n, int k, Smem& sm) {
+  load_rhs(R, n * k, sm);
+  skinny_t(n, n, V, n, k, true, Tb, sm);
+  load_rhs(Tb, n * k, sm);
+  skinny_n(n, n, V, n, k, true, nullptr, out, sm);
+}
+
+__device__ __host__ inline long long solve_ws(int n, int k) {
+  return 5LL * n * n + 5LL * n * k;
+}
+
+// The shared chain (steps 1-5 above) for one walker.
+__device__ void solve_chain(const float* Sn, const float* Bw, float* Zout,
+                            float* ldout, int* tierout, float* ws, int n,
+                            int k, float j1, float j2, int refine, Smem& sm) {
+  const size_t nn = (size_t)n * n, nk = (size_t)n * k;
+  float* X = ws;
+  float* U = X + nn;
+  float* V = U + nn;
+  float* W1 = V + nn;
+  float* W2 = W1 + nn;
+  float* Tb = W2 + nn;
+  float* Z0 = Tb + nk;
+  float* Zc = Z0 + nk;
+  float* R = Zc + nk;
+  float* D = R + nk;
+
+  if (threadIdx.x == 0) sm.flag[0] = sm.flag[1] = 0;
+  __syncthreads();
+  int tier = 1;
+  bool ok = chol_upper(Sn, j1, X, U, n, 0, sm);
+  if (!ok) {
+    tier = 2;
+    ok = chol_upper(Sn, j2, X, U, n, 1, sm);
+  }
+  if (!ok) {
+    tier = 3;
+    for (int e = threadIdx.x; e < (int)nn; e += NT) {
+      const int i = e / n, j = e - i * n;
+      U[e] = (i == j) ? 1.f : 0.f;
+    }
+    __syncthreads();
+  }
+  backsub_inv(U, V, n, sm);
+
+  // preconditioner solve, refinement, divergence guard
+  psolve(V, Bw, Tb, Z0, n, k, sm);
+  for (int e = threadIdx.x; e < (int)nk; e += NT) Zc[e] = Z0[e];
+  __syncthreads();
+  float res_pre = 0.f;
+  for (int it = 0; it < refine; ++it) {
+    load_rhs(Zc, n * k, sm);
+    skinny_n(n, n, Sn, n, k, false, Bw, R, sm);
+    if (it == 0) {
+      float p = 0.f;
+      for (int e = threadIdx.x; e < (int)nk; e += NT) p = fmaf(R[e], R[e], p);
+      res_pre = block_sum(p, sm);
+    }
+    psolve(V, R, Tb, D, n, k, sm);
+    for (int e = threadIdx.x; e < (int)nk; e += NT) Zc[e] += D[e];
+    __syncthreads();
+  }
+  load_rhs(Zc, n * k, sm);
+  skinny_n(n, n, Sn, n, k, false, Bw, R, sm);
+  float p = 0.f;
+  for (int e = threadIdx.x; e < (int)nk; e += NT) p = fmaf(R[e], R[e], p);
+  const float res_ref = block_sum(p, sm);
+  if (refine == 0) res_pre = res_ref;
+  const bool keep = res_ref <= res_pre;   // NaN -> keep the plain solve
+  for (int e = threadIdx.x; e < (int)nk; e += NT) Zout[e] = keep ? Zc[e] : Z0[e];
+
+  // logdet: E = V^T (Sn - U^T U) V and its 4-term trace expansion
+  block_gemm(n, n, n, U, n, true, U, n, false, W1, n, -1.f, Sn, n, sm);
+  block_gemm(n, n, n, V, n, true, W1, n, false, W2, n, 1.f, nullptr, 0, sm);
+  block_gemm(n, n, n, W2, n, false, V, n, false, W1, n, 1.f, nullptr, 0, sm);
+  block_gemm(n, n, n, W1, n, false, W1, n, false, X, n, 1.f, nullptr, 0, sm);
+  const float* E = W1;
+  const float* E2 = X;
+  float tr = 0.f, see_t = 0.f, s2e_t = 0.f, s22_t = 0.f, see = 0.f, sld = 0.f;
+  for (int e = threadIdx.x; e < (int)nn; e += NT) {
+    const int i = e / n, j = e - i * n;
+    const size_t et = (size_t)j * n + i;
+    const float eij = E[e];
+    if (i == j) {
+      tr += eij;
+      sld += logf(U[e]);
+    }
+    see_t = fmaf(eij, E[et], see_t);
+    s2e_t = fmaf(E2[e], E[et], s2e_t);
+    s22_t = fmaf(E2[e], E2[et], s22_t);
+    see = fmaf(eij, eij, see);
+  }
+  tr = block_sum(tr, sm);
+  see_t = block_sum(see_t, sm);
+  s2e_t = block_sum(s2e_t, sm);
+  s22_t = block_sum(s22_t, sm);
+  see = block_sum(see, sm);
+  sld = block_sum(sld, sm);
+  float corr = tr - see_t / 2.0f + s2e_t / 3.0f - s22_t / 4.0f;
+  if (!(see < 0.09f)) corr = 0.f;
+  if (threadIdx.x == 0) {
+    *ldout = 2.0f * sld + corr;
+    *tierout = tier;
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+mega_solve_kernel(const float* __restrict__ Sn, const float* __restrict__ Bn,
+                  float* Z, float* ld, int* tier, float* ws, int n, int k,
+                  float j1, float j2, int refine) {
+  __shared__ Smem sm;
+  const int b = blockIdx.x;
+  const size_t nn = (size_t)n * n, nk = (size_t)n * k;
+  solve_chain(Sn + b * nn, Bn + b * nk, Z + b * nk, ld + b, tier + b,
+              ws + (size_t)b * solve_ws(n, k), n, k, j1, j2, refine, sm);
+}
+
+__global__ void __launch_bounds__(NT)
+mega_like_kernel(const float* __restrict__ S, const float* __restrict__ w,
+                 const float* __restrict__ s, const float* __restrict__ ivb,
+                 const float* __restrict__ Bn, float* Z, float* ld, int* tier,
+                 float* ws, int ntoa, int nb, int k, float j1, float j2,
+                 int refine) {
+  __shared__ Smem sm;
+  const int b = blockIdx.x;
+  const size_t nn = (size_t)nb * nb, nk = (size_t)nb * k;
+  const long long per = solve_ws(nb, k) + (long long)nn + (long long)ntoa * nb;
+  float* wsb = ws + (size_t)b * per;
+  float* Snb = wsb + solve_ws(nb, k);
+  float* Ss = Snb + nn;
+  const float* wb = w + (size_t)b * ntoa;
+  const float* sb = s + (size_t)b * nb;
+  const float* ivbb = ivb + (size_t)b * nb;
+
+  // Gram prologue: Ss = S sqrt(w) (rows), G = Ss^T Ss
+  for (int e = threadIdx.x; e < ntoa * nb; e += NT) {
+    const int t = e / nb;
+    Ss[e] = S[e] * sqrtf(wb[t]);
+  }
+  __syncthreads();
+  block_gemm(nb, nb, ntoa, Ss, nb, true, Ss, nb, false, Snb, nb, 1.f, nullptr, 0, sm);
+  // Sigma assembly on the equilibrated scales: Sn = s G s + diag(ivb)
+  for (int e = threadIdx.x; e < (int)nn; e += NT) {
+    const int i = e / nb, j = e - i * nb;
+    const float g = __fmul_rn(__fmul_rn(Snb[e], sb[i]), sb[j]);
+    Snb[e] = __fadd_rn(g, i == j ? ivbb[i] : 0.f);
+  }
+  __syncthreads();
+  solve_chain(Snb, Bn + b * nk, Z + b * nk, ld + b, tier + b, wsb, nb, k, j1,
+              j2, refine, sm);
+}
+
+}  // namespace
+
+extern "C" {
+
+long long mega_solve_ws_floats(int n, int k) { return solve_ws(n, k); }
+
+long long mega_like_ws_floats(int ntoa, int nb, int k) {
+  return solve_ws(nb, k) + (long long)nb * nb + (long long)ntoa * nb;
+}
+
+int mega_solve_launch(const float* Sn, const float* Bn, float* Z, float* ld,
+                      int* tier, float* ws, int B, int n, int k, float j1,
+                      float j2, int refine, void* stream) {
+  if (B <= 0 || n <= 0 || n > MAXN || k <= 0 || k > KMAX || refine < 0)
+    return (int)cudaErrorInvalidValue;
+  mega_solve_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(Sn, Bn, Z, ld, tier, ws,
+                                                        n, k, j1, j2, refine);
+  return (int)cudaGetLastError();
+}
+
+int mega_like_launch(const float* S, const float* w, const float* s,
+                     const float* ivb, const float* Bn, float* Z, float* ld,
+                     int* tier, float* ws, int B, int ntoa, int nb, int k,
+                     float j1, float j2, int refine, void* stream) {
+  if (B <= 0 || ntoa <= 0 || nb <= 0 || nb > MAXN || k <= 0 || k > KMAX ||
+      refine < 0)
+    return (int)cudaErrorInvalidValue;
+  mega_like_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(S, w, s, ivb, Bn, Z, ld,
+                                                       tier, ws, ntoa, nb, k,
+                                                       j1, j2, refine);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,96 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, at first use, into ``enterprise_warp_tpu_torch/
+_build/`` (git-ignored), under a file lock so concurrent processes build
+once. The library name carries a digest of the source, so an edited
+kernel is rebuilt. Nothing here runs at import: the CPU tests import this
+module on machines with no ``nvcc`` and no card.
+
+Pointers and the stream cross into C as ``ctypes.c_void_p``
+(``tensor.data_ptr()``, ``torch.cuda.current_stream().cuda_stream``);
+each launch function returns ``cudaGetLastError()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "mega_solve_ws_floats": ([_I, _I], ctypes.c_longlong),
+    "mega_like_ws_floats": ([_I, _I, _I], ctypes.c_longlong),
+    "mega_solve_launch": ([_P] * 6 + [_I, _I, _I, _F, _F, _I, _P], _I),
+    "mega_like_launch": ([_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P], _I),
+}
+
+_lock = threading.Lock()
+_libs = {}
+#: compiler output (``-Xptxas -v``: registers, shared memory, spills) of
+#: each build this process ran, by source name
+BUILD_LOG = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def build(name="megakernel") -> Path:
+    """Compile ``csrc/<name>.cu`` (once per source digest) and return the
+    shared library's path."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True)
+        BUILD_LOG[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+def load_library(name="megakernel"):
+    """The loaded, typed ctypes library for ``csrc/<name>.cu``."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, (argtypes, restype) in _SIGNATURES.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = restype
+            _libs[name] = lib
+    return lib

@@ -1,0 +1,128 @@
+"""The port's CLI end to end on the CPU, and the port's import boundary.
+
+- ``enterprise_warp_tpu_torch.cli.main`` runs a copy of
+  ``examples/example_params/system_noise.dat`` (40 steps) for both pulsars
+  on the CPU and leaves finite chain rows in the reference layout;
+- a fresh interpreter imports every module of the port and must end with
+  neither ``jax`` nor any ``enterprise_warp_tpu`` module loaded;
+- an AST scan of the package (and of ``chip_smoke.py``) finds no import of
+  either.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from enterprise_warp_tpu_torch import cli
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "enterprise_warp_tpu_torch")
+EXAMPLES = os.path.join(REPO, "examples")
+
+
+def _paramfile(tmp_path, nsamp):
+    """``system_noise.dat`` with absolute input paths, the output under
+    ``tmp_path`` and ``nsamp`` steps."""
+    lines = []
+    with open(os.path.join(EXAMPLES, "example_params",
+                           "system_noise.dat")) as fh:
+        for line in fh.read().splitlines():
+            key, _, val = line.partition(":")
+            key = key.strip()
+            if key == "datadir":
+                line = f"datadir: {os.path.join(EXAMPLES, 'data')}"
+            elif key == "out":
+                line = f"out: {tmp_path / 'out'}"
+            elif key == "nsamp":
+                line = f"nsamp: {nsamp}"
+            elif key == "noise_model_file":
+                line = ("noise_model_file: "
+                        + os.path.join(EXAMPLES, val.strip()))
+            lines.append(line)
+    path = tmp_path / "system_noise.dat"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("num,psr,ndim", [(0, "J1234-5678", 14),
+                                          (1, "J0042-0000", 6)])
+def test_cli_runs_the_paramfile_on_cpu(tmp_path, num, psr, ndim):
+    prfile = _paramfile(tmp_path, 40)
+    rc = cli.main(["--prfile", prfile, "--num", str(num)], device="cpu")
+    assert rc == 0
+    runs = [os.path.join(r, d) for r, ds, _ in os.walk(tmp_path / "out")
+            for d in ds if d == f"{num}_{psr}"]
+    assert len(runs) == 1
+    chain = np.loadtxt(os.path.join(runs[0], "chain_1.txt"))
+    # the paramfile's sampler defaults: ntemps 1, nchains 8, thin 10
+    assert chain.shape == (40 // 10 * 8, ndim + 4)
+    assert np.isfinite(chain).all()
+    pars = open(os.path.join(runs[0], "pars.txt")).read().split()
+    assert len(pars) == ndim and all(p.startswith(psr) for p in pars)
+
+
+def test_cli_refuses_what_is_not_ported(tmp_path):
+    with pytest.raises(NotImplementedError):
+        cli.main(["serve"], device="cpu")
+    prfile = _paramfile(tmp_path, 10)
+    src = open(prfile).read().replace("sampler: ptmcmcsampler",
+                                      "sampler: dynesty")
+    (tmp_path / "dyn.dat").write_text(src)
+    with pytest.raises(NotImplementedError):
+        cli.main(["--prfile", str(tmp_path / "dyn.dat"), "--num", "1"],
+                 device="cpu")
+
+
+def _modules():
+    out = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)
+                mod = rel[:-3].replace(os.sep, ".")
+                out.append(mod[:-len(".__init__")]
+                           if mod.endswith(".__init__") else mod)
+    return sorted(out)
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'enterprise_warp_tpu'\n"
+        "             or m.startswith('enterprise_warp_tpu.'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_names_jax_or_the_reference():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    bad = []
+    for path in files:
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                top = n.split(".")[0]
+                if top in ("jax", "jaxlib", "enterprise_warp_tpu"):
+                    bad.append(f"{path}:{node.lineno}: {n}")
+    assert len(files) > 30 and not bad, bad

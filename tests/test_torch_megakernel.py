@@ -1,0 +1,256 @@
+"""Parity of the port's likelihood megakernels with the JAX package.
+
+On the CPU the port's wrappers run each kernel's plain PyTorch version
+(``_mega_solve_torch``, ``_mega_like_torch``); these are held against the
+JAX Pallas kernels in interpret mode at small sizes and against their XLA
+twins (``_mega_solve_xla``, ``_mega_like_xla``) at the slice's shapes:
+
+- the solve kernel on the ``_spd_batch`` fixture (n 40, B 5, k 4):
+  atol 2e-5, the reference's own kernel-vs-twin tolerance;
+- the three-tier and odd-batch fixtures: rtol/atol 2e-4;
+- 16 x 250 x 4 (the ``--num 0`` solve shape) against the XLA twin;
+- the likelihood kernel at nb 24 / ntoa 96 (interpret) and 122 x 120
+  (the ``--num 1`` shape, XLA twin);
+- end to end, ``--num 1`` near the injected noise: the port's mega route
+  against JAX ``marginalized_loglike(..., mega="interpret")``, rtol 1e-3,
+  atol 5e-2 (the reference's documented megakernel class).
+
+Float32 arithmetic in two frameworks sums in different orders, so the
+agreement is the float32 class, not bitwise. The CUDA checks at the end
+need a card and skip without one; ``chip_smoke.py`` is what holds the
+kernels against these plain versions on the card.
+"""
+
+import os
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from enterprise_warp_tpu.config import Params as JParams
+from enterprise_warp_tpu.ops import megakernel as jmk
+from enterprise_warp_tpu.ops.kernel import \
+    marginalized_loglike as j_marginalized_loglike
+from enterprise_warp_tpu.samplers.evalproto import eval_protocol
+from enterprise_warp_tpu_torch.ops import megakernel as tmk
+from enterprise_warp_tpu_torch.ops.kernel import \
+    marginalized_loglike as t_marginalized_loglike
+
+from test_torch_kernel import _likes, _three_tier_fixture, near_truth
+from test_torch_models import _jax_nw_phi, _opts
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _kernels_not_opted_out(monkeypatch):
+    """The route decisions read ``EWT_PALLAS``/``EWT_PALLAS_MEGA``; an
+    in-process demotion elsewhere in the suite may have left the opt-out
+    set, so each test here starts without it."""
+    monkeypatch.delenv("EWT_PALLAS", raising=False)
+    monkeypatch.delenv("EWT_PALLAS_MEGA", raising=False)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PRFILE = os.path.join(REPO, "examples", "example_params", "system_noise.dat")
+
+
+def _spd_batch(B, n, seed=0, scale=1.0):
+    """Unit-diagonal SPD float32 batch (``tests/test_megakernel.py``)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(B):
+        A = rng.standard_normal((n, n))
+        S = A @ A.T / n + np.eye(n) * (0.5 + 0.1 * i) * scale
+        d = np.sqrt(np.diag(S))
+        out.append((S / d[:, None] / d[None, :]).astype(np.float32))
+    return np.stack(out)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _solve_both(Sn, Bn, j1, j2, refine, interpret=True):
+    if interpret:
+        Zj, ldj = jmk._mega_solve_raw(jnp.asarray(Sn), jnp.asarray(Bn), j1,
+                                      j2, refine, interpret=True)
+    else:
+        Zj, ldj = jmk._mega_solve_xla(jnp.asarray(Sn), jnp.asarray(Bn), j1,
+                                      j2, refine)
+    Zt, ldt = tmk.mega_solve_logdet(_t(Sn), _t(Bn), j1, j2, refine)
+    assert Zt.dtype == torch.float32 and ldt.dtype == torch.float32
+    return (np.asarray(Zj), np.asarray(ldj)), (Zt.numpy(), ldt.numpy())
+
+
+def test_solve_matches_interpret_kernel():
+    n, B, k = 40, 5, 4
+    Sn = _spd_batch(B, n, seed=1)
+    Bn = np.random.default_rng(1).standard_normal((B, n, k)).astype(
+        np.float32)
+    tmk.reset_counts()
+    (Zj, ldj), (Zt, ldt) = _solve_both(Sn, Bn, 3e-6, 9e-5, 3)
+    assert tmk.ROUTES[("mega_solve", "plain-cpu")] == 1
+    assert tmk.LAUNCHES["mega_solve"] == 0
+    np.testing.assert_allclose(Zt, Zj, atol=2e-5)
+    np.testing.assert_allclose(ldt, ldj, atol=2e-5)
+
+
+def test_solve_three_tier_semantics():
+    S, B = _three_tier_fixture()
+    S = (S / np.array([1.0, 3.0, 2.0])[:, None, None]).astype(np.float32)
+    B = B.astype(np.float32)
+    (Zj, ldj), (Zt, ldt) = _solve_both(S, B, 1e-6, 1e-3, 2)
+    assert np.isfinite(Zt).all() and np.isfinite(ldt).all()
+    np.testing.assert_allclose(Zt, Zj, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(ldt, ldj, rtol=2e-4, atol=2e-4)
+
+
+def test_solve_odd_batch():
+    n = 24
+    Sn = _spd_batch(3, n, seed=8)
+    Bn = np.random.default_rng(8).standard_normal((3, n, 1)).astype(
+        np.float32)
+    (Zj, ldj), (Zt, ldt) = _solve_both(Sn, Bn, 1e-6, 3e-5, 2)
+    assert Zt.shape == (3, n, 1) and ldt.shape == (3,)
+    np.testing.assert_allclose(Zt, Zj, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(ldt, ldj, rtol=2e-4, atol=2e-4)
+    Zx = np.linalg.solve(Sn.astype(np.float64), Bn.astype(np.float64))
+    np.testing.assert_allclose(Zt, Zx, atol=1e-4)
+
+
+def test_solve_slice_shape_against_xla_twin():
+    # the --num 0 solve: 16 walkers, n = 250, k = ntm + 1 = 4
+    Sn = _spd_batch(16, 250, seed=11)
+    Bn = np.random.default_rng(11).standard_normal((16, 250, 4)).astype(
+        np.float32)
+    (Zj, ldj), (Zt, ldt) = _solve_both(Sn, Bn, 3e-6, 9e-5, 3,
+                                       interpret=False)
+    np.testing.assert_allclose(Zt, Zj, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(ldt, ldj, rtol=2e-4, atol=2e-4)
+
+
+def _like_inputs(ntoa, nb, B, k, seed):
+    rng = np.random.default_rng(seed)
+    S = (rng.standard_normal((ntoa, nb)) / np.sqrt(ntoa)).astype(np.float32)
+    w = (1.0 + 0.3 * rng.random((B, ntoa))).astype(np.float32)
+    s = (0.8 + 0.4 * rng.random((B, nb))).astype(np.float32)
+    ivb = (0.5 + rng.random((B, nb))).astype(np.float32)
+    Bn = rng.standard_normal((B, nb, k)).astype(np.float32)
+    return S, w, s, ivb, Bn
+
+
+@pytest.mark.parametrize("ntoa,nb,B,interpret", [
+    (96, 24, 3, True), (122, 120, 16, False)], ids=["interpret", "slice"])
+def test_like_matches_jax(ntoa, nb, B, interpret):
+    args = _like_inputs(ntoa, nb, B, 4, seed=4)
+    if interpret:
+        Zj, ldj = jmk._mega_like_raw(*map(jnp.asarray, args), 3e-6, 9e-5, 3,
+                                     interpret=True)
+    else:
+        Zj, ldj = jmk._mega_like_xla(*map(jnp.asarray, args), 3e-6, 9e-5, 3)
+    tmk.reset_counts()
+    Zt, ldt = tmk.mega_like(*map(_t, args), 3e-6, 9e-5, 3)
+    assert tmk.ROUTES[("mega_like", "plain-cpu")] == 1
+    np.testing.assert_allclose(Zt.numpy(), np.asarray(Zj), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(ldt.numpy(), np.asarray(ldj), rtol=2e-4,
+                               atol=2e-4)
+    # and the Gram it built is the float64 one: Sn Z = Bn
+    S, w, s, ivb, Bn = (a.astype(np.float64) for a in args)
+    for i in range(B):
+        Ss = S * np.sqrt(w[i])[:, None]
+        Sn = s[i][:, None] * (Ss.T @ Ss) * s[i][None, :] + np.diag(ivb[i])
+        np.testing.assert_allclose(Sn @ Zt[i].numpy().astype(np.float64),
+                                   Bn[i], atol=5e-4)
+
+
+def test_mega_route_end_to_end_num1_near_truth():
+    jl, tl = _likes(1, "split")
+    jp = JParams(PRFILE, opts=_opts(1))
+    theta = near_truth(tl, 16, seed=2)
+    nw, phi = _jax_nw_phi(jp, theta)
+    c = eval_protocol(jl)[2]
+    lnl_j = np.asarray(jax.vmap(lambda a, b: j_marginalized_loglike(
+        a, b, c["r"], c["M"], c["T"], mega="interpret"))(
+            jnp.asarray(nw), jnp.asarray(phi)))
+    st = tl.static
+    tmk.reset_counts()
+    lnl_t = t_marginalized_loglike(_t(nw), _t(phi), st["r_w"], st["M_w"],
+                                   st["T_w"], mega=True).numpy()
+    assert tmk.ROUTES[("mega_like", "plain-cpu")] == 1
+    assert sum(tmk.LAUNCHES.values()) == 0
+    assert np.isfinite(lnl_t).all()
+    np.testing.assert_allclose(lnl_t, lnl_j, rtol=1e-3, atol=5e-2)
+    # the auto route on CPU tensors declines to the classic chain
+    tmk.reset_counts()
+    t_marginalized_loglike(_t(nw), _t(phi), st["r_w"], st["M_w"], st["T_w"])
+    assert tmk.ROUTES[("mega_like", "plain-cpu")] == 1
+    assert tmk.ROUTES[("mega_solve", "plain-cpu")] == 1
+
+
+def test_routes_and_opt_outs(monkeypatch):
+    cpu = torch.device("cpu")
+    assert not tmk.mega_like_route(122, 120, cpu)
+    # --num 0's basis is wider than the likelihood kernel's cap
+    tmk.reset_counts()
+    assert not tmk.mega_like_route(334, 250, "cuda")
+    assert tmk.ROUTES[("mega_like", "over-cap")] == 1
+    monkeypatch.setenv("EWT_PALLAS", "0")
+    assert not tmk.mega_solve_route(250, "cuda")
+    monkeypatch.setenv("EWT_PALLAS", "1")
+    monkeypatch.setenv("EWT_PALLAS_MEGA", "0")
+    assert not tmk.mega_like_route(122, 120, "cuda")
+    assert tmk.ROUTES[("mega_solve", "disabled")] == 1
+    assert tmk.ROUTES[("mega_like", "disabled")] == 1
+    monkeypatch.delenv("EWT_PALLAS_MEGA")
+    assert tmk.mega_solve_route(250, "cuda")
+    assert not tmk.mega_solve_route(449, "cuda")
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    Sn = torch.eye(8).expand(2, 8, 8).contiguous()
+    with pytest.raises(TypeError):
+        tmk._mega_solve_cuda(Sn.double(), torch.zeros(2, 8, 1), 1e-6, 1e-3,
+                             1)
+    with pytest.raises(ValueError):
+        tmk._mega_solve_cuda(Sn, torch.zeros(2, 8, 1), 1e-6, 1e-3, 1)
+    with pytest.raises(ValueError):
+        tmk._route("mega_solve", True, torch.device("meta"))
+
+
+# ---- on the card: kernel vs plain version on CUDA tensors ------------- #
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (chip_smoke.py runs these checks "
+                    "on the card)")
+    return torch.device("cuda")
+
+
+def test_cuda_solve_kernel_matches_plain(cuda):
+    Sn = torch.as_tensor(_spd_batch(8, 250, seed=3), device=cuda)
+    Bn = torch.randn(8, 250, 4, dtype=torch.float32, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(0))
+    n0 = tmk.LAUNCHES["mega_solve"]
+    Zk, ldk = tmk.mega_solve_logdet(Sn, Bn, 3e-6, 9e-5, 3)
+    torch.cuda.synchronize()
+    assert tmk.LAUNCHES["mega_solve"] == n0 + 1
+    Zp, ldp = tmk._mega_solve_torch(Sn, Bn, 3e-6, 9e-5, 3)
+    assert float((Zk - Zp).abs().max()) <= 5e-4
+    assert float((ldk - ldp).abs().max()) <= 5e-4
+
+
+def test_cuda_like_kernel_matches_plain(cuda):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _like_inputs(122, 120, 8, 4, seed=6)]
+    n0 = tmk.LAUNCHES["mega_like"]
+    Zk, ldk = tmk.mega_like(*args, 3e-6, 9e-5, 3)
+    torch.cuda.synchronize()
+    assert tmk.LAUNCHES["mega_like"] == n0 + 1
+    Zp, ldp = tmk._mega_like_torch(*args, 3e-6, 9e-5, 3)
+    assert float((Zk - Zp).abs().max()) <= 5e-4
+    assert float((ldk - ldp).abs().max()) <= 5e-4
