@@ -9,26 +9,42 @@ Phases (any failure exits non-zero before the result line):
    power limit;
 2. build: every hand-written kernel is compiled from
    ``enterprise_warp_tpu_torch/ops/csrc`` with ``nvcc`` for ``sm_90a``;
-3. kernels vs plain versions: each kernel's inputs are captured from the
-   two real likelihoods of ``examples/example_params/system_noise.dat``
+3. kernels vs plain versions: the megakernels' inputs are captured from
+   the two real likelihoods of ``examples/example_params/system_noise.dat``
    (``--num 0``: J1234-5678, nb = 250, the solve kernel; ``--num 1``:
    fake_psr_0, nb = 120, the likelihood kernel) at walker points near the
    injected noise parameters, at the walker count the paramfile's
    sampler uses; each kernel and its plain PyTorch version run on the
    same CUDA tensors (plus the three-tier fixture) and must agree within
    the stated tolerance; both are timed with CUDA events;
-4. main path: ``enterprise_warp_tpu_torch.cli.main`` runs both pulsars
-   (temporary copies of the paramfile with ``nsamp: 2000``, so that the
-   ``covUpdate``=1000 adaptation fires), with the
-   launch counters zeroed just before each run and read just after; the
-   expected kernel must have launched, and the chain must be finite with
-   an acceptance rate in (0, 1);
-5. the ``kernels`` JSON line, then the result line
+4. the gradient path of ``examples/example_params/hmc_single_psr.dat``
+   (``--num 0``, nb = 60) at 64 near-typical points: value and gradient
+   through the card's route (forward: the likelihood kernel; backward:
+   the classic chain and its fused preconditioner kernel) against the
+   float64 gradient on the CPU; the likelihood kernel's and the
+   preconditioner kernel's inputs are captured from that gradient and
+   from one at the ADVI batch of 16, and each is held against its plain
+   version at both shapes; the preconditioner also on the three-tier
+   fixtures (n = 16, and all three tiers at (64, 60, 60)), where float64
+   arbitrates a gap that float32 rounding opens;
+5. main paths: ``enterprise_warp_tpu_torch.cli.main`` runs both pulsars
+   of ``system_noise.dat`` (temporary copies of the paramfile with
+   ``nsamp: 2000``, so that the ``covUpdate``=1000 adaptation fires),
+   then the HMC path (``hmc_single_psr.dat --num 0`` at its full width,
+   64 chains and 16 leapfrog steps, with the ADVI warm start, 200 steps
+   of which 100 warmup), with the launch counters zeroed just before
+   each run and read just after (the HMC run also where the ADVI warm
+   start ends); the expected kernels must have launched in each run and
+   phase, and the chain must be finite with a plausible acceptance rate;
+6. the ``kernels`` JSON line, one entry per kernel and main path that
+   runs it (``name`` is ``kernel@path``), each with that path's launches,
+   error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import os
@@ -44,6 +60,7 @@ SOURCE = f"{PKG}/ops/csrc/megakernel.cu"
 REPLACES = {
     "mega_solve": "enterprise_warp_tpu/ops/megakernel.py:262",
     "mega_like": "enterprise_warp_tpu/ops/megakernel.py:449",
+    "chol_precond": "enterprise_warp_tpu/ops/cholfuse.py:120",
 }
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -54,6 +71,18 @@ ATOL = 5e-4
 # sampler steps per main-path run: past covUpdate = 1000, so the
 # covariance adaptation fires
 NSAMP = 2000
+# the reference's interpret-vs-XLA limits on the preconditioner trio
+# (tests/test_cholfuse.py): U, V, E
+CHOL_ATOL = (2e-5, 2e-4, 2e-5)
+# the HMC path: the paramfile's full width (64 chains, 16 leapfrog
+# steps), 200 steps of which 100 warmup (explicit, so run_hmc keeps it)
+# after the ADVI warm start (1500 steps of 16 draws)
+HMC_KEYS = dict(nsamp=200, warmup=100, nchains=64, n_leapfrog=16)
+# the main-path runs, each with its own launch counts
+PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
+         "pt1": "system_noise.dat --num 1: PT-MCMC, 8 walkers",
+         "advi": "hmc_single_psr.dat --num 0: ADVI warm start, 16 draws",
+         "hmc": "hmc_single_psr.dat --num 0: HMC, 64 chains"}
 # injected noise parameters of the example data (examples/
 # example_noisefiles/J1234-5678_noise.json; examples/make_example_data.py
 # for fake_psr_0); parameters with no injected value sit mid-prior
@@ -87,9 +116,12 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def write_paramfile(tmp, nsamp):
+def write_paramfile(tmp, name, **keys):
+    """A copy of ``examples/example_params/<name>`` with absolute input
+    paths, the output under ``tmp/out/<name>`` and the sampler ``keys``
+    set (every key must already be in the file)."""
     ex = os.path.join(HERE, "examples")
-    with open(os.path.join(ex, "example_params", "system_noise.dat")) as fh:
+    with open(os.path.join(ex, "example_params", name)) as fh:
         src = fh.read()
     out = []
     for line in src.splitlines():
@@ -97,17 +129,44 @@ def write_paramfile(tmp, nsamp):
         if key == "datadir":
             line = f"datadir: {os.path.join(ex, 'data')}"
         elif key == "out":
-            line = f"out: {os.path.join(tmp, 'out')}"
-        elif key == "nsamp":
-            line = f"nsamp: {nsamp}"
+            line = f"out: {os.path.join(tmp, 'out', name)}"
+        elif key in keys:
+            line = f"{key}: {keys.pop(key)}"
         elif key == "noise_model_file":
             line = "noise_model_file: " + os.path.join(
                 ex, line.split(":", 1)[1].strip())
         out.append(line)
-    path = os.path.join(tmp, "system_noise.dat")
+    if keys:
+        fail(f"{name} has no line for {sorted(keys)}")
+    path = os.path.join(tmp, name)
     with open(path, "w") as fh:
         fh.write("\n".join(out) + "\n")
     return path
+
+
+def load_like(prfile, num, dev, gram_mode="split"):
+    import types
+    from enterprise_warp_tpu_torch.config import Params
+    from enterprise_warp_tpu_torch.models.assemble import \
+        init_model_likelihoods
+    opts = types.SimpleNamespace(num=num, drop=0, mpi_regime=2,
+                                 wipe_old_output=0, extra_model_terms=None)
+    params = Params(prfile, opts=opts)
+    like = init_model_likelihoods(params, gram_mode=gram_mode,
+                                  write_pars=False, device=dev)[0]
+    return params, like
+
+
+def near_typical(like, nwalk, seed):
+    """Points near typical noise values: efac 1, log10 equad -7, log10_A
+    -13.5, gamma 3.5 (sigma 0.05)."""
+    import numpy as np
+    base = [1.0 if p.name.endswith("efac") else
+            -7.0 if "equad" in p.name else
+            -13.5 if p.name.endswith("log10_A") else 3.5
+            for p in like.params]
+    rng = np.random.default_rng(seed)
+    return np.asarray(base) + 0.05 * rng.standard_normal((nwalk, like.ndim))
 
 
 def near_truth(like, nwalk, seed):
@@ -174,6 +233,32 @@ def solve_cost(B, n, k, refine, tiers):
     return flops, nbytes
 
 
+def chol_cost(B, n, tiers):
+    """(FLOP, bytes) of one preconditioner launch, per walker: n^3/3 per
+    Cholesky attempt, n^3/3 for the triangular inverse, n^3/3 for U^T U,
+    n^3 each for V^T D and (V^T D) V; one (n, n) input read and three
+    written, plus the tiers."""
+    attempts = sum(1 if t == 1 else 2 for t in tiers)
+    flops = attempts * n ** 3 / 3.0 + B * (2.0 * n ** 3 / 3.0 + 2.0 * n ** 3)
+    nbytes = 4.0 * B * 4 * n * n + 4.0 * B
+    return flops, nbytes
+
+
+def like_cost(S32, Bn, refine, tiers):
+    """(FLOP, bytes) of one likelihood-kernel launch: the solve chain of
+    :func:`solve_cost` plus, per walker, ``Ss = S sqrt(w)``, the symmetric
+    Gram ``Ss^T Ss`` and the Sigma assembly; ``S`` read once, and per
+    walker ``w``, ``s``, ``ivb`` and ``Bn`` read, ``Z`` and ``ld``
+    written."""
+    B, nb, k = Bn.shape
+    ntoa = S32.shape[0]
+    flops, _ = solve_cost(B, nb, k, refine, tiers)
+    flops += B * (ntoa * nb * nb + ntoa * nb + 3 * nb * nb)
+    nbytes = 4.0 * (ntoa * nb + B * (ntoa + 2 * nb + nb * k)) \
+        + 4.0 * B * (nb * k + 2)
+    return flops, nbytes
+
+
 def bound(flops, nbytes):
     t_ops = flops / PEAK_F32_FLOPS
     t_mem = nbytes / PEAK_BYTES
@@ -198,6 +283,32 @@ def three_tier_fixture(torch, dev):
     Sn = np.stack([S0, S_mid, -np.eye(n)]).astype(np.float32)
     Bn = rng.standard_normal((3, n, 2)).astype(np.float32)
     return (torch.as_tensor(Sn, device=dev), torch.as_tensor(Bn, device=dev))
+
+
+def precond_fixture(torch, dev, n=60, B=64):
+    """All three tiers at the HMC path's shape (64, 60, 60), for the
+    jitters (1e-6, 1e-3): unit-diagonal SPD walkers, walker 3 indefinite
+    at the first jitter but PD at the second (smallest eigenvalue -5e-5,
+    so condition ~1.6e3 once jittered), walker 7 hopeless (diagonal -0.2,
+    the identity tier)."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    out = []
+    for i in range(B):
+        A = rng.standard_normal((n, n))
+        S = A @ A.T / n + np.eye(n) * (0.5 + 0.01 * i)
+        d = np.sqrt(np.diag(S))
+        out.append(S / d[:, None] / d[None, :])
+    Sb = np.stack(out).astype(np.float32)
+    Sb[7] -= 1.2 * np.eye(n, dtype=np.float32)
+    rng = np.random.default_rng(13)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    ev = np.linspace(0.5, 1.5, n)
+    ev[0] = -5e-5
+    Sb[3] = ((Q * ev) @ Q.T).astype(np.float32)
+    tiers = [1] * B
+    tiers[3], tiers[7] = 2, 3
+    return torch.as_tensor(Sb, device=dev), tiers
 
 
 def main():
@@ -233,24 +344,56 @@ def main():
                 print(f"  ptxas[{name}]: {line.strip()}")
 
     # ---- phase 3: kernels vs plain versions at the main path's shapes ----
-    from enterprise_warp_tpu_torch.config import Params
-    from enterprise_warp_tpu_torch.models.assemble import \
-        init_model_likelihoods
+    from enterprise_warp_tpu_torch.ops import cholfuse as cf
+    from enterprise_warp_tpu_torch.ops import routes
     from enterprise_warp_tpu_torch.samplers.ptmcmc import sampler_options
-    import types
+    # one entry of the ``kernels`` line per kernel and main path that
+    # runs it, at that path's shapes
     results = {}
+
+    def hold_solve(entry, run, kern, plain, cost, shape):
+        """A megakernel against its plain version on the same CUDA inputs
+        (``Z`` and ``ld`` within ATOL), both timed, and the bound from
+        this run's tiers."""
+        Zk, ldk, tk = kern()
+        Zp, ldp = plain()
+        torch.cuda.synchronize()
+        ez = float((Zk - Zp).abs().max())
+        el = float((ldk - ldp).abs().max())
+        print(f"{entry} at {shape}: max|dZ| {ez:.3e} (max|Z| "
+              f"{float(Zp.abs().max()):.3e}) max|dld| {el:.3e} tiers "
+              f"{tk.tolist()}")
+        if not (torch.isfinite(Zk).all() and torch.isfinite(ldk).all()):
+            fail(f"{entry}: non-finite kernel output")
+        if not (ez <= ATOL and el <= ATOL):
+            fail(f"{entry}: kernel and plain version differ by more than "
+                 f"atol {ATOL}")
+        ms = time_cuda(kern)
+        plain_ms = time_cuda(plain)
+        flops, nbytes = cost(tk.tolist())
+        bms, bby = bound(flops, nbytes)
+        print(f"{entry} at {shape}: kernel {ms:.4f} ms  plain {plain_ms:.4f}"
+              f" ms  bound {bms:.4f} ms ({bby}; {flops / 1e9:.4f} GFLOP, "
+              f"{nbytes / 1e6:.3f} MB) [{smi}]")
+        results[entry] = dict(run=run, shape=shape, max_abs_err=max(ez, el),
+                              ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                              bound_by=bby)
+
+    def hold_like(entry, run, args):
+        S32, w, s, ivb, Bl, j1, j2, refine = args
+        hold_solve(entry, run, lambda: mk._mega_like_cuda(*args),
+                   lambda: mk._mega_like_torch(*args),
+                   lambda tiers: like_cost(S32, Bl, refine, tiers),
+                   f"S {tuple(S32.shape)} w {tuple(w.shape)} Bn "
+                   f"{tuple(Bl.shape)}")
+
     with tempfile.TemporaryDirectory() as tmp:
-        prfile = write_paramfile(tmp, NSAMP)
+        prfile = write_paramfile(tmp, "system_noise.dat", nsamp=NSAMP)
         likes, walkers = {}, None
         for num in (0, 1):
-            opts = types.SimpleNamespace(num=num, drop=0, mpi_regime=2,
-                                         wipe_old_output=0,
-                                         extra_model_terms=None)
-            params = Params(prfile, opts=opts)
+            params, likes[num] = load_like(prfile, num, dev)
             popts, _ = sampler_options(params)
             walkers = popts["ntemps"] * 8
-            likes[num] = init_model_likelihoods(params, write_pars=False,
-                                                device=dev)[0]
         with Capture(mk, "mega_solve_logdet") as cap_s:
             lnl0 = likes[0].loglike_batch(near_truth(likes[0], walkers, 0))
         with Capture(mk, "mega_like") as cap_l:
@@ -264,13 +407,7 @@ def main():
         # megakernel tolerance (tests/test_megakernel.py: rtol 1e-3,
         # atol 5e-2)
         for num, lnl in ((0, lnl0), (1, lnl1)):
-            opts = types.SimpleNamespace(num=num, drop=0, mpi_regime=2,
-                                         wipe_old_output=0,
-                                         extra_model_terms=None)
-            oracle = init_model_likelihoods(Params(prfile, opts=opts),
-                                            gram_mode="f64",
-                                            write_pars=False,
-                                            device="cpu")[0]
+            oracle = load_like(prfile, num, "cpu", gram_mode="f64")[1]
             ref = oracle.loglike_batch(near_truth(oracle, walkers, num))
             gap = (lnl.cpu() - ref).abs()
             print(f"lnL --num {num} on the card vs float64 on the CPU: "
@@ -279,21 +416,8 @@ def main():
                 fail(f"--num {num}: lnL on the card disagrees with the "
                      "float64 oracle")
         Sn, Bn, j1, j2, refine = cap_s.args
-        S32, w, s, ivb, Bl, lj1, lj2, lrefine = cap_l.args
-        print(f"shapes: mega_solve Sn {tuple(Sn.shape)} Bn {tuple(Bn.shape)}"
-              f"; mega_like S {tuple(S32.shape)} w {tuple(w.shape)} "
-              f"Bn {tuple(Bl.shape)}; refine {refine} / {lrefine}")
+        print(f"refine {refine} / {cap_l.args[-1]}")
 
-        checks = {
-            "mega_solve": (
-                lambda: mk._mega_solve_cuda(Sn, Bn, j1, j2, refine),
-                lambda: mk._mega_solve_torch(Sn, Bn, j1, j2, refine)),
-            "mega_like": (
-                lambda: mk._mega_like_cuda(S32, w, s, ivb, Bl, lj1, lj2,
-                                           lrefine),
-                lambda: mk._mega_like_torch(S32, w, s, ivb, Bl, lj1, lj2,
-                                            lrefine)),
-        }
         Sf, Bf = three_tier_fixture(torch, dev)
         Zk, ldk, tk = mk._mega_solve_cuda(Sf, Bf, 1e-6, 1e-3, 2)
         Zp, ldp = mk._mega_solve_torch(Sf, Bf, 1e-6, 1e-3, 2)
@@ -304,101 +428,248 @@ def main():
               f"{tier_err:.3e}")
         if tk.tolist() != [1, 2, 3] or not tier_err <= 2e-4:
             fail("three-tier fixture disagrees with the plain version")
-        for name, (kern, plain) in checks.items():
-            Zk, ldk, tk = kern()
-            Zp, ldp = plain()
-            torch.cuda.synchronize()
-            ez = float((Zk - Zp).abs().max())
-            el = float((ldk - ldp).abs().max())
-            zscale = float(Zp.abs().max())
-            print(f"{name}: max|dZ| {ez:.3e} (max|Z| {zscale:.3e}) "
-                  f"max|dld| {el:.3e} tiers {tk.tolist()}")
-            if not (torch.isfinite(Zk).all() and torch.isfinite(ldk).all()):
-                fail(f"{name}: non-finite kernel output")
-            if not (ez <= ATOL and el <= ATOL):
-                fail(f"{name}: kernel and plain version differ by more "
-                     f"than atol {ATOL}")
-            ms = time_cuda(kern)
-            plain_ms = time_cuda(plain)
-            if name == "mega_solve":
-                B, n, k = Bn.shape
-                flops, nbytes = solve_cost(B, n, k, refine, tk.tolist())
-            else:
-                B, nb, k = Bl.shape
-                ntoa = S32.shape[0]
-                flops, nbytes = solve_cost(B, nb, k, lrefine, tk.tolist())
-                # Ss = S sqrt(w), the symmetric Gram Ss^T Ss, Sn assembly
-                flops += B * (ntoa * nb * nb + ntoa * nb + 3 * nb * nb)
-                nbytes = 4.0 * (ntoa * nb + B * (ntoa + 2 * nb + nb * k)) \
-                    + 4.0 * B * (nb * k + 2)
-            bms, bby = bound(flops, nbytes)
-            print(f"{name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                  f"bound {bms:.4f} ms ({bby}; {flops / 1e9:.3f} GFLOP, "
-                  f"{nbytes / 1e6:.3f} MB) [{smi}]")
-            results[name] = dict(max_abs_err=max(ez, el), ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bms,
-                                 bound_by=bby)
+        hold_solve("mega_solve@pt", "pt0",
+                   lambda: mk._mega_solve_cuda(Sn, Bn, j1, j2, refine),
+                   lambda: mk._mega_solve_torch(Sn, Bn, j1, j2, refine),
+                   lambda tiers: solve_cost(*Bn.shape, refine, tiers),
+                   f"Sn {tuple(Sn.shape)} Bn {tuple(Bn.shape)}")
+        hold_like("mega_like@pt", "pt1", cap_l.args)
 
-        # ---- phase 4: the main path through the CLI -----------------------
+        # ---- phase 4: the gradient path and its kernels ------------------
+        hmc_prfile = write_paramfile(tmp, "hmc_single_psr.dat", **HMC_KEYS)
+        hlike = load_like(hmc_prfile, 0, dev)[1]
+        horacle = load_like(hmc_prfile, 0, "cpu", gram_mode="f64")[1]
+        nch = HMC_KEYS["nchains"]
+        th = near_typical(hlike, nch, 3)
+        x = torch.tensor(th, device=dev, requires_grad=True)
+        routes.reset_counts()
+        with Capture(mk, "mega_like") as cap_h:
+            lnl = hlike.loglike_batch(x)
+        torch.cuda.synchronize()
+        fwd = dict(routes.LAUNCHES)
+        with Capture(cf, "chol_precond") as cap_c:
+            g, = torch.autograd.grad(lnl.sum(), x)
+        torch.cuda.synchronize()
+        bwd = {k: routes.LAUNCHES[k] - fwd[k] for k in routes.KERNELS}
+        print(f"gradient path: forward launches {fwd}, backward launches "
+              f"{bwd}")
+        if fwd["mega_like"] != 1 or fwd["chol_precond"] != 0:
+            fail("the forward did not go through the likelihood kernel")
+        if bwd["chol_precond"] != 1:
+            fail("the backward did not go through the preconditioner "
+                 "kernel")
+        xo = torch.tensor(th, requires_grad=True)
+        lo = horacle.loglike_batch(xo)
+        go, = torch.autograd.grad(lo.sum(), xo)
+        dl = (lnl.detach().cpu() - lo.detach()).abs()
+        dg = (g.cpu() - go).abs() / go.abs().clamp(min=1.0)
+        print(f"gradient on the card vs float64 on the CPU ({nch} points, "
+              f"{hlike.ndim} parameters): max|dlnL| {float(dl.max()):.3e}, "
+              f"max |dg|/max(1,|g|) {float(dg.max()):.3e}, max|g| "
+              f"{float(go.abs().max()):.1f}")
+        if not (torch.isfinite(g).all() and bool((dg <= 1e-3).all())):
+            fail("the card's gradient disagrees with the float64 gradient")
+        if not bool((dl <= 5e-2 + 1e-3 * lo.detach().abs()).all()):
+            fail("the card's lnL disagrees with the float64 oracle")
+
+        # where a gradient evaluation's time goes: the forward alone, and
+        # forward plus backward, host clock around a synchronized call
+        def host_ms(fn, reps=10):
+            fn()
+            ts = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(1e3 * (time.perf_counter() - t0))
+            return statistics.median(ts)
+
+        def value_and_grad():
+            xx = torch.tensor(th, device=dev, requires_grad=True)
+            torch.autograd.grad(hlike.loglike_batch(xx).sum(), xx)
+
+        with torch.no_grad():
+            fwd_ms = host_ms(lambda: hlike.loglike_batch(th))
+        vg_ms = host_ms(value_and_grad)
+        print(f"gradient path at W={nch}: forward {fwd_ms:.3f} ms, forward "
+              f"+ backward {vg_ms:.3f} ms (host clock, median of 10) "
+              f"[{smi}]")
+        # the ADVI batch: 16 draws per step
+        with Capture(mk, "mega_like") as cap_la, \
+                Capture(cf, "chol_precond") as cap_a:
+            xa = torch.tensor(near_typical(hlike, 16, 4), device=dev,
+                              requires_grad=True)
+            torch.autograd.grad(hlike.loglike_batch(xa).sum(), xa)
+        hold_like("mega_like@advi", "advi", cap_la.args)
+        hold_like("mega_like@hmc", "hmc", cap_h.args)
+
+        Sc, cj1, cj2 = cap_c.args
+        Sa = cap_a.args[0].detach()
+        Sc = Sc.detach()
+        print(f"chol_precond: j1 {cj1} j2 {cj2}")
+        Sp, tiers_p = precond_fixture(torch, dev)
+        cases = [("chol_precond@advi", "advi", Sa, cj1, cj2, None),
+                 ("chol_precond@hmc", "hmc", Sc, cj1, cj2, None),
+                 ("three-tier n=16", None, Sf, 1e-6, 1e-3, [1, 2, 3]),
+                 ("three-tier n=60", None, Sp, 1e-6, 1e-3, tiers_p)]
+        for entry, run, S_, a, b, expect in cases:
+            *trio_k, tk = cf._chol_precond_cuda(S_, a, b)
+            trio_p = cf._fused_torch(S_, a, b)
+            trio_f = cf._fused_torch(S_.double(), a, b)
+            torch.cuda.synchronize()
+            tiers = tk.tolist()
+            err = [float((k - p).abs().max())
+                   for k, p in zip(trio_k, trio_p)]
+            # each float32 version's distance from the float64 trio
+            errk = [float((k.double() - f).abs().max())
+                    for k, f in zip(trio_k, trio_f)]
+            errp = [float((p.double() - f).abs().max())
+                    for p, f in zip(trio_p, trio_f)]
+            line = "  ".join(
+                f"{x}: |k-p| {e:.3e} |k-f64| {ek:.3e} |p-f64| {ep:.3e} "
+                f"max|{x}| {float(p.abs().max()):.3e}"
+                for x, e, ek, ep, p in zip("UVE", err, errk, errp, trio_p))
+            print(f"{entry} at {tuple(S_.shape)}: walkers per tier "
+                  f"{dict(sorted(collections.Counter(tiers).items()))}; "
+                  f"{line}")
+            if not all(torch.isfinite(t).all() for t in trio_k):
+                fail(f"{entry}: non-finite kernel output")
+            # the reference's limits hold kernel against plain; where the
+            # input's conditioning puts both float32 versions further than
+            # that from float64, the kernel must be at most twice as far
+            # from float64 as the plain version, plus the limit
+            for x, e, ek, ep, t in zip("UVE", err, errk, errp, CHOL_ATOL):
+                if not (e <= t or ek <= 2.0 * ep + t):
+                    fail(f"{entry}: {x} of the kernel and the plain version "
+                         f"differ by {e:.3e} (limit {t}), and the kernel is "
+                         f"{ek:.3e} from float64 against the plain "
+                         f"version's {ep:.3e}")
+            if expect is not None and tiers != expect:
+                fail(f"{entry}: tiers {tiers}")
+            if run is None:
+                continue
+            ms = time_cuda(lambda: cf._chol_precond_cuda(S_, a, b))
+            plain_ms = time_cuda(lambda: cf._fused_torch(S_, a, b))
+            B, n = S_.shape[0], S_.shape[-1]
+            flops, nbytes = chol_cost(B, n, tiers)
+            bms, bby = bound(flops, nbytes)
+            print(f"{entry} at {tuple(S_.shape)}: kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({bby}; "
+                  f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) [{smi}]")
+            results[entry] = dict(run=run, shape=f"Sn {tuple(S_.shape)}",
+                                  max_abs_err=max(err), ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bms,
+                                  bound_by=bby)
+
+        # ---- phase 5: the main paths through the CLI ----------------------
         from enterprise_warp_tpu_torch import cli
         stats = []
+        # launches per main-path run; the HMC run is split where the ADVI
+        # warm start logs its end
+        launches = {}
 
         class BlockStats(logging.Handler):
             def emit(self, record):
-                st = getattr(record, "block_stats", None)
-                if st is not None:
-                    stats.append(st)
+                for key in ("block_stats", "hmc_stats", "advi_stats"):
+                    st = getattr(record, key, None)
+                    if st is not None:
+                        stats.append(dict(st, kind=key))
+                if getattr(record, "advi_stats", None) is not None:
+                    launches["advi"] = dict(routes.LAUNCHES)
 
-        plog = logging.getLogger("ewt.ptmcmc")
-        plog.setLevel(logging.INFO)
+        loggers = [logging.getLogger(n) for n in
+                   ("ewt.ptmcmc", "ewt.hmc", "ewt.vi")]
         handler = BlockStats()
-        plog.addHandler(handler)
-        launches = {name: 0 for name in mk.KERNELS}
-        expect = {0: "mega_solve", 1: "mega_like"}
-        for num in (0, 1):
+        for lg in loggers:
+            lg.setLevel(logging.INFO)
+            lg.addHandler(handler)
+
+        def drive(prfile, num, expect):
             del stats[:]
-            mk.reset_counts()
+            routes.reset_counts()
             t0 = time.perf_counter()
             rc = cli.main(["--prfile", prfile, "--num", str(num)],
                           device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = dict(mk.LAUNCHES)
-            routes = {f"{k}/{p}": v for (k, p), v in mk.ROUTES.items()}
-            print(f"main path --num {num}: rc {rc} wall {wall:.1f} s "
-                  f"launches {counts} routes {routes}")
+            counts = dict(routes.LAUNCHES)
+            paths = {f"{k}/{p}": v for (k, p), v in routes.ROUTES.items()}
+            name = os.path.basename(prfile)
+            print(f"main path {name} --num {num}: rc {rc} wall {wall:.1f} s "
+                  f"launches {counts} routes {paths}")
             if rc != 0:
-                fail(f"cli.main exited {rc} for --num {num}")
-            kname = expect[num]
-            if counts[kname] <= 0:
-                fail(f"--num {num}: {kname} was never launched")
-            launches[kname] = counts[kname]
+                fail(f"cli.main exited {rc} for {name} --num {num}")
+            for kname in expect:
+                if counts[kname] <= 0:
+                    fail(f"{name} --num {num}: {kname} was never launched")
             outdir = [os.path.join(r, d) for r, ds, _ in
-                      os.walk(os.path.join(tmp, "out")) for d in ds
+                      os.walk(os.path.join(tmp, "out", name)) for d in ds
                       if d.startswith(f"{num}_")]
             chain = np.loadtxt(os.path.join(outdir[0], "chain_1.txt"))
+            if not np.isfinite(chain).all():
+                fail(f"{name} --num {num}: non-finite chain rows")
+            return chain, counts
+
+        for num, kname in ((0, "mega_solve"), (1, "mega_like")):
+            chain, launches[f"pt{num}"] = drive(prfile, num, [kname])
             acc = chain[-1, -2]
-            if not (np.isfinite(chain).all() and 0.0 < acc < 1.0):
-                fail(f"--num {num}: chain not finite or acceptance {acc}")
-            if not np.isfinite(chain[:, -3]).all():
-                fail(f"--num {num}: non-finite lnlike")
-            steps = sum(st["steps"] for st in stats)
-            block_s = sum(st["block_s"] for st in stats)
-            W = stats[-1]["walkers"]
+            if not 0.0 < acc < 1.0:
+                fail(f"--num {num}: acceptance {acc}")
+            blocks = [st for st in stats if st["kind"] == "block_stats"]
+            steps = sum(st["steps"] for st in blocks)
+            block_s = sum(st["block_s"] for st in blocks)
+            W = blocks[-1]["walkers"]
             print(f"main path --num {num}: {chain.shape[0]} chain rows, "
                   f"acceptance {acc:.3f}, {steps} steps x {W} walkers in "
                   f"{block_s:.2f} s: {W * steps / block_s:.1f} walker-evals/s"
                   f", {1e3 * block_s / steps:.3f} ms/step [{smi}]")
-        plog.removeHandler(handler)
 
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
-                    replaces=REPLACES[name], launches=launches[name],
-                    max_abs_err=results[name]["max_abs_err"],
-                    ms=results[name]["ms"],
-                    plain_ms=results[name]["plain_ms"],
-                    bound_ms=results[name]["bound_ms"],
-                    bound_by=results[name]["bound_by"], library_ms=None)
-               for name in mk.KERNELS]
+        chain, counts = drive(hmc_prfile, 0, ["mega_like", "chol_precond"])
+        if "advi" not in launches:
+            fail("the HMC run logged no ADVI fit")
+        launches["hmc"] = {k: counts[k] - launches["advi"][k]
+                           for k in routes.KERNELS}
+        for run in ("advi", "hmc"):
+            print(f"main path HMC, {run} phase: launches {launches[run]}")
+            for kname in ("mega_like", "chol_precond"):
+                if launches[run][kname] <= 0:
+                    fail(f"the {run} phase never launched {kname}")
+        nsamp, nch = HMC_KEYS["nsamp"], HMC_KEYS["nchains"]
+        if chain.shape != (nsamp * nch, hlike.ndim + 4):
+            fail(f"HMC chain shape {chain.shape}")
+        advi = [st for st in stats if st["kind"] == "advi_stats"]
+        blocks = [st for st in stats if st["kind"] == "hmc_stats"]
+        post = [st for st in blocks if not st["warmup"]]
+        if len(advi) != 1 or not post:
+            fail("the HMC run logged no ADVI fit or no post-warmup block")
+        acc = (sum(st["accept"] * st["steps"] for st in post)
+               / sum(st["steps"] for st in post))
+        if not 0.3 < acc <= 1.0:
+            fail(f"HMC acceptance after warmup {acc}")
+        steps = sum(st["steps"] for st in blocks)
+        grads = sum(st["grads"] for st in blocks)
+        block_s = sum(st["block_s"] for st in blocks)
+        print(f"main path HMC: ADVI {advi[0]['steps']} steps x "
+              f"{advi[0]['mc']} draws in {advi[0]['wall_s']:.2f} s; HMC "
+              f"{steps} steps x {nch} chains, {grads} gradient evaluations "
+              f"in {block_s:.2f} s: {grads / block_s:.2f} gradient-evals/s, "
+              f"{1e3 * block_s / grads:.3f} ms/gradient eval (W={nch}), "
+              f"{1e3 * block_s / steps:.3f} ms/HMC step; acceptance after "
+              f"warmup {acc:.3f} [{smi}]")
+        for lg in loggers:
+            lg.removeHandler(handler)
+
+    kernels = []
+    for entry, r in results.items():
+        kname = entry.split("@")[0]
+        kernels.append(dict(
+            name=entry, route="cuda", source=SOURCE,
+            replaces=REPLACES[kname], launches=launches[r["run"]][kname],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None, kernel=kname,
+            path=PATHS[r["run"]], shape=r["shape"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

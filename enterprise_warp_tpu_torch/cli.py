@@ -2,13 +2,14 @@
 --num N``.
 
 Counterpart of ``enterprise_warp_tpu/cli.py`` for the ``ptmcmcsampler``
-branch with one model: parse the paramfile, load pulsar ``--num``, build
-its walker-batched likelihood on the card and run the adaptive PT-MCMC,
-writing the reference's output-directory contract so
-``python -m enterprise_warp_tpu.results`` post-processes the run
-unchanged. The other samplers, product-space model selection, the
-``serve`` subcommand and the ``psr_shard``/``chain_shard`` knobs are later
-slices of the port and raise ``NotImplementedError``.
+branch with one model and the ``hmc`` branch: parse the paramfile, load
+pulsar ``--num``, build its walker-batched likelihood on the card and run
+the adaptive PT-MCMC, or HMC with its ADVI warm start, writing the
+reference's output-directory contract so ``python -m
+enterprise_warp_tpu.results`` post-processes the run unchanged. The other
+samplers, product-space model selection, the ``serve`` subcommand and the
+``psr_shard``/``chain_shard`` knobs are later slices of the port and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ def main(argv=None, device="cuda"):
     from .io.errors import ParseError
     from .models.assemble import init_model_likelihoods
     from .resilience.integrity import EXIT_QUARANTINED, DataQuarantine
-    from .samplers import run_ptmcmc
+    from .samplers import run_hmc, run_ptmcmc
 
     device = resolve_device(device)
     custom = None
@@ -76,12 +77,12 @@ def main(argv=None, device="cuda"):
     except ParseError as exc:
         print(f"malformed input file: {exc}", file=sys.stderr)
         return EXIT_QUARANTINED
-    if params.sampler != "ptmcmcsampler":
+    if params.sampler not in ("ptmcmcsampler", "hmc"):
         raise NotImplementedError(f"sampler '{params.sampler}' {_LATER}")
     for knob in ("psr_shard", "chain_shard"):
         if params.sampler_kwargs.get(knob):
             raise NotImplementedError(f"{knob} {_LATER}")
-    if len(params.models) != 1:
+    if len(params.models) != 1 and params.sampler == "ptmcmcsampler":
         raise NotImplementedError(
             f"product-space model selection ({len(params.models)} models) "
             + _LATER)
@@ -92,10 +93,18 @@ def main(argv=None, device="cuda"):
               "(setup-only mode)")
         return 0
     like = likes[min(likes)]
-    nsamp = int(getattr(params, "nsamp",
-                        params.sampler_kwargs.get("nsamp", 1000000)))
-    run_ptmcmc(like, params.output_dir, nsamp, params=params,
-               resume=not bool(opts.wipe_old_output))
+    resume = not bool(opts.wipe_old_output)
+    kw = params.sampler_kwargs
+    if params.sampler == "hmc":
+        if len(likes) > 1:
+            print("note: HMC has no gradient for the discrete nmodel index; "
+                  "using model 0 (use ptmcmcsampler for product-space "
+                  "selection)")
+        nsamp = int(getattr(params, "nsamp", kw.get("nsamp", 10000)))
+        run_hmc(like, params.output_dir, nsamp, params=params, resume=resume)
+        return 0
+    nsamp = int(getattr(params, "nsamp", kw.get("nsamp", 1000000)))
+    run_ptmcmc(like, params.output_dir, nsamp, params=params, resume=resume)
     return 0
 
 

@@ -34,7 +34,7 @@ from .modeldict import (merge_two_noise_model_dicts, parse_extra_model_terms,
 # sampler-kwargs harvest (reference ``enterprise_warp.py:156-167``).
 # External Bilby samplers map onto the native kernels: nested samplers run
 # on the nested-sampling kernel, MCMC names on the adaptive PTMCMC kernel.
-# The torch port runs only the ptmcmcsampler branch so far (cli.py).
+# The torch port runs the ptmcmcsampler and hmc branches so far (cli.py).
 IMPLEMENTED_SAMPLERS = {
     "ptmcmcsampler": dict(nsamp=1000000, SCAMweight=30, AMweight=15,
                           DEweight=50, IndWeight=0, CGWeight=0,

@@ -1,13 +1,17 @@
-// Likelihood megakernels for NVIDIA Hopper (sm_90a), plain C interface.
+// Likelihood megakernels and the fused preconditioner for NVIDIA Hopper
+// (sm_90a), plain C interface.
 //
-// Two __global__ kernels share one set of block-level device routines:
+// Three __global__ kernels share one set of block-level device routines:
 //
-//   mega_solve_kernel  replaces  enterprise_warp_tpu/ops/megakernel.py:
-//                                _mega_solve_kernel (pallas_call in
-//                                _mega_solve_raw)
-//   mega_like_kernel   replaces  enterprise_warp_tpu/ops/megakernel.py:
-//                                _mega_like_kernel (pallas_call in
-//                                _mega_like_raw)
+//   mega_solve_kernel    replaces  enterprise_warp_tpu/ops/megakernel.py:
+//                                  _mega_solve_kernel (pallas_call in
+//                                  _mega_solve_raw)
+//   mega_like_kernel     replaces  enterprise_warp_tpu/ops/megakernel.py:
+//                                  _mega_like_kernel (pallas_call in
+//                                  _mega_like_raw)
+//   chol_precond_kernel  replaces  enterprise_warp_tpu/ops/cholfuse.py:
+//                                  _chol_kernel (pallas_call in
+//                                  _pallas_fused_raw)
 //
 // Per walker (one thread block, 256 threads), on an equilibrated float32
 // Sn (n x n) and right-hand side Bn (n x k):
@@ -23,8 +27,11 @@
 //      E = V^T (Sn - U^T U) V, applied only when ||E||_F^2 < 0.09.
 // mega_like_kernel first forms Ss = S sqrt(w) from the shared (ntoa, nb)
 // basis, G = Ss^T Ss and Sn = s G s + diag(ivb), then runs the same chain.
-// Every product is a float32 FMA loop: no tensor cores, no TF32 (the
-// reference's dots run at Precision.HIGHEST).
+// chol_precond_kernel runs steps 1 and 2 and forms E, and writes the trio
+// (U, V, E) out: the preconditioner of the classic chain, whose refinement
+// and logdet stay in float64 outside (ops/kernel.py). Every product is a
+// float32 FMA loop: no tensor cores, no TF32 (the reference's dots run at
+// Precision.HIGHEST).
 //
 // Bound on an H100 SXM: float32 work outside the tensor cores, peak
 // 67 TFLOP/s. Counting only what the function needs, the solve chain is
@@ -35,15 +42,18 @@
 // ~0.53 GFLOP, ~8 us at peak, against ~2 MB of input and output (~0.6 us
 // at 3.35 TB/s): operations bound. The likelihood kernel at (8 walkers,
 // nb = 120, ntoa = 122) adds the symmetric ntoa nb^2 Gram: ~0.077 GFLOP,
-// ~1.2 us at peak. (chip_smoke.py computes both bounds from each run's
-// inputs.)
+// ~1.2 us at peak. The preconditioner kernel is the chain without E E and
+// the solves, ~3 n^3 per walker: at the gradient path's shape (64 walkers,
+// n = 60) 41 MFLOP, 0.62 us at peak, against one (64, 60, 60) input and
+// three such outputs, 3.69 MB, 1.10 us at 3.35 TB/s: bytes bound.
+// (chip_smoke.py computes every bound from each run's inputs.)
 //
 // What holds this simple design back (work for later): one block per
-// walker fills only 8 (16 with two temperatures) of 132 SMs; the factorization and the inverse are
-// 2n sequential steps with a block barrier each; the working matrices
-// (n = 250: 250 KB each) live in global memory (L2-resident) rather than
-// shared memory, and the dense products run on CUDA cores instead of
-// the tensor cores.
+// walker fills only 8 (16 with two temperatures; 64 on the gradient path)
+// of 132 SMs; the factorization and the inverse are 2n sequential steps
+// with a block barrier each; the working matrices (n = 250: 250 KB each)
+// live in global memory (L2-resident) rather than shared memory, and the
+// dense products run on CUDA cores instead of the tensor cores.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -411,6 +421,47 @@ mega_like_kernel(const float* __restrict__ S, const float* __restrict__ w,
               j2, refine, sm);
 }
 
+// Workspace of one preconditioner walker: X, the Cholesky working copy,
+// reused for V^T (Sn - U^T U) once the factor is done.
+__device__ __host__ inline long long chol_ws(int n) { return (long long)n * n; }
+
+__global__ void __launch_bounds__(NT)
+chol_precond_kernel(const float* __restrict__ Sn, float* U, float* V,
+                    float* E, int* tier, float* ws, int n, float j1,
+                    float j2) {
+  __shared__ Smem sm;
+  const int b = blockIdx.x;
+  const size_t nn = (size_t)n * n;
+  const float* S = Sn + b * nn;
+  float* Ub = U + b * nn;
+  float* Vb = V + b * nn;
+  float* Eb = E + b * nn;
+  float* X = ws + (size_t)b * chol_ws(n);
+
+  if (threadIdx.x == 0) sm.flag[0] = sm.flag[1] = 0;
+  __syncthreads();
+  int t = 1;
+  bool ok = chol_upper(S, j1, X, Ub, n, 0, sm);
+  if (!ok) {
+    t = 2;
+    ok = chol_upper(S, j2, X, Ub, n, 1, sm);
+  }
+  if (!ok) {
+    t = 3;
+    for (int e = threadIdx.x; e < (int)nn; e += NT) {
+      const int i = e / n, j = e - i * n;
+      Ub[e] = (i == j) ? 1.f : 0.f;
+    }
+    __syncthreads();
+  }
+  backsub_inv(Ub, Vb, n, sm);
+  // E = V^T (Sn - U^T U) V; the residual D = Sn - U^T U is staged in E
+  block_gemm(n, n, n, Ub, n, true, Ub, n, false, Eb, n, -1.f, S, n, sm);
+  block_gemm(n, n, n, Vb, n, true, Eb, n, false, X, n, 1.f, nullptr, 0, sm);
+  block_gemm(n, n, n, X, n, false, Vb, n, false, Eb, n, 1.f, nullptr, 0, sm);
+  if (threadIdx.x == 0) tier[b] = t;
+}
+
 }  // namespace
 
 extern "C" {
@@ -441,6 +492,17 @@ int mega_like_launch(const float* S, const float* w, const float* s,
   mega_like_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(S, w, s, ivb, Bn, Z, ld,
                                                        tier, ws, ntoa, nb, k,
                                                        j1, j2, refine);
+  return (int)cudaGetLastError();
+}
+
+long long chol_precond_ws_floats(int n) { return chol_ws(n); }
+
+int chol_precond_launch(const float* Sn, float* U, float* V, float* E,
+                        int* tier, float* ws, int B, int n, float j1, float j2,
+                        void* stream) {
+  if (B <= 0 || n <= 0 || n > MAXN) return (int)cudaErrorInvalidValue;
+  chol_precond_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(Sn, U, V, E, tier,
+                                                          ws, n, j1, j2);
   return (int)cudaGetLastError();
 }
 

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "mega_like_ws_floats": ([_I, _I, _I], ctypes.c_longlong),
     "mega_solve_launch": ([_P] * 6 + [_I, _I, _I, _F, _F, _I, _P], _I),
     "mega_like_launch": ([_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P], _I),
+    "chol_precond_ws_floats": ([_I], ctypes.c_longlong),
+    "chol_precond_launch": ([_P] * 6 + [_I, _I, _F, _F, _P], _I),
 }
 
 _lock = threading.Lock()

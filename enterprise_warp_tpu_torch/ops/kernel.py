@@ -18,7 +18,8 @@ Precision follows the reference exactly:
   float32 on hi/lo double-float splits with chunked float64
   accumulation; every product touching ``M`` or ``r`` stays float64;
 - the Sigma solve is mixed precision (:func:`_mixed_psd_solve_logdet`):
-  a jittered float32 Cholesky preconditioner, float64-residual iterative
+  a jittered float32 Cholesky preconditioner (by default the fused
+  ``ops/cholfuse.py:chol_precond``), float64-residual iterative
   refinement, and a trace-expansion logdet correction;
 - ``gram_mode='f64'`` runs everything in float64 (the oracle path).
 
@@ -26,7 +27,9 @@ Route decision (:func:`marginalized_loglike`): on CUDA tensors the
 whole evaluation goes through the likelihood megakernel when its size
 caps allow, else the classic chain below runs and its Sigma solve goes
 through the solve megakernel (``ops/megakernel.py``). CPU tensors always
-take the classic chain — the reference's non-TPU behaviour.
+take the classic chain — the reference's non-TPU behaviour. Gradients of
+either megakernel route re-derive through the classic chain, whose fused
+preconditioner is the third kernel (``ops/cholfuse.py``).
 """
 
 from __future__ import annotations
@@ -268,15 +271,21 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
       rows (non-positive diagonal: decoupled, charged the largest scale
       in the matrix in the logdet, so such corners never attract);
     - ``mega`` (None = auto: CUDA tensors with ``delta_mode='split'``
-      whose order fits the cap): the whole post-equilibration chain runs
-      in the solve megakernel (``ops/megakernel.py``, float32 class);
+      whose order fits the cap): the whole post-equilibration chain
+      runs in the solve megakernel (``ops/megakernel.py``, float32
+      class);
     - otherwise the classic chain: a three-tier jittered float32
       Cholesky preconditioner (``jitter``, then ``jitter2`` for walkers
       whose factor went non-finite, then the identity), ``refine``
       refinement passes (the last two with float64 residuals), a guard
       that keeps the plain preconditioner solution where refinement
       diverged, and a 4-term trace-expansion logdet correction applied
-      only inside its convergence region.
+      only inside its convergence region;
+    - with ``delta_mode='split'`` (and ``EWT_FUSED_CHOL`` not ``0``) the
+      classic chain takes its preconditioner trio ``(U, V = U^-1, E)``
+      from ``ops/cholfuse.py:chol_precond`` (one CUDA launch on the
+      card) instead of factoring, inverting and forming ``E`` step by
+      step; same tiers, same precision class.
 
     Returns ``(Z, logdet)`` with ``Z`` (W, n, k) float64.
     """
@@ -305,21 +314,33 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
                                        refine)
         logdet = ld_eq.to(f64) + torch.sum(torch.log(d), dim=-1)
         return s[..., None] * Z32.to(f64), logdet
+    from .cholfuse import fused_chol_enabled
+    fused = delta_mode == "split" and fused_chol_enabled()
 
     Sn32 = Sn.to(torch.float32)
     eye = _eye(n, Sn32)
-    L = cholesky_nan(Sn32 + float(jitter) * eye)
-    bad = ~_all_finite(L)
-    L = torch.where(bad[..., None, None],
-                    cholesky_nan(Sn32 + float(jitter2) * eye), L)
-    # last-resort identity preconditioner: never NaN
-    L = torch.where(_all_finite(L)[..., None, None], L, eye)
-    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
-    diagL = _diag(L)
+    if fused:
+        from .cholfuse import chol_precond
+        U, Vu, E32f = chol_precond(Sn32, jitter, jitter2)
+        diagL = _diag(U)
 
-    def psolve(R):
-        x = Linv @ R.to(torch.float32)
-        return (_t(Linv) @ x).to(f64)
+        def psolve(R):
+            x = _t(Vu) @ R.to(torch.float32)
+            return (Vu @ x).to(f64)
+    else:
+        L = cholesky_nan(Sn32 + float(jitter) * eye)
+        bad = ~_all_finite(L)
+        L = torch.where(bad[..., None, None],
+                        cholesky_nan(Sn32 + float(jitter2) * eye), L)
+        # last-resort identity preconditioner: never NaN
+        L = torch.where(_all_finite(L)[..., None, None], L, eye)
+        Linv = torch.linalg.solve_triangular(L, eye.expand_as(L),
+                                             upper=False)
+        diagL = _diag(L)
+
+        def psolve(R):
+            x = Linv @ R.to(torch.float32)
+            return (_t(Linv) @ x).to(f64)
 
     def mm_split(A, C):
         return _gram_pair(_t(A), C, "split")
@@ -341,15 +362,18 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
     diverged = ~(res_ref <= res_pre)
     Z = torch.where(diverged[..., None, None], Z0, Z)
 
-    if delta_mode == "split":
-        Lp = _pad_rows(_t(L), (-n) % _CHUNK)
-        LLt = _chunked_f32_gram(Lp, Lp)
+    if fused:
+        E = E32f.to(f64)
     else:
-        Lf = L.to(f64)
-        LLt = Lf @ _t(Lf)
-    Delta = (Sn - LLt).to(torch.float32)
-    K = Linv @ Delta
-    E = (Linv @ _t(K)).to(f64)
+        if delta_mode == "split":
+            Lp = _pad_rows(_t(L), (-n) % _CHUNK)
+            LLt = _chunked_f32_gram(Lp, Lp)
+        else:
+            Lf = L.to(f64)
+            LLt = Lf @ _t(Lf)
+        Delta = (Sn - LLt).to(torch.float32)
+        K = Linv @ Delta
+        E = (Linv @ _t(K)).to(f64)
     E32 = E.to(torch.float32)
     E2 = E32 @ E32
     corr = (_diag(E).sum(dim=-1) - torch.sum(E * _t(E), dim=(-2, -1)) / 2.0

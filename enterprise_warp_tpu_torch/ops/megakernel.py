@@ -25,52 +25,30 @@ fallback, unless the user opts out with ``EWT_PALLAS=0`` (every kernel)
 or ``EWT_PALLAS_MEGA=0`` (these two), the reference's environment
 switches under the same names.
 
-Counters (``ROUTES``, ``LAUNCHES``): every routing decision records the
-path it took under ``(kernel, path)`` with path one of ``kernel`` (CUDA
-launch), ``plain-cpu``, ``over-cap`` and ``disabled`` — the counterpart
-of the reference's ``pallas_path{kernel,path}`` counter. One decision,
-:func:`_route`, serves both the route functions and the wrappers; a
-launch adds one to ``LAUNCHES[kernel]`` and to the ``kernel`` route at
-the launch site and nowhere else.
+Autograd mirrors the reference's ``custom_vjp``s: both entry points are
+``torch.autograd.Function``s whose forward is the kernel and whose
+backward re-derives the value through plain PyTorch —
+:func:`mega_solve_logdet` through ``_mega_solve_torch(..., ad=True)``
+(the AD-safe factorization twin), :func:`mega_marginalized_loglike`
+through the classic chain ``marginalized_loglike(..., mega=False)``,
+whose fused preconditioner is the third kernel, ``chol_precond``
+(``ops/cholfuse.py``).
+
+Routing and launch counts: ``ops/routes.py``.
 """
 
 from __future__ import annotations
 
-import collections
-import os
-
 import torch
+
+from .cholfuse import _fused_torch, _fused_torch_ad
+from .routes import check, launch_check, record_launch, route
 
 # Above these sizes the reference's VMEM working set no longer fits; the
 # port keeps the same caps so both packages route the same shapes.
 _MEGA_MAX_N = 448          # solve kernel: matrix order
 _MEGA_MAX_TOA = 4096       # likelihood kernel: TOA rows
 _MEGA_MAX_M = 192          # likelihood kernel: noise-basis columns
-
-KERNELS = ("mega_solve", "mega_like")
-ROUTES = collections.Counter()
-LAUNCHES = {k: 0 for k in KERNELS}
-
-
-def reset_counts():
-    """Zero the route and launch counters (a run reads them after)."""
-    ROUTES.clear()
-    for k in KERNELS:
-        LAUNCHES[k] = 0
-
-
-def _record_route(kernel, path):
-    ROUTES[(kernel, path)] += 1
-
-
-def kernels_enabled():
-    """``EWT_PALLAS=0`` switches every hand-written kernel off."""
-    return os.environ.get("EWT_PALLAS", "1") != "0"
-
-
-def _mega_enabled():
-    return kernels_enabled() \
-        and os.environ.get("EWT_PALLAS_MEGA", "1") != "0"
 
 
 def mega_like_fits(ntoa, nb):
@@ -81,70 +59,29 @@ def mega_solve_fits(n):
     return n <= _MEGA_MAX_N
 
 
-def _route(kernel, fits, device):
-    """The one routing decision for a call of ``kernel`` on ``device``:
-    ``kernel`` (a CUDA launch, recorded at the launch site), or a decline
-    — ``disabled``, ``over-cap`` or ``plain-cpu`` — recorded here. Raises
-    for a device the port does not run on."""
-    dev = torch.device(device)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{kernel}: unsupported device {dev}")
-    if not _mega_enabled():
-        path = "disabled"
-    elif not fits:
-        path = "over-cap"
-    elif dev.type == "cpu":
-        path = "plain-cpu"
-    else:
-        return "kernel"
-    _record_route(kernel, path)
-    return path
-
-
 def mega_like_route(ntoa, nb, device):
     """Whether ``marginalized_loglike`` sends a whole evaluation through
     the likelihood megakernel: CUDA tensors, kernels enabled, shape
     within the caps. A decline keeps the classic chain."""
-    return _route("mega_like", mega_like_fits(ntoa, nb), device) == "kernel"
+    return route("mega_like", mega_like_fits(ntoa, nb), device) == "kernel"
 
 
 def mega_solve_route(n, device):
     """Whether ``_mixed_psd_solve_logdet`` sends its post-equilibration
     chain through the solve megakernel (same contract)."""
-    return _route("mega_solve", mega_solve_fits(n), device) == "kernel"
+    return route("mega_solve", mega_solve_fits(n), device) == "kernel"
 
 
 # --------------------------------------------------------------------
 # plain PyTorch versions (CPU tensors; the reference for the kernels)
 # --------------------------------------------------------------------
 
-def _fused_torch(Sn_b, j1, j2):
-    """Batched three-tier factorization: ``(U, V, E)`` with ``U = L^T``
-    the upper Cholesky factor of the jittered cast, ``V = U^-1`` and
-    ``E = Linv (Sn - L L^T) Linv^T`` (counterpart of ``_fused_xla``)."""
-    from .kernel import _all_finite, _t, cholesky_nan
-    n = Sn_b.shape[-1]
-    eye = torch.eye(n, dtype=Sn_b.dtype, device=Sn_b.device)
-    L = cholesky_nan(Sn_b + float(j1) * eye)
-    bad1 = ~_all_finite(L)
-    if bool(bad1.any()):
-        jm = torch.where(bad1, float(j2), float(j1)).to(Sn_b.dtype)
-        L2 = cholesky_nan(Sn_b + jm[:, None, None] * eye)
-        L = torch.where(bad1[:, None, None], L2, L)
-    bad2 = ~_all_finite(L)
-    L = torch.where(bad2[:, None, None], eye, L)
-    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
-    Delta = Sn_b - L @ _t(L)
-    K = Linv @ Delta
-    E = K @ _t(Linv)
-    return _t(L), _t(Linv), E
-
-
-def _mega_solve_torch(Sn_b, Bn_b, j1, j2, refine):
+def _mega_solve_torch(Sn_b, Bn_b, j1, j2, refine, ad=False):
     """Plain version of the solve megakernel (``_mega_solve_xla``):
-    float32 in, ``(Z (B, n, k), ld (B,))`` out."""
+    float32 in, ``(Z (B, n, k), ld (B,))`` out. ``ad=True`` factors
+    through the AD-safe twin (the backward's recompute)."""
     from .kernel import _diag, _t
-    U, V, E = _fused_torch(Sn_b, j1, j2)
+    U, V, E = (_fused_torch_ad if ad else _fused_torch)(Sn_b, j1, j2)
     Vt = _t(V)
 
     def psolve(R):
@@ -192,23 +129,6 @@ def _mega_like_torch(S32, w_b, s_b, ivb_b, Bn_b, j1, j2, refine):
 # CUDA launches
 # --------------------------------------------------------------------
 
-def _check(t, name, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
-def _launch_check(rc, kernel):
-    if rc != 0:
-        raise RuntimeError(f"{kernel} CUDA launch failed: cudaError {rc}")
-
-
 def _mega_solve_cuda(Sn, Bn, j1, j2, refine):
     """Launch the solve megakernel on ``torch.cuda.current_stream()``:
     returns ``(Z, ld, tier)``, ``tier`` (B,) int32 being the
@@ -216,8 +136,8 @@ def _mega_solve_cuda(Sn, Bn, j1, j2, refine):
     from .cuda_lib import load_library
     B, n = Sn.shape[0], Sn.shape[-1]
     k = Bn.shape[-1]
-    _check(Sn, "Sn", (B, n, n))
-    _check(Bn, "Bn", (B, n, k))
+    check(Sn, "Sn", (B, n, n))
+    check(Bn, "Bn", (B, n, k))
     if Bn.device != Sn.device:
         raise ValueError("Sn and Bn must lie on the same device")
     lib = load_library()
@@ -233,9 +153,8 @@ def _mega_solve_cuda(Sn, Bn, j1, j2, refine):
             Sn.data_ptr(), Bn.data_ptr(), Z.data_ptr(), ld.data_ptr(),
             tier.data_ptr(), ws.data_ptr(), B, n, k, float(j1), float(j2),
             int(refine), stream)
-    _launch_check(rc, "mega_solve")
-    LAUNCHES["mega_solve"] += 1
-    _record_route("mega_solve", "kernel")
+    launch_check(rc, "mega_solve")
+    record_launch("mega_solve")
     return Z, ld, tier
 
 
@@ -244,11 +163,11 @@ def _mega_like_cuda(S32, w, s, ivb, Bn, j1, j2, refine):
     from .cuda_lib import load_library
     ntoa, nb = S32.shape
     B, k = w.shape[0], Bn.shape[-1]
-    _check(S32, "S", (ntoa, nb))
-    _check(w, "w", (B, ntoa))
-    _check(s, "s", (B, nb))
-    _check(ivb, "ivb", (B, nb))
-    _check(Bn, "Bn", (B, nb, k))
+    check(S32, "S", (ntoa, nb))
+    check(w, "w", (B, ntoa))
+    check(s, "s", (B, nb))
+    check(ivb, "ivb", (B, nb))
+    check(Bn, "Bn", (B, nb, k))
     if len({t.device for t in (S32, w, s, ivb, Bn)}) != 1:
         raise ValueError("all inputs must lie on the same device")
     lib = load_library()
@@ -265,9 +184,8 @@ def _mega_like_cuda(S32, w, s, ivb, Bn, j1, j2, refine):
             Bn.data_ptr(), Z.data_ptr(), ld.data_ptr(), tier.data_ptr(),
             ws.data_ptr(), B, ntoa, nb, k, float(j1), float(j2),
             int(refine), stream)
-    _launch_check(rc, "mega_like")
-    LAUNCHES["mega_like"] += 1
-    _record_route("mega_like", "kernel")
+    launch_check(rc, "mega_like")
+    record_launch("mega_like")
     return Z, ld, tier
 
 
@@ -275,23 +193,53 @@ def _wrapper_route(kernel, fits, device):
     """The route of a direct wrapper call: True for a launch. An over-cap
     CUDA call raises — the route functions decline such shapes, and the
     card runs no plain version unless the user opts out."""
-    path = _route(kernel, fits, device)
+    path = route(kernel, fits, device)
     if path == "over-cap" and device.type == "cuda":
         raise ValueError(f"{kernel}: shape over the kernel's size cap")
     return path == "kernel"
+
+
+def _grads(outputs, inputs, needs, cotangents):
+    """``torch.autograd.grad`` of ``outputs`` with respect to the
+    ``inputs`` whose ``needs`` flag is set; None for the others."""
+    wanted = [t for t, nd in zip(inputs, needs) if nd]
+    got = iter(torch.autograd.grad(outputs, wanted, cotangents)
+               if wanted else ())
+    return tuple(next(got) if nd else None for nd in needs)
+
+
+class _MegaSolve(torch.autograd.Function):
+    """Forward: the solve kernel (or its plain version); backward: the
+    vector-Jacobian product of ``_mega_solve_torch(..., ad=True)`` at the
+    saved inputs (``_mega_solve_fwd``/``_mega_solve_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, Sn32, Bn32, j1, j2, refine):
+        ctx.save_for_backward(Sn32, Bn32)
+        ctx.args = (j1, j2, refine)
+        if not _wrapper_route("mega_solve", mega_solve_fits(Sn32.shape[-1]),
+                              Sn32.device):
+            return _mega_solve_torch(Sn32, Bn32, j1, j2, refine)
+        Z, ld, _ = _mega_solve_cuda(Sn32.contiguous(), Bn32.contiguous(),
+                                    j1, j2, refine)
+        return Z, ld
+
+    @staticmethod
+    def backward(ctx, gZ, gld):
+        needs = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(nd)
+                   for t, nd in zip(ctx.saved_tensors, needs)]
+            out = _mega_solve_torch(*ins, *ctx.args, ad=True)
+            return _grads(out, ins, needs, (gZ, gld)) + (None,) * 3
 
 
 def mega_solve_logdet(Sn32, Bn32, j1, j2, refine):
     """Fused post-equilibration mixed solve: ``(Z, ld_eq)`` for a batch of
     equilibrated float32 casts ``Sn32`` (B, n, n) and right-hand sides
     ``Bn32`` (B, n, k) — one CUDA launch for CUDA tensors, the plain
-    version for CPU tensors."""
-    if not _wrapper_route("mega_solve", mega_solve_fits(Sn32.shape[-1]),
-                          Sn32.device):
-        return _mega_solve_torch(Sn32, Bn32, j1, j2, refine)
-    Z, ld, _ = _mega_solve_cuda(Sn32.contiguous(), Bn32.contiguous(),
-                                j1, j2, refine)
-    return Z, ld
+    version for CPU tensors. Differentiable (see :class:`_MegaSolve`)."""
+    return _MegaSolve.apply(Sn32, Bn32, float(j1), float(j2), int(refine))
 
 
 def mega_like(S32, w, s, ivb, Bn, j1, j2, refine):
@@ -318,12 +266,43 @@ def _safe_eigh(A):
     return ev, V
 
 
+class _MegaLnl(torch.autograd.Function):
+    """Forward: :func:`_mega_lnl_impl`; backward: the vector-Jacobian
+    product of the classic split chain ``marginalized_loglike(...,
+    gram_mode="split", mega=False)`` at the saved inputs
+    (``_mega_lnl_fwd``/``_mega_lnl_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, nw, b, r_w, M_w, T_w, mask, refine):
+        ctx.save_for_backward(nw, b, r_w, M_w, T_w, mask)
+        ctx.refine = refine
+        return _mega_lnl_impl(nw, b, r_w, M_w, T_w, mask, refine)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .kernel import marginalized_loglike
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(nd)
+                   for t, nd in zip(ctx.saved_tensors, needs)]
+            lnl = marginalized_loglike(*ins[:5], mask=ins[5],
+                                       gram_mode="split", refine=ctx.refine,
+                                       mega=False)
+            return _grads(lnl, ins, needs, g) + (None,)
+
+
 def mega_marginalized_loglike(nw, b, r_w, M_w, T_w, mask, refine):
     """Single-pulsar marginalized log-likelihood (W,) through the
-    likelihood megakernel (counterpart of ``_mega_lnl_impl``): one launch
-    for the Gram -> Sigma -> factor -> solve -> refine -> logdet chain,
-    plus float64 host-precision work around it. ``nw`` (W, ntoa), ``b``
-    (W, nb), ``mask`` (W, ntoa) (ones when unmasked)."""
+    likelihood megakernel: one launch for the Gram -> Sigma -> factor ->
+    solve -> refine -> logdet chain, plus float64 host-precision work
+    around it. ``nw`` (W, ntoa), ``b`` (W, nb), ``mask`` (W, ntoa) (ones
+    when unmasked). Differentiable (see :class:`_MegaLnl`)."""
+    return _MegaLnl.apply(nw, b, r_w, M_w, T_w, mask, int(refine))
+
+
+def _mega_lnl_impl(nw, b, r_w, M_w, T_w, mask, refine):
+    """The host-precision half around :func:`mega_like` (counterpart of
+    ``_mega_lnl_impl``)."""
     from .kernel import CHOL_JITTER
     f64 = r_w.dtype
     ntm = M_w.shape[1]

@@ -1,6 +1,10 @@
 """Samplers (counterpart of ``enterprise_warp_tpu/samplers``): the adaptive
-PT-MCMC of the paramfile path."""
+PT-MCMC of the paramfile path, and the gradient samplers (HMC with its
+ADVI warm start)."""
 
+from .hmc import HMCSampler, HMCState, run_hmc
 from .ptmcmc import PTSampler, run_ptmcmc
+from .vi import fit_advi
 
-__all__ = ["PTSampler", "run_ptmcmc"]
+__all__ = ["PTSampler", "run_ptmcmc", "HMCSampler", "HMCState", "run_hmc",
+           "fit_advi"]

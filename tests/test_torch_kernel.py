@@ -30,7 +30,7 @@ from enterprise_warp_tpu.ops.kernel import \
 from enterprise_warp_tpu_torch.config import Params as TParams
 from enterprise_warp_tpu_torch.models.assemble import \
     init_model_likelihoods as t_init
-from enterprise_warp_tpu_torch.ops import megakernel as t_mk
+from enterprise_warp_tpu_torch.ops import routes as troutes
 from enterprise_warp_tpu_torch.ops.kernel import gram_blocks
 from enterprise_warp_tpu_torch.ops.kernel import \
     _mixed_psd_solve_logdet as t_mixed
@@ -110,12 +110,12 @@ def test_split_classic_near_truth():
     assert tl.param_names == jl.param_names
     theta = near_truth(tl, 16)
     lnl_j = np.asarray(jl.loglike_batch(jnp.asarray(theta)))
-    t_mk.reset_counts()
+    troutes.reset_counts()
     lnl_t = tl.loglike_batch(theta).numpy()
     # CPU tensors take the classic chain (the reference's non-TPU route)
-    assert t_mk.ROUTES[("mega_like", "over-cap")] == 1
-    assert t_mk.ROUTES[("mega_solve", "plain-cpu")] == 1
-    assert sum(t_mk.LAUNCHES.values()) == 0
+    assert troutes.ROUTES[("mega_like", "over-cap")] == 1
+    assert troutes.ROUTES[("mega_solve", "plain-cpu")] == 1
+    assert sum(troutes.LAUNCHES.values()) == 0
     assert np.isfinite(lnl_t).all()
     assert np.max(np.abs(lnl_t - lnl_j)) <= 1e-3
 

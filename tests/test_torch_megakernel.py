@@ -13,7 +13,15 @@ twins (``_mega_solve_xla``, ``_mega_like_xla``) at the slice's shapes:
   (the ``--num 1`` shape, XLA twin);
 - end to end, ``--num 1`` near the injected noise: the port's mega route
   against JAX ``marginalized_loglike(..., mega="interpret")``, rtol 1e-3,
-  atol 5e-2 (the reference's documented megakernel class).
+  atol 5e-2 (the reference's documented megakernel class);
+- gradients: both entry points are autograd Functions whose backward
+  re-derives through plain PyTorch, as the reference's ``custom_vjp``s
+  do. The gradient of ``mega_marginalized_loglike`` with respect to
+  ``nw`` and ``b`` (nb 24, ntoa 96) against ``jax.grad`` of JAX
+  ``marginalized_loglike(..., mega="interpret")``, and the
+  vector-Jacobian product of ``mega_solve_logdet`` against ``jax.vjp``
+  of JAX ``mega_solve_logdet(..., interpret=True)``:
+  |dg| <= 1e-3 max(1, |g|).
 
 Float32 arithmetic in two frameworks sums in different orders, so the
 agreement is the float32 class, not bitwise. The CUDA checks at the end
@@ -36,6 +44,7 @@ from enterprise_warp_tpu.ops.kernel import \
     marginalized_loglike as j_marginalized_loglike
 from enterprise_warp_tpu.samplers.evalproto import eval_protocol
 from enterprise_warp_tpu_torch.ops import megakernel as tmk
+from enterprise_warp_tpu_torch.ops import routes as troutes
 from enterprise_warp_tpu_torch.ops.kernel import \
     marginalized_loglike as t_marginalized_loglike
 
@@ -90,10 +99,10 @@ def test_solve_matches_interpret_kernel():
     Sn = _spd_batch(B, n, seed=1)
     Bn = np.random.default_rng(1).standard_normal((B, n, k)).astype(
         np.float32)
-    tmk.reset_counts()
+    troutes.reset_counts()
     (Zj, ldj), (Zt, ldt) = _solve_both(Sn, Bn, 3e-6, 9e-5, 3)
-    assert tmk.ROUTES[("mega_solve", "plain-cpu")] == 1
-    assert tmk.LAUNCHES["mega_solve"] == 0
+    assert troutes.ROUTES[("mega_solve", "plain-cpu")] == 1
+    assert troutes.LAUNCHES["mega_solve"] == 0
     np.testing.assert_allclose(Zt, Zj, atol=2e-5)
     np.testing.assert_allclose(ldt, ldj, atol=2e-5)
 
@@ -151,9 +160,9 @@ def test_like_matches_jax(ntoa, nb, B, interpret):
                                      interpret=True)
     else:
         Zj, ldj = jmk._mega_like_xla(*map(jnp.asarray, args), 3e-6, 9e-5, 3)
-    tmk.reset_counts()
+    troutes.reset_counts()
     Zt, ldt = tmk.mega_like(*map(_t, args), 3e-6, 9e-5, 3)
-    assert tmk.ROUTES[("mega_like", "plain-cpu")] == 1
+    assert troutes.ROUTES[("mega_like", "plain-cpu")] == 1
     np.testing.assert_allclose(Zt.numpy(), np.asarray(Zj), rtol=2e-4,
                                atol=2e-4)
     np.testing.assert_allclose(ldt.numpy(), np.asarray(ldj), rtol=2e-4,
@@ -177,34 +186,34 @@ def test_mega_route_end_to_end_num1_near_truth():
         a, b, c["r"], c["M"], c["T"], mega="interpret"))(
             jnp.asarray(nw), jnp.asarray(phi)))
     st = tl.static
-    tmk.reset_counts()
+    troutes.reset_counts()
     lnl_t = t_marginalized_loglike(_t(nw), _t(phi), st["r_w"], st["M_w"],
                                    st["T_w"], mega=True).numpy()
-    assert tmk.ROUTES[("mega_like", "plain-cpu")] == 1
-    assert sum(tmk.LAUNCHES.values()) == 0
+    assert troutes.ROUTES[("mega_like", "plain-cpu")] == 1
+    assert sum(troutes.LAUNCHES.values()) == 0
     assert np.isfinite(lnl_t).all()
     np.testing.assert_allclose(lnl_t, lnl_j, rtol=1e-3, atol=5e-2)
     # the auto route on CPU tensors declines to the classic chain
-    tmk.reset_counts()
+    troutes.reset_counts()
     t_marginalized_loglike(_t(nw), _t(phi), st["r_w"], st["M_w"], st["T_w"])
-    assert tmk.ROUTES[("mega_like", "plain-cpu")] == 1
-    assert tmk.ROUTES[("mega_solve", "plain-cpu")] == 1
+    assert troutes.ROUTES[("mega_like", "plain-cpu")] == 1
+    assert troutes.ROUTES[("mega_solve", "plain-cpu")] == 1
 
 
 def test_routes_and_opt_outs(monkeypatch):
     cpu = torch.device("cpu")
     assert not tmk.mega_like_route(122, 120, cpu)
     # --num 0's basis is wider than the likelihood kernel's cap
-    tmk.reset_counts()
+    troutes.reset_counts()
     assert not tmk.mega_like_route(334, 250, "cuda")
-    assert tmk.ROUTES[("mega_like", "over-cap")] == 1
+    assert troutes.ROUTES[("mega_like", "over-cap")] == 1
     monkeypatch.setenv("EWT_PALLAS", "0")
     assert not tmk.mega_solve_route(250, "cuda")
     monkeypatch.setenv("EWT_PALLAS", "1")
     monkeypatch.setenv("EWT_PALLAS_MEGA", "0")
     assert not tmk.mega_like_route(122, 120, "cuda")
-    assert tmk.ROUTES[("mega_solve", "disabled")] == 1
-    assert tmk.ROUTES[("mega_like", "disabled")] == 1
+    assert troutes.ROUTES[("mega_solve", "disabled")] == 1
+    assert troutes.ROUTES[("mega_like", "disabled")] == 1
     monkeypatch.delenv("EWT_PALLAS_MEGA")
     assert tmk.mega_solve_route(250, "cuda")
     assert not tmk.mega_solve_route(449, "cuda")
@@ -218,7 +227,68 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         tmk._mega_solve_cuda(Sn, torch.zeros(2, 8, 1), 1e-6, 1e-3, 1)
     with pytest.raises(ValueError):
-        tmk._route("mega_solve", True, torch.device("meta"))
+        troutes.route("mega_solve", True, torch.device("meta"))
+
+
+def _assert_grad_close(gt, gj):
+    gt, gj = np.asarray(gt), np.asarray(gj)
+    assert np.isfinite(gt).all()
+    assert np.all(np.abs(gt - gj) <= 1e-3 * np.maximum(1.0, np.abs(gj))), \
+        np.max(np.abs(gt - gj) / np.maximum(1.0, np.abs(gj)))
+
+
+def _lnl_inputs(W, ntoa, nb, ntm, seed):
+    """Whitened single-pulsar arrays (unit-norm basis and timing-model
+    columns, as ``whiten_inputs`` leaves them) and per-walker noise."""
+    rng = np.random.default_rng(seed)
+    T = rng.standard_normal((ntoa, nb))
+    M = rng.standard_normal((ntoa, ntm))
+    T, M = T / np.linalg.norm(T, axis=0), M / np.linalg.norm(M, axis=0)
+    r = rng.standard_normal(ntoa)
+    nw = 1.0 + 0.3 * rng.random((W, ntoa))
+    b = 10.0 ** rng.uniform(-1.0, 1.0, (W, nb))
+    return nw, b, r, M, T
+
+
+def test_mega_lnl_gradient_matches_jax():
+    nw, b, r, M, T = _lnl_inputs(4, 96, 24, 3, seed=9)
+
+    def total(nw_, b_):
+        return jnp.sum(jax.vmap(lambda a, c: j_marginalized_loglike(
+            a, c, jnp.asarray(r), jnp.asarray(M), jnp.asarray(T),
+            mega="interpret"))(nw_, b_))
+
+    gj_nw, gj_b = jax.grad(total, argnums=(0, 1))(jnp.asarray(nw),
+                                                 jnp.asarray(b))
+    nw_t, b_t = _t(nw).requires_grad_(True), _t(b).requires_grad_(True)
+    troutes.reset_counts()
+    lnl = t_marginalized_loglike(nw_t, b_t, _t(r), _t(M), _t(T), mega=True)
+    assert troutes.ROUTES[("mega_like", "plain-cpu")] == 1
+    gt_nw, gt_b = torch.autograd.grad(lnl.sum(), (nw_t, b_t))
+    # the backward re-derived through the classic chain and its fused
+    # preconditioner
+    assert troutes.ROUTES[("chol_precond", "plain-cpu")] == 1
+    _assert_grad_close(gt_nw, gj_nw)
+    _assert_grad_close(gt_b, gj_b)
+
+
+def test_mega_solve_vjp_matches_jax():
+    n, B, k = 40, 5, 4
+    Sn = _spd_batch(B, n, seed=1)
+    rng = np.random.default_rng(1)
+    Bn = rng.standard_normal((B, n, k)).astype(np.float32)
+    cZ = rng.standard_normal((B, n, k)).astype(np.float32)
+    cld = rng.standard_normal(B).astype(np.float32)
+    _, vjp = jax.vjp(lambda S, R: jax.vmap(
+        lambda s, q: jmk.mega_solve_logdet(s, q, 3e-6, 9e-5, 3, True))(S, R),
+        jnp.asarray(Sn), jnp.asarray(Bn))
+    gj_S, gj_B = vjp((jnp.asarray(cZ), jnp.asarray(cld)))
+    S_t, B_t = _t(Sn).requires_grad_(True), _t(Bn).requires_grad_(True)
+    Z, ld = tmk.mega_solve_logdet(S_t, B_t, 3e-6, 9e-5, 3)
+    gt_S, gt_B = torch.autograd.grad((Z, ld), (S_t, B_t),
+                                     (_t(cZ), _t(cld)))
+    _assert_grad_close(gt_S, gj_S)
+    _assert_grad_close(gt_B, gj_B)
 
 
 # ---- on the card: kernel vs plain version on CUDA tensors ------------- #
@@ -235,10 +305,10 @@ def test_cuda_solve_kernel_matches_plain(cuda):
     Sn = torch.as_tensor(_spd_batch(8, 250, seed=3), device=cuda)
     Bn = torch.randn(8, 250, 4, dtype=torch.float32, device=cuda,
                      generator=torch.Generator(cuda).manual_seed(0))
-    n0 = tmk.LAUNCHES["mega_solve"]
+    n0 = troutes.LAUNCHES["mega_solve"]
     Zk, ldk = tmk.mega_solve_logdet(Sn, Bn, 3e-6, 9e-5, 3)
     torch.cuda.synchronize()
-    assert tmk.LAUNCHES["mega_solve"] == n0 + 1
+    assert troutes.LAUNCHES["mega_solve"] == n0 + 1
     Zp, ldp = tmk._mega_solve_torch(Sn, Bn, 3e-6, 9e-5, 3)
     assert float((Zk - Zp).abs().max()) <= 5e-4
     assert float((ldk - ldp).abs().max()) <= 5e-4
@@ -247,10 +317,10 @@ def test_cuda_solve_kernel_matches_plain(cuda):
 def test_cuda_like_kernel_matches_plain(cuda):
     args = [torch.as_tensor(a, device=cuda)
             for a in _like_inputs(122, 120, 8, 4, seed=6)]
-    n0 = tmk.LAUNCHES["mega_like"]
+    n0 = troutes.LAUNCHES["mega_like"]
     Zk, ldk = tmk.mega_like(*args, 3e-6, 9e-5, 3)
     torch.cuda.synchronize()
-    assert tmk.LAUNCHES["mega_like"] == n0 + 1
+    assert troutes.LAUNCHES["mega_like"] == n0 + 1
     Zp, ldp = tmk._mega_like_torch(*args, 3e-6, 9e-5, 3)
     assert float((Zk - Zp).abs().max()) <= 5e-4
     assert float((ldk - ldp).abs().max()) <= 5e-4
