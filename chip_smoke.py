@@ -15,8 +15,12 @@ Phases (any failure exits non-zero before the result line):
    fake_psr_0, nb = 120, the likelihood kernel) at walker points near the
    injected noise parameters, at the walker count the paramfile's
    sampler uses; each kernel and its plain PyTorch version run on the
-   same CUDA tensors (plus the three-tier fixture) and must agree within
-   the stated tolerance; both are timed with CUDA events;
+   same CUDA tensors (plus the three-tier fixture, for the solve kernel
+   also at the main path's order n = 250) and must agree within the
+   stated tolerance; both are timed with CUDA events. The solve kernel
+   runs as phase launches: each phase is timed alone, beside the same
+   phases on the earlier one-block-per-walker routines, and the whole
+   call is timed against the earlier single-launch design in turns;
 4. the gradient path of ``examples/example_params/hmc_single_psr.dat``
    (``--num 0``, nb = 60) at 64 near-typical points: value and gradient
    through the card's route (forward: the likelihood kernel; backward:
@@ -266,11 +270,10 @@ def bound(flops, nbytes):
                                      else "bytes")
 
 
-def three_tier_fixture(torch, dev):
+def three_tier_fixture(torch, dev, n=16, k=2):
     """Walker 0 clean; walker 1 indefinite at j1 but PD at j2; walker 2
-    hopeless (identity tier) — the reference test's fixture."""
+    hopeless (identity tier) — the reference test's fixture (n = 16)."""
     import numpy as np
-    n = 16
     rng = np.random.default_rng(13)
     Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
     ev = np.linspace(0.5, 1.5, n)
@@ -281,7 +284,7 @@ def three_tier_fixture(torch, dev):
     d = np.sqrt(np.diag(S0))
     S0 = S0 / d[:, None] / d[None, :]
     Sn = np.stack([S0, S_mid, -np.eye(n)]).astype(np.float32)
-    Bn = rng.standard_normal((3, n, 2)).astype(np.float32)
+    Bn = rng.standard_normal((3, n, k)).astype(np.float32)
     return (torch.as_tensor(Sn, device=dev), torch.as_tensor(Bn, device=dev))
 
 
@@ -309,6 +312,79 @@ def precond_fixture(torch, dev, n=60, B=64):
     tiers = [1] * B
     tiers[3], tiers[7] = 2, 3
     return torch.as_tensor(Sb, device=dev), tiers
+
+
+def solve_pipeline(torch, mk, lib, Sn, Bn, j1, j2, refine, whole_ms, smi):
+    """The solve kernel's phase launches on one captured input: each
+    phase's time alone, for the pipeline and for the same phases run on
+    the earlier one-block-per-walker inverse and products, against
+    ``whole_ms``, the time of one whole wrapper call; the launches per
+    wrapper call; and the A/B against the earlier single-launch design in
+    turns (old, new, new, old). Returns the pipeline's phase times, in
+    ms."""
+    B, n, k = Bn.shape
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(launch):
+        rc = launch()
+        if rc != 0:
+            fail(f"solve pipeline: launch returned cudaError {rc}")
+
+    bufs = mk._mega_solve_buffers(lib, Sn, Bn)
+    phases = mk._mega_solve_phases(lib, Sn, Bn, bufs, j1, j2, refine,
+                                   stream)
+    S, ws = Sn.data_ptr(), bufs[3].data_ptr()
+    one_block = dict(phases)
+    one_block["inverse"] = (
+        lambda: lib.mega_solve_inverse_single_block_launch(ws, B, n, k,
+                                                           stream))
+    for p, name in enumerate(mk.SOLVE_PRODUCTS):
+        one_block[f"product {name}"] = (
+            lambda p=p: lib.mega_solve_product_single_block_launch(
+                S, ws, B, n, k, p, stream))
+    # fill the workspace once: each phase alone then reads valid inputs
+    for _, launch in phases:
+        run(launch)
+    torch.cuda.synchronize()
+    print(f"mega_solve@pt: {len(phases)} CUDA launches per wrapper call "
+          f"({', '.join(name for name, _ in phases)})")
+    split = {}
+    for label, table in (("pipeline", dict(phases)),
+                         ("one block per walker", one_block)):
+        ms = {name: time_cuda(lambda l=launch: run(l))
+              for name, launch in table.items()}
+        split[label] = ms
+        print(f"mega_solve@pt phases, {label}, at Sn {tuple(Sn.shape)}: "
+              + "  ".join(f"{name} {t:.4f}" for name, t in ms.items())
+              + f"  sum {sum(ms.values()):.4f} ms (CUDA events, median of "
+              f"50 each; whole call {whole_ms:.4f} ms) [{smi}]")
+
+    sbufs = mk._mega_solve_buffers(lib, Sn, Bn)
+    sptr = [t.data_ptr() for t in sbufs]
+
+    def old():
+        run(lambda: lib.mega_solve_single_block_launch(
+            S, Bn.data_ptr(), *sptr, B, n, k, float(j1), float(j2),
+            int(refine), stream))
+
+    def new():
+        mk._mega_solve_cuda(Sn, Bn, j1, j2, refine)
+
+    turns = [("old", old), ("new", new), ("new", new), ("old", old)]
+    ab = [(name, time_cuda(fn)) for name, fn in turns]
+    Zn, ldn, _ = mk._mega_solve_cuda(Sn, Bn, j1, j2, refine)
+    old()
+    torch.cuda.synchronize()
+    gap = max(float((Zn - sbufs[0]).abs().max()),
+              float((ldn - sbufs[1]).abs().max()))
+    print("mega_solve@pt A/B, single-launch design (old) against the "
+          "pipeline (new), in turns: "
+          + "  ".join(f"{name} {t:.4f}" for name, t in ab)
+          + f" ms; old/new {(ab[0][1] + ab[3][1]) / (ab[1][1] + ab[2][1]):.2f}"
+          f"x; max|old - new| {gap:.3e} [{smi}]")
+    if not gap <= ATOL:
+        fail("the pipeline and the single-launch design disagree")
+    return split["pipeline"]
 
 
 def main():
@@ -428,11 +504,28 @@ def main():
               f"{tier_err:.3e}")
         if tk.tolist() != [1, 2, 3] or not tier_err <= 2e-4:
             fail("three-tier fixture disagrees with the plain version")
+        # the same, at the main path's order: the tier ladder crosses the
+        # pipeline's launch boundaries
+        St, Bt = three_tier_fixture(torch, dev, n=Sn.shape[-1],
+                                    k=Bn.shape[-1])
+        Zk, ldk, tk = mk._mega_solve_cuda(St, Bt, 1e-6, 1e-2, refine)
+        Zp, ldp = mk._mega_solve_torch(St, Bt, 1e-6, 1e-2, refine)
+        torch.cuda.synchronize()
+        tier_err = max(float((Zk - Zp).abs().max()),
+                       float((ldk - ldp).abs().max()))
+        print(f"three-tier fixture n={St.shape[-1]}: tiers {tk.tolist()} "
+              f"max|err| {tier_err:.3e} (max|Z| {float(Zp.abs().max()):.3e})")
+        if tk.tolist() != [1, 2, 3] or not tier_err <= ATOL:
+            fail(f"three-tier fixture n={St.shape[-1]} disagrees with the "
+                 "plain version")
         hold_solve("mega_solve@pt", "pt0",
                    lambda: mk._mega_solve_cuda(Sn, Bn, j1, j2, refine),
                    lambda: mk._mega_solve_torch(Sn, Bn, j1, j2, refine),
                    lambda tiers: solve_cost(*Bn.shape, refine, tiers),
                    f"Sn {tuple(Sn.shape)} Bn {tuple(Bn.shape)}")
+        results["mega_solve@pt"]["phases_ms"] = solve_pipeline(
+            torch, mk, cuda_lib.load_library(), Sn, Bn, j1, j2, refine,
+            results["mega_solve@pt"]["ms"], smi)
         hold_like("mega_like@pt", "pt1", cap_l.args)
 
         # ---- phase 4: the gradient path and its kernels ------------------
@@ -670,6 +763,8 @@ def main():
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, kernel=kname,
             path=PATHS[r["run"]], shape=r["shape"]))
+        if "phases_ms" in r:
+            kernels[-1]["phases_ms"] = r["phases_ms"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 // Likelihood megakernels and the fused preconditioner for NVIDIA Hopper
 // (sm_90a), plain C interface.
 //
-// Three __global__ kernels share one set of block-level device routines:
+// Three kernels share one set of block-level device routines:
 //
-//   mega_solve_kernel    replaces  enterprise_warp_tpu/ops/megakernel.py:
+//   the solve pipeline   replaces  enterprise_warp_tpu/ops/megakernel.py:
 //                                  _mega_solve_kernel (pallas_call in
 //                                  _mega_solve_raw)
 //   mega_like_kernel     replaces  enterprise_warp_tpu/ops/megakernel.py:
@@ -13,8 +13,8 @@
 //                                  _chol_kernel (pallas_call in
 //                                  _pallas_fused_raw)
 //
-// Per walker (one thread block, 256 threads), on an equilibrated float32
-// Sn (n x n) and right-hand side Bn (n x k):
+// Per walker, on an equilibrated float32 Sn (n x n) and right-hand side
+// Bn (n x k), the solve chain is:
 //   1. three-tier jittered right-looking Cholesky Sn + j I = U^T U
 //      (tier 2 re-factors with j2 only in blocks whose tier-1 factor went
 //      non-finite; tier 3 is the identity);
@@ -25,12 +25,15 @@
 //      larger than the first pass's, else Z0;
 //   5. ld = 2 sum log diag U + the 4-term trace expansion of
 //      E = V^T (Sn - U^T U) V, applied only when ||E||_F^2 < 0.09.
-// mega_like_kernel first forms Ss = S sqrt(w) from the shared (ntoa, nb)
-// basis, G = Ss^T Ss and Sn = s G s + diag(ivb), then runs the same chain.
-// chol_precond_kernel runs steps 1 and 2 and forms E, and writes the trio
-// (U, V, E) out: the preconditioner of the classic chain, whose refinement
-// and logdet stay in float64 outside (ops/kernel.py). Every product is a
-// float32 FMA loop: no tensor cores, no TF32 (the reference's dots run at
+// mega_like_kernel (one 256-thread block per walker) first forms
+// Ss = S sqrt(w) from the shared (ntoa, nb) basis, G = Ss^T Ss and
+// Sn = s G s + diag(ivb), then runs the whole chain (solve_chain).
+// chol_precond_kernel (one block per walker) runs steps 1 and 2 and forms
+// E, and writes the trio (U, V, E) out: the preconditioner of the classic
+// chain, whose refinement and logdet stay in float64 outside
+// (ops/kernel.py). The solve kernel runs the chain as a pipeline of phase
+// launches (below, after chol_precond_kernel). Every product is a float32
+// FMA loop: no tensor cores, no TF32 (the reference's dots run at
 // Precision.HIGHEST).
 //
 // Bound on an H100 SXM: float32 work outside the tensor cores, peak
@@ -48,12 +51,22 @@
 // three such outputs, 3.69 MB, 1.10 us at 3.35 TB/s: bytes bound.
 // (chip_smoke.py computes every bound from each run's inputs.)
 //
-// What holds this simple design back (work for later): one block per
-// walker fills only 8 (16 with two temperatures; 64 on the gradient path)
-// of 132 SMs; the factorization and the inverse are 2n sequential steps
-// with a block barrier each; the working matrices (n = 250: 250 KB each)
-// live in global memory (L2-resident) rather than shared memory, and the
-// dense products run on CUDA cores instead of the tensor cores.
+// What holds the solve kernel back on this card is not that bound but
+// occupancy and serial depth. Run as one block per walker (the earlier
+// mega_solve_kernel, still here as the A/B baseline), 8 walkers keep 8 of
+// 132 SMs busy, and each SM works alone through the factorization and the
+// inverse (2n barriered steps, the inverse's dependent FMA loops over V in
+// L2) and four full n^3 products as 16 sequential 64 x 64 tiles. The
+// pipeline spreads what parallelizes across walkers and tiles: each of
+// the four products is one launch over a (64 x 64 output tile, walker)
+// grid that skips the depth tiles where a triangular operand is zero
+// (128 blocks at (8, 250)), and the inverse is one launch over a
+// (32-column tile, walker) grid with its column tile in shared memory
+// (64 blocks at (8, 250)). The factor, the skinny solves and the trace
+// sums stay one block per walker; the factor's n barriered steps are then
+// the longest serial chain. Mega_like_kernel and chol_precond_kernel keep
+// the one-block design: on the same 8 or 64 walkers they hold the same
+// limits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -462,6 +475,280 @@ chol_precond_kernel(const float* __restrict__ Sn, float* U, float* V,
   if (threadIdx.x == 0) tier[b] = t;
 }
 
+// ---- the solve pipeline: solve_chain as a sequence of phase launches ----
+//
+// Each phase is its own launch on one per-walker workspace laid out as
+// solve_chain's (solve_ws floats per walker), in this order:
+//   factor    grid (B)                the tier ladder through chol_upper:
+//                                     U, tier
+//   inverse   grid (ceil(n/CT), B)    V = U^-1, one column tile per block
+//   refine    grid (B)                psolve, the refinement passes, the
+//                                     guard: Z
+//   product   grid (tiles^2, B), x4   W1 = Sn - U^T U, W2 = V^T W1,
+//                                     W1 = W2 V (= E), X = W1 W1 (= E^2),
+//                                     one launch each
+//   logdet    grid (B)                the trace sums: ld
+// solve_inverse_block_kernel and solve_product_block_kernel run the inverse
+// and the products on the one-block routines (backsub_inv, block_gemm over
+// all tiles): the baseline of chip_smoke.py's per-phase A/B.
+
+struct SolveWs {
+  float *X, *U, *V, *W1, *W2, *Tb, *Z0, *Zc, *R, *D;
+};
+
+__device__ SolveWs solve_ws_at(float* ws, int b, int n, int k) {
+  const size_t nn = (size_t)n * n, nk = (size_t)n * k;
+  SolveWs w;
+  w.X = ws + (size_t)b * solve_ws(n, k);
+  w.U = w.X + nn;
+  w.V = w.U + nn;
+  w.W1 = w.V + nn;
+  w.W2 = w.W1 + nn;
+  w.Tb = w.W2 + nn;
+  w.Z0 = w.Tb + nk;
+  w.Zc = w.Z0 + nk;
+  w.R = w.Zc + nk;
+  w.D = w.R + nk;
+  return w;
+}
+
+__global__ void __launch_bounds__(NT)
+solve_factor_kernel(const float* __restrict__ Sn, int* tier, float* ws, int n,
+                    int k, float j1, float j2) {
+  __shared__ Smem sm;
+  const int b = blockIdx.x;
+  const SolveWs w = solve_ws_at(ws, b, n, k);
+  const float* S = Sn + (size_t)b * n * n;
+  if (threadIdx.x == 0) sm.flag[0] = sm.flag[1] = 0;
+  __syncthreads();
+  int t = 1;
+  bool ok = chol_upper(S, j1, w.X, w.U, n, 0, sm);
+  if (!ok) {
+    t = 2;
+    ok = chol_upper(S, j2, w.X, w.U, n, 1, sm);
+  }
+  if (!ok) {
+    t = 3;
+    for (int e = threadIdx.x; e < n * n; e += NT) {
+      const int i = e / n, j = e - i * n;
+      w.U[e] = (i == j) ? 1.f : 0.f;
+    }
+  }
+  if (threadIdx.x == 0) tier[b] = t;
+}
+
+__global__ void __launch_bounds__(NT)
+solve_inverse_block_kernel(float* ws, int n, int k) {
+  __shared__ Smem sm;
+  const SolveWs w = solve_ws_at(ws, blockIdx.x, n, k);
+  backsub_inv(w.U, w.V, n, sm);
+}
+
+__global__ void __launch_bounds__(NT)
+solve_refine_kernel(const float* __restrict__ Sn, const float* __restrict__ Bn,
+                    float* Z, float* ws, int n, int k, int refine) {
+  __shared__ Smem sm;
+  const int b = blockIdx.x;
+  const int nk = n * k;
+  const SolveWs w = solve_ws_at(ws, b, n, k);
+  const float* S = Sn + (size_t)b * n * n;
+  const float* Bw = Bn + (size_t)b * nk;
+  psolve(w.V, Bw, w.Tb, w.Z0, n, k, sm);
+  for (int e = threadIdx.x; e < nk; e += NT) w.Zc[e] = w.Z0[e];
+  __syncthreads();
+  float res_pre = 0.f;
+  for (int it = 0; it < refine; ++it) {
+    load_rhs(w.Zc, nk, sm);
+    skinny_n(n, n, S, n, k, false, Bw, w.R, sm);
+    if (it == 0) {
+      float p = 0.f;
+      for (int e = threadIdx.x; e < nk; e += NT) p = fmaf(w.R[e], w.R[e], p);
+      res_pre = block_sum(p, sm);
+    }
+    psolve(w.V, w.R, w.Tb, w.D, n, k, sm);
+    for (int e = threadIdx.x; e < nk; e += NT) w.Zc[e] += w.D[e];
+    __syncthreads();
+  }
+  load_rhs(w.Zc, nk, sm);
+  skinny_n(n, n, S, n, k, false, Bw, w.R, sm);
+  float p = 0.f;
+  for (int e = threadIdx.x; e < nk; e += NT) p = fmaf(w.R[e], w.R[e], p);
+  const float res_ref = block_sum(p, sm);
+  if (refine == 0) res_pre = res_ref;
+  const bool keep = res_ref <= res_pre;   // NaN -> keep the plain solve
+  float* Zb = Z + (size_t)b * nk;
+  for (int e = threadIdx.x; e < nk; e += NT) Zb[e] = keep ? w.Zc[e] : w.Z0[e];
+}
+
+// Product p of the logdet correction on one walker's workspace:
+// C = C0 + alpha op(A) op(B), all n x n.
+struct Product {
+  const float* A;
+  bool ta;
+  const float* B;
+  bool tb;
+  float* C;
+  float alpha;
+  const float* C0;
+};
+
+__device__ Product logdet_product(int p, const float* S, const SolveWs& w) {
+  switch (p) {
+    case 0: return {w.U, true, w.U, false, w.W1, -1.f, S};          // Sn - U^T U
+    case 1: return {w.V, true, w.W1, false, w.W2, 1.f, nullptr};    // V^T D
+    case 2: return {w.W2, false, w.V, false, w.W1, 1.f, nullptr};  // E
+    default: return {w.W1, false, w.W1, false, w.X, 1.f, nullptr}; // E E
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+solve_product_block_kernel(const float* __restrict__ Sn, float* ws, int n,
+                           int k, int p) {
+  __shared__ Smem sm;
+  const int b = blockIdx.x;
+  const Product g = logdet_product(p, Sn + (size_t)b * n * n,
+                                   solve_ws_at(ws, b, n, k));
+  block_gemm(n, n, n, g.A, n, g.ta, g.B, n, g.tb, g.C, n, g.alpha, g.C0, n,
+             sm);
+}
+
+// One TILE x TILE output tile of product p per block, grid (tiles^2, B), on
+// block_gemm's shared-memory tiles and 4 x 4 register micro-tiles. Depth
+// tiles where a triangular operand is exactly zero are skipped: U^T U needs
+// depth m <= min(i, j), V^T . needs m <= i, and . V needs m <= j. The terms
+// skipped are exact zeros times finite values, and the depth order of the
+// rest is block_gemm's, so every entry is the one-block product's, bit for
+// bit.
+__global__ void __launch_bounds__(NT)
+solve_product_tile_kernel(const float* __restrict__ Sn, float* ws, int n,
+                          int k, int p) {
+  __shared__ Smem sm;
+  const int tiles = (n + TILE - 1) / TILE;
+  const int i0 = (blockIdx.x / tiles) * TILE, j0 = (blockIdx.x % tiles) * TILE;
+  const int b = blockIdx.y;
+  const Product g = logdet_product(p, Sn + (size_t)b * n * n,
+                                   solve_ws_at(ws, b, n, k));
+  int depth = n;
+  if (p == 0) depth = min(n, min(i0, j0) + TILE);
+  else if (p == 1) depth = min(n, i0 + TILE);
+  else if (p == 2) depth = min(n, j0 + TILE);
+  const size_t off = (size_t)i0 * n + j0;
+  block_gemm(min(TILE, n - i0), min(TILE, n - j0), depth,
+             g.ta ? g.A + i0 : g.A + (size_t)i0 * n, n, g.ta,
+             g.tb ? g.B + (size_t)j0 * n : g.B + j0, n, g.tb, g.C + off, n,
+             g.alpha, g.C0 ? g.C0 + off : nullptr, n, sm);
+}
+
+constexpr int CT = 32;               // columns of V per inverse block
+constexpr int CTP = CT + 1;          // row stride of the shared column tile
+constexpr int NXT = (MAXN + NT - 1) / NT;   // U-row entries per thread
+
+// Dynamic shared memory of one inverse block: the column tile (n x CTP) and
+// two U-row buffers (2 n).
+size_t inverse_smem(int n) { return sizeof(float) * ((size_t)n * CTP + 2 * n); }
+
+// V = U^-1, one CT-column tile of one walker per block, grid
+// (ceil(n / CT), B). The tile's rows 0..c1-1 stay in shared memory (row
+// stride CTP: a warp's lanes walking down one column hit 32 banks). Row i,
+// from the tile's last column up, takes
+//   V[i][j] = (delta_ij - sum_{m = i+1}^{c1-1} U[i][m] V[m][j]) / U[i][i]
+// (V[m][j] = 0 for m > j, so the sum may run over the whole tile): each warp
+// owns CT / 8 columns, its lanes split the sum over m and a shuffle
+// butterfly reduces it. U's next row is fetched from L2 into the other row
+// buffer while this one is summed. One barrier per row.
+__global__ void __launch_bounds__(NT)
+solve_inverse_tile_kernel(float* ws, int n, int k) {
+  extern __shared__ float dyn[];
+  float* Vs = dyn;
+  float* urow = dyn + (size_t)n * CTP;   // two rows of n: current, next
+  const int c0 = blockIdx.x * CT, cw = min(CT, n - c0), c1 = c0 + cw;
+  const SolveWs w = solve_ws_at(ws, blockIdx.y, n, k);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  // row c1-1 of U from its diagonal on
+  if (threadIdx.x == 0) urow[c1 - 1] = w.U[(size_t)(c1 - 1) * n + c1 - 1];
+  __syncthreads();
+  int cur = 0;
+  for (int i = c1 - 1; i >= 0; --i) {
+    float nxt[NXT];
+#pragma unroll
+    for (int r = 0; r < NXT; ++r) {
+      const int m = i - 1 + threadIdx.x + r * NT;
+      nxt[r] = (i > 0 && m < c1) ? w.U[(size_t)(i - 1) * n + m] : 0.f;
+    }
+    const float* u = urow + cur * n;
+    float acc[CT / 8];
+#pragma unroll
+    for (int q = 0; q < CT / 8; ++q) acc[q] = 0.f;
+    for (int m = i + 1 + lane; m < c1; m += 32) {
+      const float um = u[m];
+      const float* Vm = Vs + (size_t)m * CTP + wid;
+#pragma unroll
+      for (int q = 0; q < CT / 8; ++q) acc[q] = fmaf(um, Vm[8 * q], acc[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < CT / 8; ++q)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
+    if (lane < CT / 8) {
+      float a = acc[0];
+#pragma unroll
+      for (int q = 1; q < CT / 8; ++q)
+        if (lane == q) a = acc[q];
+      const int jl = wid + 8 * lane, j = c0 + jl;
+      Vs[(size_t)i * CTP + jl] =
+          (jl < cw && j >= i) ? ((i == j ? 1.f : 0.f) - a) / u[i] : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < NXT; ++r) {
+      const int m = i - 1 + threadIdx.x + r * NT;
+      if (i > 0 && m < c1) urow[(cur ^ 1) * n + m] = nxt[r];
+    }
+    cur ^= 1;
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < n * cw; e += NT) {
+    const int i = e / cw, jl = e - i * cw;
+    w.V[(size_t)i * n + c0 + jl] = i < c1 ? Vs[(size_t)i * CTP + jl] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+solve_logdet_kernel(float* ld, float* ws, int n, int k) {
+  __shared__ Smem sm;
+  const int b = blockIdx.x;
+  const SolveWs w = solve_ws_at(ws, b, n, k);
+  const float* E = w.W1;
+  const float* E2 = w.X;
+  float tr = 0.f, see_t = 0.f, s2e_t = 0.f, s22_t = 0.f, see = 0.f, sld = 0.f;
+  for (int e = threadIdx.x; e < n * n; e += NT) {
+    const int i = e / n, j = e - i * n;
+    const size_t et = (size_t)j * n + i;
+    const float eij = E[e];
+    if (i == j) {
+      tr += eij;
+      sld += logf(w.U[e]);
+    }
+    see_t = fmaf(eij, E[et], see_t);
+    s2e_t = fmaf(E2[e], E[et], s2e_t);
+    s22_t = fmaf(E2[e], E2[et], s22_t);
+    see = fmaf(eij, eij, see);
+  }
+  tr = block_sum(tr, sm);
+  see_t = block_sum(see_t, sm);
+  s2e_t = block_sum(s2e_t, sm);
+  s22_t = block_sum(s22_t, sm);
+  see = block_sum(see, sm);
+  sld = block_sum(sld, sm);
+  float corr = tr - see_t / 2.0f + s2e_t / 3.0f - s22_t / 4.0f;
+  if (!(see < 0.09f)) corr = 0.f;
+  if (threadIdx.x == 0) ld[b] = 2.0f * sld + corr;
+}
+
+bool solve_args_ok(int B, int n, int k) {
+  return B > 0 && n > 0 && n <= MAXN && k > 0 && k <= KMAX;
+}
+
 }  // namespace
 
 extern "C" {
@@ -472,11 +759,94 @@ long long mega_like_ws_floats(int ntoa, int nb, int k) {
   return solve_ws(nb, k) + (long long)nb * nb + (long long)ntoa * nb;
 }
 
-int mega_solve_launch(const float* Sn, const float* Bn, float* Z, float* ld,
-                      int* tier, float* ws, int B, int n, int k, float j1,
-                      float j2, int refine, void* stream) {
-  if (B <= 0 || n <= 0 || n > MAXN || k <= 0 || k > KMAX || refine < 0)
+// The solve pipeline's phases, in order (the wrapper launches them all; each
+// returns cudaGetLastError()).
+
+int mega_solve_factor_launch(const float* Sn, int* tier, float* ws, int B,
+                             int n, int k, float j1, float j2, void* stream) {
+  if (!solve_args_ok(B, n, k)) return (int)cudaErrorInvalidValue;
+  solve_factor_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(Sn, tier, ws, n, k,
+                                                          j1, j2);
+  return (int)cudaGetLastError();
+}
+
+int mega_solve_inverse_launch(float* ws, int B, int n, int k, void* stream) {
+  if (!solve_args_ok(B, n, k)) return (int)cudaErrorInvalidValue;
+  // above 48 KB a block's shared memory must be asked for, once per device
+  static bool ready[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(solve_inverse_tile_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)inverse_smem(MAXN));
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  const dim3 grid((n + CT - 1) / CT, B);
+  solve_inverse_tile_kernel<<<grid, NT, inverse_smem(n),
+                              (cudaStream_t)stream>>>(ws, n, k);
+  return (int)cudaGetLastError();
+}
+
+int mega_solve_refine_launch(const float* Sn, const float* Bn, float* Z,
+                             float* ws, int B, int n, int k, int refine,
+                             void* stream) {
+  if (!solve_args_ok(B, n, k) || refine < 0) return (int)cudaErrorInvalidValue;
+  solve_refine_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(Sn, Bn, Z, ws, n, k,
+                                                          refine);
+  return (int)cudaGetLastError();
+}
+
+int mega_solve_product_launch(const float* Sn, float* ws, int B, int n, int k,
+                              int p, void* stream) {
+  if (!solve_args_ok(B, n, k) || p < 0 || p > 3)
     return (int)cudaErrorInvalidValue;
+  const int tiles = (n + TILE - 1) / TILE;
+  const dim3 grid(tiles * tiles, B);
+  solve_product_tile_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(Sn, ws, n,
+                                                                   k, p);
+  return (int)cudaGetLastError();
+}
+
+int mega_solve_logdet_launch(float* ld, float* ws, int B, int n, int k,
+                             void* stream) {
+  if (!solve_args_ok(B, n, k)) return (int)cudaErrorInvalidValue;
+  solve_logdet_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(ld, ws, n, k);
+  return (int)cudaGetLastError();
+}
+
+// The inverse and the products on the earlier one-block-per-walker routines
+// (backsub_inv, block_gemm), kept only as the baseline of chip_smoke.py's
+// per-phase A/B; nothing in the package calls them.
+
+int mega_solve_inverse_single_block_launch(float* ws, int B, int n, int k,
+                                           void* stream) {
+  if (!solve_args_ok(B, n, k)) return (int)cudaErrorInvalidValue;
+  solve_inverse_block_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(ws, n, k);
+  return (int)cudaGetLastError();
+}
+
+int mega_solve_product_single_block_launch(const float* Sn, float* ws, int B,
+                                           int n, int k, int p,
+                                           void* stream) {
+  if (!solve_args_ok(B, n, k) || p < 0 || p > 3)
+    return (int)cudaErrorInvalidValue;
+  solve_product_block_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(Sn, ws, n, k,
+                                                                 p);
+  return (int)cudaGetLastError();
+}
+
+// The earlier single-launch design (the whole chain in one block per walker),
+// kept only as the A/B baseline that chip_smoke.py times beside the
+// pipeline; nothing in the package calls it.
+int mega_solve_single_block_launch(const float* Sn, const float* Bn, float* Z,
+                                   float* ld, int* tier, float* ws, int B,
+                                   int n, int k, float j1, float j2,
+                                   int refine, void* stream) {
+  if (!solve_args_ok(B, n, k) || refine < 0) return (int)cudaErrorInvalidValue;
   mega_solve_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(Sn, Bn, Z, ld, tier, ws,
                                                         n, k, j1, j2, refine);
   return (int)cudaGetLastError();

@@ -9,7 +9,10 @@ are hand-written CUDA here (``csrc/megakernel.cu``, built and bound by
   float32 ``Sn`` (B, n, n) and right-hand side ``Bn`` (B, n, k), the
   three-tier jittered Cholesky, the triangular inverse, the
   preconditioner solves, ``refine`` float32 refinement passes, the
-  divergence guard and the trace-corrected logdet, in ONE launch.
+  divergence guard and the trace-corrected logdet, as a pipeline of
+  eight phase launches on one workspace (:func:`_mega_solve_phases`): the
+  triangular inverse and the four logdet products run on grids over
+  (tile, walker), the rest one block per walker.
 - :func:`mega_marginalized_loglike` — the single-pulsar likelihood: its
   device half (:func:`mega_like`) adds the per-walker basis Gram and the
   Sigma assembly in front of the same chain, and its float64 host half
@@ -129,33 +132,71 @@ def _mega_like_torch(S32, w_b, s_b, ivb_b, Bn_b, j1, j2, refine):
 # CUDA launches
 # --------------------------------------------------------------------
 
-def _mega_solve_cuda(Sn, Bn, j1, j2, refine):
-    """Launch the solve megakernel on ``torch.cuda.current_stream()``:
-    returns ``(Z, ld, tier)``, ``tier`` (B,) int32 being the
-    factorization tier each walker ended on (1, 2 or 3)."""
-    from .cuda_lib import load_library
+#: the logdet correction's four products, one launch each, in order
+SOLVE_PRODUCTS = ("Sn-UtU", "VtD", "E", "EE")
+
+
+def _mega_solve_check(Sn, Bn):
     B, n = Sn.shape[0], Sn.shape[-1]
-    k = Bn.shape[-1]
     check(Sn, "Sn", (B, n, n))
-    check(Bn, "Bn", (B, n, k))
+    check(Bn, "Bn", (B, n, Bn.shape[-1]))
     if Bn.device != Sn.device:
         raise ValueError("Sn and Bn must lie on the same device")
-    lib = load_library()
+
+
+def _mega_solve_buffers(lib, Sn, Bn):
+    """A solve call's outputs ``Z``, ``ld``, ``tier`` and its per-walker
+    workspace ``ws``."""
+    B, n, k = Bn.shape
     dev = Sn.device
     ws = torch.empty(int(lib.mega_solve_ws_floats(n, k)) * B,
                      dtype=torch.float32, device=dev)
     Z = torch.empty((B, n, k), dtype=torch.float32, device=dev)
     ld = torch.empty((B,), dtype=torch.float32, device=dev)
     tier = torch.empty((B,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mega_solve_launch(
-            Sn.data_ptr(), Bn.data_ptr(), Z.data_ptr(), ld.data_ptr(),
-            tier.data_ptr(), ws.data_ptr(), B, n, k, float(j1), float(j2),
-            int(refine), stream)
-    launch_check(rc, "mega_solve")
+    return Z, ld, tier, ws
+
+
+def _mega_solve_phases(lib, Sn, Bn, bufs, j1, j2, refine, stream):
+    """The solve pipeline as ``[(phase, launch)]`` in launch order: the
+    factor, the triangular inverse, the refined solve, the four logdet
+    products and the trace sums. Each ``launch()`` enqueues one kernel on
+    ``stream`` and returns its ``cudaGetLastError()``."""
+    Z, ld, tier, ws = (t.data_ptr() for t in bufs)
+    B, n, k = Bn.shape
+    S, R = Sn.data_ptr(), Bn.data_ptr()
+    phases = [
+        ("factor", lambda: lib.mega_solve_factor_launch(
+            S, tier, ws, B, n, k, float(j1), float(j2), stream)),
+        ("inverse", lambda: lib.mega_solve_inverse_launch(ws, B, n, k,
+                                                          stream)),
+        ("refine", lambda: lib.mega_solve_refine_launch(
+            S, R, Z, ws, B, n, k, int(refine), stream))]
+    phases += [(f"product {name}",
+                (lambda p=p: lib.mega_solve_product_launch(S, ws, B, n, k, p,
+                                                           stream)))
+               for p, name in enumerate(SOLVE_PRODUCTS)]
+    phases.append(("logdet", lambda: lib.mega_solve_logdet_launch(
+        ld, ws, B, n, k, stream)))
+    return phases
+
+
+def _mega_solve_cuda(Sn, Bn, j1, j2, refine):
+    """Run the solve pipeline on ``torch.cuda.current_stream()``: returns
+    ``(Z, ld, tier)``, ``tier`` (B,) int32 being the factorization tier
+    each walker ended on (1, 2 or 3). One call is one launch of the
+    ``mega_solve`` kernel in ``LAUNCHES``, whatever its phase count."""
+    from .cuda_lib import load_library
+    _mega_solve_check(Sn, Bn)
+    lib = load_library()
+    bufs = _mega_solve_buffers(lib, Sn, Bn)
+    with torch.cuda.device(Sn.device):
+        stream = torch.cuda.current_stream(Sn.device).cuda_stream
+        for phase, launch in _mega_solve_phases(lib, Sn, Bn, bufs, j1, j2,
+                                                refine, stream):
+            launch_check(launch(), f"mega_solve ({phase})")
     record_launch("mega_solve")
-    return Z, ld, tier
+    return bufs[:3]
 
 
 def _mega_like_cuda(S32, w, s, ivb, Bn, j1, j2, refine):

@@ -141,6 +141,74 @@ def test_solve_slice_shape_against_xla_twin():
     np.testing.assert_allclose(ldt, ldj, rtol=2e-4, atol=2e-4)
 
 
+RAGGED_N = (1, 17, 63, 65, 250, 448)
+RAGGED_B = (1, 3, 8)
+
+
+def _ragged_inputs(B, n, seed):
+    Sn = _spd_batch(B, n, seed=seed)
+    Bn = np.random.default_rng(seed).standard_normal((B, n, 4)).astype(
+        np.float32)
+    return Sn, Bn
+
+
+@pytest.mark.parametrize("B", RAGGED_B)
+@pytest.mark.parametrize("n", RAGGED_N)
+def test_solve_ragged_shapes(n, B):
+    # orders off the kernels' 64-wide product tiles and 32-wide inverse
+    # tiles, up to the cap: the interpret-mode kernel where it is quick,
+    # the XLA twin above
+    Sn, Bn = _ragged_inputs(B, n, seed=n + B)
+    interpret = n <= 65
+    (Zj, ldj), (Zt, ldt) = _solve_both(Sn, Bn, 3e-6, 9e-5, 3,
+                                       interpret=interpret)
+    assert Zt.shape == (B, n, 4) and ldt.shape == (B,)
+    tol = dict(atol=2e-5) if interpret else dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(Zt, Zj, **tol)
+    np.testing.assert_allclose(ldt, ldj, **tol)
+
+
+class _FakeLib:
+    """Records the solve pipeline's C calls in order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+def test_solve_phases_launch_in_order():
+    B, n, k = 3, 17, 4
+    Sn, Bn = torch.zeros(B, n, n), torch.zeros(B, n, k)
+    bufs = (torch.zeros(B, n, k), torch.zeros(B), torch.zeros(B),
+            torch.zeros(8))
+    lib = _FakeLib()
+    phases = tmk._mega_solve_phases(lib, Sn, Bn, bufs, 3e-6, 9e-5, 2, 7)
+    assert [name for name, _ in phases] == (
+        ["factor", "inverse", "refine"]
+        + [f"product {p}" for p in tmk.SOLVE_PRODUCTS] + ["logdet"])
+    assert lib.calls == []
+    assert all(launch() == 0 for _, launch in phases)
+    names = [c for c, _ in lib.calls]
+    assert names == (["mega_solve_factor_launch", "mega_solve_inverse_launch",
+                      "mega_solve_refine_launch"]
+                     + ["mega_solve_product_launch"] * 4
+                     + ["mega_solve_logdet_launch"])
+    ws = bufs[3].data_ptr()
+    # every phase works on the one workspace, at (B, n, k), on the stream
+    for _, args in lib.calls:
+        assert ws in args and args[-1] == 7
+        assert args[args.index(ws) + 1:args.index(ws) + 4] == (B, n, k)
+    assert [args[-2] for c, args in lib.calls
+            if c == "mega_solve_product_launch"] == [0, 1, 2, 3]
+    assert lib.calls[0][1][-3:-1] == (3e-6, 9e-5)
+    assert lib.calls[2][1][-2] == 2
+
+
 def _like_inputs(ntoa, nb, B, k, seed):
     rng = np.random.default_rng(seed)
     S = (rng.standard_normal((ntoa, nb)) / np.sqrt(ntoa)).astype(np.float32)
@@ -309,6 +377,21 @@ def test_cuda_solve_kernel_matches_plain(cuda):
     Zk, ldk = tmk.mega_solve_logdet(Sn, Bn, 3e-6, 9e-5, 3)
     torch.cuda.synchronize()
     assert troutes.LAUNCHES["mega_solve"] == n0 + 1
+    Zp, ldp = tmk._mega_solve_torch(Sn, Bn, 3e-6, 9e-5, 3)
+    assert float((Zk - Zp).abs().max()) <= 5e-4
+    assert float((ldk - ldp).abs().max()) <= 5e-4
+
+
+@pytest.mark.parametrize("B", RAGGED_B)
+@pytest.mark.parametrize("n", RAGGED_N)
+def test_cuda_solve_pipeline_ragged_shapes(cuda, n, B):
+    Sn, Bn = (torch.as_tensor(a, device=cuda)
+              for a in _ragged_inputs(B, n, seed=n + B))
+    for call in range(2):
+        n0 = troutes.LAUNCHES["mega_solve"]
+        Zk, ldk = tmk.mega_solve_logdet(Sn, Bn, 3e-6, 9e-5, 3)
+        torch.cuda.synchronize()
+        assert troutes.LAUNCHES["mega_solve"] == n0 + 1
     Zp, ldp = tmk._mega_solve_torch(Sn, Bn, 3e-6, 9e-5, 3)
     assert float((Zk - Zp).abs().max()) <= 5e-4
     assert float((ldk - ldp).abs().max()) <= 5e-4
