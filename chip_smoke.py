@@ -20,7 +20,17 @@ Phases (any failure exits non-zero before the result line):
    stated tolerance; both are timed with CUDA events. The solve kernel
    runs as phase launches: each phase is timed alone, beside the same
    phases on the earlier one-block-per-walker routines, and the whole
-   call is timed against the earlier single-launch design in turns;
+   call is timed against the earlier single-launch design in turns. The
+   likelihood kernel runs as a pipeline too (a tiled Gram, a factor in
+   shared memory, then the solve phases, forked over two streams); at
+   each of its path shapes (here and in phase 4) its phases are timed
+   alone (Stage A: the one-block Gram prologue and the solve phases as
+   they are; Stage B: the pipeline's own), its Gram's Sn and its factor's
+   U are held bit for bit against the one-block prologue's and
+   ``solve_factor_kernel``'s, and the whole call is timed against the
+   earlier single-launch design in turns; it is also held against its
+   plain version and that design on a three-tier fixture at nb = 120 and
+   at the caps (ntoa 4096, nb 192);
 4. the gradient path of ``examples/example_params/hmc_single_psr.dat``
    (``--num 0``, nb = 60) at 64 near-typical points: value and gradient
    through the card's route (forward: the likelihood kernel; backward:
@@ -387,6 +397,226 @@ def solve_pipeline(torch, mk, lib, Sn, Bn, j1, j2, refine, whole_ms, smi):
     return split["pipeline"]
 
 
+def like_inputs(torch, dev, ntoa, nb, B, k, seed):
+    """Random likelihood-kernel inputs (``tests/test_torch_megakernel.py``'s
+    ``_like_inputs``): a basis of unit-scale columns, weights, scales and
+    prior terms near 1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    S = (rng.standard_normal((ntoa, nb)) / np.sqrt(ntoa)).astype(np.float32)
+    w = (1.0 + 0.3 * rng.random((B, ntoa))).astype(np.float32)
+    s = (0.8 + 0.4 * rng.random((B, nb))).astype(np.float32)
+    ivb = (0.5 + rng.random((B, nb))).astype(np.float32)
+    Bn = rng.standard_normal((B, nb, k)).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (S, w, s, ivb, Bn)]
+
+
+def like_tier_fixture(torch, dev, n=120, k=4):
+    """All three tiers through the likelihood kernel at nb = n: a stacked
+    basis S (3n, n) whose block b walker b alone weights (w = 1 on its n
+    rows, 0 elsewhere; s = 1), so Sn_b = S_b^T S_b + diag(ivb_b). Walker 0
+    is a unit-diagonal SPD matrix (S_0 its Cholesky factor, ivb 0); walker
+    1 the three-tier fixture's matrix with smallest eigenvalue -5e-5
+    (S_1 = diag(sqrt(ev + 5e-5)) Q^T, ivb -5e-5), indefinite at the first
+    jitter and PD at the second; walker 2 is -I (S_2 = 0, ivb -1). The
+    right-hand sides are Bn_b = Sn_b X_b (float64) for a standard normal
+    X_b, so the solutions are O(1), as on the path."""
+    import numpy as np
+    rng = np.random.default_rng(13)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    ev = np.linspace(0.5, 1.5, n)
+    ev[0] = -5e-5
+    A = np.random.default_rng(2).standard_normal((n, n))
+    S0 = A @ A.T / n + 0.5 * np.eye(n)
+    d = np.sqrt(np.diag(S0))
+    S0 = S0 / d[:, None] / d[None, :]
+    S = np.zeros((3 * n, n))
+    S[:n] = np.linalg.cholesky(S0).T
+    S[n:2 * n] = np.sqrt(ev + 5e-5)[:, None] * Q.T
+    w = np.zeros((3, 3 * n))
+    for b in range(3):
+        w[b, b * n:(b + 1) * n] = 1.0
+    ivb = np.stack([np.zeros(n), np.full(n, -5e-5), np.full(n, -1.0)])
+    Sn = np.stack([S[b * n:(b + 1) * n].T @ S[b * n:(b + 1) * n]
+                   + np.diag(ivb[b]) for b in range(3)])
+    Bn = Sn @ rng.standard_normal((3, n, k))
+    return [torch.as_tensor(a.astype(np.float32), device=dev)
+            for a in (S, w, np.ones((3, n)), ivb, Bn)]
+
+
+def like_single_block(torch, lib, args):
+    """The earlier single-launch likelihood kernel on ``args``: returns
+    ``(launch, (Z, ld, tier))``; each ``launch()`` runs it once."""
+    S32, w, s, ivb, Bn, j1, j2, refine = args
+    B, nb, k = Bn.shape
+    ntoa, dev = S32.shape[0], Bn.device
+    ws = torch.empty(int(lib.mega_like_single_block_ws_floats(ntoa, nb, k))
+                     * B, dtype=torch.float32, device=dev)
+    out = (torch.empty((B, nb, k), dtype=torch.float32, device=dev),
+           torch.empty((B,), dtype=torch.float32, device=dev),
+           torch.empty((B,), dtype=torch.int32, device=dev))
+    held = (S32, w, s, ivb, Bn, *out, ws)   # alive as long as launch
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.mega_like_single_block_launch(
+            *(t.data_ptr() for t in held), B, ntoa, nb, k, float(j1),
+            float(j2), int(refine), stream)
+        if rc != 0:
+            fail(f"mega_like_single_block_launch returned cudaError {rc}")
+    return launch, out
+
+
+def hold_like_fixture(torch, mk, lib, label, args, expect=None):
+    """The likelihood pipeline on a fixture against its plain version and
+    the single-launch design (``Z`` and ``ld`` within ATOL); ``expect``:
+    the tiers it must reach."""
+    Zk, ldk, tk = mk._mega_like_cuda(*args)
+    Zp, ldp = mk._mega_like_torch(*args)
+    old, (Zo, ldo, _) = like_single_block(torch, lib, args)
+    old()
+    torch.cuda.synchronize()
+    ep = max(float((Zk - Zp).abs().max()), float((ldk - ldp).abs().max()))
+    eo = max(float((Zk - Zo).abs().max()), float((ldk - ldo).abs().max()))
+    print(f"mega_like {label}: tiers {tk.tolist()} max|new - plain| {ep:.3e}"
+          f" max|new - old| {eo:.3e} (max|Z| {float(Zp.abs().max()):.3e})")
+    if expect is not None and tk.tolist() != expect:
+        fail(f"mega_like {label}: tiers {tk.tolist()}, expected {expect}")
+    if not (torch.isfinite(Zk).all() and torch.isfinite(ldk).all()):
+        fail(f"mega_like {label}: non-finite kernel output")
+    if not (ep <= ATOL and eo <= ATOL):
+        fail(f"mega_like {label}: the pipeline differs by more than atol "
+             f"{ATOL}")
+
+
+def like_pipeline(torch, mk, lib, args, entry, whole_ms, smi):
+    """The likelihood pipeline's launches on one captured input. Stage A:
+    the Gram prologue alone as a one-block-per-walker launch, then the
+    solve pipeline's phases as they are (the global-memory factor). Stage
+    B: the pipeline's own phases, the tiled Gram and the shared-memory
+    factor (also timed at 256, 512 and 1024 threads), then the same solve
+    phases. Each phase's time alone, CUDA events, median of 50; whether
+    the two Grams' Sn and the two factors' U agree bit for bit; whether
+    Stage B phase by phase gives one wrapper call's result bit for bit;
+    Stage B back to back on one stream against one forked C call; and the
+    A/B against the single-launch design in turns (old, new, new, old).
+    Returns those times, in ms."""
+    S32, w, s, ivb, Bn, j1, j2, refine = args
+    B, nb, k = Bn.shape
+    ntoa = S32.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    nt = int(lib.mega_like_factor_threads())
+
+    def run(launch):
+        rc = launch()
+        if rc != 0:
+            fail(f"{entry} pipeline: launch returned cudaError {rc}")
+
+    Z, ld, tier, ws, Sn = bufs = mk._mega_like_buffers(lib, Bn)
+    ptr = [t.data_ptr() for t in (S32, w, s, ivb)]
+    solve = mk._mega_solve_phases(lib, Sn, Bn, bufs[:4], j1, j2, refine,
+                                  stream)
+    ss = torch.empty(B * ntoa * nb, dtype=torch.float32, device=Bn.device)
+
+    def factor(threads):
+        return lambda: lib.mega_like_factor_launch(
+            Sn.data_ptr(), tier.data_ptr(), ws.data_ptr(), B, nb, k,
+            float(j1), float(j2), threads, stream)
+
+    stage_a = [("gram", lambda: lib.mega_like_gram_single_block_launch(
+        *ptr, Sn.data_ptr(), ss.data_ptr(), B, ntoa, nb, stream))] + solve
+    stage_b = [("gram", lambda: lib.mega_like_gram_launch(
+        *ptr, Sn.data_ptr(), B, ntoa, nb, stream)),
+        ("factor", factor(nt))] + solve[1:]
+    sw, nn = int(lib.mega_solve_ws_floats(nb, k)), nb * nb
+    U = ws[:B * sw].view(B, sw)[:, nn:2 * nn]
+
+    # Stage A once: its Sn, U and tiers
+    for _, launch in stage_a:
+        run(launch)
+    torch.cuda.synchronize()
+    sn_a, u_a, tier_a = Sn.clone(), U.clone(), tier.clone()
+    # Stage B phase by phase, then one wrapper call on the same inputs
+    for _, launch in stage_b:
+        run(launch)
+    torch.cuda.synchronize()
+    sn_eq = bool(torch.equal(Sn, sn_a))
+    u_eq = {}
+    for threads in (256, 512, 1024):
+        U.fill_(float("nan"))
+        run(factor(threads))
+        torch.cuda.synchronize()
+        u_eq[threads] = bool(torch.equal(U, u_a) and torch.equal(tier,
+                                                                  tier_a))
+    for _, launch in stage_b:
+        run(launch)
+    torch.cuda.synchronize()
+    Zw, ldw, tw = mk._mega_like_cuda(*args)
+    torch.cuda.synchronize()
+    call_eq = bool(torch.equal(Zw, Z) and torch.equal(ldw, ld)
+                   and torch.equal(tw, tier))
+    print(f"{entry}: {len(stage_b)} CUDA launches per wrapper call, one C "
+          f"call ({', '.join(name for name, _ in stage_b)}); tiled Gram's Sn"
+          f" bit-equal to the one-block prologue's: {sn_eq}; shared-memory "
+          f"factor's U bit-equal to solve_factor_kernel's: "
+          + ", ".join(f"{t} threads {e}" for t, e in u_eq.items())
+          + f"; phase by phase bit-equal to one wrapper call: {call_eq}")
+    if not (sn_eq and all(u_eq.values()) and call_eq):
+        fail(f"{entry}: the pipeline's phases disagree with their "
+             "baselines bit for bit")
+
+    tables = {}
+    for label, phases in (("Stage A", stage_a), ("Stage B", stage_b)):
+        ms = {name: time_cuda(lambda l=launch: run(l))
+              for name, launch in phases}
+        tables[label] = ms
+        print(f"{entry} phases, {label}, at S {tuple(S32.shape)} Bn "
+              f"{tuple(Bn.shape)}: "
+              + "  ".join(f"{name} {t:.4f}" for name, t in ms.items())
+              + f"  sum {sum(ms.values()):.4f} ms (CUDA events, median of "
+              f"50 each; whole call {whole_ms:.4f} ms) [{smi}]")
+    fms = {t: time_cuda(lambda t=t: run(factor(t))) for t in (256, 512, 1024)}
+    print(f"{entry} shared-memory factor by threads: "
+          + "  ".join(f"{t} {v:.4f}" for t, v in fms.items())
+          + f" ms (pipeline uses {nt}) [{smi}]")
+
+    # the designs themselves, each one bare C call on preallocated buffers
+    # (the wrapper's checks and allocations left out), CUDA events around
+    # one call: the pipeline, its phases back to back on one stream, and
+    # the single-launch design
+    def new():
+        run(lambda: lib.mega_like_launch(
+            *ptr, Bn.data_ptr(), *(t.data_ptr() for t in bufs[:4]), B, ntoa,
+            nb, k, float(j1), float(j2), int(refine), stream))
+
+    def serial():
+        for _, launch in stage_b:
+            run(launch)
+
+    old, (Zo, ldo, _) = like_single_block(torch, lib, args)
+    serial_ms = time_cuda(serial)
+    turns = [("old", old), ("new", new), ("new", new), ("old", old)]
+    ab = [(name, time_cuda(fn)) for name, fn in turns]
+    new()
+    old()
+    torch.cuda.synchronize()
+    gap = max(float((Z - Zo).abs().max()), float((ld - ldo).abs().max()))
+    old_ms = (ab[0][1] + ab[3][1]) / 2
+    new_ms = (ab[1][1] + ab[2][1]) / 2
+    print(f"{entry} A/B, single-launch design (old) against the pipeline "
+          "(new), one bare C call each, in turns: "
+          + "  ".join(f"{name} {t:.4f}" for name, t in ab)
+          + f" ms; old/new {old_ms / new_ms:.2f}x; max|old - new| "
+          f"{gap:.3e}; the pipeline's phases back to back on one stream "
+          f"{serial_ms:.4f} ms (the fork saves {serial_ms - new_ms:.4f}); "
+          f"the wrapper call {whole_ms:.4f} ms [{smi}]")
+    if not gap <= ATOL:
+        fail(f"{entry}: the pipeline and the single-launch design disagree")
+    return dict(phases_ms=tables["Stage B"], stage_a_ms=tables["Stage A"],
+                single_block_ms=old_ms, bare_call_ms=new_ms,
+                serial_ms=serial_ms)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: {PKG}/ not found next to this script; run it "
@@ -462,6 +692,9 @@ def main():
                    lambda tiers: like_cost(S32, Bl, refine, tiers),
                    f"S {tuple(S32.shape)} w {tuple(w.shape)} Bn "
                    f"{tuple(Bl.shape)}")
+        results[entry].update(like_pipeline(
+            torch, mk, cuda_lib.load_library(), args, entry,
+            results[entry]["ms"], smi))
 
     with tempfile.TemporaryDirectory() as tmp:
         prfile = write_paramfile(tmp, "system_noise.dat", nsamp=NSAMP)
@@ -527,6 +760,17 @@ def main():
             torch, mk, cuda_lib.load_library(), Sn, Bn, j1, j2, refine,
             results["mega_solve@pt"]["ms"], smi)
         hold_like("mega_like@pt", "pt1", cap_l.args)
+        # the likelihood pipeline on the three tiers at the path's nb, and
+        # at the caps, with the path's jitters and refinement count
+        lj1, lj2, lrefine = cap_l.args[-3:]
+        lib = cuda_lib.load_library()
+        hold_like_fixture(
+            torch, mk, lib, "three-tier fixture nb=120",
+            like_tier_fixture(torch, dev) + [1e-6, 1e-2, lrefine], [1, 2, 3])
+        hold_like_fixture(
+            torch, mk, lib, "at the caps (ntoa 4096, nb 192, W 8)",
+            like_inputs(torch, dev, 4096, 192, 8, 4, 7)
+            + [lj1, lj2, lrefine])
 
         # ---- phase 4: the gradient path and its kernels ------------------
         hmc_prfile = write_paramfile(tmp, "hmc_single_psr.dat", **HMC_KEYS)
@@ -763,8 +1007,10 @@ def main():
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, kernel=kname,
             path=PATHS[r["run"]], shape=r["shape"]))
-        if "phases_ms" in r:
-            kernels[-1]["phases_ms"] = r["phases_ms"]
+        for key in ("phases_ms", "stage_a_ms", "single_block_ms",
+                    "bare_call_ms", "serial_ms"):
+            if key in r:
+                kernels[-1][key] = r[key]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

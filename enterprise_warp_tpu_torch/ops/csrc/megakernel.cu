@@ -6,8 +6,8 @@
 //   the solve pipeline   replaces  enterprise_warp_tpu/ops/megakernel.py:
 //                                  _mega_solve_kernel (pallas_call in
 //                                  _mega_solve_raw)
-//   mega_like_kernel     replaces  enterprise_warp_tpu/ops/megakernel.py:
-//                                  _mega_like_kernel (pallas_call in
+//   the likelihood       replaces  enterprise_warp_tpu/ops/megakernel.py:
+//   pipeline                       _mega_like_kernel (pallas_call in
 //                                  _mega_like_raw)
 //   chol_precond_kernel  replaces  enterprise_warp_tpu/ops/cholfuse.py:
 //                                  _chol_kernel (pallas_call in
@@ -25,9 +25,9 @@
 //      larger than the first pass's, else Z0;
 //   5. ld = 2 sum log diag U + the 4-term trace expansion of
 //      E = V^T (Sn - U^T U) V, applied only when ||E||_F^2 < 0.09.
-// mega_like_kernel (one 256-thread block per walker) first forms
-// Ss = S sqrt(w) from the shared (ntoa, nb) basis, G = Ss^T Ss and
-// Sn = s G s + diag(ivb), then runs the whole chain (solve_chain).
+// The likelihood pipeline first forms Sn = s (Ss^T Ss) s + diag(ivb), with
+// Ss = S sqrt(w) from the shared (ntoa, nb) basis, then runs the chain on
+// it (below, after the solve pipeline).
 // chol_precond_kernel (one block per walker) runs steps 1 and 2 and forms
 // E, and writes the trio (U, V, E) out: the preconditioner of the classic
 // chain, whose refinement and logdet stay in float64 outside
@@ -64,12 +64,17 @@
 // (32-column tile, walker) grid with its column tile in shared memory
 // (64 blocks at (8, 250)). The factor, the skinny solves and the trace
 // sums stay one block per walker; the factor's n barriered steps are then
-// the longest serial chain. Mega_like_kernel and chol_precond_kernel keep
-// the one-block design: on the same 8 or 64 walkers they hold the same
-// limits.
+// the longest serial chain. The likelihood pipeline reuses those phases
+// and puts two of its own in front: the Gram on a (32 x 32 output tile,
+// walker) grid, and the factor with the walker's whole working matrix in
+// shared memory (nb <= 192); it runs the refine phase beside the logdet
+// products on a second stream. Chol_precond_kernel keeps the one-block
+// design.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <mutex>
 
 namespace {
 
@@ -399,6 +404,35 @@ mega_solve_kernel(const float* __restrict__ Sn, const float* __restrict__ Bn,
               ws + (size_t)b * solve_ws(n, k), n, k, j1, j2, refine, sm);
 }
 
+// The one-block Gram prologue of one walker: Ss = S sqrt(w) (rows) into the
+// global scratch Ss, G = Ss^T Ss, Sn = s G s + diag(ivb).
+__device__ void like_gram_block(const float* S, const float* wb,
+                                const float* sb, const float* ivbb,
+                                float* Snb, float* Ss, int ntoa, int nb,
+                                Smem& sm) {
+  for (int e = threadIdx.x; e < ntoa * nb; e += NT) {
+    const int t = e / nb;
+    Ss[e] = S[e] * sqrtf(wb[t]);
+  }
+  __syncthreads();
+  block_gemm(nb, nb, ntoa, Ss, nb, true, Ss, nb, false, Snb, nb, 1.f, nullptr, 0, sm);
+  // Sigma assembly on the equilibrated scales: Sn = s G s + diag(ivb)
+  for (int e = threadIdx.x; e < nb * nb; e += NT) {
+    const int i = e / nb, j = e - i * nb;
+    const float g = __fmul_rn(__fmul_rn(Snb[e], sb[i]), sb[j]);
+    Snb[e] = __fadd_rn(g, i == j ? ivbb[i] : 0.f);
+  }
+  __syncthreads();
+}
+
+__device__ __host__ inline long long like_single_block_ws(int ntoa, int nb,
+                                                          int k) {
+  return solve_ws(nb, k) + (long long)nb * nb + (long long)ntoa * nb;
+}
+
+// The earlier single-launch likelihood kernel: one block per walker runs
+// the Gram prologue and the whole chain (solve_chain). Kept only as the A/B
+// baseline of chip_smoke.py.
 __global__ void __launch_bounds__(NT)
 mega_like_kernel(const float* __restrict__ S, const float* __restrict__ w,
                  const float* __restrict__ s, const float* __restrict__ ivb,
@@ -408,30 +442,28 @@ mega_like_kernel(const float* __restrict__ S, const float* __restrict__ w,
   __shared__ Smem sm;
   const int b = blockIdx.x;
   const size_t nn = (size_t)nb * nb, nk = (size_t)nb * k;
-  const long long per = solve_ws(nb, k) + (long long)nn + (long long)ntoa * nb;
-  float* wsb = ws + (size_t)b * per;
+  float* wsb = ws + (size_t)b * like_single_block_ws(ntoa, nb, k);
   float* Snb = wsb + solve_ws(nb, k);
-  float* Ss = Snb + nn;
-  const float* wb = w + (size_t)b * ntoa;
-  const float* sb = s + (size_t)b * nb;
-  const float* ivbb = ivb + (size_t)b * nb;
-
-  // Gram prologue: Ss = S sqrt(w) (rows), G = Ss^T Ss
-  for (int e = threadIdx.x; e < ntoa * nb; e += NT) {
-    const int t = e / nb;
-    Ss[e] = S[e] * sqrtf(wb[t]);
-  }
-  __syncthreads();
-  block_gemm(nb, nb, ntoa, Ss, nb, true, Ss, nb, false, Snb, nb, 1.f, nullptr, 0, sm);
-  // Sigma assembly on the equilibrated scales: Sn = s G s + diag(ivb)
-  for (int e = threadIdx.x; e < (int)nn; e += NT) {
-    const int i = e / nb, j = e - i * nb;
-    const float g = __fmul_rn(__fmul_rn(Snb[e], sb[i]), sb[j]);
-    Snb[e] = __fadd_rn(g, i == j ? ivbb[i] : 0.f);
-  }
-  __syncthreads();
+  like_gram_block(S, w + (size_t)b * ntoa, s + (size_t)b * nb,
+                  ivb + (size_t)b * nb, Snb, Snb + nn, ntoa, nb, sm);
   solve_chain(Snb, Bn + b * nk, Z + b * nk, ld + b, tier + b, wsb, nb, k, j1,
               j2, refine, sm);
+}
+
+// The Gram prologue alone, one block per walker, into the (B, nb, nb) Sn
+// buffer (Ss: B ntoa nb floats of scratch): the Gram phase of
+// chip_smoke.py's Stage A table.
+__global__ void __launch_bounds__(NT)
+like_gram_block_kernel(const float* __restrict__ S,
+                       const float* __restrict__ w,
+                       const float* __restrict__ s,
+                       const float* __restrict__ ivb, float* Sn, float* Ss,
+                       int ntoa, int nb) {
+  __shared__ Smem sm;
+  const int b = blockIdx.x;
+  like_gram_block(S, w + (size_t)b * ntoa, s + (size_t)b * nb,
+                  ivb + (size_t)b * nb, Sn + (size_t)b * nb * nb,
+                  Ss + (size_t)b * ntoa * nb, ntoa, nb, sm);
 }
 
 // Workspace of one preconditioner walker: X, the Cholesky working copy,
@@ -745,9 +777,232 @@ solve_logdet_kernel(float* ld, float* ws, int n, int k) {
   if (threadIdx.x == 0) ld[b] = 2.0f * sld + corr;
 }
 
+// ---- the likelihood pipeline -------------------------------------------
+//
+// mega_like_launch enqueues, on one per-walker workspace laid out as the
+// solve pipeline's (solve_ws floats per walker) followed by the (B, nb, nb)
+// Sn buffer:
+//   gram      grid (tiles^2, B)   Sn = s (Ss^T Ss) s + diag(ivb), one
+//                                 GT x GT output tile per block
+//   factor    grid (B)            the tier ladder with the working matrix
+//                                 in shared memory: U, tier
+//   then the solve pipeline's inverse, refine, four products and logdet,
+//   unchanged, on Sn (the refine phase and the products overlap: see
+//   mega_like_launch).
+// Each Sn entry sums its Gram terms in block_gemm's order (m = 0, 1, ...,
+// one fmaf each) and takes the same rounded epilogue, so it equals the
+// one-block prologue's bit for bit; the factor runs chol_upper's rank-1
+// steps in chol_upper's order, so U equals solve_factor_kernel's bit for
+// bit on the same Sn.
+
+constexpr int LIKE_MAXN = 192;   // the likelihood kernel's basis cap
+constexpr int GT = 32;           // Gram output tile (GT x GT per block)
+constexpr int GD = 128;          // Gram depth rows staged per barrier
+
+// One GT x GT tile of Sn per block, grid (tiles^2, B). The rows of S are
+// scaled by sqrt(w) as they are staged into shared memory (no Ss slot);
+// each thread owns 2 x 2 outputs.
+__global__ void __launch_bounds__(NT)
+like_gram_tile_kernel(const float* __restrict__ S,
+                      const float* __restrict__ w,
+                      const float* __restrict__ s,
+                      const float* __restrict__ ivb, float* Sn, int ntoa,
+                      int nb) {
+  __shared__ float As[GD][GT + 1];
+  __shared__ float Bs[GD][GT + 1];
+  const int tiles = (nb + GT - 1) / GT;
+  const int i0 = (blockIdx.x / tiles) * GT, j0 = (blockIdx.x % tiles) * GT;
+  const int b = blockIdx.y;
+  const float* wb = w + (size_t)b * ntoa;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  constexpr int R = (GD * GT) / NT;   // staged entries per thread
+  const int l = tid % GT;
+  for (int m0 = 0; m0 < ntoa; m0 += GD) {
+    // every load of the chunk is issued before the first sqrtf, whose
+    // slow-path branch would otherwise hold each load back to its own
+    // round trip
+    float ra[R], rc[R], rw[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int m = m0 + (tid + r * NT) / GT;
+      const float* Sm = S + (size_t)m * nb;
+      ra[r] = (m < ntoa && i0 + l < nb) ? Sm[i0 + l] : 0.f;
+      rc[r] = (m < ntoa && j0 + l < nb) ? Sm[j0 + l] : 0.f;
+      rw[r] = m < ntoa ? wb[m] : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int ml = (tid + r * NT) / GT;
+      const float q = sqrtf(rw[r]);
+      As[ml][l] = ra[r] * q;
+      Bs[ml][l] = rc[r] * q;
+    }
+    __syncthreads();
+    const int md = min(GD, ntoa - m0);
+    for (int kk = 0; kk < md; ++kk) {
+      const float a0 = As[kk][ty], a1 = As[kk][ty + 16];
+      const float b0 = Bs[kk][tx], b1 = Bs[kk][tx + 16];
+      acc[0][0] = fmaf(a0, b0, acc[0][0]);
+      acc[0][1] = fmaf(a0, b1, acc[0][1]);
+      acc[1][0] = fmaf(a1, b0, acc[1][0]);
+      acc[1][1] = fmaf(a1, b1, acc[1][1]);
+    }
+    __syncthreads();
+  }
+  const float* sb = s + (size_t)b * nb;
+  const float* ivbb = ivb + (size_t)b * nb;
+  float* Snb = Sn + (size_t)b * nb * nb;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int i = i0 + ty + 16 * a;
+    if (i >= nb) continue;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = j0 + tx + 16 * c;
+      if (j >= nb) continue;
+      const float g = __fmul_rn(__fmul_rn(acc[a][c], sb[i]), sb[j]);
+      Snb[(size_t)i * nb + j] = __fadd_rn(g, i == j ? ivbb[i] : 0.f);
+    }
+  }
+}
+
+// Dynamic shared memory of one factor block: the working matrix X, n rows
+// of stride n + 1.
+size_t factor_smem(int n) { return sizeof(float) * (size_t)n * (n + 1); }
+
+// chol_upper with X in shared memory (row stride n + 1): the same rank-1
+// steps on the same values in the same order, so U is chol_upper's bit for
+// bit. Row k of U is written whole at step k (zeros left of the diagonal),
+// so U needs no clearing pass.
+template <int FT>
+__device__ bool chol_upper_smem(const float* Sn, float jit, float* X,
+                                float* U, int n, int tier, float* lvec,
+                                int* flag) {
+  constexpr int NW = FT / 32;
+  const int ldx = n + 1;
+  for (int e = threadIdx.x; e < n * n; e += FT) {
+    const int i = e / n, j = e - i * n;
+    X[i * ldx + j] = Sn[e] + (i == j ? jit : 0.f);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int k = 0; k < n; ++k) {
+    const float dkk = X[k * ldx + k];
+    const float ipiv = 1.0f / sqrtf(dkk);
+    for (int j = threadIdx.x; j < n; j += FT) {
+      float v = 0.f;
+      if (j >= k) {
+        v = X[k * ldx + j] * ipiv;
+        lvec[j] = v;
+        if (!isfinite(v)) flag[tier] = 1;
+      }
+      U[(size_t)k * n + j] = v;
+    }
+    __syncthreads();
+    if (flag[tier]) return false;
+    for (int i = k + 1 + wid; i < n; i += NW) {
+      const float li = lvec[i];
+      float* Xi = X + i * ldx;
+      for (int j = i + lane; j < n; j += 32) Xi[j] = fmaf(-li, lvec[j], Xi[j]);
+    }
+    __syncthreads();
+  }
+  return true;
+}
+
+// The factor phase of the likelihood pipeline, grid (B), FT threads: the
+// tier ladder of solve_factor_kernel on chol_upper_smem. Tier 2 reloads
+// Sn + j2 I from global memory only in blocks whose tier 1 failed.
+template <int FT>
+__global__ void __launch_bounds__(FT)
+solve_factor_smem_kernel(const float* __restrict__ Sn, int* tier, float* ws,
+                         int n, int k, float j1, float j2) {
+  extern __shared__ float X[];
+  __shared__ float lvec[LIKE_MAXN];
+  __shared__ int flag[2];   // one non-finite flag per Cholesky tier
+  const int b = blockIdx.x;
+  const SolveWs w = solve_ws_at(ws, b, n, k);
+  const float* S = Sn + (size_t)b * n * n;
+  if (threadIdx.x == 0) flag[0] = flag[1] = 0;
+  __syncthreads();
+  int t = 1;
+  bool ok = chol_upper_smem<FT>(S, j1, X, w.U, n, 0, lvec, flag);
+  if (!ok) {
+    t = 2;
+    ok = chol_upper_smem<FT>(S, j2, X, w.U, n, 1, lvec, flag);
+  }
+  if (!ok) {
+    t = 3;
+    for (int e = threadIdx.x; e < n * n; e += FT) {
+      const int i = e / n, j = e - i * n;
+      w.U[e] = (i == j) ? 1.f : 0.f;
+    }
+  }
+  if (threadIdx.x == 0) tier[b] = t;
+}
+
+// Threads of the pipeline's factor blocks (chip_smoke.py times 256, 512
+// and 1024 through mega_like_factor_launch).
+constexpr int FACTOR_NT = 512;
+
+template <int FT>
+int factor_smem_launch(const float* Sn, int* tier, float* ws, int B, int n,
+                       int k, float j1, float j2, cudaStream_t stream) {
+  // above 48 KB a block's shared memory must be asked for, once per device
+  static bool ready[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(solve_factor_smem_kernel<FT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)factor_smem(LIKE_MAXN));
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  solve_factor_smem_kernel<FT><<<B, FT, factor_smem(n), stream>>>(
+      Sn, tier, ws, n, k, j1, j2);
+  return (int)cudaGetLastError();
+}
+
+bool like_args_ok(int B, int ntoa, int nb, int k) {
+  return B > 0 && ntoa > 0 && nb > 0 && nb <= LIKE_MAXN && k > 0 && k <= KMAX;
+}
+
 bool solve_args_ok(int B, int n, int k) {
   return B > 0 && n > 0 && n <= MAXN && k > 0 && k <= KMAX;
 }
+
+// The side stream and the events of mega_like_launch's fork, one set per
+// device, made at first use.
+struct Fork {
+  cudaStream_t side;
+  cudaEvent_t factored, inverted, done;
+};
+
+int fork_for_device(Fork** out) {
+  static Fork forks[64];
+  static bool ready[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  Fork& f = forks[dev];
+  if (!ready[dev]) {
+    err = cudaStreamCreateWithFlags(&f.side, cudaStreamNonBlocking);
+    for (cudaEvent_t* e : {&f.factored, &f.inverted, &f.done})
+      if (err == cudaSuccess)
+        err = cudaEventCreateWithFlags(e, cudaEventDisableTiming);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  *out = &f;
+  return 0;
+}
+
+std::mutex fork_mutex;   // one caller at a time on the side streams
 
 }  // namespace
 
@@ -755,8 +1010,14 @@ extern "C" {
 
 long long mega_solve_ws_floats(int n, int k) { return solve_ws(n, k); }
 
-long long mega_like_ws_floats(int ntoa, int nb, int k) {
-  return solve_ws(nb, k) + (long long)nb * nb + (long long)ntoa * nb;
+// The likelihood pipeline's workspace per walker: the solve pipeline's
+// slots, then (after all B walkers' slots) the walker's Sn.
+long long mega_like_ws_floats(int nb, int k) {
+  return solve_ws(nb, k) + (long long)nb * nb;
+}
+
+long long mega_like_single_block_ws_floats(int ntoa, int nb, int k) {
+  return like_single_block_ws(ntoa, nb, k);
 }
 
 // The solve pipeline's phases, in order (the wrapper launches them all; each
@@ -852,16 +1113,106 @@ int mega_solve_single_block_launch(const float* Sn, const float* Bn, float* Z,
   return (int)cudaGetLastError();
 }
 
+// The likelihood pipeline's own phases (mega_like_launch enqueues them;
+// chip_smoke.py also times each alone).
+
+int mega_like_gram_launch(const float* S, const float* w, const float* s,
+                          const float* ivb, float* Sn, int B, int ntoa,
+                          int nb, void* stream) {
+  if (!like_args_ok(B, ntoa, nb, 1)) return (int)cudaErrorInvalidValue;
+  const int tiles = (nb + GT - 1) / GT;
+  const dim3 grid(tiles * tiles, B);
+  like_gram_tile_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(S, w, s, ivb,
+                                                               Sn, ntoa, nb);
+  return (int)cudaGetLastError();
+}
+
+int mega_like_factor_threads() { return FACTOR_NT; }
+
+int mega_like_factor_launch(const float* Sn, int* tier, float* ws, int B,
+                            int n, int k, float j1, float j2, int threads,
+                            void* stream) {
+  if (!like_args_ok(B, 1, n, k)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (threads) {
+    case 256: return factor_smem_launch<256>(Sn, tier, ws, B, n, k, j1, j2, st);
+    case 512: return factor_smem_launch<512>(Sn, tier, ws, B, n, k, j1, j2, st);
+    case 1024:
+      return factor_smem_launch<1024>(Sn, tier, ws, B, n, k, j1, j2, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One evaluation: the Gram, the factor, then the solve pipeline's phases on
+// the Sn buffer at ws + B solve_ws(nb, k), forked over two streams where
+// they share no slot:
+//   caller's stream  gram, factor, inverse, refine, (join)
+//   side stream                (after factor) product 0,
+//                              (after inverse) products 1-3, logdet
+// The refine phase (V, Sn, Bn -> Tb, Z0, Zc, R, D, Z) overlaps the logdet
+// chain (U, V, Sn -> W1, W2, X -> ld), and product 0 the inverse. The
+// caller's stream waits for the side stream before the call returns, so
+// the outputs are ordered on the caller's stream as one kernel's would be.
+// Returns the first non-zero cudaError of its launches and stream calls.
 int mega_like_launch(const float* S, const float* w, const float* s,
                      const float* ivb, const float* Bn, float* Z, float* ld,
                      int* tier, float* ws, int B, int ntoa, int nb, int k,
                      float j1, float j2, int refine, void* stream) {
+  if (!like_args_ok(B, ntoa, nb, k) || refine < 0)
+    return (int)cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(fork_mutex);
+  Fork* f = nullptr;
+  int rc = fork_for_device(&f);
+  if (rc != 0) return rc;
+  const cudaStream_t main = (cudaStream_t)stream;
+  float* Sn = ws + (size_t)B * solve_ws(nb, k);
+  rc = mega_like_gram_launch(S, w, s, ivb, Sn, B, ntoa, nb, stream);
+  if (rc == 0)
+    rc = mega_like_factor_launch(Sn, tier, ws, B, nb, k, j1, j2, FACTOR_NT,
+                                 stream);
+  if (rc == 0) rc = (int)cudaEventRecord(f->factored, main);
+  if (rc == 0) rc = (int)cudaStreamWaitEvent(f->side, f->factored, 0);
+  if (rc == 0) rc = mega_solve_product_launch(Sn, ws, B, nb, k, 0, f->side);
+  if (rc == 0) rc = mega_solve_inverse_launch(ws, B, nb, k, stream);
+  if (rc == 0) rc = (int)cudaEventRecord(f->inverted, main);
+  if (rc == 0) rc = (int)cudaStreamWaitEvent(f->side, f->inverted, 0);
+  for (int p = 1; p < 4 && rc == 0; ++p)
+    rc = mega_solve_product_launch(Sn, ws, B, nb, k, p, f->side);
+  if (rc == 0) rc = mega_solve_logdet_launch(ld, ws, B, nb, k, f->side);
+  if (rc == 0) rc = (int)cudaEventRecord(f->done, f->side);
+  if (rc == 0)
+    rc = mega_solve_refine_launch(Sn, Bn, Z, ws, B, nb, k, refine, stream);
+  if (rc == 0) rc = (int)cudaStreamWaitEvent(main, f->done, 0);
+  return rc;
+}
+
+// The earlier single-launch likelihood kernel and its Gram prologue alone,
+// kept only as the baselines of chip_smoke.py's A/B and Stage A table;
+// nothing in the package calls them. ws: B
+// mega_like_single_block_ws_floats(ntoa, nb, k) floats; Ss: B ntoa nb.
+
+int mega_like_single_block_launch(const float* S, const float* w,
+                                  const float* s, const float* ivb,
+                                  const float* Bn, float* Z, float* ld,
+                                  int* tier, float* ws, int B, int ntoa,
+                                  int nb, int k, float j1, float j2,
+                                  int refine, void* stream) {
   if (B <= 0 || ntoa <= 0 || nb <= 0 || nb > MAXN || k <= 0 || k > KMAX ||
       refine < 0)
     return (int)cudaErrorInvalidValue;
   mega_like_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(S, w, s, ivb, Bn, Z, ld,
                                                        tier, ws, ntoa, nb, k,
                                                        j1, j2, refine);
+  return (int)cudaGetLastError();
+}
+
+int mega_like_gram_single_block_launch(const float* S, const float* w,
+                                       const float* s, const float* ivb,
+                                       float* Sn, float* Ss, int B, int ntoa,
+                                       int nb, void* stream) {
+  if (!like_args_ok(B, ntoa, nb, 1)) return (int)cudaErrorInvalidValue;
+  like_gram_block_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(S, w, s, ivb, Sn,
+                                                             Ss, ntoa, nb);
   return (int)cudaGetLastError();
 }
 

@@ -33,7 +33,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "mega_solve_ws_floats": ([_I, _I], ctypes.c_longlong),
-    "mega_like_ws_floats": ([_I, _I, _I], ctypes.c_longlong),
+    "mega_like_ws_floats": ([_I, _I], ctypes.c_longlong),
+    "mega_like_single_block_ws_floats": ([_I, _I, _I], ctypes.c_longlong),
     "mega_solve_factor_launch": ([_P] * 3 + [_I, _I, _I, _F, _F, _P], _I),
     "mega_solve_inverse_launch": ([_P, _I, _I, _I, _P], _I),
     "mega_solve_refine_launch": ([_P] * 4 + [_I, _I, _I, _I, _P], _I),
@@ -44,7 +45,13 @@ _SIGNATURES = {
         [_P] * 2 + [_I, _I, _I, _I, _P], _I),
     "mega_solve_single_block_launch": (
         [_P] * 6 + [_I, _I, _I, _F, _F, _I, _P], _I),
+    "mega_like_gram_launch": ([_P] * 5 + [_I, _I, _I, _P], _I),
+    "mega_like_factor_threads": ([], _I),
+    "mega_like_factor_launch": ([_P] * 3 + [_I, _I, _I, _F, _F, _I, _P], _I),
     "mega_like_launch": ([_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P], _I),
+    "mega_like_single_block_launch": (
+        [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P], _I),
+    "mega_like_gram_single_block_launch": ([_P] * 6 + [_I, _I, _I, _P], _I),
     "chol_precond_ws_floats": ([_I], ctypes.c_longlong),
     "chol_precond_launch": ([_P] * 6 + [_I, _I, _F, _F, _P], _I),
 }

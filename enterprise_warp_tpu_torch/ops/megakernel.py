@@ -15,7 +15,9 @@ are hand-written CUDA here (``csrc/megakernel.cu``, built and bound by
   (tile, walker), the rest one block per walker.
 - :func:`mega_marginalized_loglike` — the single-pulsar likelihood: its
   device half (:func:`mega_like`) adds the per-walker basis Gram and the
-  Sigma assembly in front of the same chain, and its float64 host half
+  Sigma assembly in front of the same chain, as one C call that enqueues
+  a tiled Gram launch, a factor with the walker's matrix in shared
+  memory, and the solve pipeline's other phases; its float64 host half
   (skinny Grams, equilibration scales, timing-model Schur stage with a
   relatively-clamped ``eigh``) stays outside the kernel, exactly as in
   the reference: an in-kernel float32 Schur stage is off by O(1) in lnL.
@@ -199,8 +201,28 @@ def _mega_solve_cuda(Sn, Bn, j1, j2, refine):
     return bufs[:3]
 
 
+def _mega_like_buffers(lib, Bn):
+    """A likelihood call's outputs ``Z``, ``ld``, ``tier``, its workspace
+    ``ws`` (the solve pipeline's per-walker slots, then every walker's
+    ``Sn``) and ``Sn`` (B, nb, nb), the view of ``ws`` that
+    ``mega_like_launch`` fills and the solve phases read."""
+    B, nb, k = Bn.shape
+    dev = Bn.device
+    ws = torch.empty(int(lib.mega_like_ws_floats(nb, k)) * B,
+                     dtype=torch.float32, device=dev)
+    Z = torch.empty((B, nb, k), dtype=torch.float32, device=dev)
+    ld = torch.empty((B,), dtype=torch.float32, device=dev)
+    tier = torch.empty((B,), dtype=torch.int32, device=dev)
+    off = int(lib.mega_solve_ws_floats(nb, k)) * B
+    return Z, ld, tier, ws, ws[off:off + B * nb * nb].view(B, nb, nb)
+
+
 def _mega_like_cuda(S32, w, s, ivb, Bn, j1, j2, refine):
-    """Launch the likelihood megakernel: returns ``(Z, ld, tier)``."""
+    """Run the likelihood pipeline on ``torch.cuda.current_stream()``:
+    returns ``(Z, ld, tier)``. ``mega_like_launch`` enqueues every phase
+    (the Gram, the shared-memory factor, then the solve pipeline's
+    inverse, refine, four products and logdet) in one C call, and one
+    call is one launch of the ``mega_like`` kernel in ``LAUNCHES``."""
     from .cuda_lib import load_library
     ntoa, nb = S32.shape
     B, k = w.shape[0], Bn.shape[-1]
@@ -212,22 +234,17 @@ def _mega_like_cuda(S32, w, s, ivb, Bn, j1, j2, refine):
     if len({t.device for t in (S32, w, s, ivb, Bn)}) != 1:
         raise ValueError("all inputs must lie on the same device")
     lib = load_library()
+    bufs = _mega_like_buffers(lib, Bn)
     dev = S32.device
-    ws = torch.empty(int(lib.mega_like_ws_floats(ntoa, nb, k)) * B,
-                     dtype=torch.float32, device=dev)
-    Z = torch.empty((B, nb, k), dtype=torch.float32, device=dev)
-    ld = torch.empty((B,), dtype=torch.float32, device=dev)
-    tier = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mega_like_launch(
             S32.data_ptr(), w.data_ptr(), s.data_ptr(), ivb.data_ptr(),
-            Bn.data_ptr(), Z.data_ptr(), ld.data_ptr(), tier.data_ptr(),
-            ws.data_ptr(), B, ntoa, nb, k, float(j1), float(j2),
-            int(refine), stream)
+            Bn.data_ptr(), *(t.data_ptr() for t in bufs[:4]), B, ntoa, nb,
+            k, float(j1), float(j2), int(refine), stream)
     launch_check(rc, "mega_like")
     record_launch("mega_like")
-    return Z, ld, tier
+    return bufs[:3]
 
 
 def _wrapper_route(kernel, fits, device):
@@ -334,9 +351,9 @@ class _MegaLnl(torch.autograd.Function):
 
 def mega_marginalized_loglike(nw, b, r_w, M_w, T_w, mask, refine):
     """Single-pulsar marginalized log-likelihood (W,) through the
-    likelihood megakernel: one launch for the Gram -> Sigma -> factor ->
-    solve -> refine -> logdet chain, plus float64 host-precision work
-    around it. ``nw`` (W, ntoa), ``b`` (W, nb), ``mask`` (W, ntoa) (ones
+    likelihood megakernel: one C call that enqueues the Gram -> Sigma ->
+    factor -> solve -> refine -> logdet chain, plus float64 host-precision
+    work around it. ``nw`` (W, ntoa), ``b`` (W, nb), ``mask`` (W, ntoa) (ones
     when unmasked). Differentiable (see :class:`_MegaLnl`)."""
     return _MegaLnl.apply(nw, b, r_w, M_w, T_w, mask, int(refine))
 

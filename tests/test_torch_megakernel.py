@@ -29,7 +29,9 @@ need a card and skip without one; ``chip_smoke.py`` is what holds the
 kernels against these plain versions on the card.
 """
 
+import ctypes
 import os
+import re
 import types
 
 import jax
@@ -43,6 +45,7 @@ from enterprise_warp_tpu.ops import megakernel as jmk
 from enterprise_warp_tpu.ops.kernel import \
     marginalized_loglike as j_marginalized_loglike
 from enterprise_warp_tpu.samplers.evalproto import eval_protocol
+from enterprise_warp_tpu_torch.ops import cuda_lib
 from enterprise_warp_tpu_torch.ops import megakernel as tmk
 from enterprise_warp_tpu_torch.ops import routes as troutes
 from enterprise_warp_tpu_torch.ops.kernel import \
@@ -207,6 +210,121 @@ def test_solve_phases_launch_in_order():
             if c == "mega_solve_product_launch"] == [0, 1, 2, 3]
     assert lib.calls[0][1][-3:-1] == (3e-6, 9e-5)
     assert lib.calls[2][1][-2] == 2
+
+
+CSRC = os.path.join(REPO, "enterprise_warp_tpu_torch", "ops", "csrc",
+                    "megakernel.cu")
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_entry_points():
+    """``{name: (argtypes, restype)}`` of every function the CUDA source
+    exports (its ``extern "C"`` block), read from the declarations."""
+    src = open(CSRC).read()
+    block = src[src.index('extern "C" {'):]
+    out = {}
+    for ret, name, params in re.findall(
+            r"^(int|long long) (\w+)\(([^)]*)\)\s*\{", block, re.M):
+        args = [a.strip() for a in params.split(",") if a.strip()]
+        out[name] = ([ctypes.c_void_p if "*" in a else
+                      _C_TYPES[a.rsplit(" ", 1)[0].replace("const ", "")]
+                      for a in args],
+                     ctypes.c_int if ret == "int" else ctypes.c_longlong)
+    return out
+
+
+def test_signature_table_lists_every_entry_point():
+    exported = _c_entry_points()
+    new = ("mega_like_launch", "mega_like_gram_launch",
+           "mega_like_factor_launch", "mega_like_factor_threads",
+           "mega_like_single_block_launch",
+           "mega_like_gram_single_block_launch", "mega_like_ws_floats",
+           "mega_like_single_block_ws_floats")
+    assert set(new) <= set(exported)
+    # every exported function is bound, with its C argument and return
+    # types (a pointer or the stream as c_void_p, else ctypes passes a
+    # 32-bit int and cuts it)
+    assert exported == cuda_lib._SIGNATURES
+
+
+class _FakeLikeLib(_FakeLib):
+    """The likelihood pipeline's C calls, recorded; the workspace sizes
+    as the CUDA source computes them."""
+
+    def mega_solve_ws_floats(self, n, k):
+        return 5 * n * n + 5 * n * k
+
+    def mega_like_ws_floats(self, *args):
+        self.calls.append(("mega_like_ws_floats", args))
+        nb, k = args
+        return self.mega_solve_ws_floats(nb, k) + nb * nb
+
+
+def test_like_workspace_has_no_ss_slot():
+    B, nb, k = 3, 17, 4
+    lib = _FakeLikeLib()
+    Z, ld, tier, ws, Sn = tmk._mega_like_buffers(lib, torch.zeros(B, nb, k))
+    # sized from (nb, k) alone: the (ntoa, nb) Ss slot of the single-launch
+    # design is gone
+    assert lib.calls == [("mega_like_ws_floats", (nb, k))]
+    sw = lib.mega_solve_ws_floats(nb, k)
+    assert ws.numel() == B * (sw + nb * nb)
+    assert (Z.shape, ld.shape, tier.shape) == ((B, nb, k), (B,), (B,))
+    assert tier.dtype == torch.int32
+    # Sn is the (B, nb, nb) tail of ws, after every walker's solve slots,
+    # where mega_like_launch writes it
+    assert Sn.shape == (B, nb, nb) and Sn.is_contiguous()
+    assert Sn.data_ptr() == ws.data_ptr() + 4 * B * sw
+    assert Sn.data_ptr() + 4 * Sn.numel() == ws.data_ptr() + 4 * ws.numel()
+
+
+def _fake_cuda(monkeypatch, lib, stream=7):
+    """Route ``_mega_like_cuda`` to ``lib`` on CPU tensors: the library,
+    the device context, the current stream and the device test."""
+    import contextlib
+    monkeypatch.setattr(cuda_lib, "load_library", lambda name="": lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(
+                            cuda_stream=stream))
+
+    def check(t, name, shape):
+        assert t.dtype == torch.float32 and tuple(t.shape) == tuple(shape)
+    monkeypatch.setattr(tmk, "check", check)
+
+
+def test_like_wrapper_makes_one_c_call_per_eval(monkeypatch):
+    ntoa, nb, B, k = 11, 9, 3, 2
+    args = [_t(a) for a in _like_inputs(ntoa, nb, B, k, seed=2)]
+    lib = _FakeLikeLib()
+    _fake_cuda(monkeypatch, lib)
+    n0 = troutes.LAUNCHES["mega_like"]
+    for call in range(3):
+        Z, ld, tier = tmk._mega_like_cuda(*args, 3e-6, 9e-5, 3)
+        assert (Z.shape, ld.shape, tier.shape) == ((B, nb, k), (B,), (B,))
+    launches = [a for c, a in lib.calls if c == "mega_like_launch"]
+    assert [c for c, _ in lib.calls] == ["mega_like_ws_floats",
+                                         "mega_like_launch"] * 3
+    assert troutes.LAUNCHES["mega_like"] == n0 + 3
+    for a in launches:
+        # inputs, the four buffers, the shape, the jitters, refine, and
+        # the caller's stream last
+        assert a[:5] == tuple(t.data_ptr() for t in args)
+        assert a[9:] == (B, ntoa, nb, k, 3e-6, 9e-5, 3, 7)
+
+
+def test_like_wrapper_raises_on_a_failed_launch(monkeypatch):
+    class Failing(_FakeLikeLib):
+        def mega_like_launch(self, *args):
+            self.calls.append(("mega_like_launch", args))
+            return 700
+    args = [_t(a) for a in _like_inputs(5, 4, 2, 1, seed=3)]
+    _fake_cuda(monkeypatch, Failing())
+    n0 = troutes.LAUNCHES["mega_like"]
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        tmk._mega_like_cuda(*args, 3e-6, 9e-5, 1)
+    assert troutes.LAUNCHES["mega_like"] == n0
 
 
 def _like_inputs(ntoa, nb, B, k, seed):
@@ -407,3 +525,48 @@ def test_cuda_like_kernel_matches_plain(cuda):
     Zp, ldp = tmk._mega_like_torch(*args, 3e-6, 9e-5, 3)
     assert float((Zk - Zp).abs().max()) <= 5e-4
     assert float((ldk - ldp).abs().max()) <= 5e-4
+
+
+LIKE_NB = (1, 33, 64, 65, 120, 192)
+LIKE_NTOA = (1, 122, 334)
+
+
+def _single_block_like(lib, args):
+    """The earlier single-launch likelihood kernel on CUDA tensors."""
+    S, w, s, ivb, Bn, j1, j2, refine = args
+    B, nb, k = Bn.shape
+    ntoa = S.shape[0]
+    ws = torch.empty(int(lib.mega_like_single_block_ws_floats(ntoa, nb, k))
+                     * B, dtype=torch.float32, device=S.device)
+    Z = torch.empty_like(Bn)
+    ld = torch.empty(B, dtype=torch.float32, device=S.device)
+    tier = torch.empty(B, dtype=torch.int32, device=S.device)
+    rc = lib.mega_like_single_block_launch(
+        *(t.data_ptr() for t in (S, w, s, ivb, Bn, Z, ld, tier, ws)), B,
+        ntoa, nb, k, j1, j2, refine,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return Z, ld
+
+
+@pytest.mark.parametrize("B", RAGGED_B)
+@pytest.mark.parametrize("ntoa", LIKE_NTOA)
+@pytest.mark.parametrize("nb", LIKE_NB)
+def test_cuda_like_pipeline_ragged_shapes(cuda, nb, ntoa, B):
+    # basis widths off the Gram's 32-wide tiles and the solve phases'
+    # tiles, up to the cap; the pipeline against its plain version and
+    # against the single-launch design
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _like_inputs(ntoa, nb, B, 4, seed=nb + ntoa + B)]
+    args += [3e-6, 9e-5, 3]
+    n0 = troutes.LAUNCHES["mega_like"]
+    Zk, ldk, tk = tmk._mega_like_cuda(*args)
+    torch.cuda.synchronize()
+    assert troutes.LAUNCHES["mega_like"] == n0 + 1
+    assert tk.tolist() == [1] * B
+    Zp, ldp = tmk._mega_like_torch(*args)
+    Zo, ldo = _single_block_like(cuda_lib.load_library(), args)
+    torch.cuda.synchronize()
+    for Zr, ldr in ((Zp, ldp), (Zo, ldo)):
+        assert float((Zk - Zr).abs().max()) <= 5e-4
+        assert float((ldk - ldr).abs().max()) <= 5e-4
