@@ -40,7 +40,17 @@ Phases (any failure exits non-zero before the result line):
    from one at the ADVI batch of 16, and each is held against its plain
    version at both shapes; the preconditioner also on the three-tier
    fixtures (n = 16, and all three tiers at (64, 60, 60)), where float64
-   arbitrates a gap that float32 rounding opens;
+   arbitrates a gap that float32 rounding opens. The preconditioner has
+   two designs: at these orders the wrapper takes the shared-memory
+   kernel, whose U and V must equal ``chol_precond_kernel``'s bit for bit
+   on every one of these inputs; at both path shapes the old kernel's
+   routines are timed alone (Stage A), E's error is taken product by
+   product against float64 for the old routines, the new kernel and the
+   plain version, the new kernel's phases are timed by difference of
+   prefix launches (Stage B), and the whole call is timed, old against
+   new, in turns. A seeded (8, 250, 250) batch goes through the
+   global-memory kernel (over the shared-memory cap) and is held against
+   the plain version, and both designs are timed at the cap;
 5. main paths: ``enterprise_warp_tpu_torch.cli.main`` runs both pulsars
    of ``system_noise.dat`` (temporary copies of the paramfile with
    ``nsamp: 2000``, so that the ``covUpdate``=1000 adaptation fires),
@@ -88,6 +98,12 @@ NSAMP = 2000
 # the reference's interpret-vs-XLA limits on the preconditioner trio
 # (tests/test_cholfuse.py): U, V, E
 CHOL_ATOL = (2e-5, 2e-4, 2e-5)
+# the shared-memory preconditioner's E against float64 products of its
+# own U and V, per walker: within E_OWN_RTOL of the walker's largest |E|,
+# plus E_OWN_ATOL. With D summed in float64 only the float32 products'
+# rounding is left (about 1e-7 of max|E| on the gradient path); D summed
+# in float32, as chol_precond_kernel sums it, is about 2e-2 there
+E_OWN_RTOL, E_OWN_ATOL = 1e-4, 1e-12
 # the HMC path: the paramfile's full width (64 chains, 16 leapfrog
 # steps), 200 steps of which 100 warmup (explicit, so run_hmc keeps it)
 # after the ADVI warm start (1500 steps of 16 draws)
@@ -617,6 +633,225 @@ def like_pipeline(torch, mk, lib, args, entry, whole_ms, smi):
                 serial_ms=serial_ms)
 
 
+def precond_buffers(torch, B, n, dev):
+    """``(U, V, E, tier)`` buffers of one preconditioner call."""
+    return [torch.empty((B, n, n), dtype=torch.float32, device=dev)
+            for _ in range(3)] + [torch.empty((B,), dtype=torch.int32,
+                                              device=dev)]
+
+
+def precond_calls(torch, lib, S, j1, j2):
+    """Bare C calls of the preconditioner's two designs on ``S``, each on
+    its own preallocated buffers: ``(old, new, out_old, out_new)``;
+    ``old()`` runs ``chol_precond_kernel`` (global workspace), ``new()``
+    the shared-memory kernel as the package launches it, ``new(p)`` its
+    chain up to phase ``p`` only."""
+    B, n = S.shape[0], S.shape[-1]
+    stream = torch.cuda.current_stream().cuda_stream
+    out_o = precond_buffers(torch, B, n, S.device)
+    out_n = precond_buffers(torch, B, n, S.device)
+    ws = torch.empty(int(lib.chol_precond_ws_floats(n)) * B,
+                     dtype=torch.float32, device=S.device)
+    po = [t.data_ptr() for t in out_o]
+    pn = [t.data_ptr() for t in out_n]
+    held = (S, ws)   # alive as long as the calls
+
+    def check_rc(rc, name):
+        if rc != 0:
+            fail(f"{name} returned cudaError {rc}")
+
+    def old():
+        check_rc(lib.chol_precond_launch(held[0].data_ptr(), *po,
+                                         held[1].data_ptr(), B, n, float(j1),
+                                         float(j2), stream),
+                 "chol_precond_launch")
+
+    def new(phases=None):
+        if phases is None:
+            check_rc(lib.chol_precond_smem_launch(
+                held[0].data_ptr(), *pn, B, n, float(j1), float(j2), stream),
+                "chol_precond_smem_launch")
+        else:
+            check_rc(lib.chol_precond_smem_phases_launch(
+                held[0].data_ptr(), *pn, B, n, float(j1), float(j2), phases,
+                stream), "chol_precond_smem_phases_launch")
+    return old, new, out_o, out_n
+
+
+def e_errors(S, U, V, D, K, E):
+    """E's float32 error product by product, against float64 products of
+    the same float32 ``U`` and ``V``: ``D``, ``K`` and ``E`` against
+    ``D64 = Sn - U^T U``, ``K64 = V^T D64`` and ``E64 = K64 V`` (the
+    error so far); ``K`` against ``V^T D`` and ``E`` against ``K V`` in
+    float64 (what that product alone adds); and ``V^T (D - D64) V``,
+    what D's error alone makes of E."""
+    d = [t.double() for t in (S, U, V, D, K, E)]
+    S64, U64, V64, D32, K32, E32 = d
+    D64 = S64 - U64.mT @ U64
+    K64 = V64.mT @ D64
+
+    def mx(t):
+        return float(t.abs().max())
+    return {"D": mx(D32 - D64), "K": mx(K32 - K64),
+            "E": mx(E32 - K64 @ V64),
+            "K alone": mx(K32 - V64.mT @ D32),
+            "E alone": mx(E32 - K32 @ V64),
+            "D's error in E": mx(V64.mT @ (D32 - D64) @ V64)}
+
+
+def e_own_share(S, U, V, E):
+    """How much of its limit (``E_OWN_RTOL``, ``E_OWN_ATOL``) E uses in
+    the worst walker, against ``V^T (Sn - U^T U) V`` formed in float64
+    from the same float32 ``U`` and ``V``: above 1 (or NaN) fails."""
+    S64, U64, V64, E32 = (t.double() for t in (S, U, V, E))
+    E64 = V64.mT @ (S64 - U64.mT @ U64) @ V64
+    err = (E32 - E64).abs().amax((-2, -1))
+    lim = E_OWN_RTOL * E64.abs().amax((-2, -1)) + E_OWN_ATOL
+    return float((err / lim).max())
+
+
+def precond_designs(torch, cf, lib, entry, S, j1, j2, whole_ms, smi):
+    """The preconditioner's designs on one captured input. Stage A: the
+    old kernel's routines run alone as the solve pipeline's one-block
+    phase kernels on its workspace (``chol_upper``, ``backsub_inv``, then
+    ``block_gemm`` for ``D = Sn - U^T U``, ``K = V^T D``, ``E = K V``),
+    each timed, their sum beside the old kernel's whole call. E's error
+    product by product (:func:`e_errors`) for those routines, for the
+    shared-memory kernel (``D`` and ``K`` from its phases 2 and 3) and
+    for the plain version (``_trio``'s products). Stage B: the
+    shared-memory kernel's phases, each the difference of two prefix
+    launches. The whole call, old against new, as bare C calls in turns
+    (old, new, new, old). Returns the times, in ms."""
+    B, n = S.shape[0], S.shape[-1]
+    stream = torch.cuda.current_stream().cuda_stream
+    sp = S.data_ptr()
+
+    def run(launch):
+        rc = launch()
+        if rc != 0:
+            fail(f"{entry}: launch returned cudaError {rc}")
+
+    sw, nn = int(lib.mega_solve_ws_floats(n, 1)), n * n
+    ws = torch.empty(B * sw, dtype=torch.float32, device=S.device)
+    wt = torch.empty((B,), dtype=torch.int32, device=S.device)
+    wp = ws.data_ptr()
+
+    def slot(s):   # the solve workspace's X, U, V, W1, W2 = 0 .. 4
+        return ws.view(B, sw)[:, s * nn:(s + 1) * nn].reshape(B, n, n)
+
+    stage_a = [
+        ("factor", lambda: lib.mega_solve_factor_launch(
+            sp, wt.data_ptr(), wp, B, n, 1, float(j1), float(j2), stream)),
+        ("inverse", lambda: lib.mega_solve_inverse_single_block_launch(
+            wp, B, n, 1, stream))]
+    for p, name in enumerate("DKE"):
+        stage_a.append((f"product {name}", lambda p=p: (
+            lib.mega_solve_product_single_block_launch(sp, wp, B, n, 1, p,
+                                                       stream))))
+    for _, launch in stage_a[:3]:
+        run(launch)
+    torch.cuda.synchronize()
+    D_a = slot(3).clone()
+    for _, launch in stage_a[3:]:
+        run(launch)
+    torch.cuda.synchronize()
+    parts = {"old routines": (slot(1).clone(), slot(2).clone(), D_a,
+                              slot(4).clone(), slot(3).clone())}
+    old, new, out_o, out_n = precond_calls(torch, lib, S, j1, j2)
+    mid = []
+    for p in (2, 3, None):
+        new(p)
+        torch.cuda.synchronize()
+        mid.append(out_n[2].clone())
+    parts["shared-memory kernel"] = (out_n[0].clone(), out_n[1].clone(),
+                                     *mid)
+    Up, Vp, _ = cf._fused_torch(S, j1, j2)
+    L, Linv = Up.mT, Vp.mT
+    Dp = S - L @ L.mT
+    Kp = Linv @ Dp
+    parts["plain"] = (Up, Vp, Dp, Kp, Kp @ Linv.mT)
+    torch.cuda.synchronize()
+    for label, (U, V, D, K, E) in parts.items():
+        errs = e_errors(S, U, V, D, K, E)
+        print(f"{entry} E's error by product, {label}, against float64 "
+              "products of its own U and V: "
+              + "  ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    ms_a = {name: time_cuda(lambda l=launch: run(l))
+            for name, launch in stage_a}
+    old_ms = time_cuda(old)
+    print(f"{entry} Stage A, the old kernel's routines alone at Sn "
+          f"{tuple(S.shape)}: "
+          + "  ".join(f"{k} {v:.4f}" for k, v in ms_a.items())
+          + f"  sum {sum(ms_a.values()):.4f} ms; the old kernel's whole "
+          f"call {old_ms:.4f} ms (CUDA events, median of 50 each) [{smi}]")
+    pre = [time_cuda(lambda p=p: new(p)) for p in range(1, 5)]
+    names = ("factor", "inverse beside D", "K", "E")
+    ms_b = {name: pre[i] - (pre[i - 1] if i else 0.0)
+            for i, name in enumerate(names)}
+    print(f"{entry} Stage B, the shared-memory kernel's phases (prefix "
+          "launches 1..4: "
+          + " ".join(f"{t:.4f}" for t in pre) + " ms; differences: "
+          + "  ".join(f"{k} {v:.4f}" for k, v in ms_b.items())
+          + f" ms) [{smi}]")
+    turns = [("old", old), ("new", new), ("new", new), ("old", old)]
+    ab = [(name, time_cuda(fn)) for name, fn in turns]
+    old_ab = (ab[0][1] + ab[3][1]) / 2
+    new_ab = (ab[1][1] + ab[2][1]) / 2
+    print(f"{entry} A/B, global-memory design (old) against the "
+          "shared-memory kernel (new), one bare C call each, in turns: "
+          + "  ".join(f"{name} {t:.4f}" for name, t in ab)
+          + f" ms; old/new {old_ab / new_ab:.2f}x; the wrapper call "
+          f"{whole_ms:.4f} ms [{smi}]")
+    return dict(phases_ms=ms_b, stage_a_ms=ms_a, bare_call_ms=new_ab,
+                global_design_ms=old_ab)
+
+
+def hold_precond(torch, cf, entry, S, j1, j2, trio_k, tiers):
+    """The preconditioner kernel's trio against its plain version on the
+    same input: the reference's limits, or, where the input's
+    conditioning puts both float32 versions further than that from
+    float64, the kernel at most twice as far from float64 as the plain
+    version, plus the limit. Returns the largest |kernel - plain|."""
+    trio_p = cf._fused_torch(S, j1, j2)
+    trio_f = cf._fused_torch(S.double(), j1, j2)
+    torch.cuda.synchronize()
+    err = [float((k - p).abs().max()) for k, p in zip(trio_k, trio_p)]
+    # each float32 version's distance from the float64 trio
+    errk = [float((k.double() - f).abs().max())
+            for k, f in zip(trio_k, trio_f)]
+    errp = [float((p.double() - f).abs().max())
+            for p, f in zip(trio_p, trio_f)]
+    line = "  ".join(
+        f"{x}: |k-p| {e:.3e} |k-f64| {ek:.3e} |p-f64| {ep:.3e} "
+        f"max|{x}| {float(p.abs().max()):.3e}"
+        for x, e, ek, ep, p in zip("UVE", err, errk, errp, trio_p))
+    print(f"{entry} at {tuple(S.shape)}: walkers per tier "
+          f"{dict(sorted(collections.Counter(tiers).items()))}; {line}")
+    if not all(torch.isfinite(t).all() for t in trio_k):
+        fail(f"{entry}: non-finite kernel output")
+    for x, e, ek, ep, t in zip("UVE", err, errk, errp, CHOL_ATOL):
+        if not (e <= t or ek <= 2.0 * ep + t):
+            fail(f"{entry}: {x} of the kernel and the plain version "
+                 f"differ by {e:.3e} (limit {t}), and the kernel is "
+                 f"{ek:.3e} from float64 against the plain "
+                 f"version's {ep:.3e}")
+    return max(err)
+
+
+def spd_batch(torch, dev, B, n, seed):
+    """Unit-diagonal SPD float32 batch (``tests/test_cholfuse.py``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(B):
+        A = rng.standard_normal((n, n))
+        S = A @ A.T / n + np.eye(n) * (0.5 + 0.1 * i)
+        d = np.sqrt(np.diag(S))
+        out.append(S / d[:, None] / d[None, :])
+    return torch.as_tensor(np.stack(out).astype(np.float32), device=dev)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: {PKG}/ not found next to this script; run it "
@@ -850,40 +1085,50 @@ def main():
                  ("chol_precond@hmc", "hmc", Sc, cj1, cj2, None),
                  ("three-tier n=16", None, Sf, 1e-6, 1e-3, [1, 2, 3]),
                  ("three-tier n=60", None, Sp, 1e-6, 1e-3, tiers_p)]
+        lib = cuda_lib.load_library()
+        smem_maxn = int(lib.chol_precond_smem_maxn())
         for entry, run, S_, a, b, expect in cases:
             *trio_k, tk = cf._chol_precond_cuda(S_, a, b)
-            trio_p = cf._fused_torch(S_, a, b)
-            trio_f = cf._fused_torch(S_.double(), a, b)
-            torch.cuda.synchronize()
             tiers = tk.tolist()
-            err = [float((k - p).abs().max())
-                   for k, p in zip(trio_k, trio_p)]
-            # each float32 version's distance from the float64 trio
-            errk = [float((k.double() - f).abs().max())
-                    for k, f in zip(trio_k, trio_f)]
-            errp = [float((p.double() - f).abs().max())
-                    for p, f in zip(trio_p, trio_f)]
-            line = "  ".join(
-                f"{x}: |k-p| {e:.3e} |k-f64| {ek:.3e} |p-f64| {ep:.3e} "
-                f"max|{x}| {float(p.abs().max()):.3e}"
-                for x, e, ek, ep, p in zip("UVE", err, errk, errp, trio_p))
-            print(f"{entry} at {tuple(S_.shape)}: walkers per tier "
-                  f"{dict(sorted(collections.Counter(tiers).items()))}; "
-                  f"{line}")
-            if not all(torch.isfinite(t).all() for t in trio_k):
-                fail(f"{entry}: non-finite kernel output")
-            # the reference's limits hold kernel against plain; where the
-            # input's conditioning puts both float32 versions further than
-            # that from float64, the kernel must be at most twice as far
-            # from float64 as the plain version, plus the limit
-            for x, e, ek, ep, t in zip("UVE", err, errk, errp, CHOL_ATOL):
-                if not (e <= t or ek <= 2.0 * ep + t):
-                    fail(f"{entry}: {x} of the kernel and the plain version "
-                         f"differ by {e:.3e} (limit {t}), and the kernel is "
-                         f"{ek:.3e} from float64 against the plain "
-                         f"version's {ep:.3e}")
+            err = hold_precond(torch, cf, entry, S_, a, b, trio_k, tiers)
             if expect is not None and tiers != expect:
                 fail(f"{entry}: tiers {tiers}")
+            # the wrapper took the shared-memory kernel (n <= its cap):
+            # its U and V are the global-memory kernel's bit for bit; its
+            # E differs where D's float64 sum does
+            old, _, out_o, _ = precond_calls(torch, lib, S_, a, b)
+            old()
+            torch.cuda.synchronize()
+            eq = {x: bool(torch.equal(k, o))
+                  for x, k, o in zip("UVE", trio_k, out_o)}
+            trio_f = cf._fused_torch(S_.double(), a, b)
+            dist = {label: float((t[2].double() - trio_f[2]).abs().max())
+                    for label, t in (("new", trio_k), ("old", out_o),
+                                     ("plain", cf._fused_torch(S_, a, b)))}
+            print(f"{entry}: shared-memory kernel against "
+                  f"chol_precond_kernel bit for bit: U {eq['U']}, V "
+                  f"{eq['V']}, tiers {torch.equal(tk, out_o[3])}, E "
+                  f"{eq['E']} (max|dE| "
+                  f"{float((trio_k[2] - out_o[2]).abs().max()):.3e}); E's "
+                  "distance from float64: "
+                  + "  ".join(f"{k} {v:.3e}" for k, v in dist.items()))
+            if not (eq["U"] and eq["V"] and torch.equal(tk, out_o[3])):
+                fail(f"{entry}: the shared-memory kernel's U, V or tiers "
+                     "differ from chol_precond_kernel's")
+            # E is not bit-equal, so it is held to float64 products of the
+            # kernel's own U and V, closer than D summed in float32 allows
+            # (chol_precond_kernel's E, printed as the control)
+            share = {label: e_own_share(S_, *t[:3])
+                     for label, t in (("new", trio_k), ("old", out_o))}
+            print(f"{entry}: E against float64 products of its own U and "
+                  f"V, share of the limit ({E_OWN_RTOL} of the walker's "
+                  f"max|E| + {E_OWN_ATOL}) in the worst walker: shared-"
+                  f"memory kernel {share['new']:.3e}, chol_precond_kernel "
+                  f"(control, D in float32) {share['old']:.3e}")
+            if not share["new"] <= 1.0:
+                fail(f"{entry}: the shared-memory kernel's E is "
+                     f"{share['new']:.3e} of its limit from float64 "
+                     "products of its own U and V")
             if run is None:
                 continue
             ms = time_cuda(lambda: cf._chol_precond_cuda(S_, a, b))
@@ -895,9 +1140,86 @@ def main():
                   f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({bby}; "
                   f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) [{smi}]")
             results[entry] = dict(run=run, shape=f"Sn {tuple(S_.shape)}",
-                                  max_abs_err=max(err), ms=ms,
+                                  max_abs_err=err, ms=ms,
                                   plain_ms=plain_ms, bound_ms=bms,
                                   bound_by=bby)
+            results[entry].update(precond_designs(
+                torch, cf, lib, entry, S_, a, b, ms, smi))
+        # above the shared-memory cap the wrapper takes the global-memory
+        # kernel
+        Sl = spd_batch(torch, dev, 8, 250, seed=9)
+        d0 = routes.DESIGNS[("chol_precond", "global")]
+        *trio_k, tk = cf._chol_precond_cuda(Sl, cj1, cj2)
+        if routes.DESIGNS[("chol_precond", "global")] != d0 + 1:
+            fail("an order over the shared-memory cap did not take "
+                 "chol_precond_kernel")
+        hold_precond(torch, cf, "chol_precond, large order", Sl, cj1, cj2,
+                     trio_k, tk.tolist())
+        # the two designs at the shared-memory cap, the order the cap was
+        # chosen at
+        Sm = spd_batch(torch, dev, 64, smem_maxn, seed=11)
+        old, new, out_o, out_n = precond_calls(torch, lib, Sm, cj1, cj2)
+        old()
+        new()
+        torch.cuda.synchronize()
+        eq = all(torch.equal(out_n[i], out_o[i]) for i in (0, 1, 3))
+        turns = [("old", old), ("new", new), ("new", new), ("old", old)]
+        ab = [(name, time_cuda(fn)) for name, fn in turns]
+        print(f"chol_precond at the shared-memory cap, Sn "
+              f"{tuple(Sm.shape)}: global-memory design (old) against the "
+              "shared-memory kernel (new), bare C calls in turns: "
+              + "  ".join(f"{k} {v:.4f}" for k, v in ab)
+              + f" ms; U, V and tiers bit-equal: {eq} [{smi}]")
+        share = e_own_share(Sm, *out_n[:3])
+        print(f"chol_precond at the shared-memory cap: E against float64 "
+              f"products of its own U and V, share of the limit in the "
+              f"worst walker {share:.3e}")
+        if not eq:
+            fail("at the shared-memory cap the two designs' U, V or tiers "
+                 "differ")
+        if not share <= 1.0:
+            fail(f"at the shared-memory cap the shared-memory kernel's E "
+                 f"is {share:.3e} of its limit from float64 products of "
+                 "its own U and V")
+        # what a call costs besides the chain: a bare call at n = 1 in
+        # each design, and the wrapper's host steps before its launch
+        # (host clock, mean of 200 calls, few enough that the launch queue
+        # does not fill and hold the host back)
+        S1 = spd_batch(torch, dev, 16, 1, seed=1)
+        old1, new1, _, _ = precond_calls(torch, lib, S1, cj1, cj2)
+
+        def host_us(fn, reps=200):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            us = 1e6 * (time.perf_counter() - t0) / reps
+            torch.cuda.synchronize()
+            return us
+
+        B0, n0 = Sc.shape[0], Sc.shape[-1]
+
+        def enter_device():
+            with torch.cuda.device(dev):
+                pass
+        host = {
+            "outputs' allocation": host_us(lambda: torch.empty(
+                3 * B0 * n0 * n0 + B0, dtype=torch.float32, device=dev)),
+            "current_stream(dev)": host_us(
+                lambda: torch.cuda.current_stream(dev).cuda_stream),
+            "device context": host_us(enter_device),
+            "whole wrapper, enqueue only": host_us(
+                lambda: cf._chol_precond_cuda(Sc, cj1, cj2)),
+        }
+        print(f"chol_precond, what a call costs besides the chain: a bare C "
+              f"call at Sn {tuple(S1.shape)} {time_cuda(old1):.4f} ms "
+              f"(global-memory design) / {time_cuda(new1):.4f} ms "
+              "(shared-memory design); the wrapper's host steps at Sn "
+              f"{tuple(Sc.shape)} (host clock, mean of 200): "
+              + "  ".join(f"{k} {v:.1f} us" for k, v in host.items())
+              + f" [{smi}]")
 
         # ---- phase 5: the main paths through the CLI ----------------------
         from enterprise_warp_tpu_torch import cli
@@ -932,9 +1254,10 @@ def main():
             wall = time.perf_counter() - t0
             counts = dict(routes.LAUNCHES)
             paths = {f"{k}/{p}": v for (k, p), v in routes.ROUTES.items()}
+            designs = {f"{k}/{d}": v for (k, d), v in routes.DESIGNS.items()}
             name = os.path.basename(prfile)
             print(f"main path {name} --num {num}: rc {rc} wall {wall:.1f} s "
-                  f"launches {counts} routes {paths}")
+                  f"launches {counts} routes {paths} designs {designs}")
             if rc != 0:
                 fail(f"cli.main exited {rc} for {name} --num {num}")
             for kname in expect:
@@ -967,6 +1290,9 @@ def main():
             fail("the HMC run logged no ADVI fit")
         launches["hmc"] = {k: counts[k] - launches["advi"][k]
                            for k in routes.KERNELS}
+        if routes.DESIGNS[("chol_precond", "smem")] != counts["chol_precond"]:
+            fail("the HMC run launched chol_precond_kernel, not the "
+                 "shared-memory kernel")
         for run in ("advi", "hmc"):
             print(f"main path HMC, {run} phase: launches {launches[run]}")
             for kname in ("mega_like", "chol_precond"):
@@ -1008,7 +1334,7 @@ def main():
             bound_by=r["bound_by"], library_ms=None, kernel=kname,
             path=PATHS[r["run"]], shape=r["shape"]))
         for key in ("phases_ms", "stage_a_ms", "single_block_ms",
-                    "bare_call_ms", "serial_ms"):
+                    "bare_call_ms", "serial_ms", "global_design_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
     print(smi)

@@ -12,12 +12,16 @@ trio the classic chain's fused branch consumes
 - ``E = V^T (Sn - U^T U) V``, the conjugated factorization residual that
   feeds the trace-corrected logdet.
 
-The reference's Pallas kernel ``_chol_kernel`` is hand-written CUDA here
-(``csrc/megakernel.cu:chol_precond_kernel``, launched by
-:func:`_chol_precond_cuda`). :func:`_fused_torch` is its plain PyTorch
-version (``_fused_xla``), taken only for CPU tensors, the explicit
-opt-outs (``EWT_PALLAS=0``, ``EWT_PALLAS_CHOL=0``) and orders over the
-kernel's cap — the routes the reference takes to its XLA twin.
+The reference's Pallas kernel ``_chol_kernel`` is hand-written CUDA here,
+launched by :func:`_chol_precond_cuda` in one of two designs chosen by
+the order: up to the library's ``chol_precond_smem_maxn()`` (128) the
+walker's matrices stay in one block's shared memory
+(``csrc/megakernel.cu:chol_precond_smem_kernel``, no workspace); above
+it ``chol_precond_kernel`` keeps them in a global workspace.
+:func:`_fused_torch` is its plain PyTorch version (``_fused_xla``), taken
+only for CPU tensors, the explicit opt-outs (``EWT_PALLAS=0``,
+``EWT_PALLAS_CHOL=0``) and orders over the kernel's cap — the routes the
+reference takes to its XLA twin.
 
 Autograd: :class:`_CholPrecond` mirrors the reference's ``custom_vjp``.
 Its forward is the kernel (or the plain version); its backward recomputes
@@ -34,6 +38,7 @@ import os
 
 import torch
 
+from . import cuda_lib
 from .routes import check, launch_check, record_launch, route
 
 # Above this order the reference's VMEM working set no longer fits and it
@@ -99,27 +104,37 @@ def _fused_torch_ad(Sn_b, j1, j2):
 
 
 def _chol_precond_cuda(Sn, j1, j2):
-    """Launch ``chol_precond_kernel`` on ``torch.cuda.current_stream()``:
-    returns ``(U, V, E, tier)``, ``tier`` (B,) int32 being the
-    factorization tier each walker ended on (1, 2 or 3)."""
-    from .cuda_lib import load_library
+    """Launch the preconditioner kernel on ``torch.cuda.current_stream()``:
+    ``chol_precond_smem_launch`` for orders up to the library's
+    ``chol_precond_smem_maxn()``, else ``chol_precond_launch`` with its
+    global workspace. Returns ``(U, V, E, tier)``, ``tier`` (B,) int32
+    being the factorization tier each walker ended on (1, 2 or 3)."""
     B, n = Sn.shape[0], Sn.shape[-1]
     check(Sn, "Sn", (B, n, n))
-    lib = load_library()
+    lib = cuda_lib.load_library()
     dev = Sn.device
-    ws = torch.empty(int(lib.chol_precond_ws_floats(n)) * B,
-                     dtype=torch.float32, device=dev)
-    U, V, E = (torch.empty((B, n, n), dtype=torch.float32, device=dev)
-               for _ in range(3))
-    tier = torch.empty((B,), dtype=torch.int32, device=dev)
+    # one allocation for the four outputs: the wrapper's host time before
+    # the launch is a large part of a call at the gradient path's shape
+    bnn = B * n * n
+    out = torch.empty(3 * bnn + B, dtype=torch.float32, device=dev)
+    U, V, E = out[:3 * bnn].view(3, B, n, n)
+    tier = out[3 * bnn:].view(torch.int32)
+    smem = n <= int(lib.chol_precond_smem_maxn())
+    if not smem:
+        ws = torch.empty(int(lib.chol_precond_ws_floats(n)) * B,
+                         dtype=torch.float32, device=dev)
+    ptrs = (Sn.data_ptr(), U.data_ptr(), V.data_ptr(), E.data_ptr(),
+            tier.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.chol_precond_launch(
-            Sn.data_ptr(), U.data_ptr(), V.data_ptr(), E.data_ptr(),
-            tier.data_ptr(), ws.data_ptr(), B, n, float(j1), float(j2),
-            stream)
+        if smem:
+            rc = lib.chol_precond_smem_launch(*ptrs, B, n, float(j1),
+                                              float(j2), stream)
+        else:
+            rc = lib.chol_precond_launch(*ptrs, ws.data_ptr(), B, n,
+                                         float(j1), float(j2), stream)
     launch_check(rc, "chol_precond")
-    record_launch("chol_precond")
+    record_launch("chol_precond", "smem" if smem else "global")
     return U, V, E, tier
 
 

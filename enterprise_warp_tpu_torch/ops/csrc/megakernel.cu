@@ -9,7 +9,7 @@
 //   the likelihood       replaces  enterprise_warp_tpu/ops/megakernel.py:
 //   pipeline                       _mega_like_kernel (pallas_call in
 //                                  _mega_like_raw)
-//   chol_precond_kernel  replaces  enterprise_warp_tpu/ops/cholfuse.py:
+//   the preconditioner   replaces  enterprise_warp_tpu/ops/cholfuse.py:
 //                                  _chol_kernel (pallas_call in
 //                                  _pallas_fused_raw)
 //
@@ -28,12 +28,17 @@
 // The likelihood pipeline first forms Sn = s (Ss^T Ss) s + diag(ivb), with
 // Ss = S sqrt(w) from the shared (ntoa, nb) basis, then runs the chain on
 // it (below, after the solve pipeline).
-// chol_precond_kernel (one block per walker) runs steps 1 and 2 and forms
-// E, and writes the trio (U, V, E) out: the preconditioner of the classic
-// chain, whose refinement and logdet stay in float64 outside
-// (ops/kernel.py). The solve kernel runs the chain as a pipeline of phase
-// launches (below, after chol_precond_kernel). Every product is a float32
-// FMA loop: no tensor cores, no TF32 (the reference's dots run at
+// The preconditioner runs steps 1 and 2 and forms E, and writes the trio
+// (U, V, E) out: the preconditioner of the classic chain, whose
+// refinement and logdet stay in float64 outside (ops/kernel.py). It has
+// two designs, one block per walker each, chosen by the order:
+// chol_precond_smem_kernel with the walker's matrices in shared memory
+// for n <= PRECOND_SMEM_MAXN (the gradient path's n = 60), and
+// chol_precond_kernel, every matrix in a global workspace, above it. The
+// solve kernel runs the chain as a pipeline of phase launches (below,
+// after the preconditioner). Every product is a float32 FMA loop, except
+// the shared-memory preconditioner's D = Sn - U^T U, summed in float64:
+// no tensor cores, no TF32 (the reference's dots run at
 // Precision.HIGHEST).
 //
 // Bound on an H100 SXM: float32 work outside the tensor cores, peak
@@ -48,7 +53,11 @@
 // ~1.2 us at peak. The preconditioner kernel is the chain without E E and
 // the solves, ~3 n^3 per walker: at the gradient path's shape (64 walkers,
 // n = 60) 41 MFLOP, 0.62 us at peak, against one (64, 60, 60) input and
-// three such outputs, 3.69 MB, 1.10 us at 3.35 TB/s: bytes bound.
+// three such outputs, 3.69 MB, 1.10 us at 3.35 TB/s: bytes bound. Neither
+// bound is what holds it back: a walker is 14 KB per matrix and ~0.65
+// MFLOP, and its time goes to the factor's and the inverse's 2n serial
+// steps. Its shared-memory design keeps those steps off the block
+// barrier and off global memory (below, after chol_precond_kernel).
 // (chip_smoke.py computes every bound from each run's inputs.)
 //
 // What holds the solve kernel back on this card is not that bound but
@@ -68,8 +77,9 @@
 // and puts two of its own in front: the Gram on a (32 x 32 output tile,
 // walker) grid, and the factor with the walker's whole working matrix in
 // shared memory (nb <= 192); it runs the refine phase beside the logdet
-// products on a second stream. Chol_precond_kernel keeps the one-block
-// design.
+// products on a second stream. The preconditioner's order is small enough
+// for the opposite choice: one block holds the whole walker, and the
+// steps of its factor and its inverse need no block barrier.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -470,6 +480,8 @@ like_gram_block_kernel(const float* __restrict__ S,
 // reused for V^T (Sn - U^T U) once the factor is done.
 __device__ __host__ inline long long chol_ws(int n) { return (long long)n * n; }
 
+// The large-order preconditioner (n > PRECOND_SMEM_MAXN): one block per
+// walker on the block-level routines, every matrix in global memory.
 __global__ void __launch_bounds__(NT)
 chol_precond_kernel(const float* __restrict__ Sn, float* U, float* V,
                     float* E, int* tier, float* ws, int n, float j1,
@@ -505,6 +517,434 @@ chol_precond_kernel(const float* __restrict__ Sn, float* U, float* V,
   block_gemm(n, n, n, Vb, n, true, Eb, n, false, X, n, 1.f, nullptr, 0, sm);
   block_gemm(n, n, n, X, n, false, Vb, n, false, Eb, n, 1.f, nullptr, 0, sm);
   if (threadIdx.x == 0) tier[b] = t;
+}
+
+// Above 48 KB a block's dynamic shared memory must be asked for, once per
+// device and kernel.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes, bool (&ready)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  return 0;
+}
+
+// ---- the preconditioner with its walker resident in shared memory ------
+//
+// chol_precond_smem_kernel, one block per walker, n <= PRECOND_SMEM_MAXN.
+// Three buffers hold the walker:
+//   X   U, row-major, zeros below the diagonal; K once U is written out
+//   Vt  V = U^-1 transposed, Vt[j][m] = V[m][j]; before the inverse, the
+//       factor's transposed working copy Ut, Ut[j][m] = U[m][j]
+//   Ds  Sn, then D = Sn - U^T U in place (row stride n)
+// X and Vt have row stride precond_ldt(n) and zeros past column n. Nothing
+// else of the walker touches global memory: Sn is read once, U, V and E
+// are written once each, coalesced (E straight from the product's
+// registers). Phases, split by block barriers:
+//   1. factor   on the first ceil(n / 32) warps, a column a thread, row by
+//               row in Ut; each entry's fmaf chain is the one
+//               chol_upper's rank-1 steps apply to it, in the same order,
+//               so U is chol_upper's bit for bit. One barrier of those
+//               warps a row, no block barrier. The tier ladder as in
+//               chol_precond_kernel: tier 2 re-loads Sn + j2 I only in a
+//               block whose tier 1 went non-finite, tier 3 is the
+//               identity. Then U into X.
+//   2. inverse  on the same warps, thread j < n runs column j of
+//               backsub_inv (V[i][j] from the diagonal up, its sum over m
+//               ascending), so V is backsub_inv's bit for bit, with no
+//               synchronisation between rows: a column depends only on
+//               itself. Its time is the last column's chain of short
+//               sums, each waiting on the division before it.
+//      and D    at the same time on the other warps, 4 x 4 register
+//               micro-tiles of 64 x 64 output tiles: each entry summed in
+//               float64 (exact float32 products) over m <= min(i, j) and
+//               rounded once. D is the Cholesky residual, a cancellation
+//               of nearly equal terms: summed in float32 its rounding,
+//               multiplied by |V|^2 in V^T D V, was most of E's distance
+//               from float64 on ill-conditioned walkers (chip_smoke.py
+//               prints E's error product by product).
+//   3. K = V^T D, 4. E = K V   float32, block_gemm's per-entry order (one
+//               fmaf accumulator, m ascending; the depth where V is
+//               exactly zero is skipped).
+// The template argument PHASES stops the chain after phase 1..4 so that
+// chip_smoke.py can time each phase by difference (after phase 2 or 3, E
+// receives D or K); the package launches only the whole chain, PHASES = 4.
+//
+// Sums of float32 FMAs here may take extra terms that are exact zeros
+// (padding, a triangle's zeros, a V entry not formed yet, a masked term):
+// a sum that starts at +0 is never -0, and adding +0 or -0 to it changes
+// no bit, so the sum is the one without those terms.
+
+constexpr int PRECOND_SMEM_MAXN = 128;
+constexpr int PRECOND_PHASES = 4;
+static_assert(PRECOND_SMEM_MAXN <= NT - 32,
+              "the factor and the inverse take a column a thread, and D "
+              "needs a warp of its own");
+
+// Row stride of X, Vt and Ut: the least stride >= n whose quarter is odd,
+// so rows are 16-byte aligned and eight threads reading 16 bytes each from
+// eight consecutive rows hit 32 distinct banks.
+__device__ __host__ inline int precond_ldt(int n) { return ((n + 3) & ~7) + 4; }
+
+// X and Vt (n rows of precond_ldt(n)), Ds (n x n), and 32 floats a masked
+// block may read past the last row of Ut or X.
+size_t precond_smem(int n) {
+  return sizeof(float) *
+         (2 * (size_t)n * precond_ldt(n) + (size_t)n * n + 32);
+}
+
+// bar.sync / bar.red.or over the factor's threads (named barrier 1,
+// `threads` a multiple of 32); the second also returns whether any of them
+// passed true.
+__device__ inline void factor_sync(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+__device__ inline bool factor_any(bool p, int threads) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred pi, po;\n\tsetp.ne.s32 pi, %1, 0;\n\t"
+      "bar.red.or.pred po, 1, %2, pi;\n\tselp.s32 %0, 1, 0, po;\n}"
+      : "=r"(r)
+      : "r"((int)p), "r"(threads)
+      : "memory");
+  return r != 0;
+}
+
+// Terms m0 .. m0 + 4 Q - 1 of the chains x (column j) and xkk (column k):
+// 2 Q 16-byte loads first, then the FMAs in order; MASKED zeroes the
+// operands of the terms at m >= k.
+template <int Q, bool MASKED>
+__device__ inline void chain_block(const float* Uk, const float* Uj, int m0,
+                                   int k, float& x, float& xkk) {
+  float4 a[Q], c[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    a[q] = *reinterpret_cast<const float4*>(Uk + m0 + 4 * q);
+    c[q] = *reinterpret_cast<const float4*>(Uj + m0 + 4 * q);
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const float av[4] = {a[q].x, a[q].y, a[q].z, a[q].w};
+    const float cv[4] = {c[q].x, c[q].y, c[q].z, c[q].w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const bool live = !MASKED || m0 + 4 * q + r < k;
+      const float ak = live ? av[r] : 0.f, cj = live ? cv[r] : 0.f;
+      x = fmaf(-ak, cj, x);
+      xkk = fmaf(-ak, ak, xkk);
+    }
+  }
+}
+
+// chol_upper's factor, row by row, on threads 0 .. 32 ceil(n / 32) - 1
+// (thread j owns column j), in the transposed working copy Ut (row stride
+// ldt) that holds Sn + jit I's upper triangle on entry (Ut[j][k] = X[k][j],
+// j >= k). Step k forms row k of U from the rows above it,
+//   x_kj = X[k][j] - sum_{m < k} U[m][k] U[m][j]   (j >= k),
+//   U[k][j] = x_kj / sqrt(x_kk)                      (x_kj * ipiv),
+// each x_kj one fmaf chain over m ascending, fmaf(-U[m][k], U[m][j], x):
+// the operations chol_upper's rank-1 steps apply to entry (k, j), in the
+// same order, so U is chol_upper's bit for bit. Both operands of a term
+// run along rows of Ut, so 32 terms come in as 16 16-byte loads ahead of
+// their FMAs (a chain holds no store). Every thread forms x_kk
+// itself (the same chain on the same operands), so the pivot needs no
+// broadcast; U's diagonal, which no chain reads, is stored after the last
+// step, so no thread overwrites an x_kk another still reads, and the next
+// row's x and x_kk are fetched before the row's barrier. One barrier a
+// row; every eighth (and the last) also votes on whether a row since the
+// last vote held a non-finite entry: the factor fails exactly when
+// chol_upper's does, a few rows later at most. Threads past n, and columns
+// already done, compute on clamped operands and store nothing.
+__device__ bool chol_upper_cols(float* Ut, int n, int ldt) {
+  const int t = threadIdx.x, jc = min(t, n - 1);
+  const int threads = 32 * ((n + 31) / 32);
+  const float* Uj = Ut + jc * ldt;
+  float diag = 0.f;
+  bool bad = false;
+  float x = Uj[0], xkk = Ut[0];
+  for (int k = 0; k < n; ++k) {
+    const float* Uk = Ut + k * ldt;
+    int m0 = 0;
+    for (; m0 + 32 <= k; m0 += 32) chain_block<8, false>(Uk, Uj, m0, k, x, xkk);
+    if (k - m0 > 16)
+      chain_block<8, true>(Uk, Uj, m0, k, x, xkk);
+    else if (k > m0)
+      chain_block<4, true>(Uk, Uj, m0, k, x, xkk);
+    // 1.0f / sqrtf(x_kk), both correctly rounded, as in chol_upper
+    const float ipiv = __frcp_rn(__fsqrt_rn(xkk));
+    if (t >= k && t < n) {
+      const float v = x * ipiv;
+      if (t == k)
+        diag = v;
+      else
+        Ut[t * ldt + k] = v;
+      bad |= !isfinite(v);
+    }
+    const int k1 = min(k + 1, n - 1);
+    x = Uj[k1];
+    xkk = Ut[k1 * ldt + k1];
+    if ((k & 7) == 7 || k == n - 1) {
+      if (factor_any(bad, threads)) return false;
+    } else {
+      factor_sync(threads);
+    }
+  }
+  if (t < n) Ut[t * ldt + t] = diag;
+  return true;
+}
+
+// Sn + jit I's upper triangle into the factor's transposed copy:
+// Ut[j][k] = Sn[k][j] + jit delta_kj for j >= k (Ds holds Sn).
+__device__ void load_factor_copy(const float* Ds, float jit, float* Ut,
+                                 int n, int ldt, int tid, int threads) {
+  for (int e = tid; e < n * n; e += threads) {
+    const int k = e / n, j = e - k * n;
+    if (j >= k) Ut[j * ldt + k] = Ds[e] + (k == j ? jit : 0.f);
+  }
+}
+
+// Output (i, j) of micro-tile entry (a, b) in the 64 x 64 tile at (i0, j0):
+// rows ty + 16 a, columns tx + 16 b, as block_gemm's (u = 16 ty + tx, by
+// default the thread's index).
+struct MicroTile {
+  int i[4], j[4];    // clamped to n - 1 for loads
+  bool ok[4][4];     // inside the n x n output
+  __device__ MicroTile(int i0, int j0, int n, int u = threadIdx.x) {
+    const int tx = u & 15, ty = u >> 4;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      i[a] = min(i0 + ty + 16 * a, n - 1);
+      j[a] = min(j0 + tx + 16 * a, n - 1);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        ok[a][b] = i0 + ty + 16 * a < n && j0 + tx + 16 * b < n;
+  }
+};
+
+// D = Sn - U^T U in place over Sn (Ds, row stride n), U upper triangular
+// in X (row stride ldx), on `threads` threads from index `tid`: each takes
+// micro-tiles tid, tid + threads, ... of all output tiles. Each entry a
+// float64 sum over m <= min(i, j) (the products of float32 values are
+// exact), rounded once.
+__device__ void precond_residual(const float* X, int ldx, float* Ds, int n,
+                                 int tid, int threads) {
+  const int tiles = (n + TILE - 1) / TILE;
+  for (int u = tid; u < tiles * tiles * NT; u += threads) {
+    const int t = u / NT;
+    const int i0 = (t / tiles) * TILE, j0 = (t % tiles) * TILE;
+    const MicroTile mt(i0, j0, n, u % NT);
+    const int depth = min(n, min(i0, j0) + TILE);
+    double acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = 0.0;
+#pragma unroll 1
+    for (int m = 0; m < depth; ++m) {
+      const float* Xm = X + m * ldx;
+      double ar[4], br[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) ar[a] = Xm[mt.i[a]];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) br[b] = Xm[mt.j[b]];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = fma(ar[a], br[b], acc[a][b]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (mt.ok[a][b]) {
+          float* d = Ds + mt.i[a] * n + mt.j[b];
+          *d = (float)((double)*d - acc[a][b]);
+        }
+  }
+}
+
+// C (row stride ldc) = A B on shared-memory operands: A[i][m] =
+// A[i * lda + m]; B[m][j] = TB ? B[j * ldb + m] : B[m * ldb + j]. The
+// depth stops where a triangular operand is exactly zero: ROWS, m <= i
+// (K = V^T D, A = Vt); else m <= j (E = K V, B = Vt).
+template <bool TB, bool ROWS>
+__device__ void precond_product(const float* A, int lda, const float* B,
+                                int ldb, float* C, int ldc, int n) {
+  const int tiles = (n + TILE - 1) / TILE;
+  for (int t = 0; t < tiles * tiles; ++t) {
+    const int i0 = (t / tiles) * TILE, j0 = (t % tiles) * TILE;
+    const MicroTile mt(i0, j0, n);
+    const int depth = min(n, (ROWS ? i0 : j0) + TILE);
+    float acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+#pragma unroll 4
+    for (int m = 0; m < depth; ++m) {
+      float ar[4], br[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) ar[a] = A[mt.i[a] * lda + m];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        br[b] = TB ? B[mt.j[b] * ldb + m] : B[m * ldb + mt.j[b]];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ar[a], br[b], acc[a][b]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (mt.ok[a][b]) C[(size_t)mt.i[a] * ldc + mt.j[b]] = acc[a][b];
+  }
+}
+
+// V = U^-1 into Vt (V transposed), U in X, both of row stride ldt: thread
+// j < n takes column j of V, a row of Vt, from the diagonal up,
+//   V[i][j] = (delta_ij - sum_{m = i+1}^{j} U[i][m] V[m][j]) / U[i][i],
+// backsub_inv's operations with the sum over m ascending, so V is
+// backsub_inv's bit for bit. A column depends only on itself, so rows
+// need no synchronisation; its time is the chain of short sums, each
+// waiting on the division before it. The sum runs over 16-byte aligned
+// blocks of eight terms, four 16-byte loads ahead of the FMAs; the terms
+// outside i < m <= j are exact zeros (U's lower triangle; Vt's row,
+// zeroed first, not yet formed at m <= i; past j both operands are
+// zeroed, as a block may reach past the row).
+__device__ void precond_inverse(const float* X, float* Vt, int n, int ldt) {
+  const int j = threadIdx.x;
+  if (j >= n) return;
+  float* Vj = Vt + j * ldt;
+  for (int m = 0; m < ldt; m += 4)
+    *reinterpret_cast<float4*>(Vj + m) = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = j; i >= 0; --i) {
+    const float* Ui = X + i * ldt;
+    float acc = 0.f;
+    for (int m0 = (i + 1) & ~3; m0 <= j; m0 += 8) {
+      float4 u[2], v[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        u[q] = *reinterpret_cast<const float4*>(Ui + m0 + 4 * q);
+        v[q] = *reinterpret_cast<const float4*>(Vj + m0 + 4 * q);
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float uv[4] = {u[q].x, u[q].y, u[q].z, u[q].w};
+        const float vv[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const bool live = m0 + 4 * q + r <= j;
+          acc = fmaf(live ? uv[r] : 0.f, live ? vv[r] : 0.f, acc);
+        }
+      }
+    }
+    Vj[i] = ((i == j ? 1.f : 0.f) - acc) / Ui[i];
+  }
+}
+
+template <int PHASES>
+__global__ void __launch_bounds__(NT)
+chol_precond_smem_kernel(const float* __restrict__ Sn, float* U, float* V,
+                         float* E, int* tier, int n, float j1, float j2) {
+  extern __shared__ float4 walker4[];
+  const int nn = n * n, ldt = precond_ldt(n);
+  float* X = reinterpret_cast<float*>(walker4);
+  float* Vt = X + n * ldt;
+  float* Ds = Vt + n * ldt;
+  float* Ut = Vt;   // the factor's transposed copy, before V
+  const int b = blockIdx.x;
+  const float* S = Sn + (size_t)b * nn;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < nn; e += NT) {
+    const int k = e / n, j = e - k * n;
+    const float s = S[e];
+    Ds[e] = s;
+    if (j >= k) Ut[j * ldt + k] = s + (k == j ? j1 : 0.f);
+  }
+  __syncthreads();
+
+  // 1. the factor, a column a thread on the first ceil(n / 32) warps
+  const int threads = 32 * ((n + 31) / 32);
+  int t = 1;
+  if (threadIdx.x < threads) {
+    bool ok = chol_upper_cols(Ut, n, ldt);
+    if (!ok) {
+      t = 2;
+      load_factor_copy(Ds, j2, Ut, n, ldt, threadIdx.x, threads);
+      factor_sync(threads);
+      ok = chol_upper_cols(Ut, n, ldt);
+    }
+    if (!ok) t = 3;
+  }
+  if (threadIdx.x == 0) tier[b] = t;
+  // U into X, row-major, zeros below the diagonal and past column n (tier
+  // 3: the identity)
+  const bool identity = __syncthreads_or(t == 3);
+  for (int e = threadIdx.x; e < n * ldt; e += NT) {
+    const int i = e / ldt, j = e - i * ldt;
+    X[e] = j >= n ? 0.f
+                  : identity ? (i == j ? 1.f : 0.f)
+                             : (j >= i ? Ut[j * ldt + i] : 0.f);
+  }
+  __syncthreads();
+
+  // 2. the inverse on the first ceil(n / 32) warps, D = Sn - U^T U on the
+  // others, at the same time (D needs only U)
+  if (PHASES >= 2) {
+    if (threadIdx.x < threads)
+      precond_inverse(X, Vt, n, ldt);
+    else
+      precond_residual(X, ldt, Ds, n, threadIdx.x - threads, NT - threads);
+    __syncthreads();
+  }
+  const size_t off = (size_t)b * nn;
+  for (int e = threadIdx.x; e < nn; e += NT) {
+    const int i = e / n, j = e - i * n;
+    U[off + e] = X[i * ldt + j];
+    if (PHASES >= 2) V[off + e] = Vt[j * ldt + i];
+    if (PHASES == 2) E[off + e] = Ds[e];
+  }
+  // 3. K = V^T D into X (U is out), 4. E = K V, from the registers to
+  // global memory
+  if (PHASES >= 3) {
+    __syncthreads();
+    precond_product<false, true>(Vt, ldt, Ds, n, X, ldt, n);
+    __syncthreads();
+    if (PHASES == 3)
+      for (int e = threadIdx.x; e < nn; e += NT)
+        E[off + e] = X[(e / n) * ldt + e % n];
+  }
+  if (PHASES >= 4) precond_product<true, false>(X, ldt, Vt, ldt, E + off, n, n);
+}
+
+// One launch of the chain up to phase P, each instantiation opted in to
+// its shared memory once per device.
+template <int P>
+int precond_smem_run(const float* Sn, float* U, float* V, float* E, int* tier,
+                     int B, int n, float j1, float j2, void* stream) {
+  if (B <= 0 || n <= 0 || n > PRECOND_SMEM_MAXN)
+    return (int)cudaErrorInvalidValue;
+  static bool ready[64];
+  const int rc = allow_smem(chol_precond_smem_kernel<P>,
+                            precond_smem(PRECOND_SMEM_MAXN), ready);
+  if (rc != 0) return rc;
+  chol_precond_smem_kernel<P>
+      <<<B, NT, precond_smem(n), (cudaStream_t)stream>>>(Sn, U, V, E, tier, n,
+                                                         j1, j2);
+  return (int)cudaGetLastError();
 }
 
 // ---- the solve pipeline: solve_chain as a sequence of phase launches ----
@@ -949,19 +1389,10 @@ constexpr int FACTOR_NT = 512;
 template <int FT>
 int factor_smem_launch(const float* Sn, int* tier, float* ws, int B, int n,
                        int k, float j1, float j2, cudaStream_t stream) {
-  // above 48 KB a block's shared memory must be asked for, once per device
   static bool ready[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(solve_factor_smem_kernel<FT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)factor_smem(LIKE_MAXN));
-    if (err != cudaSuccess) return (int)err;
-    ready[dev] = true;
-  }
+  const int rc = allow_smem(solve_factor_smem_kernel<FT>,
+                            factor_smem(LIKE_MAXN), ready);
+  if (rc != 0) return rc;
   solve_factor_smem_kernel<FT><<<B, FT, factor_smem(n), stream>>>(
       Sn, tier, ws, n, k, j1, j2);
   return (int)cudaGetLastError();
@@ -1033,19 +1464,10 @@ int mega_solve_factor_launch(const float* Sn, int* tier, float* ws, int B,
 
 int mega_solve_inverse_launch(float* ws, int B, int n, int k, void* stream) {
   if (!solve_args_ok(B, n, k)) return (int)cudaErrorInvalidValue;
-  // above 48 KB a block's shared memory must be asked for, once per device
   static bool ready[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(solve_inverse_tile_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)inverse_smem(MAXN));
-    if (err != cudaSuccess) return (int)err;
-    ready[dev] = true;
-  }
+  const int rc = allow_smem(solve_inverse_tile_kernel, inverse_smem(MAXN),
+                            ready);
+  if (rc != 0) return rc;
   const dim3 grid((n + CT - 1) / CT, B);
   solve_inverse_tile_kernel<<<grid, NT, inverse_smem(n),
                               (cudaStream_t)stream>>>(ws, n, k);
@@ -1225,6 +1647,41 @@ int chol_precond_launch(const float* Sn, float* U, float* V, float* E,
   chol_precond_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(Sn, U, V, E, tier,
                                                           ws, n, j1, j2);
   return (int)cudaGetLastError();
+}
+
+// The preconditioner with the walker in shared memory, for
+// n <= chol_precond_smem_maxn() (the wrapper takes chol_precond_launch
+// above it). No workspace.
+int chol_precond_smem_maxn() { return PRECOND_SMEM_MAXN; }
+
+int chol_precond_smem_launch(const float* Sn, float* U, float* V, float* E,
+                             int* tier, int B, int n, float j1, float j2,
+                             void* stream) {
+  return precond_smem_run<PRECOND_PHASES>(Sn, U, V, E, tier, B, n, j1, j2,
+                                          stream);
+}
+
+// The chain up to phase `phases` (1 factor, 2 inverse and D, 3 K, 4 E; E
+// receives D after 2 and K after 3): chip_smoke.py times each phase by
+// difference. The package launches only the whole chain
+// (chol_precond_smem_launch).
+int chol_precond_smem_phases_launch(const float* Sn, float* U, float* V,
+                                    float* E, int* tier, int B, int n,
+                                    float j1, float j2, int phases,
+                                    void* stream) {
+  switch (phases) {
+    case 1:
+      return precond_smem_run<1>(Sn, U, V, E, tier, B, n, j1, j2, stream);
+    case 2:
+      return precond_smem_run<2>(Sn, U, V, E, tier, B, n, j1, j2, stream);
+    case 3:
+      return precond_smem_run<3>(Sn, U, V, E, tier, B, n, j1, j2, stream);
+    case PRECOND_PHASES:
+      return chol_precond_smem_launch(Sn, U, V, E, tier, B, n, j1, j2,
+                                      stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

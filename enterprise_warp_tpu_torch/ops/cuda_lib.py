@@ -54,6 +54,10 @@ _SIGNATURES = {
     "mega_like_gram_single_block_launch": ([_P] * 6 + [_I, _I, _I, _P], _I),
     "chol_precond_ws_floats": ([_I], ctypes.c_longlong),
     "chol_precond_launch": ([_P] * 6 + [_I, _I, _F, _F, _P], _I),
+    "chol_precond_smem_maxn": ([], _I),
+    "chol_precond_smem_launch": ([_P] * 5 + [_I, _I, _F, _F, _P], _I),
+    "chol_precond_smem_phases_launch": (
+        [_P] * 5 + [_I, _I, _F, _F, _I, _P], _I),
 }
 
 _lock = threading.Lock()

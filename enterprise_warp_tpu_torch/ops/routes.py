@@ -6,7 +6,10 @@ the path it took in ``ROUTES`` under ``(kernel, path)``, path one of
 ``kernel`` (CUDA launch), ``plain-cpu``, ``over-cap`` and ``disabled`` —
 the counterpart of the reference's ``pallas_path{kernel,path}`` counter.
 A launch adds one to ``LAUNCHES[kernel]`` and to the ``kernel`` route at
-the launch site (:func:`record_launch`) and nowhere else.
+the launch site (:func:`record_launch`) and nowhere else; a kernel with
+two designs also counts the one it launched in ``DESIGNS`` under
+``(kernel, design)`` (``chol_precond``: ``smem`` up to the shared-memory
+cap, ``global`` above it).
 
 Switches, the reference's environment variables under the same names:
 ``EWT_PALLAS=0`` turns every kernel off, ``EWT_PALLAS_MEGA=0`` the two
@@ -24,18 +27,22 @@ import torch
 KERNELS = ("mega_solve", "mega_like", "chol_precond")
 ROUTES = collections.Counter()
 LAUNCHES = {k: 0 for k in KERNELS}
+DESIGNS = collections.Counter()
 
 
 def reset_counts():
     """Zero the route and launch counters (a run reads them after)."""
     ROUTES.clear()
+    DESIGNS.clear()
     for k in KERNELS:
         LAUNCHES[k] = 0
 
 
-def record_launch(kernel):
+def record_launch(kernel, design=None):
     LAUNCHES[kernel] += 1
     ROUTES[(kernel, "kernel")] += 1
+    if design is not None:
+        DESIGNS[(kernel, design)] += 1
 
 
 def kernels_enabled():

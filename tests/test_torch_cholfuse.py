@@ -7,8 +7,10 @@ On the CPU ``chol_precond`` runs its kernel's plain PyTorch version
 
 - ``_fused_torch`` against the Pallas kernel ``_pallas_fused_raw`` in
   interpret mode on the 12 x 80 fixture of ``tests/test_cholfuse.py``
-  (one tier-3 walker): U atol 2e-5, V 2e-4, E 2e-5, the reference's own
-  kernel-vs-twin limits;
+  and at the orders on either side of the CUDA kernel's splits (a warp
+  of columns, its 64-wide product tiles, the shared-memory cap), each
+  with one tier-3 walker: U atol 2e-5, V 2e-4, E 2e-5, the reference's
+  own kernel-vs-twin limits;
 - the tier-2 rescue fixture against ``_fused_xla`` and the interpret
   kernel, with the rescue itself checked in float64;
 - at the gradient path's shape, 64 walkers x n = 60, on the equilibrated
@@ -21,10 +23,15 @@ On the CPU ``chol_precond`` runs its kernel's plain PyTorch version
 - the classic chain's fused branch of ``_mixed_psd_solve_logdet`` against
   JAX's ``fused=True``: ``Z`` rtol 1e-9, the logdet abs 1e-5 (the limits
   ``tests/test_cholfuse.py`` holds the fused branch to against the
-  unfused one).
+  unfused one);
+- the wrapper's routing between the kernel's two designs (the walker in
+  shared memory up to the cap, with no workspace; the global-memory
+  kernel above it), through a fake library.
 """
 
+import contextlib
 import os
+import re
 import types
 
 import jax
@@ -40,6 +47,7 @@ from enterprise_warp_tpu_torch.config import Params as TParams
 from enterprise_warp_tpu_torch.models.assemble import \
     init_model_likelihoods as t_init
 from enterprise_warp_tpu_torch.ops import cholfuse as tcf
+from enterprise_warp_tpu_torch.ops import cuda_lib
 from enterprise_warp_tpu_torch.ops import routes as troutes
 from enterprise_warp_tpu_torch.ops.kernel import \
     _mixed_psd_solve_logdet as t_mixed
@@ -49,6 +57,12 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HMC_PRFILE = os.path.join(REPO, "examples", "example_params",
                           "hmc_single_psr.dat")
+# the order up to which the CUDA wrapper takes the shared-memory design,
+# as the kernel source sets it
+SMEM_MAXN = int(re.search(
+    r"constexpr int PRECOND_SMEM_MAXN = (\d+);",
+    open(os.path.join(REPO, "enterprise_warp_tpu_torch", "ops", "csrc",
+                      "megakernel.cu")).read()).group(1))
 
 
 @pytest.fixture(autouse=True)
@@ -94,17 +108,26 @@ def _assert_trio(port, ref, atol=(2e-5, 2e-4, 2e-5), rtol=1e-7):
                                    err_msg=name)
 
 
-def test_matches_interpret_kernel_with_tier3_walker():
-    n = 80
-    Sb = _spd_batch(12, n, seed=7)
-    Sb[5] = Sb[5] - 1.2 * np.eye(n, dtype=np.float32)     # tier 3
+# (n, B, seed, the tier-3 walker): the reference test's 12 x 80 fixture,
+# and the orders on either side of the CUDA kernel's splits (a warp of
+# columns, two warps, its product tiles of 64, the shared-memory cap)
+_INTERPRET_CASES = [(80, 12, 7, 5)] + [
+    (n, 3, n, 2) for n in (1, 32, 33, 64, 65, SMEM_MAXN, SMEM_MAXN + 1)]
+
+
+@pytest.mark.parametrize("n,B,seed,bad", _INTERPRET_CASES,
+                         ids=[str(c[0]) for c in _INTERPRET_CASES])
+def test_matches_interpret_kernel_with_tier3_walker(n, B, seed, bad):
+    Sb = _spd_batch(B, n, seed=seed)
+    Sb[bad] = Sb[bad] - 1.2 * np.eye(n, dtype=np.float32)     # tier 3
     ref = jcf._pallas_fused_raw(jnp.asarray(Sb), 3e-6, 9e-5, interpret=True)
     troutes.reset_counts()
     port = _port(Sb, 3e-6, 9e-5)
     assert troutes.ROUTES[("chol_precond", "plain-cpu")] == 1
     assert troutes.LAUNCHES["chol_precond"] == 0
     _assert_trio(port, ref)
-    np.testing.assert_array_equal(port[0][5], np.eye(n, dtype=np.float32))
+    np.testing.assert_array_equal(port[0][bad], np.eye(n, dtype=np.float32))
+    np.testing.assert_array_equal(port[1][bad], np.eye(n, dtype=np.float32))
 
 
 def test_tier2_rescue():
@@ -248,6 +271,105 @@ def test_switches(monkeypatch):
     assert ("chol_precond", "plain-cpu") not in troutes.ROUTES
 
 
+# ---- the wrapper's two designs, through a fake library ---------------- #
+
+class _FakePrecondLib:
+    """Records the preconditioner's C calls; the cap and the workspace
+    size as the CUDA source gives them; every launch returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.calls, self.rc = [], rc
+
+    def chol_precond_smem_maxn(self):
+        return SMEM_MAXN
+
+    def chol_precond_ws_floats(self, n):
+        self.calls.append(("chol_precond_ws_floats", (n,)))
+        return n * n
+
+    def chol_precond_smem_launch(self, *args):
+        self.calls.append(("chol_precond_smem_launch", args))
+        return self.rc
+
+    def chol_precond_launch(self, *args):
+        self.calls.append(("chol_precond_launch", args))
+        return self.rc
+
+
+def _fake_cuda(monkeypatch, lib, stream=7):
+    """Route ``_chol_precond_cuda`` to ``lib`` on CPU tensors: the
+    library, the device context, the current stream and the device
+    check."""
+    monkeypatch.setattr(cuda_lib, "load_library", lambda name="": lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(
+                            cuda_stream=stream))
+
+    def check(t, name, shape):
+        assert t.dtype == torch.float32 and tuple(t.shape) == tuple(shape)
+    monkeypatch.setattr(tcf, "check", check)
+
+
+@pytest.mark.parametrize("n", [1, 60, SMEM_MAXN, SMEM_MAXN + 1, 448])
+def test_wrapper_routes_by_order(monkeypatch, n):
+    B = 3
+    S = torch.zeros(B, n, n)
+    lib = _FakePrecondLib()
+    _fake_cuda(monkeypatch, lib)
+    troutes.reset_counts()
+    U, V, E, tier = tcf._chol_precond_cuda(S, 3e-6, 9e-5)
+    assert [t.shape for t in (U, V, E)] == [(B, n, n)] * 3
+    assert tier.shape == (B,) and tier.dtype == torch.int32
+    out = (S.data_ptr(), U.data_ptr(), V.data_ptr(), E.data_ptr(),
+           tier.data_ptr())
+    assert troutes.LAUNCHES["chol_precond"] == 1
+    if n <= SMEM_MAXN:
+        # the walker lives in shared memory: no workspace is sized
+        assert lib.calls == [("chol_precond_smem_launch",
+                              out + (B, n, 3e-6, 9e-5, 7))]
+        assert troutes.DESIGNS == {("chol_precond", "smem"): 1}
+    else:
+        (ws_call, ws_args), (call, args) = lib.calls
+        assert (ws_call, ws_args) == ("chol_precond_ws_floats", (n,))
+        assert call == "chol_precond_launch"
+        assert args[:5] == out and args[6:] == (B, n, 3e-6, 9e-5, 7)
+        assert troutes.DESIGNS == {("chol_precond", "global"): 1}
+
+
+def test_kernel_route_outputs_back_propagate(monkeypatch):
+    # the wrapper's four outputs share one allocation; through the
+    # autograd Function they differentiate as the plain version's do
+    lib = _FakePrecondLib()
+    _fake_cuda(monkeypatch, lib)
+    monkeypatch.setattr(tcf, "route", lambda kernel, fits, device: "kernel")
+    B, n = 3, 9
+    S = torch.as_tensor(_spd_batch(B, n, seed=1)).requires_grad_(True)
+    U, V, E = tcf.chol_precond(S, 3e-6, 9e-5)
+    assert [c for c, _ in lib.calls] == ["chol_precond_smem_launch"]
+    assert V.data_ptr() == U.data_ptr() + 4 * B * n * n
+    assert E.data_ptr() == V.data_ptr() + 4 * B * n * n
+    rng = np.random.default_rng(2)
+    cts = [torch.as_tensor(rng.standard_normal((B, n, n)).astype(np.float32))
+           for _ in range(3)]
+    g, = torch.autograd.grad((U, V, E), S, cts)
+    ref, = torch.autograd.grad(tcf._fused_torch_ad(S, 3e-6, 9e-5), S, cts)
+    np.testing.assert_array_equal(g.numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("n", [60, SMEM_MAXN + 1])
+def test_wrapper_raises_on_a_failed_launch(monkeypatch, n):
+    lib = _FakePrecondLib(rc=700)
+    _fake_cuda(monkeypatch, lib)
+    troutes.reset_counts()
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        tcf._chol_precond_cuda(torch.zeros(2, n, n), 3e-6, 9e-5)
+    # one launch tried, none counted, and no other design taken
+    assert len([c for c, _ in lib.calls if c.endswith("_launch")]) == 1
+    assert troutes.LAUNCHES["chol_precond"] == 0 and not troutes.DESIGNS
+
+
 # ---- on the card: kernel vs plain version on CUDA tensors ------------- #
 
 @pytest.fixture
@@ -270,3 +392,43 @@ def test_cuda_chol_kernel_matches_plain(cuda):
     _assert_trio(tuple(t.cpu().numpy() for t in (U, V, E)),
                  tuple(t.cpu().numpy()
                        for t in tcf._fused_torch(S, 3e-6, 9e-5)))
+
+
+@pytest.mark.parametrize("n", [1, 17, 33, 60, 64, 65, 97, SMEM_MAXN])
+def test_cuda_smem_kernel_matches_global_kernel(cuda, n):
+    # U and V bit for bit chol_precond_kernel's (the same operations in
+    # the same order); E within the reference's limits of the plain
+    # version (D's float64 sum changes its last bits), and, per walker,
+    # within 1e-4 of its largest |E| (+ 1e-12) of V^T (Sn - U^T U) V
+    # formed in float64 from the kernel's own U and V: only the float32
+    # products' rounding is left, where D summed in float32 would leave
+    # about 1e-2
+    B = 5
+    Sb = _spd_batch(B, n, seed=n)
+    Sb[3] = Sb[3] - 1.2 * np.eye(n, dtype=np.float32)     # tier 3
+    S = torch.as_tensor(Sb, device=cuda)
+    lib = cuda_lib.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = []
+    for name in ("chol_precond_smem_launch", "chol_precond_launch"):
+        U, V, E = (torch.empty(B, n, n, device=cuda) for _ in range(3))
+        tier = torch.empty(B, dtype=torch.int32, device=cuda)
+        ws = torch.empty(B * n * n, device=cuda)
+        args = [S.data_ptr(), U.data_ptr(), V.data_ptr(), E.data_ptr(),
+                tier.data_ptr()]
+        if name == "chol_precond_launch":
+            args.append(ws.data_ptr())
+        assert getattr(lib, name)(*args, B, n, 3e-6, 9e-5, stream) == 0
+        outs.append((U, V, E, tier))
+    torch.cuda.synchronize()
+    (Un, Vn, En, tn), (Uo, Vo, Eo, to) = outs
+    assert torch.equal(Un, Uo) and torch.equal(Vn, Vo)
+    assert torch.equal(tn, to) and tn.tolist() == [1, 1, 1, 3, 1]
+    _assert_trio(tuple(t.cpu().numpy() for t in (Un, Vn, En)),
+                 tuple(t.cpu().numpy()
+                       for t in tcf._fused_torch(S, 3e-6, 9e-5)))
+    S64, U64, V64 = (t.double() for t in (S, Un, Vn))
+    E64 = V64.mT @ (S64 - U64.mT @ U64) @ V64
+    err = (En.double() - E64).abs().amax((-2, -1))
+    assert bool((err <= 1e-4 * E64.abs().amax((-2, -1)) + 1e-12).all()), \
+        err.tolist()

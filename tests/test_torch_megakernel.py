@@ -239,7 +239,8 @@ def test_signature_table_lists_every_entry_point():
            "mega_like_factor_launch", "mega_like_factor_threads",
            "mega_like_single_block_launch",
            "mega_like_gram_single_block_launch", "mega_like_ws_floats",
-           "mega_like_single_block_ws_floats")
+           "mega_like_single_block_ws_floats", "chol_precond_smem_maxn",
+           "chol_precond_smem_launch", "chol_precond_smem_phases_launch")
     assert set(new) <= set(exported)
     # every exported function is bound, with its C argument and return
     # types (a pointer or the stream as c_void_p, else ctypes passes a
