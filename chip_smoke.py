@@ -60,7 +60,32 @@ Phases (any failure exits non-zero before the result line):
    each run and read just after (the HMC run also where the ADVI warm
    start ends); the expected kernels must have launched in each run and
    phase, and the chain must be finite with a plausible acceptance rate;
-6. the ``kernels`` JSON line, one entry per kernel and main path that
+6. model selection, the sampled timing model and folded Grams: the CLI
+   runs ``sampled_timing_model.dat --num 0`` (the solve kernel at
+   (8, 40, 40) with k = 1; the likelihood kernel's route declines with no
+   timing-model matrix), ``default_hypermodel.dat --num 0`` (the
+   product-space hypermodel: each member's likelihood kernel on the
+   walkers that select it, nb = 1 and nb = 60, batch sizes that change
+   from step to step; the per-call batch sizes and the share of samples
+   in each ``nmodel`` bin are printed) and ``fixed_white_noise.dat --num
+   0`` (Grams folded at build time: the solve kernel at (8, 250, 250),
+   no likelihood kernel), each with ``nsamp: 2000`` and its launch
+   counts zeroed just before and read just after. Each kernel is held
+   against its plain version on the inputs of the run's last step, where
+   the chain stood then, walker by walker: a walker whose equilibrated
+   system has a condition number above 1e4 is beyond a float32 solve and
+   only reported; the others agree within 5e-4 or, where float32
+   rounding of a large Z puts the versions further apart, a float64
+   arbiter with a relative limit decides. The likelihood kernel is also
+   held at nb = 1 on a seeded non-null basis column at the path's ntoa
+   and each batch the run gave member 0, whose own column is null (Z = 0
+   there). Within 5e-4 and timed, each kernel is held on inputs captured
+   from the path's likelihood at points near typical noise values, at
+   the walker batch the run gave that order most often; then
+   ``python -m enterprise_warp_tpu_torch.results``
+   post-processes the three output directories (noise files, credible
+   levels, logBF, ``covm``) and must exit 0 and write each noise file;
+7. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``.
@@ -92,6 +117,13 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # the reference probe's tolerance on Z and ld (ops/megakernel.py:823-827)
 ATOL = 5e-4
+# a sampler's last step: walkers whose equilibrated system has a 2-norm
+# condition number above KAPPA_MAX are beyond a float32 solve (its
+# first-order forward error, cond * 2^-23, passes 1.2e-3 there); below
+# it the kernel may lie at most ARB_REL = KAPPA_MAX * 2^-23 of the
+# float64 value from it
+KAPPA_MAX = 1e4
+ARB_REL = KAPPA_MAX * 2.0 ** -23
 # sampler steps per main-path run: past covUpdate = 1000, so the
 # covariance adaptation fires
 NSAMP = 2000
@@ -112,7 +144,11 @@ HMC_KEYS = dict(nsamp=200, warmup=100, nchains=64, n_leapfrog=16)
 PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
          "pt1": "system_noise.dat --num 1: PT-MCMC, 8 walkers",
          "advi": "hmc_single_psr.dat --num 0: ADVI warm start, 16 draws",
-         "hmc": "hmc_single_psr.dat --num 0: HMC, 64 chains"}
+         "hmc": "hmc_single_psr.dat --num 0: HMC, 64 chains",
+         "tm": "sampled_timing_model.dat --num 0: PT-MCMC, 8 walkers",
+         "hyper": "default_hypermodel.dat --num 0: PT-MCMC over the "
+                  "product-space hypermodel, 8 walkers",
+         "fixed": "fixed_white_noise.dat --num 0: PT-MCMC, 8 walkers"}
 # injected noise parameters of the example data (examples/
 # example_noisefiles/J1234-5678_noise.json; examples/make_example_data.py
 # for fake_psr_0); parameters with no injected value sit mid-prior
@@ -162,8 +198,8 @@ def write_paramfile(tmp, name, **keys):
             line = f"out: {os.path.join(tmp, 'out', name)}"
         elif key in keys:
             line = f"{key}: {keys.pop(key)}"
-        elif key == "noise_model_file":
-            line = "noise_model_file: " + os.path.join(
+        elif key in ("noise_model_file", "noisefiles"):
+            line = f"{key}: " + os.path.join(
                 ex, line.split(":", 1)[1].strip())
         out.append(line)
     if keys:
@@ -174,7 +210,8 @@ def write_paramfile(tmp, name, **keys):
     return path
 
 
-def load_like(prfile, num, dev, gram_mode="split"):
+def load_likes(prfile, num, dev, gram_mode="split"):
+    """The parsed paramfile and its ``{model_id: likelihood}``."""
     import types
     from enterprise_warp_tpu_torch.config import Params
     from enterprise_warp_tpu_torch.models.assemble import \
@@ -182,9 +219,8 @@ def load_like(prfile, num, dev, gram_mode="split"):
     opts = types.SimpleNamespace(num=num, drop=0, mpi_regime=2,
                                  wipe_old_output=0, extra_model_terms=None)
     params = Params(prfile, opts=opts)
-    like = init_model_likelihoods(params, gram_mode=gram_mode,
-                                  write_pars=False, device=dev)[0]
-    return params, like
+    return params, init_model_likelihoods(params, gram_mode=gram_mode,
+                                          write_pars=False, device=dev)
 
 
 def near_typical(like, nwalk, seed):
@@ -197,6 +233,28 @@ def near_typical(like, nwalk, seed):
             for p in like.params]
     rng = np.random.default_rng(seed)
     return np.asarray(base) + 0.05 * rng.standard_normal((nwalk, like.ndim))
+
+
+def near_middle(like, nwalk, seed):
+    """Typical noise values (as :func:`near_typical`) and every other
+    parameter near the middle of its prior: spread 2% of the width for the
+    timing-model offsets, 1e-5 of the width (or of the prior sigma) for
+    the physical ephemeris offsets, whose prior scale moves the residuals
+    by seconds against microsecond TOA errors."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = near_typical(like, nwalk, seed)
+    for i, p in enumerate(like.params):
+        if p.name.endswith(("efac", "log10_A", "gamma")) or "equad" in p.name:
+            continue
+        z = rng.standard_normal(nwalk)
+        if hasattr(p.prior, "sigma"):
+            out[:, i] = p.prior.mu + 1e-5 * p.prior.sigma * z
+        else:
+            rel = 0.02 if "tmparams" in p.name else 1e-5
+            out[:, i] = (0.5 * (p.prior.lo + p.prior.hi)
+                         + rel * (p.prior.hi - p.prior.lo) * z)
+    return out
 
 
 def near_truth(like, nwalk, seed):
@@ -225,6 +283,28 @@ class Capture:
 
     def __exit__(self, *exc):
         setattr(self.mk, self.name, self.orig)
+
+
+class Record(Capture):
+    """Record every call of a kernel wrapper during a run: the last inputs
+    per matrix order ``n`` (the last axis of the first input) and the
+    batch sizes of all calls per order (``batch_arg``: the input whose
+    first axis is the walker batch)."""
+
+    def __init__(self, mk, name, batch_arg):
+        super().__init__(mk, name)
+        self.batch_arg = batch_arg
+        self.last = {}
+        self.sizes = collections.defaultdict(collections.Counter)
+
+    def __enter__(self):
+        def rec(*args):
+            n = args[0].shape[-1]
+            self.last[n] = args
+            self.sizes[n][args[self.batch_arg].shape[0]] += 1
+            return self.orig(*args)
+        setattr(self.mk, self.name, rec)
+        return self
 
 
 def time_cuda(fn, warm=5, reps=50):
@@ -287,6 +367,27 @@ def like_cost(S32, Bn, refine, tiers):
     nbytes = 4.0 * (ntoa * nb + B * (ntoa + 2 * nb + nb * k)) \
         + 4.0 * B * (nb * k + 2)
     return flops, nbytes
+
+
+def exact_solve(Sn, Bn):
+    """The float64 solution, log-determinant and 2-norm condition number
+    of the equilibrated systems ``Sn Z = Bn`` (an arbiter for the float32
+    versions)."""
+    import torch
+    S = Sn.double()
+    return (torch.linalg.solve(S, Bn.double()), torch.linalg.slogdet(S)[1],
+            torch.linalg.cond(S))
+
+
+def like_system(S32, w, s, ivb, Bn):
+    """The likelihood kernel's equilibrated system ``Sn = s (Ss^T Ss) s +
+    diag(ivb)``, ``Ss = S sqrt(w)``, formed in float64, and its ``Bn``."""
+    import torch
+    Ss = S32.double()[None] * torch.sqrt(w.double())[:, :, None]
+    sd = s.double()
+    Sn = (torch.einsum("bik,bil->bkl", Ss, Ss) * sd[:, :, None]
+          * sd[:, None, :] + torch.diag_embed(ivb.double()))
+    return Sn, Bn
 
 
 def bound(flops, nbytes):
@@ -892,10 +993,9 @@ def main():
     # runs it, at that path's shapes
     results = {}
 
-    def hold_solve(entry, run, kern, plain, cost, shape):
-        """A megakernel against its plain version on the same CUDA inputs
-        (``Z`` and ``ld`` within ATOL), both timed, and the bound from
-        this run's tiers."""
+    def compare(entry, kern, plain, shape):
+        """A megakernel against its plain version on the same CUDA inputs:
+        ``Z`` and ``ld`` within ATOL. Returns the errors and the tiers."""
         Zk, ldk, tk = kern()
         Zp, ldp = plain()
         torch.cuda.synchronize()
@@ -906,9 +1006,65 @@ def main():
               f"{tk.tolist()}")
         if not (torch.isfinite(Zk).all() and torch.isfinite(ldk).all()):
             fail(f"{entry}: non-finite kernel output")
-        if not (ez <= ATOL and el <= ATOL):
+        if ez > ATOL or el > ATOL:
             fail(f"{entry}: kernel and plain version differ by more than "
                  f"atol {ATOL}")
+        return ez, el, tk
+
+    def hold_last_step(entry, kern, plain, shape, exact):
+        """A megakernel against its plain version on the inputs a
+        sampler's last step gave, wherever the chain stood, walker by
+        walker. ``exact``: the float64 ``(Z, ld, cond)`` of the same
+        equilibrated systems. A walker whose condition number is at most
+        KAPPA_MAX is held: ``Z`` and ``ld`` within ATOL of the plain
+        version's or, where float32 rounding of a large ``Z`` puts the two
+        further apart, the kernel at most twice as far from float64 as the
+        plain version plus ATOL and within ARB_REL of the walker's largest
+        float64 |Z| (and of max(1, |ld|)). A walker above KAPPA_MAX is
+        beyond what a float32 solve resolves; it is reported, and its
+        outputs must only be finite."""
+        Zk, ldk, tk = kern()
+        Zp, ldp = plain()
+        Za, lda, kappa = exact()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(Zk).all() and torch.isfinite(ldk).all()):
+            fail(f"{entry}: non-finite kernel output")
+        held = []
+        for b in range(Zk.shape[0]):
+            dz = float((Zk[b] - Zp[b]).abs().max())
+            dl = float((ldk[b] - ldp[b]).abs())
+            fk = (float((Zk[b].double() - Za[b]).abs().max()),
+                  float((ldk[b].double() - lda[b]).abs()))
+            fp = (float((Zp[b].double() - Za[b]).abs().max()),
+                  float((ldp[b].double() - lda[b]).abs()))
+            zmax = float(Za[b].abs().max())
+            kb = float(kappa[b])
+            line = (f"{entry} at {shape}, walker {b}: cond {kb:.3e} max|Z| "
+                    f"{zmax:.3e} |k-p| Z {dz:.3e} ld {dl:.3e}; from float64 "
+                    f"kernel {fk[0]:.3e} / {fk[1]:.3e}, plain {fp[0]:.3e} / "
+                    f"{fp[1]:.3e}, tier {int(tk[b])}")
+            if kb > KAPPA_MAX:
+                print(line + f": beyond float32 (cond > {KAPPA_MAX:g}), "
+                      "not held")
+                continue
+            held.append(b)
+            print(line)
+            if dz <= ATOL and dl <= ATOL:
+                continue
+            lim = (ARB_REL * zmax, ARB_REL * max(1.0, abs(float(lda[b]))))
+            if not all(k <= 2.0 * q + ATOL and k <= m
+                       for k, q, m in zip(fk, fp, lim)):
+                fail(f"{entry}, walker {b}: kernel and plain version more "
+                     f"than atol {ATOL} apart, and the kernel's distance "
+                     "from float64 exceeds twice the plain version's plus "
+                     f"atol or {ARB_REL:.3g} of the float64 value")
+        print(f"{entry}: {len(held)} of {Zk.shape[0]} walkers held (cond "
+              f"<= {KAPPA_MAX:g})")
+
+    def hold_solve(entry, run, kern, plain, cost, shape):
+        """:func:`compare` within ATOL, both versions timed, and the bound
+        from this run's tiers."""
+        ez, el, tk = compare(entry, kern, plain, shape)
         ms = time_cuda(kern)
         plain_ms = time_cuda(plain)
         flops, nbytes = cost(tk.tolist())
@@ -935,7 +1091,8 @@ def main():
         prfile = write_paramfile(tmp, "system_noise.dat", nsamp=NSAMP)
         likes, walkers = {}, None
         for num in (0, 1):
-            params, likes[num] = load_like(prfile, num, dev)
+            params, ls = load_likes(prfile, num, dev)
+            likes[num] = ls[0]
             popts, _ = sampler_options(params)
             walkers = popts["ntemps"] * 8
         with Capture(mk, "mega_solve_logdet") as cap_s:
@@ -951,7 +1108,7 @@ def main():
         # megakernel tolerance (tests/test_megakernel.py: rtol 1e-3,
         # atol 5e-2)
         for num, lnl in ((0, lnl0), (1, lnl1)):
-            oracle = load_like(prfile, num, "cpu", gram_mode="f64")[1]
+            oracle = load_likes(prfile, num, "cpu", gram_mode="f64")[1][0]
             ref = oracle.loglike_batch(near_truth(oracle, walkers, num))
             gap = (lnl.cpu() - ref).abs()
             print(f"lnL --num {num} on the card vs float64 on the CPU: "
@@ -1009,8 +1166,8 @@ def main():
 
         # ---- phase 4: the gradient path and its kernels ------------------
         hmc_prfile = write_paramfile(tmp, "hmc_single_psr.dat", **HMC_KEYS)
-        hlike = load_like(hmc_prfile, 0, dev)[1]
-        horacle = load_like(hmc_prfile, 0, "cpu", gram_mode="f64")[1]
+        hlike = load_likes(hmc_prfile, 0, dev)[1][0]
+        horacle = load_likes(hmc_prfile, 0, "cpu", gram_mode="f64")[1][0]
         nch = HMC_KEYS["nchains"]
         th = near_typical(hlike, nch, 3)
         x = torch.tensor(th, device=dev, requires_grad=True)
@@ -1269,23 +1426,29 @@ def main():
             chain = np.loadtxt(os.path.join(outdir[0], "chain_1.txt"))
             if not np.isfinite(chain).all():
                 fail(f"{name} --num {num}: non-finite chain rows")
-            return chain, counts
+            return chain, counts, outdir[0]
 
-        for num, kname in ((0, "mega_solve"), (1, "mega_like")):
-            chain, launches[f"pt{num}"] = drive(prfile, num, [kname])
+        def pt_report(label, chain):
+            """The PT run's acceptance, which must lie in (0, 1), and its
+            rates from the sampler's block timings."""
             acc = chain[-1, -2]
             if not 0.0 < acc < 1.0:
-                fail(f"--num {num}: acceptance {acc}")
+                fail(f"{label}: acceptance {acc}")
             blocks = [st for st in stats if st["kind"] == "block_stats"]
             steps = sum(st["steps"] for st in blocks)
             block_s = sum(st["block_s"] for st in blocks)
             W = blocks[-1]["walkers"]
-            print(f"main path --num {num}: {chain.shape[0]} chain rows, "
+            print(f"main path {label}: {chain.shape[0]} chain rows, "
+                  f"largest lnL {chain[:, -3].max():.6g}, "
                   f"acceptance {acc:.3f}, {steps} steps x {W} walkers in "
                   f"{block_s:.2f} s: {W * steps / block_s:.1f} walker-evals/s"
                   f", {1e3 * block_s / steps:.3f} ms/step [{smi}]")
 
-        chain, counts = drive(hmc_prfile, 0, ["mega_like", "chol_precond"])
+        for num, kname in ((0, "mega_solve"), (1, "mega_like")):
+            chain, launches[f"pt{num}"], _ = drive(prfile, num, [kname])
+            pt_report(f"--num {num}", chain)
+
+        chain, counts, _ = drive(hmc_prfile, 0, ["mega_like", "chol_precond"])
         if "advi" not in launches:
             fail("the HMC run logged no ADVI fit")
         launches["hmc"] = {k: counts[k] - launches["advi"][k]
@@ -1320,21 +1483,166 @@ def main():
               f"{1e3 * block_s / grads:.3f} ms/gradient eval (W={nch}), "
               f"{1e3 * block_s / steps:.3f} ms/HMC step; acceptance after "
               f"warmup {acc:.3f} [{smi}]")
+
+        # ---- phase 6: model selection, the sampled timing model, folded
+        # Grams, and the port's results CLI ------------------------------
+        from enterprise_warp_tpu_torch.samplers import HyperModelLikelihood
+
+        def solve_calls(args):
+            return (lambda: mk._mega_solve_cuda(*args),
+                    lambda: mk._mega_solve_torch(*args),
+                    f"Sn {tuple(args[0].shape)} Bn {tuple(args[1].shape)}",
+                    lambda: exact_solve(*args[:2]))
+
+        def like_calls(args):
+            return (lambda: mk._mega_like_cuda(*args),
+                    lambda: mk._mega_like_torch(*args),
+                    f"S {tuple(args[0].shape)} w {tuple(args[1].shape)} Bn "
+                    f"{tuple(args[4].shape)}",
+                    lambda: exact_solve(*like_system(*args[:5])))
+
+        run_dirs = []
+        # (run, paramfile, the kernel it must launch, that kernel's wrapper
+        # in ops/megakernel.py, the wrapper input that carries the batch)
+        for run, name, kname, wrapper, batch_arg in (
+                ("tm", "sampled_timing_model.dat", "mega_solve",
+                 "mega_solve_logdet", 0),
+                ("hyper", "default_hypermodel.dat", "mega_like", "mega_like",
+                 1),
+                ("fixed", "fixed_white_noise.dat", "mega_solve",
+                 "mega_solve_logdet", 0)):
+            pf = write_paramfile(tmp, name, nsamp=NSAMP)
+            with Record(mk, wrapper, batch_arg) as rec:
+                chain, launches[run], run_dir = drive(pf, 0, [kname])
+            pt_report(f"{name} --num 0", chain)
+            run_dirs.append(os.path.dirname(run_dir))
+            # every evaluation of these paths is one launch of ``kname``
+            for other in routes.KERNELS:
+                if other != kname and launches[run][other]:
+                    fail(f"{name}: {other} was launched")
+            sizes = {n: dict(sorted(c.items()))
+                     for n, c in sorted(rec.sizes.items())}
+            calls = sum(sum(c.values()) for c in sizes.values())
+            print(f"{name}: {wrapper} calls per order n and walker batch "
+                  f"size: {sizes}")
+            if calls != launches[run][kname]:
+                fail(f"{name}: {calls} wrapper calls, "
+                     f"{launches[run][kname]} launches")
+            if run == "hyper":
+                pars = open(os.path.join(run_dir, "pars.txt")).read().split()
+                k = np.clip(np.round(chain[:, pars.index("nmodel")]), 0, 1)
+                print(f"{name}: share of samples per nmodel bin "
+                      f"{ {m: float(np.mean(k == m)) for m in (0, 1)} }")
+                if sorted(sizes) != [1, 60]:
+                    fail(f"{name}: the likelihood kernel ran at orders "
+                         f"{sorted(sizes)}, not at both members' [1, 60]")
+            # the chain's largest lnL against the float64 oracle on the
+            # CPU at the same point, in the reference's megakernel class
+            # (rtol 1e-3, atol 5e-2); on the hypermodel path reported
+            # only: its walkers reach prior corners where the likelihood
+            # kernel's route returns a finite lnL far above float64, as
+            # the reference's kernel route does (ROADMAP.md Queue 3)
+            oracles = load_likes(pf, 0, "cpu", gram_mode="f64")[1]
+            oracle = HyperModelLikelihood(oracles) if run == "hyper" \
+                else oracles[0]
+            top = int(np.argmax(chain[:, -3]))
+            ref = float(oracle.loglike_batch(
+                chain[top:top + 1, :oracle.ndim])[0])
+            print(f"{name}: largest lnL in the chain {chain[top, -3]:.6g} "
+                  f"(row {top}); float64 oracle on the CPU there {ref:.6g}")
+            if run != "hyper" and not \
+                    abs(chain[top, -3] - ref) <= 5e-2 + 1e-3 * abs(ref):
+                fail(f"{name}: the chain's largest lnL disagrees with the "
+                     "float64 oracle")
+            calls_of = like_calls if kname == "mega_like" else solve_calls
+            # the inputs of the run's last step, wherever the chain stood
+            for n, args in sorted(rec.last.items()):
+                kern, plain, shape, exact = calls_of(args)
+                hold_last_step(f"{kname}@{run} n={n}, the run's last step",
+                               kern, plain, shape, exact)
+            if run == "hyper":
+                # member 0's one basis column is null (X = 0, so Z = 0 on
+                # the path whatever the kernel does): hold nb = 1 on a
+                # seeded non-null column at the path's ntoa, at each walker
+                # batch the run gave member 0
+                a1 = rec.last[1]
+                for B in sorted(sizes[1]):
+                    S1, w1, s1, ivb1, Bn1 = like_inputs(
+                        torch, dev, a1[0].shape[0], 1, B, a1[4].shape[2],
+                        40 + B)
+                    args = (S1, w1, s1, ivb1, Bn1, *a1[5:])
+                    if float(mk._mega_like_torch(*args)[0].abs().max()) \
+                            < 1e-2:
+                        fail("the nb = 1 fixture's Z is near 0")
+                    kern, plain, shape, _ = like_calls(args)
+                    compare("mega_like nb = 1, seeded basis column", kern,
+                            plain, shape)
+            # the entries of the kernels line: inputs captured from the
+            # path's likelihood at points near typical noise values (the
+            # last step's inputs may hold walkers beyond float32, where
+            # the two versions differ by rounding alone), at the walker
+            # batch the run gave each order most often
+            likes = load_likes(pf, 0, dev)[1]
+            like = HyperModelLikelihood(likes) if run == "hyper" \
+                else likes[0]
+            for m, n in enumerate(sorted(sizes)):
+                W = max(sizes[n], key=sizes[n].get)
+                th = near_middle(like, walkers, 8 + m)
+                if run == "hyper":
+                    # W walkers select member m, the others member 1 - m
+                    th[:, -1] = np.where(np.arange(walkers) < W, m, 1 - m)
+                with Record(mk, wrapper, batch_arg) as cap:
+                    lnl = like.loglike_batch(th)
+                if not torch.isfinite(lnl).all():
+                    fail(f"{name}: non-finite lnL near typical values")
+                args = cap.last[n]
+                if args[batch_arg].shape[0] != W:
+                    fail(f"{name}: order {n} ran at a batch of "
+                         f"{args[batch_arg].shape[0]}, not {W}")
+                entry = f"{kname}@{run}{m if run == 'hyper' else ''}"
+                kern, plain, shape, _ = calls_of(args)
+                cost = (lambda tiers, a=args: like_cost(a[0], a[4], a[7],
+                                                        tiers)) \
+                    if kname == "mega_like" else \
+                    (lambda tiers, a=args: solve_cost(*a[1].shape, a[4],
+                                                      tiers))
+                hold_solve(entry, run, kern, plain, cost, shape)
+                results[entry].update(launches=sum(sizes[n].values()),
+                                      batch_sizes=sizes[n])
         for lg in loggers:
             lg.removeHandler(handler)
+        for d in run_dirs:
+            proc = subprocess.run(
+                [sys.executable, "-m", f"{PKG}.results", "--result", d,
+                 "--info", "1", "--noisefiles", "1", "--credlevels", "1",
+                 "--logbf", "1", "--covm", "1"],
+                cwd=HERE, capture_output=True, text=True, timeout=600)
+            said = [ln.split(" INFO ", 1)[-1] for ln in
+                    proc.stderr.splitlines() if "logBF" in ln
+                    or "only model" in ln or "no nmodel" in ln]
+            print(f"results CLI on {os.path.basename(d)}: rc "
+                  f"{proc.returncode}; {'; '.join(said)}")
+            if proc.returncode != 0:
+                fail(f"the results CLI exited {proc.returncode} on {d}: "
+                     + proc.stderr[-2000:])
+            if not os.path.exists(os.path.join(d, "noisefiles",
+                                               "J1234-5678_noise.json")):
+                fail(f"the results CLI wrote no noise file for {d}")
 
     kernels = []
     for entry, r in results.items():
         kname = entry.split("@")[0]
         kernels.append(dict(
             name=entry, route="cuda", source=SOURCE,
-            replaces=REPLACES[kname], launches=launches[r["run"]][kname],
+            replaces=REPLACES[kname],
+            launches=r.get("launches", launches[r["run"]][kname]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, kernel=kname,
             path=PATHS[r["run"]], shape=r["shape"]))
         for key in ("phases_ms", "stage_a_ms", "single_block_ms",
-                    "bare_call_ms", "serial_ms", "global_design_ms"):
+                    "bare_call_ms", "serial_ms", "global_design_ms",
+                    "batch_sizes"):
             if key in r:
                 kernels[-1][key] = r[key]
     print(smi)

@@ -2,14 +2,14 @@
 --num N``.
 
 Counterpart of ``enterprise_warp_tpu/cli.py`` for the ``ptmcmcsampler``
-branch with one model and the ``hmc`` branch: parse the paramfile, load
-pulsar ``--num``, build its walker-batched likelihood on the card and run
-the adaptive PT-MCMC, or HMC with its ADVI warm start, writing the
-reference's output-directory contract so ``python -m
-enterprise_warp_tpu.results`` post-processes the run unchanged. The other
-samplers, product-space model selection, the ``serve`` subcommand and the
-``psr_shard``/``chain_shard`` knobs are later slices of the port and raise
-``NotImplementedError``.
+and ``hmc`` branches: parse the paramfile, load pulsar ``--num``, build
+its walker-batched likelihoods on the card and run the adaptive PT-MCMC
+(over the product-space hypermodel of all models when the paramfile has
+two or more), or HMC with its ADVI warm start, writing the reference's
+output-directory contract so ``python -m enterprise_warp_tpu_torch.results``
+post-processes the run. The other samplers, the ``serve`` subcommand and
+the ``psr_shard``/``chain_shard`` knobs are later slices of the port and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def main(argv=None, device="cuda"):
     from .io.errors import ParseError
     from .models.assemble import init_model_likelihoods
     from .resilience.integrity import EXIT_QUARANTINED, DataQuarantine
-    from .samplers import run_hmc, run_ptmcmc
+    from .samplers import HyperModelLikelihood, run_hmc, run_ptmcmc
 
     device = resolve_device(device)
     custom = None
@@ -82,10 +82,6 @@ def main(argv=None, device="cuda"):
     for knob in ("psr_shard", "chain_shard"):
         if params.sampler_kwargs.get(knob):
             raise NotImplementedError(f"{knob} {_LATER}")
-    if len(params.models) != 1 and params.sampler == "ptmcmcsampler":
-        raise NotImplementedError(
-            f"product-space model selection ({len(params.models)} models) "
-            + _LATER)
     likes = init_model_likelihoods(params, gram_mode=opts.gram_mode,
                                    device=device)
     if params.setupsamp or opts.mpi_regime == 1:
@@ -103,6 +99,8 @@ def main(argv=None, device="cuda"):
         nsamp = int(getattr(params, "nsamp", kw.get("nsamp", 10000)))
         run_hmc(like, params.output_dir, nsamp, params=params, resume=resume)
         return 0
+    if len(likes) >= 2:
+        like = HyperModelLikelihood(likes)
     nsamp = int(getattr(params, "nsamp", kw.get("nsamp", 1000000)))
     run_ptmcmc(like, params.output_dir, nsamp, params=params, resume=resume)
     return 0

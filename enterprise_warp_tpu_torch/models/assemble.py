@@ -65,14 +65,19 @@ def write_nfreqs_files(output_dir, nfreqs_logs):
 
 def init_model_likelihoods(params, gram_mode="split", write_pars=True,
                            device="cuda"):
-    """``{model_id: likelihood}`` for a single-pulsar run."""
+    """``{model_id: likelihood}`` for a single-pulsar run; ``tm:
+    sampled`` in a model section samples its timing model."""
     likes = {}
     for ii, pm in params.models.items():
         tm_opt = getattr(pm, "tm", "default") or "default"
-        if tm_opt != "default":
+        if tm_opt not in ("default", "sampled"):
             raise NotImplementedError(
-                f"tm: {tm_opt} — only the marginalized timing model is "
-                "ported so far (see ROADMAP.md)")
+                f"tm: {pm.tm} — 'default' (marginalized linear timing "
+                "model) and 'sampled' (per-column tmparams offsets, the "
+                "reference expansion at bilby_warp.py:85-91) are "
+                "implemented; the reference's 'ridge_regression' option "
+                "is broken upstream (enterprise_warp.py:453-459)")
+        tm_mode = "sampled" if tm_opt == "sampled" else "marginalized"
         if len(params.psrs) != 1:
             raise NotImplementedError(
                 "multi-pulsar models are a later slice of the port (see "
@@ -87,7 +92,8 @@ def init_model_likelihoods(params, gram_mode="split", write_pars=True,
                                    params._resolve(pm.noisefiles))
         like = build_pulsar_likelihood(params.psrs[0], termlists[0],
                                        fixed_values=fixed,
-                                       gram_mode=gram_mode, device=device)
+                                       gram_mode=gram_mode, tm=tm_mode,
+                                       device=device)
         likes[ii] = like
         if write_pars and getattr(params, "output_dir", None) and \
                 (params.opts is None

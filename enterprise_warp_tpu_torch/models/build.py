@@ -5,9 +5,10 @@ single-pulsar, marginalized-timing-model, unsharded build: the term specs
 are lowered to static whitened arrays on the device plus per-walker
 white-noise (``eval_nw``) and PSD (``eval_phi``) programs, and
 :class:`PulsarLikelihood.loglike_batch` evaluates ``(W, ndim)`` parameter
-points at once through ``ops.kernel.marginalized_loglike``. Sampled
-timing models, sampled-coefficient deterministic terms, sampled
-chromatic indices and TOA-axis meshes are later slices of the port
+points at once through ``ops.kernel.marginalized_loglike``. A sampled
+timing model (``tm="sampled"``) and sampled-coefficient deterministic
+terms subtract their delays from the whitened residuals per walker. A
+sampled chromatic index and TOA-axis meshes are later slices of the port
 (``ROADMAP.md``) and raise ``NotImplementedError``.
 """
 
@@ -27,7 +28,7 @@ from ..ops.kernel import (build_pair_program, gram_blocks,
 from ..ops.spectra import (broken_powerlaw_psd, df_from_freqs,
                            free_spectrum_psd, powerlaw_psd)
 from .prior_mixin import PriorMixin
-from .priors import Constant, Parameter
+from .priors import Constant, Parameter, Uniform
 from .terms import BasisTerm, CommonTerm, DeterministicTerm, WhiteTerm
 
 _PSD_FNS = {
@@ -37,6 +38,9 @@ _PSD_FNS = {
 }
 
 _LATER = "a later slice of the port (see ROADMAP.md)"
+# prior half-width of each sampled timing-model offset, in units of the
+# whitened, unit-normalized design columns (the reference's default)
+TM_RANGE = 10.0
 
 
 @dataclass
@@ -187,6 +191,28 @@ def lower_terms(psr, terms, ecorr_dt=10.0, det_out=None):
     return white_blocks, basis_blocks, np.concatenate(basis_cols, axis=1)
 
 
+def lower_det_terms(det_terms, sigma, sampled, mapping):
+    """Lower sampled-coefficient deterministic terms (``bayes_ephem:
+    sampled``): append each term's parameters to ``sampled``/``mapping``
+    in term order and return ``(D_w, det_refs)`` — the delay columns
+    (ntoa, k) with their rows whitened (no column normalization: the
+    coefficients carry physical priors) and the theta refs aligned with
+    the columns; ``(None, None)`` when ``det_terms`` is empty."""
+    if not det_terms:
+        return None, None
+    D_w = np.concatenate(
+        [np.asarray(t.D, dtype=np.float64) for t in det_terms], axis=1) \
+        / np.asarray(sigma, dtype=np.float64)[:, None]
+    det_refs = []
+    for t in det_terms:
+        for p in t.params:
+            if p.name not in mapping:
+                mapping[p.name] = ("theta", len(sampled))
+                sampled.append(p)
+            det_refs.append(mapping[p.name])
+    return D_w, det_refs
+
+
 def collect_params(white_blocks, basis_blocks):
     """All model parameters in canonical (``pars.txt``) order."""
     all_params = []
@@ -267,39 +293,53 @@ def eval_phi(theta, bb_static, cs2):
 
 def build_pulsar_likelihood(psr, terms, fixed_values=None,
                             gram_mode="split", ecorr_dt=10.0,
-                            tm="marginalized", const_grams=None,
-                            device="cuda"):
+                            tm="marginalized", const_grams=None, device="cuda"):
     """Build the walker-batched likelihood of one pulsar and TermList.
 
     ``fixed_values`` maps Constant-prior parameter names to values (the
-    noisefile fixing). ``const_grams`` (None = auto, honouring
-    ``EWT_CONST_GRAMS=0``): with every white-noise parameter fixed the
-    Gram stage is theta-independent and is folded once here, through the
-    same code path a per-eval recompute takes. ``EWT_PAIR_PROGRAM=0``
-    turns the Gram-as-matmul program off; ``EWT_REFINE`` sets the
-    refinement passes of the Sigma solve (default 3). The resolved
-    choices are exposed as ``like.const_grams`` / ``like.pair_program``.
+    noisefile fixing). ``tm``: ``'marginalized'`` integrates the design
+    matrix out analytically; ``'sampled'`` adds one
+    ``Uniform(-TM_RANGE, TM_RANGE)`` offset per design column, named
+    ``<psr>_tmparams_<i>``, after the noise and deterministic parameters,
+    in units of the whitened, unit-normalized design columns, and
+    subtracts ``M dp`` from the residuals per walker (no Schur stage).
+    Sampled deterministic terms subtract ``D c`` likewise.
+    ``const_grams`` (None = auto, honouring ``EWT_CONST_GRAMS=0``): with
+    every white-noise parameter fixed and nothing walker-dependent on the
+    residuals, the Gram stage is theta-independent and is folded once
+    here, through the same code path a per-eval recompute takes.
+    ``EWT_PAIR_PROGRAM=0`` turns the Gram-as-matmul program off;
+    ``EWT_REFINE`` sets the refinement passes of the Sigma solve
+    (default 3). The resolved choices are exposed as
+    ``like.const_grams`` / ``like.pair_program``.
     """
     device = resolve_device(device)
-    if tm != "marginalized":
-        raise NotImplementedError(f"tm={tm!r}: the sampled timing model is "
-                                  + _LATER)
+    if tm not in ("marginalized", "sampled"):
+        raise ValueError(f"unknown tm mode '{tm}' "
+                         "(use 'marginalized' or 'sampled')")
     ntoa = len(psr)
     sigma = np.asarray(psr.toaerrs, dtype=np.float64)
     det_terms = []
     white_blocks, basis_blocks, T_all = lower_terms(psr, terms,
                                                     ecorr_dt=ecorr_dt,
                                                     det_out=det_terms)
-    if det_terms:
-        raise NotImplementedError(
-            "sampled-coefficient deterministic terms ("
-            + ", ".join(t.name for t in det_terms) + ") are " + _LATER)
     if any(bb.dynamic_idx is not None for bb in basis_blocks):
         raise NotImplementedError("a sampled chromatic index is " + _LATER)
     r_w, M_w, T_w, col_scale2, _ = whiten_inputs(psr.residuals, sigma,
                                                  psr.Mmat, T_all)
     sampled, mapping = _resolve_params(
         collect_params(white_blocks, basis_blocks), fixed_values)
+    D_w, det_refs = lower_det_terms(det_terms, sigma, sampled, mapping)
+    tm_refs = None
+    if tm == "sampled":
+        # one offset per design column, after the noise parameters
+        tm_refs = []
+        for i in range(psr.Mmat.shape[1]):
+            p = Parameter(f"{psr.name}_tmparams_{i}",
+                          Uniform(-TM_RANGE, TM_RANGE))
+            mapping[p.name] = ("theta", len(sampled))
+            tm_refs.append(mapping[p.name])
+            sampled.append(p)
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=F64,
@@ -310,18 +350,24 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
     wb_static = white_static(white_blocks, mapping, device)
     bb_static = basis_static(basis_blocks, mapping, device)
 
+    D_w_t = None if D_w is None else dev(D_w)
+    # the pair program and the folded Grams need residuals that no walker
+    # changes: no sampled timing model, no sampled deterministic delays
+    static_resid = tm_refs is None and det_refs is None
     pair_prog = None
-    if gram_mode == "split" \
+    if gram_mode == "split" and static_resid \
             and os.environ.get("EWT_PAIR_PROGRAM", "1") != "0":
         pair_prog = build_pair_program(r_w, M_w, T_w, device=device)
     wn_fixed = all(rf[0] == "const" for _, _, refs in wb_static
                    for rf in refs)
     if const_grams is None:
-        const_grams = wn_fixed \
+        const_grams = wn_fixed and static_resid \
             and os.environ.get("EWT_CONST_GRAMS", "1") != "0"
-    elif const_grams and not wn_fixed:
-        raise ValueError("const_grams=True requires a fixed-white-noise "
-                         "model")
+    elif const_grams and not (wn_fixed and static_resid):
+        raise ValueError(
+            "const_grams=True requires a fixed-white-noise model with no "
+            "sampled timing model or deterministic delays "
+            f"(white noise fixed: {wn_fixed})")
     grams_cached = None
     if const_grams:
         nw0 = eval_nw(torch.zeros((1, max(len(sampled), 1)), dtype=F64,
@@ -331,13 +377,24 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
             pair_program=pair_prog))
     n_refine = int(os.environ.get("EWT_REFINE", "3"))
 
+    def stacked(theta, refs):
+        return torch.stack([param_value(theta, rf) for rf in refs], dim=-1)
+
     def evaluate(theta):
         nw = eval_nw(theta, wb_static, ntoa, sigma2)
         phi = eval_phi(theta, bb_static, cs2)
-        lnl = marginalized_loglike(
-            nw, phi, r_w_t, M_w_t, T_w_t, gram_mode=gram_mode,
-            pair_program=None if grams_cached is not None else pair_prog,
-            refine=n_refine, grams=grams_cached)
+        r_eff = r_w_t
+        if det_refs is not None:
+            r_eff = r_eff - stacked(theta, det_refs) @ D_w_t.T
+        if tm_refs is None:
+            lnl = marginalized_loglike(
+                nw, phi, r_eff, M_w_t, T_w_t, gram_mode=gram_mode,
+                pair_program=None if grams_cached is not None
+                else pair_prog, refine=n_refine, grams=grams_cached)
+        else:
+            r_eff = r_eff - stacked(theta, tm_refs) @ M_w_t.T
+            lnl = marginalized_loglike(nw, phi, r_eff, None, T_w_t,
+                                       gram_mode=gram_mode, refine=n_refine)
         # a numerically non-PD Sigma (extreme prior corners) yields NaN;
         # the reference maps Cholesky failure to -inf likewise
         return torch.where(torch.isnan(lnl), torch.full_like(lnl, -math.inf),
@@ -347,7 +404,8 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
     like.const_grams = bool(const_grams)
     like.pair_program = pair_prog is not None
     like.static = dict(r_w=r_w_t, M_w=M_w_t, T_w=T_w_t, cs2=cs2,
-                       sigma2=sigma2, wb=wb_static, bb=bb_static)
+                       sigma2=sigma2, wb=wb_static, bb=bb_static,
+                       D_w=D_w_t, det_refs=det_refs, tm_refs=tm_refs)
     like.eval_nw = lambda theta: eval_nw(like.as_theta(theta), wb_static,
                                          ntoa, sigma2)
     like.eval_phi = lambda theta: eval_phi(like.as_theta(theta), bb_static,

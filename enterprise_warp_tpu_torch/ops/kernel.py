@@ -209,22 +209,26 @@ def gram_blocks(nw, r_w, M_w, T_w, mask=None, gram_mode="split",
     """The Gram stage of :func:`marginalized_loglike` on its own:
     ``(G, H, P, X, q, rwr)`` for the weights ``w = mask / nw``
     (``nw`` is (W, ntoa)). Factored out so fixed-white-noise builds can
-    constant-fold it at build time through this same code path."""
+    constant-fold it at build time through this same code path.
+    ``M_w=None`` is the sampled-timing-model likelihood: the caller has
+    subtracted the timing-model delay from ``r_w`` (then (W, ntoa), one
+    row per walker), and ``H``, ``P`` and ``q`` have no columns."""
     w = 1.0 / nw
     if mask is not None:
         w = w * mask
-    ntm = M_w.shape[1]
+    ntm = 0 if M_w is None else M_w.shape[1]
     if pair_program is not None:
         return pair_program_grams(w, pair_program)
     sqw = torch.sqrt(w)
     Ts = T_w * sqw[..., None]
-    Ms = M_w * sqw[..., None]
+    Ms = None if M_w is None else M_w * sqw[..., None]
     rs = r_w * sqw
     G = _gram_pair(Ts, Ts, gram_mode)
     if gram_mode == "split":
         # the M/r side feeds A = P - H^T Sigma^-1 H, whose cancellation
         # amplifies Gram error by up to ~1e8: genuine float64
-        U = torch.cat([Ms, rs[..., None]], dim=-1)
+        U = rs[..., None] if Ms is None \
+            else torch.cat([Ms, rs[..., None]], dim=-1)
         HX = torch.einsum("...ti,...tj->...ij", Ts, U)
         Pq = torch.einsum("...ti,...tj->...ij", U, U)
         H, X = HX[..., :ntm], HX[..., ntm]
@@ -233,9 +237,14 @@ def gram_blocks(nw, r_w, M_w, T_w, mask=None, gram_mode="split",
     else:
         X = _gram_pair(Ts, rs[..., None], gram_mode)[..., 0]
         rwr = torch.sum(rs * rs, dim=-1)
-        H = _gram_pair(Ts, Ms, gram_mode)
-        P = _gram_pair(Ms, Ms, gram_mode)
-        q = _gram_pair(Ms, rs[..., None], gram_mode)[..., 0]
+        if Ms is None:
+            H = Ts.new_zeros(Ts.shape[:-2] + (Ts.shape[-1], 0))
+            P = Ts.new_zeros(Ts.shape[:-2] + (0, 0))
+            q = Ts.new_zeros(Ts.shape[:-2] + (0,))
+        else:
+            H = _gram_pair(Ts, Ms, gram_mode)
+            P = _gram_pair(Ms, Ms, gram_mode)
+            q = _gram_pair(Ms, rs[..., None], gram_mode)[..., 0]
     return G, H, P, X, q, rwr
 
 
@@ -400,7 +409,12 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
     nw : (W, ntoa) whitened white-noise variance per TOA.
     b : (W, nbasis) prior variance per (scale-folded) basis column.
     r_w, M_w, T_w : whitened residuals / TM matrix / noise basis
-        (static, float64).
+        (static, float64). ``r_w`` may also be (W, ntoa), one row per
+        walker (sampled deterministic delays subtracted). ``M_w=None``
+        is the sampled-timing-model likelihood: no timing-model Schur
+        stage, ``quad = rwr - X^T Sigma^-1 X``, and the likelihood
+        megakernel declines (the Sigma solve still makes its own
+        solve-kernel decision).
     mask : optional (ntoa,) 0/1 padding mask.
     gram_mode : 'split', 'f32' or 'f64'.
     grams : optional precomputed ``(G, H, P, X, q, rwr)`` (unbatched) from
@@ -417,18 +431,19 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
     Returns lnL (W,) up to a theta-independent constant.
     """
     f64 = r_w.dtype
-    ntm = M_w.shape[1]
     solve_mega = False if mega is False else None
     if mega is None:
-        if gram_mode in ("split", "f32") and grams is None:
+        if gram_mode in ("split", "f32") and grams is None \
+                and M_w is not None:
             from .megakernel import mega_like_route
             mega = mega_like_route(T_w.shape[0], T_w.shape[1], T_w.device)
         else:
             mega = False
     if mega:
-        if grams is not None:
-            raise ValueError("the mega route requires a live Gram stage "
-                             "(grams=None)")
+        if M_w is None or grams is not None:
+            raise ValueError("the mega route requires the marginalized-TM "
+                             "path with a live Gram stage (M_w present, "
+                             "grams=None)")
         from .megakernel import mega_marginalized_loglike
         mask_arr = torch.ones_like(nw) if mask is None \
             else mask.expand_as(nw)
@@ -445,7 +460,20 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
     b = b.to(f64)
     Sigma = G.to(f64) + torch.diag_embed(1.0 / b)
 
-    if gram_mode == "f64":
+    logdet_a = 0.0
+    if M_w is None:
+        # no-TM path: C_n-only quadratic form and determinant
+        if gram_mode == "f64":
+            L, sS, logdet_sigma = equilibrated_cholesky(Sigma, 0.0)
+            u = torch.linalg.solve_triangular(L, (sS * X)[..., None],
+                                              upper=False)[..., 0]
+            quad = rwr - torch.sum(u * u, dim=-1)
+        else:
+            zx, logdet_sigma = _mixed_psd_solve_logdet(
+                Sigma, X[..., None], CHOL_JITTER[gram_mode], refine=refine,
+                delta_mode="split", mega=solve_mega)
+            quad = rwr - torch.sum(X * zx[..., 0], dim=-1)
+    elif gram_mode == "f64":
         L, sS, logdet_sigma = equilibrated_cholesky(Sigma, 0.0)
         u = torch.linalg.solve_triangular(L, (sS * X)[..., None],
                                           upper=False)[..., 0]

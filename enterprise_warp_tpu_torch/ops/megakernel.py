@@ -369,8 +369,11 @@ def _mega_lnl_impl(nw, b, r_w, M_w, T_w, mask, refine):
     sqw = torch.sqrt(w)
     invb = 1.0 / b.to(f64)
     # the genuine-float64 skinny side: everything touching M or r feeds
-    # the TM Schur complement and must never pass through the kernel
-    Us = torch.cat([M_w, r_w[:, None]], dim=1) * sqw[..., None]
+    # the TM Schur complement and must never pass through the kernel;
+    # ``r_w`` is (ntoa,) or, with sampled deterministic delays, (W, ntoa)
+    W = nw.shape[0]
+    Us = torch.cat([M_w.expand(W, -1, -1), r_w.expand(W, -1)[..., None]],
+                   dim=-1) * sqw[..., None]
     Ts = T_w * sqw[..., None]
     TU = torch.cat([Ts, Us], dim=-1)
     R1 = torch.einsum("wta,wtb->wab", TU, Us)

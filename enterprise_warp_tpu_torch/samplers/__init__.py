@@ -1,10 +1,11 @@
 """Samplers (counterpart of ``enterprise_warp_tpu/samplers``): the adaptive
-PT-MCMC of the paramfile path, and the gradient samplers (HMC with its
-ADVI warm start)."""
+PT-MCMC of the paramfile path with its product-space hypermodel, and the
+gradient samplers (HMC with its ADVI warm start)."""
 
 from .hmc import HMCSampler, HMCState, run_hmc
+from .hypermodel import HyperModelLikelihood
 from .ptmcmc import PTSampler, run_ptmcmc
 from .vi import fit_advi
 
 __all__ = ["PTSampler", "run_ptmcmc", "HMCSampler", "HMCState", "run_hmc",
-           "fit_advi"]
+           "fit_advi", "HyperModelLikelihood"]

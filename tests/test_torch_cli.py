@@ -3,6 +3,9 @@
 - ``enterprise_warp_tpu_torch.cli.main`` runs a copy of
   ``examples/example_params/system_noise.dat`` (40 steps) for both pulsars
   on the CPU and leaves finite chain rows in the reference layout;
+- it runs ``fixed_white_noise.dat --num 0`` (white noise fixed from the
+  noisefile, Grams folded at build time) with no likelihood-kernel
+  route;
 - it runs the ``hmc`` branch on a copy of ``hmc_single_psr.dat``
   (``--num 1``, 20 steps of 8 chains, 4 leapfrog steps, no ADVI warm
   start) and leaves ``nsamp * nchains`` finite rows of ``ndim + 4``
@@ -24,6 +27,7 @@ import torch
 
 from enterprise_warp_tpu_torch import cli
 from enterprise_warp_tpu_torch.config.paramfile import IMPLEMENTED_SAMPLERS
+from enterprise_warp_tpu_torch.ops import routes as troutes
 
 torch.set_num_threads(2)
 
@@ -48,9 +52,8 @@ def _paramfile(tmp_path, nsamp, name="system_noise.dat", **keys):
                 line = f"out: {tmp_path / 'out'}"
             elif key in keys:
                 line = f"{key}: {keys.pop(key)}"
-            elif key == "noise_model_file":
-                line = ("noise_model_file: "
-                        + os.path.join(EXAMPLES, val.strip()))
+            elif key in ("noise_model_file", "noisefiles"):
+                line = f"{key}: " + os.path.join(EXAMPLES, val.strip())
             elif line.strip() == "{0}":
                 lines += [f"{k}: {v}" for k, v in keys.items()]
                 keys = {}
@@ -75,6 +78,27 @@ def test_cli_runs_the_paramfile_on_cpu(tmp_path, num, psr, ndim):
     assert np.isfinite(chain).all()
     pars = open(os.path.join(runs[0], "pars.txt")).read().split()
     assert len(pars) == ndim and all(p.startswith(psr) for p in pars)
+
+
+def test_cli_runs_fixed_white_noise_on_cpu(tmp_path):
+    # white noise fixed from the noisefile: the Grams are folded at build
+    # time, so no evaluation reaches the likelihood-kernel route and each
+    # Sigma solve takes the solve kernel's (here: its plain version)
+    prfile = _paramfile(tmp_path, 40, "fixed_white_noise.dat")
+    troutes.reset_counts()
+    rc = cli.main(["--prfile", prfile, "--num", "0"], device="cpu")
+    assert rc == 0
+    assert troutes.ROUTES[("mega_solve", "plain-cpu")] > 0
+    assert not any(k == "mega_like" for k, _ in troutes.ROUTES)
+    runs = [os.path.join(r, d) for r, ds, _ in os.walk(tmp_path / "out")
+            for d in ds if d == "0_J1234-5678"]
+    assert len(runs) == 1
+    chain = np.loadtxt(os.path.join(runs[0], "chain_1.txt"))
+    assert chain.shape == (40 // 10 * 8, 6 + 4)
+    assert np.isfinite(chain).all()
+    pars = open(os.path.join(runs[0], "pars.txt")).read().split()
+    assert len(pars) == 6 and not any("efac" in p or "equad" in p
+                                      for p in pars)
 
 
 def test_cli_runs_hmc_on_cpu(tmp_path, monkeypatch):

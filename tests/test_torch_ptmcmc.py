@@ -5,7 +5,7 @@ a uniform box, with the likelihood written in torch. The two packages draw
 from different random streams (numpy-seeded threefry keys against a
 ``torch.Generator``), so the chains are compared in distribution, not
 draw by draw; a port run directory must load through the reference's
-results layer unchanged.
+results layer unchanged, and through the port's own.
 """
 
 import math
@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from enterprise_warp_tpu.results import EnterpriseWarpResult
+from enterprise_warp_tpu_torch.results import \
+    EnterpriseWarpResult as PortResult
 from enterprise_warp_tpu_torch.models.prior_mixin import PriorMixin
 from enterprise_warp_tpu_torch.models.priors import Parameter, Uniform
 from enterprise_warp_tpu_torch.samplers import PTSampler
@@ -124,7 +126,7 @@ def test_unported_families_raise(tmp_path):
             PTSampler(like, str(tmp_path), **kw)
 
 
-def test_port_run_loads_through_reference_results(tmp_path):
+def _port_run(tmp_path):
     psr = "J0000+0000"
     like = GaussianLike([1.0, -14.0, 3.0], [0.1, 0.2, 0.3], lo=-20, hi=20)
     like.params = [Parameter(f"{psr}_{n}", p.prior) for n, p in zip(
@@ -133,7 +135,11 @@ def test_port_run_loads_through_reference_results(tmp_path):
     run = tmp_path / f"0_{psr}"
     PTSampler(like, str(run), ntemps=1, nchains=8, seed=2,
               cov_update=200).sample(800, resume=False, verbose=False)
-    opts = types.SimpleNamespace(
+    return psr, like
+
+
+def _results_opts(tmp_path):
+    return types.SimpleNamespace(
         result=str(tmp_path), info=0, name="all", corner=0, par=None,
         chains=0, logbf=0, noisefiles=1, credlevels=0, diagnostics=0,
         separate_earliest=0.0, mpi_regime=0, load_separated=0, covm=0,
@@ -141,7 +147,19 @@ def test_port_run_loads_through_reference_results(tmp_path):
         optimal_statistic_orfs="hd,dipole,monopole",
         optimal_statistic_nsamples=50, custom_models_py=None,
         custom_models=None)
-    r = EnterpriseWarpResult(opts)
+
+
+def test_port_run_loads_through_reference_results(tmp_path):
+    _loads_through(tmp_path, EnterpriseWarpResult)
+
+
+def test_port_run_loads_through_port_results(tmp_path):
+    _loads_through(tmp_path, PortResult)
+
+
+def _loads_through(tmp_path, results):
+    psr, like = _port_run(tmp_path)
+    r = results(_results_opts(tmp_path))
     chain, diag, pars = r.load_chains(f"0_{psr}")
     assert list(pars) == like.param_names
     assert chain.shape == (600 * 8, 3) and diag.shape[1] == 4
