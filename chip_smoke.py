@@ -84,8 +84,30 @@ Phases (any failure exits non-zero before the result line):
    the walker batch the run gave that order most often; then
    ``python -m enterprise_warp_tpu_torch.results``
    post-processes the three output directories (noise files, credible
-   levels, logBF, ``covm``) and must exit 0 and write each noise file;
-7. the ``kernels`` JSON line, one entry per kernel and main path that
+   levels, logBF, ``covm``) and must exit 0 and write each noise file.
+   Each chain's largest lnL is held against the float64 oracle on the
+   CPU in the lnL class (rtol 1e-3, atol 5e-2), the hypermodel's too;
+7. nested sampling: the CLI runs ``default_model_nested.dat --num 0``
+   as it stands (800 live points, 160 walkers a call, 60 calls an
+   iteration) to convergence, with the launch counts zeroed just before
+   and read just after: the likelihood kernel must have launched
+   ``1 + redraws + it * nsteps`` times and the other two kernels not at
+   all. Held: convergence, a finite lnZ within ``log_evidence_err`` of
+   the float64 re-scoring of every dead point on the card (on the run's
+   own ln X schedule), the insertion-rank KS, the likelihood kernel
+   against its plain version walker by walker (under the condition
+   bound) on the inputs of the run's last iteration (W 160) and of the
+   fresh live set (W 800), both timed, and ``python -m
+   enterprise_warp_tpu_torch.results --bilby 1`` on the output. Printed:
+   iterations, walker-evals/s, ms per iteration, the dispatch stats, the
+   synchronising calls in one block, the posterior means beside the
+   injected values. The likelihood kernel's Schur test
+   (``schur_reject``) is recorded on every walker of the runs through
+   that kernel (pt1, advi, hmc, hyper, nested): its distributions are
+   printed, every chain's accepted walkers must pass it, CORNER must be
+   rejected, and 8000 prior draws are re-scored in float64 to show where
+   the threshold falls;
+8. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``.
@@ -148,7 +170,27 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
          "tm": "sampled_timing_model.dat --num 0: PT-MCMC, 8 walkers",
          "hyper": "default_hypermodel.dat --num 0: PT-MCMC over the "
                   "product-space hypermodel, 8 walkers",
-         "fixed": "fixed_white_noise.dat --num 0: PT-MCMC, 8 walkers"}
+         "fixed": "fixed_white_noise.dat --num 0: PT-MCMC, 8 walkers",
+         "nested": "default_model_nested.dat --num 0: nested sampling, "
+                   "800 live points, 160 walkers a call",
+         "nested_live": "default_model_nested.dat --num 0: nested "
+                        "sampling, the fresh live set of 800 prior draws"}
+# the lnL class of the reference's megakernel route against float64
+# (tests/test_megakernel.py): |dlnL| <= LNL_ATOL + LNL_RTOL |lnL|
+LNL_ATOL, LNL_RTOL = 5e-2, 1e-3
+# a prior corner of default_hypermodel.dat's member 1 (CASPSR efac 7.8e-4,
+# red-noise log10_A -6.89) where the equilibrated Sigma is far beyond
+# float32 and the timing-model Schur complement comes out indefinite;
+# the likelihood kernel's route must reject it
+# (tests/test_torch_hypermodel.py)
+CORNER = [0.0007849382887030049, 8.404088323451239, 4.915462071268632,
+          9.132290993384434, -9.255658796563068, -7.779135706917557,
+          -5.462763583946961, -8.434894532696779, -6.888397086499135,
+          5.466953296230443]
+# nested sampling: prior draws for the Schur test's threshold, and the
+# batch of the float64 re-scoring of the dead points
+PRIOR_DRAWS = 8000
+RESCORE_BATCH = 1000
 # injected noise parameters of the example data (examples/
 # example_noisefiles/J1234-5678_noise.json; examples/make_example_data.py
 # for fake_psr_0); parameters with no injected value sit mid-prior
@@ -305,6 +347,71 @@ class Record(Capture):
             return self.orig(*args)
         setattr(self.mk, self.name, rec)
         return self
+
+
+class RecordBatches(Record):
+    """:class:`Record` keyed by walker batch: the last inputs per batch
+    size (``last``), and the calls per order and batch size."""
+
+    def __enter__(self):
+        def rec(*args):
+            W = args[self.batch_arg].shape[0]
+            self.last[W] = args
+            self.sizes[args[0].shape[-1]][W] += 1
+            return self.orig(*args)
+        setattr(self.mk, self.name, rec)
+        return self
+
+
+class SchurRecord(Capture):
+    """Record the timing-model Schur test of the likelihood kernel's
+    route (``ops/megakernel.py:schur_reject``) for every walker it sees,
+    under the label in ``run`` (nothing while ``run`` is None): the ratio
+    min(evA)/max|evA|, the quadratic form and the verdict."""
+
+    def __init__(self, mk):
+        super().__init__(mk, "schur_reject")
+        self.run = None
+        self.rows = collections.defaultdict(list)
+
+    def __enter__(self):
+        import torch
+
+        def rec(evA, quad):
+            out = self.orig(evA, quad)
+            if self.run is not None:
+                ratio = evA.amin(dim=-1) / evA.abs().amax(dim=-1)
+                self.rows[self.run].append(torch.stack(
+                    [ratio, quad, out.to(quad.dtype)], dim=-1))
+            return out
+        setattr(self.mk, self.name, rec)
+        return self
+
+    def table(self, run):
+        """``(ratio, quad, rejected)`` numpy columns of ``run``."""
+        import numpy as np
+        import torch
+        if not self.rows[run]:
+            return np.zeros((0, 3))
+        return torch.cat(self.rows[run]).cpu().numpy()
+
+    def report(self, run):
+        """Print the distribution of ``run``'s walkers; returns how many
+        the test rejected."""
+        import numpy as np
+        t = self.table(run)
+        rej = t[:, 2] > 0
+        ok = t[~rej]
+        q = (np.quantile(ok[:, 0], [0.0, 1e-4, 1e-2, 0.5]) if len(ok)
+             else [np.nan] * 4)
+        print(f"Schur test, {run}: {len(t)} walkers, {int(rej.sum())} "
+              f"rejected ({int((t[:, 0] < 0).sum())} with a negative "
+              f"eigenvalue, {int((t[:, 1] < 0).sum())} with quad < 0); "
+              "passing walkers' min(evA)/max|evA| min / 1e-4 / 1e-2 / "
+              f"median quantile {q[0]:.3e} / {q[1]:.3e} / {q[2]:.3e} / "
+              f"{q[3]:.3e}, smallest quad "
+              f"{ok[:, 1].min() if len(ok) else np.nan:.6g}")
+        return int(rej.sum())
 
 
 def time_cuda(fn, warm=5, reps=50):
@@ -1022,14 +1129,18 @@ def main():
         plain version plus ATOL and within ARB_REL of the walker's largest
         float64 |Z| (and of max(1, |ld|)). A walker above KAPPA_MAX is
         beyond what a float32 solve resolves; it is reported, and its
-        outputs must only be finite."""
+        outputs must only be finite. Each walker gets a line up to 16
+        walkers; above that, the summary and any walker outside ATOL.
+        Returns the held walkers' largest |kernel - plain| in Z and ld,
+        and the kernel's tiers."""
         Zk, ldk, tk = kern()
         Zp, ldp = plain()
         Za, lda, kappa = exact()
         torch.cuda.synchronize()
         if not (torch.isfinite(Zk).all() and torch.isfinite(ldk).all()):
             fail(f"{entry}: non-finite kernel output")
-        held = []
+        held, err = [], 0.0
+        each = Zk.shape[0] <= 16
         for b in range(Zk.shape[0]):
             dz = float((Zk[b] - Zp[b]).abs().max())
             dl = float((ldk[b] - ldp[b]).abs())
@@ -1044,11 +1155,14 @@ def main():
                     f"kernel {fk[0]:.3e} / {fk[1]:.3e}, plain {fp[0]:.3e} / "
                     f"{fp[1]:.3e}, tier {int(tk[b])}")
             if kb > KAPPA_MAX:
-                print(line + f": beyond float32 (cond > {KAPPA_MAX:g}), "
-                      "not held")
+                if each:
+                    print(line + f": beyond float32 (cond > {KAPPA_MAX:g}), "
+                          "not held")
                 continue
             held.append(b)
-            print(line)
+            err = max(err, dz, dl)
+            if each or dz > ATOL or dl > ATOL:
+                print(line)
             if dz <= ATOL and dl <= ATOL:
                 continue
             lim = (ARB_REL * zmax, ARB_REL * max(1.0, abs(float(lda[b]))))
@@ -1059,7 +1173,10 @@ def main():
                      "from float64 exceeds twice the plain version's plus "
                      f"atol or {ARB_REL:.3g} of the float64 value")
         print(f"{entry}: {len(held)} of {Zk.shape[0]} walkers held (cond "
-              f"<= {KAPPA_MAX:g})")
+              f"<= {KAPPA_MAX:g}; median cond "
+              f"{float(kappa.median()):.3e}); held walkers' largest "
+              f"|kernel - plain| {err:.3e}")
+        return err, tk
 
     def hold_solve(entry, run, kern, plain, cost, shape):
         """:func:`compare` within ATOL, both versions timed, and the bound
@@ -1393,6 +1510,7 @@ def main():
                         stats.append(dict(st, kind=key))
                 if getattr(record, "advi_stats", None) is not None:
                     launches["advi"] = dict(routes.LAUNCHES)
+                    schur.run = "hmc"
 
         loggers = [logging.getLogger(n) for n in
                    ("ewt.ptmcmc", "ewt.hmc", "ewt.vi")]
@@ -1444,11 +1562,32 @@ def main():
                   f"{block_s:.2f} s: {W * steps / block_s:.1f} walker-evals/s"
                   f", {1e3 * block_s / steps:.3f} ms/step [{smi}]")
 
-        for num, kname in ((0, "mega_solve"), (1, "mega_like")):
-            chain, launches[f"pt{num}"], _ = drive(prfile, num, [kname])
-            pt_report(f"--num {num}", chain)
+        # the likelihood kernel's Schur test on every walker of the runs
+        # that take its route (pt1, advi, hmc, hyper, nested), and on the
+        # chains' accepted walkers
+        schur = SchurRecord(mk).__enter__()
 
+        def schur_accepted(run, like, theta):
+            """Re-evaluate a run's accepted walkers ``theta`` on the card
+            under the Schur recorder; none may be rejected."""
+            schur.run = f"{run}/accepted"
+            for i in range(0, len(theta), RESCORE_BATCH):
+                like.loglike_batch(theta[i:i + RESCORE_BATCH])
+            schur.run = None
+            if schur.report(f"{run}/accepted"):
+                fail(f"{run}: an accepted walker trips the Schur test")
+
+        for num, kname in ((0, "mega_solve"), (1, "mega_like")):
+            schur.run = f"pt{num}"
+            chain, launches[f"pt{num}"], _ = drive(prfile, num, [kname])
+            schur.run = None
+            pt_report(f"--num {num}", chain)
+        schur_accepted("pt1", likes[1], chain[:, :likes[1].ndim])
+
+        schur.run = "advi"
         chain, counts, _ = drive(hmc_prfile, 0, ["mega_like", "chol_precond"])
+        schur.run = None
+        schur_accepted("hmc", hlike, chain[:, :hlike.ndim])
         if "advi" not in launches:
             fail("the HMC run logged no ADVI fit")
         launches["hmc"] = {k: counts[k] - launches["advi"][k]
@@ -1512,8 +1651,10 @@ def main():
                 ("fixed", "fixed_white_noise.dat", "mega_solve",
                  "mega_solve_logdet", 0)):
             pf = write_paramfile(tmp, name, nsamp=NSAMP)
+            schur.run = run if kname == "mega_like" else None
             with Record(mk, wrapper, batch_arg) as rec:
                 chain, launches[run], run_dir = drive(pf, 0, [kname])
+            schur.run = None
             pt_report(f"{name} --num 0", chain)
             run_dirs.append(os.path.dirname(run_dir))
             # every evaluation of these paths is one launch of ``kname``
@@ -1538,10 +1679,9 @@ def main():
                          f"{sorted(sizes)}, not at both members' [1, 60]")
             # the chain's largest lnL against the float64 oracle on the
             # CPU at the same point, in the reference's megakernel class
-            # (rtol 1e-3, atol 5e-2); on the hypermodel path reported
-            # only: its walkers reach prior corners where the likelihood
-            # kernel's route returns a finite lnL far above float64, as
-            # the reference's kernel route does (ROADMAP.md Queue 3)
+            # (rtol 1e-3, atol 5e-2); on the hypermodel path too, since
+            # the likelihood kernel's route rejects the prior corners
+            # where it used to return a finite lnL far above float64
             oracles = load_likes(pf, 0, "cpu", gram_mode="f64")[1]
             oracle = HyperModelLikelihood(oracles) if run == "hyper" \
                 else oracles[0]
@@ -1550,10 +1690,13 @@ def main():
                 chain[top:top + 1, :oracle.ndim])[0])
             print(f"{name}: largest lnL in the chain {chain[top, -3]:.6g} "
                   f"(row {top}); float64 oracle on the CPU there {ref:.6g}")
-            if run != "hyper" and not \
-                    abs(chain[top, -3] - ref) <= 5e-2 + 1e-3 * abs(ref):
+            if not abs(chain[top, -3] - ref) <= LNL_ATOL + LNL_RTOL * abs(ref):
                 fail(f"{name}: the chain's largest lnL disagrees with the "
                      "float64 oracle")
+            if run == "hyper":
+                hyper_pf = pf
+                schur_accepted("hyper", HyperModelLikelihood(
+                    load_likes(pf, 0, dev)[1]), chain[:, :oracle.ndim])
             calls_of = like_calls if kname == "mega_like" else solve_calls
             # the inputs of the run's last step, wherever the chain stood
             for n, args in sorted(rec.last.items()):
@@ -1629,13 +1772,230 @@ def main():
                                                "J1234-5678_noise.json")):
                 fail(f"the results CLI wrote no noise file for {d}")
 
+        # ---- phase 7: nested sampling ------------------------------------
+        from enterprise_warp_tpu_torch.samplers import nested as tnested
+        nname = "default_model_nested.dat"
+        npf = write_paramfile(tmp, nname)
+        nested_log = {}
+
+        class NestedLog(logging.Handler):
+            def emit(self, record):
+                for key in ("nested_stats", "nested_summary"):
+                    st = getattr(record, key, None)
+                    if st is not None:
+                        nested_log.setdefault(key, []).append(st)
+
+        nlogger = logging.getLogger("ewt.nested")
+        nlogger.setLevel(logging.INFO)
+        nhandler = NestedLog()
+        nlogger.addHandler(nhandler)
+        schur.run = "nested"
+        with RecordBatches(mk, "mega_like", 1) as recn:
+            routes.reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["--prfile", npf, "--num", "0"], device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches["nested"] = dict(routes.LAUNCHES)
+        schur.run = None
+        nlogger.removeHandler(nhandler)
+        if rc != 0:
+            fail(f"cli.main exited {rc} for {nname} --num 0")
+        summ = nested_log["nested_summary"][-1]
+        blocks = nested_log["nested_stats"]
+        it, nsteps = summ["iterations"], summ["nsteps"]
+        nnd = [os.path.join(r, d) for r, ds, _ in
+               os.walk(os.path.join(tmp, "out", nname)) for d in ds
+               if d.startswith("0_")][0]
+        label = [f[:-len("_result.json")] for f in os.listdir(nnd)
+                 if f.endswith("_result.json")][0]
+        with open(os.path.join(nnd, f"{label}_result.json")) as fh:
+            nres = json.load(fh)
+        sizes = dict(recn.sizes[60])
+        print(f"main path {nname} --num 0: rc {rc} wall {wall:.1f} s "
+              f"launches {launches['nested']} calls per walker batch "
+              f"{sizes}; {it} iterations of {nsteps} calls at W "
+              f"{summ['kbatch']}, fresh live set {summ['fresh_live_calls']} "
+              f"call(s) at W {summ['nlive']}")
+        want = summ["fresh_live_calls"] + it * nsteps
+        if launches["nested"]["mega_like"] != want:
+            fail(f"{nname}: {launches['nested']['mega_like']} likelihood "
+                 f"kernel launches, not 1 + redraws + it * nsteps = {want}")
+        if launches["nested"]["mega_solve"] or \
+                launches["nested"]["chol_precond"]:
+            fail(f"{nname}: the solve or preconditioner kernel was launched")
+        if sizes != {summ["kbatch"]: it * nsteps,
+                     summ["nlive"]: summ["fresh_live_calls"]}:
+            fail(f"{nname}: likelihood calls per batch {sizes}")
+        if not (nres["converged"] and np.isfinite(nres["log_evidence"])):
+            fail(f"{nname}: not converged or lnZ not finite")
+        block_s = sum(b["block_s"] for b in blocks)
+        DISPATCH_KEYS = ("dispatches", "host_syncs", "iterations",
+                         "block_iters", "host_syncs_per_iteration")
+        print(f"main path {nname}: lnZ {nres['log_evidence']:.6f} +- "
+              f"{nres['log_evidence_err']:.6f}; {it} iterations, "
+              f"{summ['evals']} walker-evals in {summ['loop_wall_s']:.2f} s "
+              f"of sampling ({summ['walker_evals_per_s']:.1f} "
+              f"walker-evals/s, {1e3 * block_s / it:.2f} ms/iteration, "
+              f"{1e3 * block_s / (it * nsteps):.3f} ms per call at W "
+              f"{summ['kbatch']}), CLI wall {wall:.1f} s; dispatch_stats "
+              f"{ {k: summ[k] for k in DISPATCH_KEYS} }, commit sync "
+              f"{summ['sync_wall_per_block_s'] * 1e3:.3f} ms "
+              f"per block [{smi}]")
+        ir = nres["insertion_rank"]
+        print(f"{nname}: insertion-rank KS {ir}")
+        if not ir["pass"]:
+            fail(f"{nname}: the insertion-rank KS test fails")
+        post = nres["posterior"]
+        print(f"{nname}: posterior means beside the injected values: " + ", "
+              .join(f"{n.split('J1234-5678_')[-1]} "
+                    f"{np.mean(post[n]):.4g} ({TRUTH.get(n, float('nan')):g})"
+                    for n in nres["parameter_labels"]))
+
+        # the evidence against float64: every dead point re-scored with
+        # the float64 Gram mode on the card, lnZ recomputed on the run's
+        # own ln X schedule (log_weights + lnZ - lnL)
+        z = np.load(os.path.join(nnd, f"{label}_nested.npz"))
+        nlike64 = load_likes(npf, 0, dev, gram_mode="f64")[1][0]
+        th = z["samples"]
+        l64 = torch.cat([nlike64.loglike_batch(th[i:i + RESCORE_BATCH])
+                         for i in range(0, len(th), RESCORE_BATCH)])
+        l64 = l64.cpu().numpy()
+        x = l64 + z["log_weights"] + nres["log_evidence"] \
+            - z["log_likelihoods"]
+        lnz64 = float(x.max() + np.log(np.sum(np.exp(x - x.max()))))
+        dl = np.abs(z["log_likelihoods"] - l64)
+        out_cls = int(np.sum(dl > LNL_ATOL + LNL_RTOL * np.abs(l64)))
+        dz = nres["log_evidence"] - lnz64
+        print(f"{nname}: lnZ {nres['log_evidence']:.6f}, float64 re-scoring "
+              f"of the {len(th)} dead points {lnz64:.6f}: |dlnZ| "
+              f"{abs(dz):.3e} (log_evidence_err "
+              f"{nres['log_evidence_err']:.4f}); largest |dlnL| "
+              f"{dl.max():.4g} (at float64 lnL {l64[np.argmax(dl)]:.6g}), "
+              f"{out_cls} points outside the lnL class")
+        if not abs(dz) <= nres["log_evidence_err"]:
+            fail(f"{nname}: lnZ differs from its float64 re-scoring by more "
+                 "than log_evidence_err")
+
+        # the likelihood kernel at the two shapes of the path, held walker
+        # by walker under the condition bound and timed
+        nlike = load_likes(npf, 0, dev)[1][0]
+        for W, entry in ((summ["kbatch"], "mega_like@nested"),
+                         (summ["nlive"], "mega_like@nested_live")):
+            args = recn.last[W]
+            kern, plain, shape, exact = like_calls(args)
+            what = ("the run's last iteration" if entry.endswith("nested")
+                    else "the fresh live set's prior draws")
+            err, tk = hold_last_step(f"{entry}, {what}", kern, plain, shape,
+                                     exact)
+            ms = time_cuda(kern)
+            plain_ms = time_cuda(plain)
+            flops, nbytes = like_cost(args[0], args[4], args[7], tk.tolist())
+            bms, bby = bound(flops, nbytes)
+            print(f"{entry} at {shape}: kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({bby}; "
+                  f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) [{smi}]")
+            results[entry] = dict(run=entry.split("@")[1], shape=shape,
+                                  max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bms, bound_by=bby,
+                                  launches=sizes[W])
+
+        # syncing calls in one block of 16 iterations (not held): the
+        # sampler itself reads nothing back inside a block
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        u0, l0, _ = tnested._fresh_live(nlike, summ["nlive"], gen)
+        blk = tnested._make_block(nlike, summ["nlive"], summ["kbatch"],
+                                  nsteps)
+        st0 = [torch.tensor(v, dtype=torch.float64, device=dev)
+               for v in (0.5, -np.inf, 0.0)]
+        blk(u0, l0, gen, *st0, 1)
+        torch.cuda.synchronize()
+        import warnings
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            blk(u0, l0, gen, *st0, tnested.DEFAULT_BLOCK_ITERS)
+            torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(0)
+        kinds = collections.Counter(
+            str(c.message).splitlines()[0][:80] for c in caught)
+        print(f"{nname}: {len(caught)} implicitly synchronising calls in "
+              f"one block of {tnested.DEFAULT_BLOCK_ITERS} iterations "
+              f"({tnested.DEFAULT_BLOCK_ITERS * nsteps} likelihood calls), "
+              f"under torch.cuda.set_sync_debug_mode('warn'): "
+              f"{dict(kinds)}")
+
+        # the Schur test: its threshold against prior draws re-scored in
+        # float64, the corner, and every run's walkers
+        rng = np.random.default_rng(17)
+        thp = nlike.from_unit(torch.as_tensor(
+            rng.uniform(size=(PRIOR_DRAWS, nlike.ndim)), device=dev))
+        schur.run = "prior draws"
+        lk = torch.cat([nlike.loglike_batch(thp[i:i + RESCORE_BATCH])
+                        for i in range(0, PRIOR_DRAWS, RESCORE_BATCH)])
+        schur.run = None
+        l64 = torch.cat([nlike64.loglike_batch(thp[i:i + RESCORE_BATCH])
+                         for i in range(0, PRIOR_DRAWS, RESCORE_BATCH)])
+        lk, l64 = lk.cpu().numpy(), l64.cpu().numpy()
+        t = schur.table("prior draws")
+        rej = t[:, 2] > 0
+        in_cls = np.abs(lk - l64) <= LNL_ATOL + LNL_RTOL * np.abs(l64)
+        neg = t[:, 0] < 0
+        print(f"Schur test on {PRIOR_DRAWS} prior draws of {nname}: "
+              f"{int(rej.sum())} rejected, of which "
+              f"{int((rej & in_cls).sum())} within the lnL class of "
+              f"float64 had they passed; passing walkers outside it "
+              f"{int((~rej & ~in_cls).sum())} (largest lnL - float64 "
+              f"{np.max((lk - l64)[~rej & ~in_cls], initial=0.0):.4g}, "
+              f"their largest lnL "
+              f"{np.max(lk[~rej & ~in_cls], initial=-np.inf):.6g}, the "
+              f"draws' largest float64 lnL {l64.max():.6g}); "
+              f"min(evA)/max|evA| of walkers within the class: smallest "
+              f"{t[in_cls, 0].min():.3e}; of walkers with a negative "
+              f"eigenvalue: largest {t[neg, 0].max(initial=-np.inf):.3e}, "
+              f"{int((neg & in_cls).sum())} within the class "
+              f"(SCHUR_REJECT_C {mk.SCHUR_REJECT_C:g})")
+        schur.run = "corner"
+        hmember = load_likes(hyper_pf, 0, dev)[1][1]
+        lc = float(hmember.loglike_batch(np.asarray([CORNER]))[0])
+        schur.run = None
+        tc = schur.table("corner")
+        print(f"Schur test at CORNER (default_hypermodel.dat member 1): "
+              f"min(evA)/max|evA| {tc[0, 0]:.3e}, quad {tc[0, 1]:.4g}, "
+              f"lnL {lc}")
+        if not (tc[0, 2] > 0 and lc == -np.inf):
+            fail("the likelihood kernel's route did not reject CORNER")
+        for run in ("pt1", "advi", "hmc", "hyper", "nested"):
+            schur.report(run)
+        schur_accepted("nested", nlike, th)
+        schur.__exit__()
+
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.results", "--result",
+             os.path.dirname(nnd), "--bilby", "1", "--info", "1",
+             "--noisefiles", "1", "--logbf", "1"],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        said = [ln.split(" INFO ", 1)[-1] for ln in proc.stderr.splitlines()
+                if "log_evidence" in ln]
+        print(f"results CLI --bilby 1 on {nname}: rc {proc.returncode}; "
+              f"{'; '.join(said)}")
+        if proc.returncode != 0:
+            fail(f"the results CLI exited {proc.returncode} on {nnd}: "
+                 + proc.stderr[-2000:])
+        if not os.path.exists(os.path.join(os.path.dirname(nnd),
+                                           "noisefiles",
+                                           "J1234-5678_noise.json")):
+            fail(f"the results CLI wrote no noise file for {nnd}")
+
     kernels = []
     for entry, r in results.items():
         kname = entry.split("@")[0]
         kernels.append(dict(
             name=entry, route="cuda", source=SOURCE,
             replaces=REPLACES[kname],
-            launches=r.get("launches", launches[r["run"]][kname]),
+            launches=(r["launches"] if "launches" in r
+                      else launches[r["run"]][kname]),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, kernel=kname,

@@ -1,15 +1,18 @@
 """Run CLI: ``python -m enterprise_warp_tpu_torch.cli --prfile <paramfile>
 --num N``.
 
-Counterpart of ``enterprise_warp_tpu/cli.py`` for the ``ptmcmcsampler``
-and ``hmc`` branches: parse the paramfile, load pulsar ``--num``, build
-its walker-batched likelihoods on the card and run the adaptive PT-MCMC
-(over the product-space hypermodel of all models when the paramfile has
-two or more), or HMC with its ADVI warm start, writing the reference's
-output-directory contract so ``python -m enterprise_warp_tpu_torch.results``
-post-processes the run. The other samplers, the ``serve`` subcommand and
-the ``psr_shard``/``chain_shard`` knobs are later slices of the port and
-raise ``NotImplementedError``.
+Counterpart of ``enterprise_warp_tpu/cli.py``: parse the paramfile, load
+pulsar ``--num``, build its walker-batched likelihoods on the card and
+dispatch on the sampler, as the reference does: the adaptive PT-MCMC for
+``ptmcmcsampler`` (over the product-space hypermodel of all models when
+the paramfile has two or more) and for ``emcee``/``ptemcee`` (``nsteps``,
+``ntemps``, ``nwalkers`` chains), HMC with its ADVI warm start for
+``hmc``, and nested sampling for every Bilby nested name (``dynesty``,
+``nestle``, ``pymultinest``, ``pypolychord``, ``ultranest``), on the first
+model. Each writes the reference's output-directory contract, so
+``python -m enterprise_warp_tpu_torch.results`` post-processes the run.
+The ``serve`` subcommand and the ``psr_shard``/``chain_shard`` knobs are
+later slices of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,7 +65,8 @@ def main(argv=None, device="cuda"):
     from .io.errors import ParseError
     from .models.assemble import init_model_likelihoods
     from .resilience.integrity import EXIT_QUARANTINED, DataQuarantine
-    from .samplers import HyperModelLikelihood, run_hmc, run_ptmcmc
+    from .samplers import (HyperModelLikelihood, run_hmc, run_nested,
+                           run_ptmcmc)
 
     device = resolve_device(device)
     custom = None
@@ -77,8 +81,6 @@ def main(argv=None, device="cuda"):
     except ParseError as exc:
         print(f"malformed input file: {exc}", file=sys.stderr)
         return EXIT_QUARANTINED
-    if params.sampler not in ("ptmcmcsampler", "hmc"):
-        raise NotImplementedError(f"sampler '{params.sampler}' {_LATER}")
     for knob in ("psr_shard", "chain_shard"):
         if params.sampler_kwargs.get(knob):
             raise NotImplementedError(f"{knob} {_LATER}")
@@ -88,23 +90,57 @@ def main(argv=None, device="cuda"):
         print("Preparations for the sampling are complete "
               "(setup-only mode)")
         return 0
-    like = likes[min(likes)]
+    first_id = min(likes)
+    like = likes[first_id]
     resume = not bool(opts.wipe_old_output)
     kw = params.sampler_kwargs
-    if params.sampler == "hmc":
+    if params.sampler == "ptmcmcsampler":
+        if len(likes) >= 2:
+            like = HyperModelLikelihood(likes)
+        nsamp = int(getattr(params, "nsamp", kw.get("nsamp", 1000000)))
+        run_ptmcmc(like, params.output_dir, nsamp, params=params,
+                   resume=resume)
+    elif params.sampler == "hmc":
         if len(likes) > 1:
             print("note: HMC has no gradient for the discrete nmodel index; "
                   "using model 0 (use ptmcmcsampler for product-space "
                   "selection)")
         nsamp = int(getattr(params, "nsamp", kw.get("nsamp", 10000)))
         run_hmc(like, params.output_dir, nsamp, params=params, resume=resume)
-        return 0
-    if len(likes) >= 2:
-        like = HyperModelLikelihood(likes)
-    nsamp = int(getattr(params, "nsamp", kw.get("nsamp", 1000000)))
-    run_ptmcmc(like, params.output_dir, nsamp, params=params, resume=resume)
+    elif params.sampler in ("emcee", "ptemcee"):
+        if len(likes) >= 2:
+            like = HyperModelLikelihood(likes)
+        run_ptmcmc(like, params.output_dir, int(kw.get("nsteps", 10000)),
+                   params=params, resume=resume,
+                   ntemps=int(kw.get("ntemps", 1)),
+                   nchains=int(kw.get("nwalkers", 64)))
+    else:
+        if len(likes) > 1:
+            print(f"note: nested sampling uses model {first_id}; run "
+                  "per-model for evidences (reference Bilby branch "
+                  "behavior)")
+        run_nested(like, outdir=params.output_dir, label=params.label,
+                   nlive=int(kw.get("nlive", 500)),
+                   dlogz=float(kw.get("dlogz", 0.1)), resume=resume,
+                   **nested_knobs(kw))
     return 0
 
+
+def nested_knobs(kw):
+    """The paramfile's nested-sampler knobs to forward, as the reference's
+    CLI forwards them: ``kbatch`` and ``nsteps`` when positive (0 =
+    auto), ``block_iters`` when not negative (-1, the default, keeps the
+    sampler's block length; 0 asks for the per-iteration path), and
+    ``kernel`` only when it is not the default ``slice``."""
+    nkw = {}
+    for key in ("kbatch", "nsteps"):
+        if int(kw.get(key, 0) or 0) > 0:
+            nkw[key] = int(kw[key])
+    if int(kw.get("block_iters", -1)) >= 0:
+        nkw["block_iters"] = int(kw["block_iters"])
+    if kw.get("kernel") and kw["kernel"] != "slice":
+        nkw["kernel"] = str(kw["kernel"])
+    return nkw
 
 if __name__ == "__main__":
     sys.exit(main())

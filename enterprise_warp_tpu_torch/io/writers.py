@@ -1,8 +1,9 @@
-"""Run-artifact writers the sampler uses: durable atomic JSON, chain
-tables, and ``state.npz`` checkpoint generations with sha256 sidecars.
+"""Run-artifact writers the samplers use: durable atomic JSON, chain
+tables, and checkpoint generations with sha256 sidecars.
 
 The subset of the reference package's ``io/writers.py`` (and its
-``native.write_table``) that the PT sampler's on-disk contract needs.
+``native.write_table``) that the PT, HMC and nested samplers' on-disk
+contracts need.
 """
 
 from __future__ import annotations
@@ -143,23 +144,43 @@ def verify_checkpoint(path: str):
     return sha256_file(path) == want[0]
 
 
-def resolve_checkpoint(path: str):
+def checkpoint_exists(path: str) -> bool:
+    """Any generation of ``path`` present on disk (the cheap resume
+    test; :func:`resolve_checkpoint` does the digest work)."""
+    return os.path.exists(path) or os.path.exists(prev_generation(path))
+
+
+def remove_checkpoint(path: str):
+    """Remove every generation of ``path`` and their sidecars (the run is
+    complete: the next one starts fresh)."""
+    for p in (path, sidecar_path(path), prev_generation(path),
+              sidecar_path(prev_generation(path))):
+        try:
+            os.remove(p)
+        except FileNotFoundError:
+            pass
+
+
+def resolve_checkpoint(path: str, what: str = "checkpoint"):
     """Digest-verified checkpoint resolution with last-good fallback:
     tries ``path`` then :func:`prev_generation`; a candidate is
     accepted when its sidecar digest matches (or when it has none — a
-    legacy or mid-rotation generation). A mismatch is logged and falls
-    through to the previous generation. Returns the usable path, or
-    None when no restorable generation exists."""
+    legacy or mid-rotation generation). A mismatch is logged under
+    ``what`` and falls through to the previous generation. Returns the
+    usable path, or None when no restorable generation exists."""
     from ..utils.logging import get_logger
+    log = get_logger("ewt.ckpt")
     for generation, cand in enumerate((path, prev_generation(path))):
         if not os.path.exists(cand):
             continue
         if verify_checkpoint(cand) is False:
-            get_logger("ewt.ckpt").error(
-                "checkpoint %s failed digest verification%s", cand,
-                " — falling back one generation" if generation == 0
-                else "")
+            log.error("%s %s failed digest verification%s", what, cand,
+                      " — falling back one generation" if generation == 0
+                      else "")
             continue
+        if generation:
+            log.warning("%s restored from previous generation %s", what,
+                        cand)
         return cand
     return None
 

@@ -97,6 +97,51 @@ class PulsarLikelihood(PriorMixin):
         return self._evaluate(self.as_theta(theta))
 
 
+def _noise_slide_pairs(psr, names):
+    """``(i_efac, i_equad, mean toaerr^2)`` triples for every backend
+    whose efac AND equad are both sampled: the metadata of the noise-budget
+    slide move (the nested sampler's constrained walks; the PT sampler's
+    ``ns`` family). The data constrain the pair's total white variance
+    ``efac^2 sigma_bar^2 + 10^(2 equad)``; the slide moves along that
+    degeneracy curve in one step. Only this pulsar's names are claimed;
+    ``<psr>_efac`` with no backend key covers all TOAs."""
+    out = []
+    err2 = np.asarray(psr.toaerrs) ** 2
+    flags = np.asarray(psr.backend_flags)
+    for i, n in enumerate(names):
+        if not n.endswith("_efac"):
+            continue
+        stem = n[: -len("_efac")]
+        if stem == psr.name:
+            mask = np.ones_like(flags, dtype=bool)
+        elif stem.startswith(psr.name + "_"):
+            mask = flags == stem[len(psr.name) + 1:]
+        else:
+            continue
+        partner = stem + "_log10_equad"
+        if partner not in names:
+            continue
+        j = names.index(partner)
+        s2 = float(err2[mask].mean()) if mask.any() else \
+            float(err2.mean())
+        out.append((i, j, s2))
+    return out
+
+
+def params_fingerprint(like):
+    """Model-identity string of a likelihood's sampled parameters: names
+    and prior bounds, the reference's string, so a nested checkpoint is
+    recognised by either package."""
+    parts = []
+    for p in getattr(like, "params", []):
+        parts.append(f"{p.name}:{type(p.prior).__name__}"
+                     f":{getattr(p.prior, 'lo', '')}"
+                     f":{getattr(p.prior, 'hi', '')}"
+                     f":{getattr(p.prior, 'mu', '')}"
+                     f":{getattr(p.prior, 'sigma', '')}")
+    return "|".join(parts)
+
+
 def _resolve_params(all_params, fixed_values):
     """Split params into sampled ones and a name -> ``("theta", index)``
     or ``("const", value)`` mapping."""
@@ -401,6 +446,7 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
                            lnl)
 
     like = PulsarLikelihood(psr, sampled, evaluate, gram_mode, device)
+    like.noise_pairs = _noise_slide_pairs(psr, like.param_names)
     like.const_grams = bool(const_grams)
     like.pair_program = pair_prog is not None
     like.static = dict(r_w=r_w_t, M_w=M_w_t, T_w=T_w_t, cs2=cs2,

@@ -21,6 +21,9 @@ are hand-written CUDA here (``csrc/megakernel.cu``, built and bound by
   (skinny Grams, equilibration scales, timing-model Schur stage with a
   relatively-clamped ``eigh``) stays outside the kernel, exactly as in
   the reference: an in-kernel float32 Schur stage is off by O(1) in lnL.
+  Unlike the reference, a walker whose Schur complement comes out
+  indefinite is rejected there (:func:`schur_reject`), as the classic
+  chain rejects it.
 
 Each wrapper takes its kernel's plain PyTorch version
 (:func:`_mega_solve_torch`, :func:`_mega_like_torch` — the counterparts
@@ -360,7 +363,9 @@ def mega_marginalized_loglike(nw, b, r_w, M_w, T_w, mask, refine):
 
 def _mega_lnl_impl(nw, b, r_w, M_w, T_w, mask, refine):
     """The host-precision half around :func:`mega_like` (counterpart of
-    ``_mega_lnl_impl``)."""
+    ``_mega_lnl_impl``). Departs from the reference in one place: a
+    walker that :func:`schur_reject` flags gets NaN, where the reference's
+    kernel route returns a finite lnL far above float64."""
     from .kernel import CHOL_JITTER
     f64 = r_w.dtype
     ntm = M_w.shape[1]
@@ -405,4 +410,32 @@ def _mega_lnl_impl(nw, b, r_w, M_w, T_w, mask, refine):
               + torch.sum(torch.log(d), dim=-1)
               + torch.sum(torch.log(b), dim=-1)
               + torch.sum(torch.log(evA_cl), dim=-1))
-    return -0.5 * (quad + ld_all + ld_eq.to(f64))
+    lnl = -0.5 * (quad + ld_all + ld_eq.to(f64))
+    return torch.where(schur_reject(evA, quad),
+                       torch.full_like(lnl, float("nan")), lnl)
+
+
+# A walker whose Schur complement has an eigenvalue below -SCHUR_REJECT_C
+# times its largest |eigenvalue| is rejected (see :func:`schur_reject`).
+# Measured by chip_smoke.py (phase 7, NVIDIA H100) on 8000 prior draws of
+# default_model_nested.dat's model re-scored in float64: every walker
+# with a negative eigenvalue lay outside the lnL class of float64 (the
+# largest such ratio -1.15e-9), every walker inside it had a ratio of at
+# least 2.76e-9; the plain version on the CPU gives the same split. The
+# limit sits near the float64 eigensolver's own resolution, below every
+# negative ratio observed.
+SCHUR_REJECT_C = 1e-12
+
+
+def schur_reject(evA, quad):
+    """Walkers whose timing-model Schur complement ``A`` is beyond
+    repair: an eigenvalue ``evA`` below ``-SCHUR_REJECT_C * max|evA|``, or
+    a negative quadratic form ``quad`` (impossible for a positive
+    definite covariance). There the float32 solve has lost Sigma^-1 and
+    the clamped eigenvalues would turn an indefinite ``A`` into a finite
+    lnL far above float64; the walker gets NaN instead, which the
+    likelihood constructors map to -inf, as the classic chain's failed
+    Cholesky of ``A`` gives. Every other walker's lnL is left as it
+    is."""
+    emax = evA.abs().amax(dim=-1)
+    return (evA.amin(dim=-1) < -SCHUR_REJECT_C * emax) | (quad < 0.0)

@@ -1,11 +1,13 @@
 """Samplers (counterpart of ``enterprise_warp_tpu/samplers``): the adaptive
-PT-MCMC of the paramfile path with its product-space hypermodel, and the
-gradient samplers (HMC with its ADVI warm start)."""
+PT-MCMC of the paramfile path with its product-space hypermodel, the
+gradient samplers (HMC with its ADVI warm start) and batched nested
+sampling."""
 
 from .hmc import HMCSampler, HMCState, run_hmc
 from .hypermodel import HyperModelLikelihood
+from .nested import run_nested
 from .ptmcmc import PTSampler, run_ptmcmc
 from .vi import fit_advi
 
 __all__ = ["PTSampler", "run_ptmcmc", "HMCSampler", "HMCState", "run_hmc",
-           "fit_advi", "HyperModelLikelihood"]
+           "fit_advi", "HyperModelLikelihood", "run_nested"]

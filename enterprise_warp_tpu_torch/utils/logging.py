@@ -1,13 +1,14 @@
 """Process-wide stdlib logging with one uniform format; the level comes
 from the ``EWT_LOG`` environment variable (default INFO). The
-``get_logger`` of the reference package, without its phase timers and
-profiler hooks."""
+``get_logger`` and ``EvalRateMeter`` of the reference package, without
+its phase timers and profiler hooks."""
 
 from __future__ import annotations
 
 import logging
 import os
 import sys
+import time
 
 _FORMAT = "%(asctime)s %(name)s %(levelname)s %(message)s"
 _configured = False
@@ -39,3 +40,33 @@ def get_logger(name: str = "ewt") -> logging.Logger:
             root.setLevel(getattr(logging, level, logging.INFO))
         _configured = True
     return logging.getLogger(name)
+
+
+class EvalRateMeter:
+    """Likelihood-evals/s counter: ``add(n)`` after each batch of work;
+    ``rate()`` is the throughput since the meter started, ``window_rate()``
+    the rate since its previous call. ``initial_total`` seeds ``total``
+    from a resumed run's checkpoint, so the count stays cumulative across
+    resumes while both rates measure this process's work only."""
+
+    def __init__(self, initial_total: int = 0):
+        self.t0 = time.monotonic()
+        self.total = int(initial_total)
+        self._base = int(initial_total)
+        self._win_t = self.t0
+        self._win_n = 0
+
+    def add(self, nevals: int):
+        self.total += int(nevals)
+        self._win_n += int(nevals)
+
+    def rate(self) -> float:
+        dt = time.monotonic() - self.t0
+        return (self.total - self._base) / dt if dt > 0 else 0.0
+
+    def window_rate(self) -> float:
+        now = time.monotonic()
+        dt = now - self._win_t
+        out = self._win_n / dt if dt > 0 else 0.0
+        self._win_t, self._win_n = now, 0
+        return out

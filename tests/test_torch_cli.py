@@ -6,6 +6,10 @@
 - it runs ``fixed_white_noise.dat --num 0`` (white noise fixed from the
   noisefile, Grams folded at build time) with no likelihood-kernel
   route;
+- it runs the nested branch (``sampler: dynesty``) on a copy of
+  ``default_model_nested.dat`` at 60 live points, with the paramfile's
+  knobs forwarded, and the ``emcee``/``ptemcee`` branch on
+  ``system_noise.dat --num 1``;
 - it runs the ``hmc`` branch on a copy of ``hmc_single_psr.dat``
   (``--num 1``, 20 steps of 8 chains, 4 leapfrog steps, no ADVI warm
   start) and leaves ``nsamp * nchains`` finite rows of ``ndim + 4``
@@ -126,13 +130,123 @@ def test_cli_runs_hmc_on_cpu(tmp_path, monkeypatch):
 def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError):
         cli.main(["serve"], device="cpu")
+    # the nested sampler's per-iteration path (block_iters: 0)
+    prfile = _nested_paramfile(tmp_path, block_iters=0)
+    with pytest.raises(NotImplementedError):
+        cli.main(["--prfile", prfile, "--num", "0"], device="cpu")
+
+
+def _nested_paramfile(tmp_path, **keys):
+    """``default_model_nested.dat`` (sampler ``dynesty``) at a CPU size:
+    60 live points, 30 replaced an iteration, 4 likelihood calls each
+    (one slice update), a loose ``dlogz``, and ``keys`` set."""
+    keys = dict(dict(nlive=60, kbatch=30, nsteps=4, dlogz=1.0), **keys)
+    lines = []
+    with open(os.path.join(EXAMPLES, "example_params",
+                           "default_model_nested.dat")) as fh:
+        for line in fh.read().splitlines():
+            key, _, val = line.partition(":")
+            key = key.strip()
+            if key == "datadir":
+                line = f"datadir: {os.path.join(EXAMPLES, 'data')}"
+            elif key == "out":
+                line = f"out: {tmp_path / 'out'}"
+            elif key in keys:
+                line = f"{key}: {keys.pop(key)}"
+            elif key == "noise_model_file":
+                line = f"{key}: " + os.path.join(EXAMPLES, val.strip())
+            elif line.strip() == "{0}":
+                lines += [f"{k}: {v}" for k, v in keys.items()]
+                keys = {}
+            lines.append(line)
+    path = tmp_path / "nested.dat"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("keys,kernel,block_iters", [
+    ({}, "slice", 16), (dict(kernel="walk", block_iters=8), "walk", 8)])
+def test_cli_runs_nested_on_cpu(tmp_path, keys, kernel, block_iters):
+    """The CLI's nested branch (``sampler: dynesty``) on J1234-5678 with
+    the paramfile's knobs forwarded; the result JSON loads through both
+    packages' ``BilbyWarpResult`` with the same posterior, and the port's
+    results CLI with ``--bilby 1`` writes the noise file from it."""
+    import json
+
+    from enterprise_warp_tpu.results.bilbylike import \
+        BilbyWarpResult as JBilby
+    from enterprise_warp_tpu_torch.results.__main__ import \
+        main as results_main
+    from enterprise_warp_tpu_torch.results.bilbylike import \
+        BilbyWarpResult as TBilby
+    from test_results import opts_for
+    prfile = _nested_paramfile(tmp_path, **keys)
+    rc = cli.main(["--prfile", prfile, "--num", "0"], device="cpu")
+    assert rc == 0
+    runs = [os.path.join(r, d) for r, ds, _ in os.walk(tmp_path / "out")
+            for d in ds if d == "0_J1234-5678"]
+    assert len(runs) == 1
+    files = sorted(os.listdir(runs[0]))
+    res_json = [f for f in files if f.endswith("_result.json")]
+    assert len(res_json) == 1 and any(f.endswith("_nested.npz")
+                                      for f in files)
+    assert not any(f.endswith("_nested_ckpt.npz") for f in files)
+    with open(os.path.join(runs[0], res_json[0])) as fh:
+        res = json.load(fh)
+    assert res["converged"] and np.isfinite(res["log_evidence"])
+    assert res["sampler"] == "enterprise_warp_tpu_torch.nested"
+    assert (res["kernel"], res["block_iters"]) == (kernel, block_iters)
+    assert res["slide_moves_effective"] is True
+    # kbatch 30 and nsteps 4 forwarded: evals = it * 30 * 4 + nlive
+    assert res["num_likelihood_evaluations"] == \
+        res["num_iterations"] * 30 * 4 + 60
+    outdir = os.path.dirname(runs[0])
+    loaded = [cls(opts_for(outdir, bilby=1)).load_chains("0_J1234-5678")
+              for cls in (JBilby, TBilby)]
+    assert loaded[0][2] == loaded[1][2] == res["parameter_labels"]
+    np.testing.assert_array_equal(loaded[0][0], loaded[1][0])
+    assert np.isfinite(loaded[1][0]).all() and len(loaded[1][0]) >= 100
+    assert results_main(["--result", outdir, "--bilby", "1",
+                         "--noisefiles", "1"]) == 0
+    assert os.path.exists(os.path.join(outdir, "noisefiles",
+                                       "J1234-5678_noise.json"))
+
+
+@pytest.mark.parametrize("keys,knobs", [
+    (dict(nlive=500, dlogz=0.1, kbatch=0, nsteps=0, block_iters=-1,
+          kernel="slice"), {}),
+    (dict(kbatch=160, nsteps=12, block_iters=0, kernel="walk"),
+     dict(kbatch=160, nsteps=12, block_iters=0, kernel="walk"))])
+def test_nested_knobs_forwarded_as_reference(keys, knobs):
+    # the reference's forwarding (enterprise_warp_tpu/cli.py:297-314):
+    # 0 = auto for kbatch/nsteps, -1 keeps the default block length, and
+    # the default kernel is not forwarded
+    assert cli.nested_knobs(keys) == knobs
+
+
+@pytest.mark.parametrize("sampler,ntemps", [("emcee", 1), ("ptemcee", 2)])
+def test_cli_runs_emcee_branch_on_cpu(tmp_path, sampler, ntemps):
+    """``emcee``/``ptemcee`` run the PT sampler for ``nsteps`` steps with
+    ``nwalkers`` chains and ``ntemps`` temperatures, as the reference's
+    CLI does; the chain file holds the cold chains."""
     prfile = _paramfile(tmp_path, 10)
     src = open(prfile).read().replace("sampler: ptmcmcsampler",
-                                      "sampler: dynesty")
-    (tmp_path / "dyn.dat").write_text(src)
-    with pytest.raises(NotImplementedError):
-        cli.main(["--prfile", str(tmp_path / "dyn.dat"), "--num", "1"],
-                 device="cpu")
+                                      f"sampler: {sampler}")
+    extra = "nsteps: 20\nnwalkers: 4\n" + (
+        f"ntemps: {ntemps}\n" if sampler == "ptemcee" else "")
+    src = src.replace("{0}", extra + "{0}")
+    (tmp_path / "mc.dat").write_text(src)
+    rc = cli.main(["--prfile", str(tmp_path / "mc.dat"), "--num", "1"],
+                  device="cpu")
+    assert rc == 0
+    runs = [os.path.join(r, d) for r, ds, _ in os.walk(tmp_path / "out")
+            for d in ds if d == "1_J0042-0000"]
+    assert len(runs) == 1
+    chain = np.loadtxt(os.path.join(runs[0], "chain_1.txt"))
+    state = np.load(os.path.join(runs[0], "state.npz"))
+    assert state["x"].shape[0] == 4 * ntemps
+    assert chain.shape[1] == 6 + 4 and np.isfinite(chain).all()
+    assert chain.shape[0] % 4 == 0 and chain.shape[0] >= 4
 
 
 def _modules():

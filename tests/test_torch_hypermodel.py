@@ -166,6 +166,17 @@ def test_cli_runs_on_cpu(tmp_path, name):
     assert nmodel.min() >= -0.5 and nmodel.max() <= 1.5
 
 
+def test_noise_pairs_equal_reference(hyper):
+    """The members' slide triples remapped into the union, against the
+    reference's ``HyperModelLikelihood.noise_pairs`` (indices exactly,
+    the mean toaerr^2 within 1e-15 relative)."""
+    _, jh, th = hyper
+    assert [p[:2] for p in th.noise_pairs] == \
+        [p[:2] for p in jh.noise_pairs]
+    np.testing.assert_allclose([p[2] for p in th.noise_pairs],
+                               [p[2] for p in jh.noise_pairs], rtol=1e-15)
+
+
 class _Member:
     """A stand-in member: parameter names and white-noise pairs only."""
     device = torch.device("cpu")
@@ -187,8 +198,9 @@ def test_noise_pairs_remapped():
 
 
 # a prior corner of default_hypermodel.dat's member 1 that a 2000-step
-# PT chain on the card reached (CASPSR efac 7.8e-4, red-noise log10_A
-# -6.89): the last row of that chain, whose lnL there was 6.2e18
+# PT chain on the card reached before the kernel route rejected such
+# walkers (CASPSR efac 7.8e-4, red-noise log10_A -6.89): the last row of
+# that chain, whose lnL there was 6.2e18
 CORNER = [0.0007849382887030049, 8.404088323451239, 4.915462071268632,
           9.132290993384434, -9.255658796563068, -7.779135706917557,
           -5.462763583946961, -8.434894532696779, -6.888397086499135,
@@ -196,16 +208,20 @@ CORNER = [0.0007849382887030049, 8.404088323451239, 4.915462071268632,
 
 
 def test_kernel_route_corner_shared_with_reference(monkeypatch):
-    """At CORNER the equilibrated Sigma is far beyond float32. Both
-    packages' likelihood-kernel routes (the port's plain version on CPU
-    tensors, the reference's Pallas kernel in interpret mode) return a
-    finite lnL more than 1e9 above the float64 value (the clamped
-    eigenvalues of an indefinite timing-model Schur complement blow the
-    quadratic up), while both classic split chains return a non-finite
-    value that the sampler rejects. The fault is the reference's own and
-    stays open in ROADMAP.md Queue 3; this test records that the port
-    reproduces it, so that a repair changes it deliberately."""
+    """The corner is the reference's own, and the port's kernel route now
+    departs from it there. At CORNER the equilibrated Sigma is far beyond
+    float32 and the timing-model Schur complement comes out indefinite.
+    The reference's
+    likelihood-kernel route (its Pallas kernel in interpret mode) returns
+    a finite lnL more than 1e9 above the float64 value there; the port's
+    kernel route (its plain version on CPU tensors) rejects the walker
+    (``ops.megakernel.schur_reject``): NaN before the likelihood's mapping,
+    -inf after it, as both classic split chains give. The departure from
+    the reference is deliberate (ROADMAP.md Queue 3). At 64 seeded points
+    near typical noise values of the same model the rejection leaves the
+    port's lnL bit for bit as it was without it."""
     import enterprise_warp_tpu_torch.models.build as tbuild
+    import enterprise_warp_tpu_torch.ops.megakernel as tmk
     from enterprise_warp_tpu.ops.kernel import \
         marginalized_loglike as j_marginalized_loglike
     prfile = os.path.join(PARAMS, "default_hypermodel.dat")
@@ -234,5 +250,24 @@ def test_kernel_route_corner_shared_with_reference(monkeypatch):
         jnp.asarray(M_w), jnp.asarray(T_w), mega=False))
     assert np.isfinite(ref) and ref < -1e6
     assert not np.isfinite(classic) and not np.isfinite(ref_classic)
-    assert np.isfinite(port_kernel_route) and port_kernel_route > ref + 1e9
+    assert np.isnan(port_kernel_route)
     assert np.isfinite(ref_kernel_route) and ref_kernel_route > ref + 1e9
+
+    # the likelihood on the kernel route: -inf at CORNER; near typical
+    # values bit for bit what it gives with the rejection switched off
+    monkeypatch.setattr(tbuild, "marginalized_loglike",
+                        lambda *a, **k: orig(*a, **dict(k, mega=True)))
+    assert float(split.loglike_batch(theta)[0]) == -np.inf
+    rng = np.random.default_rng(64)
+    base = [1.0 if p.name.endswith("efac") else
+            -7.0 if "equad" in p.name else
+            -13.5 if p.name.endswith("log10_A") else 3.5
+            for p in split.params]
+    typical = np.asarray(base) + 0.05 * rng.standard_normal((64, len(base)))
+    kept = split.loglike_batch(typical)
+    monkeypatch.setattr(tmk, "schur_reject",
+                        lambda evA, quad: torch.zeros_like(
+                            quad, dtype=torch.bool))
+    unrepaired = split.loglike_batch(typical)
+    assert torch.isfinite(kept).all()
+    assert torch.equal(kept, unrepaired)

@@ -109,3 +109,28 @@ def test_build_choices_match(pair):
     _, jl, tl = pair
     assert tl.const_grams == jl.const_grams
     assert tl.pair_program
+
+
+@pytest.mark.parametrize("name", ["default_model_nested.dat",
+                                  "system_noise.dat"])
+def test_noise_pairs_and_params_fingerprint_equal(name):
+    """J1234-5678 under ``default_noise_example_1.json`` (the nested
+    example's model) and under ``system_noise.dat``'s model: the same
+    (efac, equad, mean toaerr^2) slide triples (indices exactly, the
+    variance within 1e-15 relative: the same numpy mean of the same
+    parsed errors) and the same model-identity string, so a nested
+    checkpoint is recognised by either package."""
+    from enterprise_warp_tpu.models.build import \
+        params_fingerprint as j_fingerprint
+    from enterprise_warp_tpu_torch.models.build import \
+        params_fingerprint as t_fingerprint
+    prfile = os.path.join(os.path.dirname(PRFILE), name)
+    jl = j_init(JParams(prfile, opts=_opts(0)), write_pars=False)[0]
+    tl = t_init(TParams(prfile, opts=_opts(0)), write_pars=False,
+                device="cpu")[0]
+    assert len(jl.noise_pairs) == 4
+    assert [p[:2] for p in tl.noise_pairs] == \
+        [p[:2] for p in jl.noise_pairs]
+    np.testing.assert_allclose([p[2] for p in tl.noise_pairs],
+                               [p[2] for p in jl.noise_pairs], rtol=1e-15)
+    assert t_fingerprint(tl) == j_fingerprint(jl)
