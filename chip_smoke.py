@@ -107,10 +107,35 @@ Phases (any failure exits non-zero before the result line):
    printed, every chain's accepted walkers must pass it, CORNER must be
    rejected, and 8000 prior draws are re-scored in float64 to show where
    the threshold falls;
-8. the ``kernels`` JSON line, one entry per kernel and main path that
+8. the joint correlated-GWB likelihood (``parallel/pta.py``): first the
+   solve kernel at right-hand sides wider than its refine phase's
+   8-column panel, k = 9, 24 and 44 at (8, 100, 100), and on a fixture
+   whose refinement diverges in one panel only (the divergence guard
+   keeps or reverts a walker's whole Z), and the likelihood kernel at
+   k = 33 (J1234-5678's basis S (334, 60) with a seeded 32-column timing
+   model), each against its plain version within 5e-4. Then the CLI runs
+   ``gwb_array.dat --num 0`` (two pulsars, Hellings-Downs ``gwb``; 2000
+   steps): two solve-kernel launches per likelihood call (stage 1 at
+   (16, 20, 20), k 24; stage 3 at (8, 40, 40), k 1) and no other
+   kernel, each stage held walker by walker on the run's last inputs,
+   the chain's largest lnL against the float64 dense oracle on the CPU
+   (5e-2 + 1e-7 |lnL|), and the results CLI on the output. Then
+   BASELINE config 3, 45 fake pulsars of 1000 TOAs
+   (``make_fake_pta(45, 1000, seed 45)``, efac/equad, spin noise 30
+   modes, DM noise 20, a Hellings-Downs ``gwb`` of 20 modes; 272
+   parameters), through ``build_pta_likelihood`` and ``run_ptmcmc`` (8
+   walkers, 2000 steps): one solve-kernel launch per call (stage 1 at
+   (360, 100, 100), k 44, held on the last inputs and timed phase by
+   phase) and stage 3 (n = 1800) over the kernels' cap on the classic
+   chain, counted as ``over-cap`` routes; two near-typical points
+   against the dense float64 oracle on the card (n 6435), differences
+   within 0.5 + 5e-4 |dlnL|; prior corners inset by 1e-3 of the range
+   give no NaN. Each joint path prints its stages' shares of a call
+   (CUDA events);
+9. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``, after the smoke's wall time.
 """
 
 from __future__ import annotations
@@ -174,7 +199,25 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
          "nested": "default_model_nested.dat --num 0: nested sampling, "
                    "800 live points, 160 walkers a call",
          "nested_live": "default_model_nested.dat --num 0: nested "
-                        "sampling, the fresh live set of 800 prior draws"}
+                        "sampling, the fresh live set of 800 prior draws",
+         "gwb": "gwb_array.dat --num 0: PT-MCMC over the joint "
+                "correlated-GWB likelihood of two pulsars, 8 walkers",
+         "pta45": "BASELINE config 3, 45 fake pulsars of 1000 TOAs: "
+                  "build_pta_likelihood and run_ptmcmc, 8 walkers",
+         "wide_k": "seeded fixtures: right-hand sides wider than the refine "
+                   "phase's 8-column panel (no main-path launches: the "
+                   "paths' own rows carry those)"}
+# the joint paths: right-hand-side widths past the refine phase's 8-column
+# panel, BASELINE config 3's size, and the agreement of lnL differences
+# with the dense float64 oracle there (tests/test_parallel.py:612)
+WIDE_K = (9, 24, 44)
+PTA45 = dict(npsr=45, ntoa=1000, seed=45)
+DIFF45_ATOL, DIFF45_RTOL = 0.5, 5e-4
+# the joint Schur path's lnL against float64 (tests/test_parallel.py)
+JOINT_ATOL, JOINT_RTOL = 5e-2, 1e-7
+# the widest right-hand side of the earlier single-launch solve design
+# (one 8-column panel), which only this script still launches
+SINGLE_LAUNCH_KMAX = 8
 # the lnL class of the reference's megakernel route against float64
 # (tests/test_megakernel.py): |dlnL| <= LNL_ATOL + LNL_RTOL |lnL|
 LNL_ATOL, LNL_RTOL = 5e-2, 1e-3
@@ -479,11 +522,15 @@ def like_cost(S32, Bn, refine, tiers):
 def exact_solve(Sn, Bn):
     """The float64 solution, log-determinant and 2-norm condition number
     of the equilibrated systems ``Sn Z = Bn`` (an arbiter for the float32
-    versions)."""
+    versions). The solve is a Cholesky-preconditioned one for positive
+    definite systems: a system singular or not positive definite in
+    float64 gets an infinite condition number."""
     import torch
     S = Sn.double()
-    return (torch.linalg.solve(S, Bn.double()), torch.linalg.slogdet(S)[1],
-            torch.linalg.cond(S))
+    Z, info = torch.linalg.solve_ex(S, Bn.double())
+    pd = torch.linalg.cholesky_ex(S)[1] == 0
+    kappa = torch.where((info != 0) | ~pd, torch.inf, torch.linalg.cond(S))
+    return Z, torch.linalg.slogdet(S)[1], kappa
 
 
 def like_system(S32, w, s, ivb, Bn):
@@ -548,14 +595,18 @@ def precond_fixture(torch, dev, n=60, B=64):
     return torch.as_tensor(Sb, device=dev), tiers
 
 
-def solve_pipeline(torch, mk, lib, Sn, Bn, j1, j2, refine, whole_ms, smi):
+def solve_pipeline(torch, mk, lib, Sn, Bn, j1, j2, refine, whole_ms, smi,
+                   label="mega_solve@pt"):
     """The solve kernel's phase launches on one captured input: each
     phase's time alone, for the pipeline and for the same phases run on
     the earlier one-block-per-walker inverse and products, against
     ``whole_ms``, the time of one whole wrapper call; the launches per
-    wrapper call; and the A/B against the earlier single-launch design in
-    turns (old, new, new, old). Returns the pipeline's phase times, in
-    ms."""
+    wrapper call; and, for right-hand sides within one 8-column panel
+    (the single-launch design's cap), the A/B against the earlier
+    single-launch design in turns (old, new, new, old), or, for wider
+    ones, the A/B of the refine phase on tiled products against the
+    earlier one on skinny 8-column panels in series, in turns. Returns the
+    pipeline's phase times, in ms."""
     B, n, k = Bn.shape
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -580,19 +631,54 @@ def solve_pipeline(torch, mk, lib, Sn, Bn, j1, j2, refine, whole_ms, smi):
     for _, launch in phases:
         run(launch)
     torch.cuda.synchronize()
-    print(f"mega_solve@pt: {len(phases)} CUDA launches per wrapper call "
+    print(f"{label}: {len(phases)} CUDA launches per wrapper call "
           f"({', '.join(name for name, _ in phases)})")
     split = {}
-    for label, table in (("pipeline", dict(phases)),
-                         ("one block per walker", one_block)):
+    for design, table in (("pipeline", dict(phases)),
+                          ("one block per walker", one_block)):
         ms = {name: time_cuda(lambda l=launch: run(l))
               for name, launch in table.items()}
-        split[label] = ms
-        print(f"mega_solve@pt phases, {label}, at Sn {tuple(Sn.shape)}: "
+        split[design] = ms
+        print(f"{label} phases, {design}, at Sn {tuple(Sn.shape)}, k {k}: "
               + "  ".join(f"{name} {t:.4f}" for name, t in ms.items())
               + f"  sum {sum(ms.values()):.4f} ms (CUDA events, median of "
               f"50 each; whole call {whole_ms:.4f} ms) [{smi}]")
 
+    if k > SINGLE_LAUNCH_KMAX:
+        Zs = torch.empty_like(bufs[0])
+        R, Zp = Bn.data_ptr(), bufs[0].data_ptr()
+        turns = [("panels", lambda: lib.mega_solve_refine_serial_launch(
+                      S, R, Zs.data_ptr(), ws, B, n, k, int(refine), stream)),
+                 ("tiled", lambda: lib.mega_solve_refine_launch(
+                     S, R, Zp, ws, B, n, k, int(refine), stream))]
+        turns = turns + turns[::-1]
+        ab = [(name, time_cuda(lambda l=launch: run(l)))
+              for name, launch in turns]
+        # held as hold_last_step holds a kernel: the walkers a float32
+        # solve resolves, within ATOL or within ARB_REL of float64
+        Za, _, kappa = exact_solve(Sn, Bn)
+        torch.cuda.synchronize()
+        held = (kappa <= KAPPA_MAX).nonzero().flatten().tolist()
+        gaps = (Zs - bufs[0]).abs().amax(dim=(1, 2))
+        gap = max((float(gaps[b]) for b in held), default=0.0)
+        print(f"{label} refine A/B, skinny 8-column panels in series "
+              "(panels) against tiled products over all columns (tiled), "
+              "one block per walker each, in turns: "
+              + "  ".join(f"{name} {t:.4f}" for name, t in ab)
+              + f" ms; panels/tiled "
+              f"{(ab[0][1] + ab[3][1]) / (ab[1][1] + ab[2][1]):.2f}x; "
+              f"max|panels - tiled| Z {gap:.3e} over the {len(held)} of {B} "
+              f"walkers within cond {KAPPA_MAX:g} [{smi}]")
+        for b in held:
+            lim = ARB_REL * float(Za[b].abs().max())
+            if gaps[b] > ATOL and not all(
+                    float((Zd[b].double() - Za[b]).abs().max()) <= lim
+                    for Zd in (Zs, bufs[0])):
+                fail(f"the refine phase's two designs disagree on walker {b}")
+        if not held:
+            fail("the refine A/B has no walker within the condition bound")
+        split["pipeline"]["refine (panels)"] = 0.5 * (ab[0][1] + ab[3][1])
+        return split["pipeline"]
     sbufs = mk._mega_solve_buffers(lib, Sn, Bn)
     sptr = [t.data_ptr() for t in sbufs]
 
@@ -611,7 +697,7 @@ def solve_pipeline(torch, mk, lib, Sn, Bn, j1, j2, refine, whole_ms, smi):
     torch.cuda.synchronize()
     gap = max(float((Zn - sbufs[0]).abs().max()),
               float((ldn - sbufs[1]).abs().max()))
-    print("mega_solve@pt A/B, single-launch design (old) against the "
+    print(f"{label} A/B, single-launch design (old) against the "
           "pipeline (new), in turns: "
           + "  ".join(f"{name} {t:.4f}" for name, t in ab)
           + f" ms; old/new {(ab[0][1] + ab[3][1]) / (ab[1][1] + ab[2][1]):.2f}"
@@ -1060,11 +1146,163 @@ def spd_batch(torch, dev, B, n, seed):
     return torch.as_tensor(np.stack(out).astype(np.float32), device=dev)
 
 
+def guard_fixture(torch, dev, n=20, k=16):
+    """Two walkers on the identity preconditioner (tier 3: Sn has the
+    eigenvalue -0.3), whose refinement converges on columns 0-7 and
+    diverges on columns 8-15: walker 0's residual summed over all columns
+    falls (the guard keeps the refined Z everywhere), walker 1's rises
+    (it reverts to Z0 = Bn everywhere). A guard taken panel by panel
+    would split both (``tests/test_torch_megakernel.py``)."""
+    import numpy as np
+    rng = np.random.default_rng(29)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    ev = np.linspace(0.6, 1.4, n)
+    ev[0] = -0.3
+    S = (Q * ev) @ Q.T
+
+    def cols(amp_stable, amp_unstable, m):
+        c = rng.standard_normal((n, m)) * amp_stable
+        c[0] = amp_unstable * rng.choice([-1.0, 1.0], m)
+        return Q @ c
+    keep = np.concatenate([cols(1.0, 0.0, 8), cols(0.02, 0.1, k - 8)], 1)
+    revert = np.concatenate([cols(0.02, 0.0, 8), cols(0.02, 0.1, k - 8)], 1)
+    return (torch.as_tensor(np.stack([S, S]).astype(np.float32), device=dev),
+            torch.as_tensor(np.stack([keep, revert]).astype(np.float32),
+                            device=dev))
+
+
+def wide_like_args(torch, args, ntm=32, seed=33, W=8):
+    """The likelihood kernel's inputs of a real path (``args``: S, w, s,
+    ivb, Bn, j1, j2, refine) for its first ``W`` walkers, with the
+    right-hand side of a seeded ``ntm``-column timing model: ``Bn = s
+    (S^T diag(w) [r | M])``, k = 1 + ntm, formed in float64."""
+    import numpy as np
+    S32 = args[0]
+    w, s, ivb = (a[:W] for a in args[1:4])
+    rng = np.random.default_rng(seed)
+    U = torch.as_tensor(rng.standard_normal((S32.shape[0], 1 + ntm)),
+                        dtype=torch.float64, device=S32.device)
+    Sw = S32.double()[None] * w.double()[:, :, None]
+    Bn = (s.double()[:, :, None] * (Sw.transpose(1, 2) @ U)).float()
+    return (S32, w.contiguous(), s.contiguous(), ivb.contiguous(),
+            Bn.contiguous(), *args[5:])
+
+
+def config3_array():
+    """BASELINE config 3 at its full size (``tests/test_parallel.py:
+    549-567``): ``make_fake_pta(npsr=45, ntoa=1000, seed=45)``, residuals
+    ``toaerrs * N(0, 1)`` from ``default_rng(45)``, per pulsar efac and
+    equad by backend, spin noise (30 modes), DM noise (20) and a
+    Hellings-Downs ``gwb`` (20 modes). Returns ``(psrs, termlists)``."""
+    import numpy as np
+    from enterprise_warp_tpu_torch.models import StandardModels, TermList
+    from enterprise_warp_tpu_torch.sim import make_fake_pta
+    psrs = make_fake_pta(**PTA45)
+    rng = np.random.default_rng(PTA45["seed"])
+    for p in psrs:
+        p.residuals = p.toaerrs * rng.standard_normal(len(p))
+    tls = []
+    for p in psrs:
+        m = StandardModels(psr=p)
+        tls.append(TermList(p, [
+            m.efac("by_backend"), m.equad("by_backend"),
+            m.spin_noise("powerlaw_30_nfreqs"),
+            m.dm_noise("powerlaw_20_nfreqs"),
+            m.gwb("hd_vary_gamma_20_nfreqs")]))
+    return psrs, tls
+
+
+def config3_theta(like, shift=0.0):
+    """The reference test's two near-typical points (shift 0 and 0.3)."""
+    import numpy as np
+    th = np.empty(like.ndim)
+    for i, n in enumerate(like.param_names):
+        if n.endswith("efac"):
+            th[i] = 1.0 + 0.05 * np.sin(i) + shift * 0.05
+        elif "equad" in n:
+            th[i] = -7.0 + shift * 0.2
+        elif n.endswith("log10_A"):
+            th[i] = -13.5 + shift
+        else:
+            th[i] = 3.0 + shift
+    return th
+
+
+def corner_attribution(like, params, row, gap, label):
+    """A chain that locked on a float32 corner of the joint likelihood
+    (``ROADMAP.md`` Queue 3, shared with the reference): at ``row`` the
+    card's Schur path lies ``gap`` above float64. The known cause is one
+    pulsar's stage 2: its stage-1 solve in float32 leaves the
+    timing-model Schur complement indefinite, and the reference's
+    relative eigenvalue clamp turns it into a huge quadratic form, which
+    reaches stage 3 through that pulsar's GW projection. Held, against
+    the float64 Schur path on the CPU: the card lies above float64, one
+    pulsar's ``ld_tm`` moved by more than 1 (the clamp's signature) and
+    its ``q1`` rose, and every other pulsar's ``q1`` is within 1 of
+    float64; anything else fails."""
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch.models.assemble import \
+        build_terms_for_model
+    from enterprise_warp_tpu_torch.parallel import build_pta_likelihood
+    tls = build_terms_for_model(params.models[0], params.psrs,
+                                params.noise_model_obj)
+    exact = build_pta_likelihood(params.psrs, tls, gram_mode="f64",
+                                 joint_mode="schur", device="cpu")
+    out = []
+    for lk in (like, exact):
+        st = lk._stages
+        th = lk.as_theta(row)
+        com = st["common"](th)
+        s12 = st["stage12"](com[0], com[1], com[5])
+        out.append({k: s12[k][0].double().cpu().numpy()
+                    for k in ("q1", "ld_tm")})
+    dq = out[0]["q1"] - out[1]["q1"]
+    dt = out[0]["ld_tm"] - out[1]["ld_tm"]
+    a = int(np.argmax(np.abs(dt)))
+    others = np.delete(np.abs(dq), a)
+    names = [p.name for p in params.psrs]
+    print(f"{label}: the chain locked on a float32 corner (ROADMAP Queue 3, "
+          f"the reference's): lnL {gap:.6g} above float64; against the "
+          f"float64 Schur path per pulsar, q1 gaps "
+          f"{dict(zip(names, dq.round(4).tolist()))}, ld_tm gaps "
+          f"{dict(zip(names, dt.round(4).tolist()))}")
+    if not (gap > 0 and abs(dt[a]) > 1.0 and dq[a] > 0
+            and np.all(others <= 1.0)):
+        fail(f"{label}: the chain's largest lnL lies {gap:.6g} from float64 "
+             "and the gap is not the stage-2 corner of one pulsar")
+
+
+def stage_shares(like, theta, label, smi):
+    """A joint likelihood call and its stages timed alone with CUDA
+    events (median of 10): the front end (white noise, PSD programs,
+    whitened Grams), stages 1-2 (the noise-block solves and the
+    timing-model marginalization) and stage 3 (the ORF-coupled Schur
+    system); printed with each stage's share of the call."""
+    st = like._stages
+    th = like.as_theta(theta)
+    com = st["common"](th)
+    s12 = st["stage12"](com[0], com[1], com[5])
+    ms = dict(
+        call=time_cuda(lambda: like.loglike_batch(th), warm=2, reps=10),
+        front_end=time_cuda(lambda: st["common"](th), warm=2, reps=10),
+        stages_1_2=time_cuda(lambda: st["stage12"](com[0], com[1], com[5]),
+                             warm=2, reps=10),
+        stage_3=time_cuda(lambda: st["stage3"](th, s12, *com[2:5]), warm=2,
+                          reps=10))
+    print(f"{label}: a likelihood call at W {th.shape[0]} {ms['call']:.3f} ms;"
+          + "".join(f" {k} {v:.3f} ms ({100 * v / ms['call']:.1f}%)"
+                    for k, v in ms.items() if k != "call")
+          + f" (CUDA events, median of 10) [{smi}]")
+    return ms
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: {PKG}/ not found next to this script; run it "
               "from a checkout of the repository", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, HERE)
     import numpy as np
     import torch
@@ -1122,15 +1360,19 @@ def main():
         """A megakernel against its plain version on the inputs a
         sampler's last step gave, wherever the chain stood, walker by
         walker. ``exact``: the float64 ``(Z, ld, cond)`` of the same
-        equilibrated systems. A walker whose condition number is at most
-        KAPPA_MAX is held: ``Z`` and ``ld`` within ATOL of the plain
-        version's or, where float32 rounding of a large ``Z`` puts the two
-        further apart, the kernel at most twice as far from float64 as the
-        plain version plus ATOL and within ARB_REL of the walker's largest
-        float64 |Z| (and of max(1, |ld|)). A walker above KAPPA_MAX is
-        beyond what a float32 solve resolves; it is reported, and its
-        outputs must only be finite. Each walker gets a line up to 16
-        walkers; above that, the summary and any walker outside ATOL.
+        equilibrated systems. A walker whose
+        condition number is at most KAPPA_MAX is held: ``Z`` and ``ld``
+        within ATOL of the plain version's or, where float32 rounding of a
+        large ``Z`` puts the two further apart, the kernel at most twice
+        as far from float64 as the plain version plus ATOL and within
+        ARB_REL of the walker's largest float64 |Z| (and of max(1,
+        |ld|)). A walker above KAPPA_MAX (or whose system is not positive
+        definite in float64, where the preconditioning Cholesky has no
+        factor to find) is beyond what a float32 solve resolves: it is
+        reported, and its outputs must only be finite; a call with no
+        walker to hold fails. Each walker gets a
+        line up to 16 walkers; above that, the summary and any walker
+        outside ATOL.
         Returns the held walkers' largest |kernel - plain| in Z and ld,
         and the kernel's tiers."""
         Zk, ldk, tk = kern()
@@ -1155,9 +1397,9 @@ def main():
                     f"kernel {fk[0]:.3e} / {fk[1]:.3e}, plain {fp[0]:.3e} / "
                     f"{fp[1]:.3e}, tier {int(tk[b])}")
             if kb > KAPPA_MAX:
-                if each:
-                    print(line + f": beyond float32 (cond > {KAPPA_MAX:g}), "
-                          "not held")
+                if each or dz > ATOL or dl > ATOL:
+                    print(line + f": beyond float32 (cond > {KAPPA_MAX:g}, "
+                          "or not positive definite in float64), not held")
                 continue
             held.append(b)
             err = max(err, dz, dl)
@@ -1172,16 +1414,26 @@ def main():
                      f"than atol {ATOL} apart, and the kernel's distance "
                      "from float64 exceeds twice the plain version's plus "
                      f"atol or {ARB_REL:.3g} of the float64 value")
+        if not held:
+            fail(f"{entry}: no walker within the condition bound to hold")
         print(f"{entry}: {len(held)} of {Zk.shape[0]} walkers held (cond "
               f"<= {KAPPA_MAX:g}; median cond "
               f"{float(kappa.median()):.3e}); held walkers' largest "
               f"|kernel - plain| {err:.3e}")
         return err, tk
 
-    def hold_solve(entry, run, kern, plain, cost, shape):
-        """:func:`compare` within ATOL, both versions timed, and the bound
-        from this run's tiers."""
-        ez, el, tk = compare(entry, kern, plain, shape)
+    def hold_solve(entry, run, kern, plain, cost, shape, exact=None,
+                   what=None):
+        """:func:`compare` within ATOL (or, given the float64 ``exact``,
+        :func:`hold_last_step` walker by walker under the condition bound,
+        on inputs described by ``what``), both versions timed, and the
+        bound from this run's tiers."""
+        if exact is None:
+            ez, el, tk = compare(entry, kern, plain, shape)
+        else:
+            ez, tk = hold_last_step(f"{entry}, {what}", kern, plain, shape,
+                                    exact)
+            el = ez
         ms = time_cuda(kern)
         plain_ms = time_cuda(plain)
         flops, nbytes = cost(tk.tolist())
@@ -1538,9 +1790,11 @@ def main():
             for kname in expect:
                 if counts[kname] <= 0:
                     fail(f"{name} --num {num}: {kname} was never launched")
-            outdir = [os.path.join(r, d) for r, ds, _ in
-                      os.walk(os.path.join(tmp, "out", name)) for d in ds
-                      if d.startswith(f"{num}_")]
+            # the run's directory: ``<num>_<pulsar>`` for one pulsar, the
+            # output directory itself for an array
+            outdir = [r for r, _, fs in
+                      os.walk(os.path.join(tmp, "out", name))
+                      if "chain_1.txt" in fs]
             chain = np.loadtxt(os.path.join(outdir[0], "chain_1.txt"))
             if not np.isfinite(chain).all():
                 fail(f"{name} --num {num}: non-finite chain rows")
@@ -1886,19 +2140,11 @@ def main():
             kern, plain, shape, exact = like_calls(args)
             what = ("the run's last iteration" if entry.endswith("nested")
                     else "the fresh live set's prior draws")
-            err, tk = hold_last_step(f"{entry}, {what}", kern, plain, shape,
-                                     exact)
-            ms = time_cuda(kern)
-            plain_ms = time_cuda(plain)
-            flops, nbytes = like_cost(args[0], args[4], args[7], tk.tolist())
-            bms, bby = bound(flops, nbytes)
-            print(f"{entry} at {shape}: kernel {ms:.4f} ms  plain "
-                  f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({bby}; "
-                  f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) [{smi}]")
-            results[entry] = dict(run=entry.split("@")[1], shape=shape,
-                                  max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bms, bound_by=bby,
-                                  launches=sizes[W])
+            hold_solve(entry, entry.split("@")[1], kern, plain,
+                       lambda tiers, a=args: like_cost(a[0], a[4], a[7],
+                                                       tiers),
+                       shape, exact=exact, what=what)
+            results[entry]["launches"] = sizes[W]
 
         # syncing calls in one block of 16 iterations (not held): the
         # sampler itself reads nothing back inside a block
@@ -1988,6 +2234,229 @@ def main():
                                            "J1234-5678_noise.json")):
             fail(f"the results CLI wrote no noise file for {nnd}")
 
+        # ---- phase 8: the joint correlated-GWB likelihood ----------------
+        from enterprise_warp_tpu_torch.parallel import build_pta_likelihood
+        from enterprise_warp_tpu_torch.samplers import run_ptmcmc
+
+        # (a) right-hand sides wider than the refine phase's 8-column panel
+        per_k = {}
+        for k in WIDE_K:
+            Sw = spd_batch(torch, dev, 8, 100, 60 + k)
+            Bw = torch.randn(8, 100, k, dtype=torch.float32, device=dev,
+                             generator=torch.Generator(dev).manual_seed(k))
+            a = (Sw, Bw, 3e-6, 9e-5, 3)
+            entry = "mega_solve@wide_k"
+            hold_solve(entry, "wide_k", lambda a=a: mk._mega_solve_cuda(*a),
+                       lambda a=a: mk._mega_solve_torch(*a),
+                       lambda tiers, a=a: solve_cost(*a[1].shape, 3, tiers),
+                       f"Sn {tuple(Sw.shape)} Bn {tuple(Bw.shape)}")
+            per_k[k] = {key: results[entry][key] for key in
+                        ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+        results[entry]["per_k"] = per_k
+        results[entry]["launches"] = 0
+        results[entry]["max_abs_err"] = max(r["max_abs_err"]
+                                            for r in per_k.values())
+        Sg, Bg = guard_fixture(torch, dev)
+        Zk, ldk, tk = mk._mega_solve_cuda(Sg, Bg, 1e-6, 1e-3, 3)
+        Zp, ldp = mk._mega_solve_torch(Sg, Bg, 1e-6, 1e-3, 3)
+        torch.cuda.synchronize()
+        gerr = max(float((Zk - Zp).abs().max()),
+                   float((ldk - ldp).abs().max()))
+        kept = [not torch.equal(Zk[b], Bg[b]) for b in range(2)]
+        print(f"divergence guard fixture (refinement diverging in one panel "
+              f"of two): tiers {tk.tolist()}, refined Z kept per walker "
+              f"{kept} (expected [True, False]), max|kernel - plain| "
+              f"{gerr:.3e}")
+        if tk.tolist() != [3, 3] or kept != [True, False] or not gerr <= 1e-4:
+            fail("the divergence guard is not per walker over all columns")
+        largs = wide_like_args(torch, cap_h.args)
+        hold_solve("mega_like@wide_k", "wide_k",
+                   lambda: mk._mega_like_cuda(*largs),
+                   lambda: mk._mega_like_torch(*largs),
+                   lambda tiers: like_cost(largs[0], largs[4], largs[7],
+                                           tiers),
+                   f"S {tuple(largs[0].shape)} w {tuple(largs[1].shape)} Bn "
+                   f"{tuple(largs[4].shape)} (seeded 32-column M)")
+        results["mega_like@wide_k"]["launches"] = 0
+
+        for lg in loggers:
+            lg.addHandler(handler)
+        # (b) gwb_array.dat through the CLI
+        gname = "gwb_array.dat"
+        gpf = write_paramfile(tmp, gname, nsamp=NSAMP)
+        cli_warnings = []
+
+        class Warnings(logging.Handler):
+            def emit(self, record):
+                cli_warnings.append(record.getMessage())
+        wlog = logging.getLogger(f"{PKG}.cli")
+        whandler = Warnings(logging.WARNING)
+        wlog.addHandler(whandler)
+        with Record(mk, "mega_solve_logdet", 0) as rec:
+            chain, launches["gwb"], gdir = drive(gpf, 0, ["mega_solve"])
+        wlog.removeHandler(whandler)
+        pt_report(gname, chain)
+        sizes = {n: dict(sorted(c.items())) for n, c in
+                 sorted(rec.sizes.items())}
+        calls = {n: sum(c.values()) for n, c in sizes.items()}
+        print(f"{gname}: solve-kernel calls per order n and walker batch "
+              f"{sizes}")
+        if sorted(calls) != [20, 40] or calls[20] != calls[40] or \
+                launches["gwb"]["mega_solve"] != 2 * calls[20]:
+            fail(f"{gname}: not two solve-kernel launches (stages 1 and 3) "
+                 "per likelihood call")
+        if launches["gwb"]["mega_like"] or launches["gwb"]["chol_precond"]:
+            fail(f"{gname}: a kernel other than the solve kernel launched")
+        glike = load_likes(gpf, 0, dev)[1][0]
+        gparams, goracles = load_likes(gpf, 0, "cpu", gram_mode="f64")
+        goracle = goracles[0]
+        th = near_typical(glike, walkers, 12)
+        lk = glike.loglike_batch(th).cpu().numpy()
+        l64 = goracle.loglike_batch(th).numpy()
+        print(f"{gname} at {walkers} near-typical points: the card's Schur "
+              f"path against the dense float64 oracle on the CPU, max|dlnL| "
+              f"{np.abs(lk - l64).max():.4e}")
+        if not np.all(np.abs(lk - l64)
+                      <= JOINT_ATOL + JOINT_RTOL * np.abs(l64)):
+            fail(f"{gname}: lnL on the card disagrees with the float64 dense "
+                 "oracle at near-typical points")
+        top = int(np.argmax(chain[:, -3]))
+        row = chain[top:top + 1, :goracle.ndim]
+        ref = float(goracle.loglike_batch(row)[0])
+        print(f"{gname}: largest lnL in the chain {chain[top, -3]:.6f} (row "
+              f"{top}); float64 dense oracle on the CPU there {ref:.6f}")
+        locked = not abs(chain[top, -3] - ref) \
+            <= JOINT_ATOL + JOINT_RTOL * abs(ref)
+        if locked:
+            corner_attribution(glike, gparams, row, chain[top, -3] - ref,
+                               gname)
+        print(f"{gname}: the CLI's warnings {cli_warnings}")
+        if locked != any("locked the chain" in m for m in cli_warnings):
+            fail(f"{gname}: the CLI's float64 check of the chain "
+                 f"{'missed' if locked else 'wrongly flagged'} a chain "
+                 "locked on a corner")
+        for n, args in sorted(rec.last.items()):
+            kern, plain, shape, exact = solve_calls(args)
+            hold_last_step(f"mega_solve@gwb n={n}, the run's last step",
+                           kern, plain, shape, exact)
+        with Record(mk, "mega_solve_logdet", 0) as cap:
+            glike.loglike_batch(th)
+        for n, stage in ((20, "stage1"), (40, "stage3")):
+            a = cap.last[n]
+            kern, plain, shape, _ = solve_calls(a)
+            hold_solve(f"mega_solve@gwb_{stage}", "gwb", kern, plain,
+                       lambda tiers, a=a: solve_cost(*a[1].shape, a[4],
+                                                     tiers), shape)
+            results[f"mega_solve@gwb_{stage}"].update(
+                launches=calls[n], batch_sizes=sizes[n])
+        stage_shares(glike, th, gname, smi)
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.results", "--result", gdir,
+             "--info", "1", "--noisefiles", "1", "--credlevels", "1",
+             "--covm", "1"], cwd=HERE, capture_output=True, text=True,
+            timeout=600)
+        print(f"results CLI on {gname}: rc {proc.returncode}")
+        if proc.returncode != 0 or not os.path.exists(
+                os.path.join(gdir, "noisefiles", "J1234-5678_noise.json")):
+            fail(f"the results CLI failed on {gdir}: "
+                 + proc.stderr[-2000:])
+
+        # (c) BASELINE config 3: 45 pulsars through run_ptmcmc
+        t0 = time.perf_counter()
+        psrs45, tls45 = config3_array()
+        like45 = build_pta_likelihood(psrs45, tls45, device=dev)
+        st45 = like45._stages
+        print(f"config 3: {len(psrs45)} pulsars x {PTA45['ntoa']} TOAs, "
+              f"{like45.ndim} parameters, NW {st45['NW']} MW {st45['MW']} "
+              f"n_g {st45['n_g']} nb_tot {st45['nb_tot']}; built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if (like45.ndim, st45["NW"], st45["MW"], st45["n_g"]) != \
+                (272, 100, 3, 40):
+            fail("config 3 does not have the reference's shapes")
+        out45 = os.path.join(tmp, "out", "pta45")
+        del stats[:]
+        with Record(mk, "mega_solve_logdet", 0) as rec:
+            routes.reset_counts()
+            t0 = time.perf_counter()
+            run_ptmcmc(like45, out45, NSAMP, ntemps=1, nchains=walkers,
+                       resume=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches["pta45"] = dict(routes.LAUNCHES)
+            paths45 = dict(routes.ROUTES)
+        for lg in loggers:
+            lg.removeHandler(handler)
+        chain = np.loadtxt(os.path.join(out45, "chain_1.txt"))
+        if not np.isfinite(chain).all():
+            fail("config 3: non-finite chain rows")
+        sizes = {n: dict(c) for n, c in rec.sizes.items()}
+        ncall = sum(sizes.get(100, {}).values())
+        print(f"config 3 through run_ptmcmc: wall {wall:.1f} s launches "
+              f"{launches['pta45']} routes "
+              f"{ {f'{k}/{p}': v for (k, p), v in paths45.items()} }; "
+              f"solve-kernel calls per order and batch {sizes}")
+        pt_report("config 3 (45 pulsars)", chain)
+        # every call one stage-1 launch over all (walker, pulsar) pairs
+        # (W 8 on the sampler's steps; the initial prior draws may be
+        # redrawn at a smaller batch)
+        if set(sizes) != {100} or \
+                any(b % len(psrs45) for b in sizes[100]) or \
+                sizes[100].get(len(psrs45) * walkers, 0) < NSAMP or \
+                launches["pta45"]["mega_solve"] != ncall or \
+                paths45.get(("mega_solve", "over-cap")) != ncall or \
+                paths45.get(("chol_precond", "over-cap")) != ncall:
+            fail("config 3: not one solve-kernel launch (stage 1) and one "
+                 "over-cap stage 3 per likelihood call")
+        if launches["pta45"]["mega_like"] or launches["pta45"]["chol_precond"]:
+            fail("config 3: the likelihood or preconditioner kernel launched")
+        # the row of the kernels line: the run's last-step inputs, held
+        # walker by walker under the condition bound. At near-typical
+        # points every walker's noise block lies above it (median cond
+        # 7.7e4): a fake pulsar at one radio frequency has its DM columns
+        # (20 modes) equal to the first 40 of its spin columns (30 modes),
+        # and only the priors separate them
+        a = rec.last[100]
+        kern, plain, shape, exact = solve_calls(a)
+        entry = "mega_solve@pta45_stage1"
+        hold_solve(entry, "pta45", kern, plain,
+                   lambda tiers: solve_cost(*a[1].shape, a[4], tiers), shape,
+                   exact=exact, what="the run's last step")
+        results[entry].update(launches=ncall, batch_sizes=sizes[100])
+        results[entry]["phases_ms"] = solve_pipeline(
+            torch, mk, cuda_lib.load_library(), *a, results[entry]["ms"],
+            smi, label=entry)
+        stage_shares(like45, near_typical(like45, walkers, 13), "config 3",
+                     smi)
+        # two near-typical points against the dense float64 oracle on the
+        # card: their lnL difference (tests/test_parallel.py:612)
+        th2 = np.stack([config3_theta(like45), config3_theta(like45, 0.3)])
+        s12 = like45.loglike_batch(th2).cpu().numpy()
+        t0 = time.perf_counter()
+        dense45 = build_pta_likelihood(psrs45, tls45, gram_mode="f64",
+                                       device=dev)
+        d12 = dense45.loglike_batch(th2).cpu().numpy()
+        torch.cuda.synchronize()
+        print(f"config 3 at two near-typical points: Schur {s12.tolist()}, "
+              f"dense float64 on the card (n {len(psrs45) * st45['nb_tot']}) "
+              f"{d12.tolist()} in {time.perf_counter() - t0:.1f} s; "
+              f"difference {s12[0] - s12[1]:.6f} against "
+              f"{d12[0] - d12[1]:.6f}")
+        dd = d12[0] - d12[1]
+        if not (np.isfinite(s12).all() and np.isfinite(d12).all()
+                and abs((s12[0] - s12[1]) - dd)
+                <= DIFF45_ATOL + DIFF45_RTOL * abs(dd)):
+            fail("config 3: lnL differences disagree with the float64 "
+                 "dense oracle")
+        del dense45
+        lo = np.array([p.prior.lo for p in like45.params])
+        hi = np.array([p.prior.hi for p in like45.params])
+        eps = 1e-3 * (hi - lo)
+        lc = like45.loglike_batch(np.stack([lo + eps, hi - eps]))
+        print(f"config 3 at the prior corners inset by 1e-3 of the range: "
+              f"lnL {lc.tolist()}")
+        if torch.isnan(lc).any():
+            fail("config 3: NaN at a prior corner")
+
     kernels = []
     for entry, r in results.items():
         kname = entry.split("@")[0]
@@ -2002,9 +2471,10 @@ def main():
             path=PATHS[r["run"]], shape=r["shape"]))
         for key in ("phases_ms", "stage_a_ms", "single_block_ms",
                     "bare_call_ms", "serial_ms", "global_design_ms",
-                    "batch_sizes"):
+                    "batch_sizes", "per_k"):
             if key in r:
                 kernels[-1][key] = r[key]
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

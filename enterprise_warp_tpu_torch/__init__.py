@@ -2,11 +2,12 @@
 
 The JAX package ``enterprise_warp_tpu`` is the reference this package is
 held against; nothing here imports it (or JAX). The port keeps the
-reference's module names so each counterpart is easy to find, and runs the
-single-pulsar PT-MCMC path: paramfile -> pulsar ingestion -> noise-model
-lowering -> walker-batched marginalized likelihood (two hand-written CUDA
-kernels, ``ops/csrc/megakernel.cu``) -> PT sampler -> the reference's
-output-directory contract.
+reference's module names so each counterpart is easy to find, and runs
+the reference's workflows: paramfile -> pulsar ingestion -> noise-model
+lowering -> walker-batched marginalized likelihood of one pulsar or the
+joint likelihood of an array (hand-written CUDA kernels,
+``ops/csrc/megakernel.cu``) -> PT-MCMC, HMC or nested sampling -> the
+reference's output-directory contract.
 
 Conventions
 -----------

@@ -2,11 +2,12 @@
 --num N``.
 
 Counterpart of ``enterprise_warp_tpu/cli.py``: parse the paramfile, load
-pulsar ``--num``, build its walker-batched likelihoods on the card and
-dispatch on the sampler, as the reference does: the adaptive PT-MCMC for
-``ptmcmcsampler`` (over the product-space hypermodel of all models when
-the paramfile has two or more) and for ``emcee``/``ptemcee`` (``nsteps``,
-``ntemps``, ``nwalkers`` chains), HMC with its ADVI warm start for
+pulsar ``--num`` (or every pulsar of the data directory with
+``array_analysis: True``), build the walker-batched likelihoods on the
+card and dispatch on the sampler, as the reference does: the adaptive
+PT-MCMC for ``ptmcmcsampler`` (over the product-space hypermodel of all
+models when the paramfile has two or more) and for ``emcee``/``ptemcee``
+(``nsteps``, ``ntemps``, ``nwalkers`` chains), HMC with its ADVI warm start for
 ``hmc``, and nested sampling for every Bilby nested name (``dynesty``,
 ``nestle``, ``pymultinest``, ``pypolychord``, ``ultranest``), on the first
 model. Each writes the reference's output-directory contract, so
@@ -19,9 +20,16 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import logging
+import os
 import sys
 
 _LATER = "is a later slice of the port (see ROADMAP.md)"
+_log = logging.getLogger(__name__)
+# a joint chain's largest lnL against the dense float64 oracle at the same
+# point: the reference's class for the Schur path (tests/test_parallel.py),
+# |dlnL| <= JOINT_ATOL + JOINT_RTOL |lnL|
+JOINT_ATOL, JOINT_RTOL = 5e-2, 1e-7
 
 
 def import_custom_models(py_path: str, class_name: str):
@@ -100,6 +108,7 @@ def main(argv=None, device="cuda"):
         nsamp = int(getattr(params, "nsamp", kw.get("nsamp", 1000000)))
         run_ptmcmc(like, params.output_dir, nsamp, params=params,
                    resume=resume)
+        check_joint_chain(params, like, device)
     elif params.sampler == "hmc":
         if len(likes) > 1:
             print("note: HMC has no gradient for the discrete nmodel index; "
@@ -114,6 +123,7 @@ def main(argv=None, device="cuda"):
                    params=params, resume=resume,
                    ntemps=int(kw.get("ntemps", 1)),
                    nchains=int(kw.get("nwalkers", 64)))
+        check_joint_chain(params, like, device)
     else:
         if len(likes) > 1:
             print(f"note: nested sampling uses model {first_id}; run "
@@ -124,6 +134,40 @@ def main(argv=None, device="cuda"):
                    dlogz=float(kw.get("dlogz", 0.1)), resume=resume,
                    **nested_knobs(kw))
     return 0
+
+
+def check_joint_chain(params, like, device):
+    """Re-score a joint PT chain's largest lnL with the dense float64
+    oracle at the same point. The float32 Schur path can lock a chain on a
+    corner where it lies far above float64 (ROADMAP.md Queue 3, shared
+    with the reference); such a run logs a warning. Returns ``(lnl,
+    lnl_f64)`` at that row, or None where ``like`` is not a float32 joint
+    likelihood or the chain has no finite lnL."""
+    import numpy as np
+
+    from .models.assemble import init_model_likelihoods
+    from .parallel import PTALikelihood
+    if not isinstance(like, PTALikelihood) or like.gram_mode == "f64":
+        return None
+    chain = np.loadtxt(os.path.join(params.output_dir, "chain_1.txt"),
+                       ndmin=2)
+    # rows: [theta..., lnpost, lnlike, accept_rate, pt_accept_rate]
+    lnl = chain[:, like.ndim + 1] if chain.size else chain[:, :0]
+    if not np.isfinite(lnl).any():
+        return None
+    top = int(np.argmax(np.where(np.isfinite(lnl), lnl, -np.inf)))
+    oracles = init_model_likelihoods(params, gram_mode="f64",
+                                     write_pars=False, device=device)
+    ref = float(oracles[min(oracles)].loglike_batch(
+        chain[top:top + 1, :like.ndim])[0])
+    if not abs(lnl[top] - ref) <= JOINT_ATOL + JOINT_RTOL * abs(ref):
+        _log.warning(
+            "the chain's largest lnL %.8g (row %d) lies %.6g from the "
+            "float64 oracle's %.8g at the same point: the float32 Schur "
+            "path has locked the chain on a corner (ROADMAP.md Queue 3); "
+            "discard this posterior or rerun with --gram_mode f64",
+            lnl[top], top, lnl[top] - ref, ref)
+    return float(lnl[top]), ref
 
 
 def nested_knobs(kw):

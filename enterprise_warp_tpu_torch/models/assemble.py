@@ -1,12 +1,12 @@
 """Assemble per-model likelihoods from parsed configuration.
 
-Counterpart of the single-pulsar branch of
-``enterprise_warp_tpu/models/assemble.py:init_model_likelihoods``: for every
-``{N}`` model section, dispatch the pulsar's noise-term dict (or the
+Counterpart of ``enterprise_warp_tpu/models/assemble.py``: for every
+``{N}`` model section, dispatch each pulsar's noise-term dict (or the
 ``universal`` fallback) plus ``common_signals`` through the noise-model
 object's method vocabulary by name, then build the walker-batched
-likelihood. Multi-pulsar models (uncorrelated products and the joint
-correlated kernel) are a later slice of the port.
+likelihood: a :class:`PulsarLikelihood` for one pulsar, the joint
+``parallel.build_pta_likelihood`` when a common signal is spatially
+correlated, else a :class:`MultiPulsarLikelihood` (the uncorrelated sum).
 """
 
 from __future__ import annotations
@@ -14,10 +14,59 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
+from .. import F64
 from ..config.modeldict import get_noise_dict
-from .build import build_pulsar_likelihood
-from .terms import TermList
+from .build import PulsarLikelihood, build_pulsar_likelihood
+from .prior_mixin import PriorMixin
+from .terms import CommonTerm, TermList
+
+
+class MultiPulsarLikelihood(PriorMixin):
+    """Sum of per-pulsar likelihoods over one global parameter vector.
+
+    Uncorrelated models and common-spectrum (no-ORF) signals: each member
+    is evaluated on its slice of the global theta and the lnL are summed.
+    Shared names (a common term's) collapse to one parameter. Every member
+    must live on the same device.
+    """
+
+    def __init__(self, pulsar_likes):
+        self.pulsar_likes = pulsar_likes
+        devices = {torch.device(pl.device) for pl in pulsar_likes}
+        if len(devices) != 1:
+            raise ValueError(f"members on several devices: "
+                             f"{sorted(map(str, devices))}")
+        self.device = devices.pop()
+        self.params = []
+        seen = {}
+        for pl in pulsar_likes:
+            for p in pl.params:
+                if p.name not in seen:
+                    seen[p.name] = len(self.params)
+                    self.params.append(p)
+        self.param_names = [p.name for p in self.params]
+        self.ndim = len(self.params)
+        self._index_maps = [
+            torch.tensor([seen[p.name] for p in pl.params],
+                         dtype=torch.long, device=self.device)
+            for pl in pulsar_likes]
+        # members' white-noise pair metadata in the global indexing
+        self.noise_pairs = [
+            (seen[pl.param_names[i]], seen[pl.param_names[j]], s2)
+            for pl in pulsar_likes
+            for (i, j, s2) in (getattr(pl, "noise_pairs", None) or [])]
+
+    as_theta = PulsarLikelihood.as_theta
+
+    def loglike_batch(self, theta):
+        """lnL at ``(W, ndim)`` points -> ``(W,)`` float64."""
+        theta = self.as_theta(theta)
+        out = torch.zeros(theta.shape[0], dtype=F64, device=self.device)
+        for pl, idx in zip(self.pulsar_likes, self._index_maps):
+            out = out + pl.loglike_batch(theta.index_select(1, idx))
+        return out
 
 
 def build_terms_for_model(params_model, psrs, noise_model_obj,
@@ -63,10 +112,17 @@ def write_nfreqs_files(output_dir, nfreqs_logs):
     return paths
 
 
+def has_correlated_common(termlists) -> bool:
+    return any(isinstance(t, CommonTerm) and t.orf is not None
+               for tl in termlists for t in tl)
+
+
 def init_model_likelihoods(params, gram_mode="split", write_pars=True,
                            device="cuda"):
-    """``{model_id: likelihood}`` for a single-pulsar run; ``tm:
-    sampled`` in a model section samples its timing model."""
+    """``{model_id: likelihood}``: one pulsar, the correlated joint
+    likelihood, or the uncorrelated sum; ``tm: sampled`` in a model
+    section samples each pulsar's timing model (not with a correlated
+    common term, as in the reference)."""
     likes = {}
     for ii, pm in params.models.items():
         tm_opt = getattr(pm, "tm", "default") or "default"
@@ -78,10 +134,6 @@ def init_model_likelihoods(params, gram_mode="split", write_pars=True,
                 "implemented; the reference's 'ridge_regression' option "
                 "is broken upstream (enterprise_warp.py:453-459)")
         tm_mode = "sampled" if tm_opt == "sampled" else "marginalized"
-        if len(params.psrs) != 1:
-            raise NotImplementedError(
-                "multi-pulsar models are a later slice of the port (see "
-                "ROADMAP.md); run one pulsar with --num")
         nfreqs_logs = []
         termlists = build_terms_for_model(pm, params.psrs,
                                           params.noise_model_obj,
@@ -90,10 +142,28 @@ def init_model_likelihoods(params, gram_mode="split", write_pars=True,
         if getattr(pm, "noisefiles", None):
             fixed = get_noise_dict([p.name for p in params.psrs],
                                    params._resolve(pm.noisefiles))
-        like = build_pulsar_likelihood(params.psrs[0], termlists[0],
-                                       fixed_values=fixed,
-                                       gram_mode=gram_mode, tm=tm_mode,
-                                       device=device)
+        if tm_mode == "sampled" and len(params.psrs) > 1 and \
+                has_correlated_common(termlists):
+            raise NotImplementedError(
+                "tm: sampled is per-pulsar; combine it with the "
+                "correlated joint fit by sampling single pulsars first "
+                "(the reference has no sampled-TM joint fit either)")
+        if len(params.psrs) == 1:
+            like = build_pulsar_likelihood(params.psrs[0], termlists[0],
+                                           fixed_values=fixed,
+                                           gram_mode=gram_mode, tm=tm_mode,
+                                           device=device)
+        elif has_correlated_common(termlists):
+            from ..parallel import build_pta_likelihood
+            like = build_pta_likelihood(params.psrs, termlists,
+                                        fixed_values=fixed,
+                                        gram_mode=gram_mode, device=device)
+        else:
+            like = MultiPulsarLikelihood([
+                build_pulsar_likelihood(p, tl, fixed_values=fixed,
+                                        gram_mode=gram_mode, tm=tm_mode,
+                                        device=device)
+                for p, tl in zip(params.psrs, termlists)])
         likes[ii] = like
         if write_pars and getattr(params, "output_dir", None) and \
                 (params.opts is None

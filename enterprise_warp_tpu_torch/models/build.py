@@ -164,10 +164,12 @@ def _resolve_params(all_params, fixed_values):
     return sampled, mapping
 
 
-def lower_terms(psr, terms, ecorr_dt=10.0, det_out=None):
+def lower_terms(psr, terms, ecorr_dt=10.0, common_grid=None, det_out=None):
     """Lower a TermList into white/basis blocks + the stacked basis matrix
-    (numpy, build time). Common terms use the pulsar's own Fourier grid
-    (single-pulsar analysis). ``det_out`` collects deterministic terms."""
+    (numpy, build time). ``common_grid``, a ``(t0, Tspan)`` pair, puts
+    common terms on the shared PTA-wide Fourier grid (the joint
+    likelihood); without it they use the pulsar's own span (single-pulsar
+    analysis). ``det_out`` collects deterministic terms."""
     from ..ops import fourier_design
 
     ntoa = len(psr)
@@ -198,8 +200,11 @@ def lower_terms(psr, terms, ecorr_dt=10.0, det_out=None):
                                         col_cursor + U.shape[1])))
                     col_cursor += U.shape[1]
         elif isinstance(t, CommonTerm):
-            F, freqs = fourier_design(psr.toas - psr.toas.min(), t.nmodes,
-                                      psr.Tspan)
+            if common_grid is not None:
+                t0, Tspan = common_grid
+            else:
+                t0, Tspan = psr.toas.min(), psr.Tspan
+            F, freqs = fourier_design(psr.toas - t0, t.nmodes, Tspan)
             basis_cols.append(F)
             basis_blocks.append(_BasisBlock(
                 name=t.name, ncols=F.shape[1], psd=t.psd, freqs=freqs,

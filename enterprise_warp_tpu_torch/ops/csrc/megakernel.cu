@@ -22,7 +22,10 @@
 //   3. the preconditioner solve Z0 = V V^T Bn and `refine` float32
 //      residual passes Z += V V^T (Bn - Sn Z);
 //   4. the divergence guard: keep Z only if its true residual is no
-//      larger than the first pass's, else Z0;
+//      larger than the first pass's, else Z0, once per walker over all k
+//      columns (up to KMAX columns, steps 3 and 4 run as skinny products
+//      a row a thread or a warp; a wider right-hand side runs them as
+//      tiled block products over all its columns at once);
 //   5. ld = 2 sum log diag U + the 4-term trace expansion of
 //      E = V^T (Sn - U^T U) V, applied only when ||E||_F^2 < 0.09.
 // The likelihood pipeline first forms Sn = s (Ss^T Ss) s + diag(ivb), with
@@ -90,7 +93,7 @@ namespace {
 
 constexpr int NT = 256;      // threads per block
 constexpr int MAXN = 448;    // largest matrix order (the reference's cap)
-constexpr int KMAX = 8;      // widest right-hand side
+constexpr int KMAX = 8;      // widest right-hand-side panel
 constexpr int TILE = 64;     // block GEMM output tile
 constexpr int KT = 16;       // block GEMM depth step
 
@@ -187,15 +190,24 @@ __device__ void block_gemm(int M, int N, int K, const float* A, int lda,
   __syncthreads();
 }
 
-__device__ void load_rhs(const float* src, int count, Smem& sm) {
-  for (int e = threadIdx.x; e < count; e += NT) sm.rhs[e] = src[e];
+// The right-hand side is walked in panels of at most KMAX columns, so that
+// sm.rhs and the per-row register accumulators keep their size whatever k
+// is. A panel of a row-major (n x ld) matrix starts at column c0; callers
+// pass the pointer offset by c0 and the panel width kp.
+
+// sm.rhs (n x kp, dense) = the panel src (n x kp, row stride ld).
+__device__ void load_rhs(const float* src, int n, int ld, int kp, Smem& sm) {
+  for (int e = threadIdx.x; e < n * kp; e += NT) {
+    const int m = e / kp;
+    sm.rhs[e] = src[(size_t)m * ld + (e - m * kp)];
+  }
   __syncthreads();
 }
 
-// C[i][c] = sum_m A[m * lda + i] * rhs[m][c]; `upper`: A upper triangular
-// (only m <= i contribute). One thread per output row.
+// C[i][c] = sum_m A[m * lda + i] * rhs[m][c] (C row stride ldc); `upper`: A
+// upper triangular (only m <= i contribute). One thread per output row.
 __device__ void skinny_t(int rows, int K, const float* A, int lda, int k,
-                         bool upper, float* C, Smem& sm) {
+                         bool upper, float* C, int ldc, Smem& sm) {
   for (int i = threadIdx.x; i < rows; i += NT) {
     float acc[KMAX];
 #pragma unroll
@@ -209,15 +221,17 @@ __device__ void skinny_t(int rows, int K, const float* A, int lda, int k,
     }
 #pragma unroll
     for (int c = 0; c < KMAX; ++c)
-      if (c < k) C[i * k + c] = acc[c];
+      if (c < k) C[(size_t)i * ldc + c] = acc[c];
   }
   __syncthreads();
 }
 
-// C[i][c] = (sub ? sub[i][c] - acc : acc), acc = sum_m A[i * lda + m] rhs[m][c];
-// `upper`: A upper triangular (only m >= i contribute). One warp per row.
+// C[i][c] = (sub ? sub[i][c] - acc : acc), acc = sum_m A[i * lda + m] rhs[m][c]
+// (sub and C row stride ldc); `upper`: A upper triangular (only m >= i
+// contribute). One warp per row.
 __device__ void skinny_n(int rows, int K, const float* A, int lda, int k,
-                         bool upper, const float* sub, float* C, Smem& sm) {
+                         bool upper, const float* sub, float* C, int ldc,
+                         Smem& sm) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   for (int i = wid; i < rows; i += NT / 32) {
     float acc[KMAX];
@@ -234,9 +248,10 @@ __device__ void skinny_n(int rows, int K, const float* A, int lda, int k,
     for (int c = 0; c < KMAX; ++c)
       for (int o = 16; o > 0; o >>= 1) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], o);
     if (lane == 0) {
+      const size_t r = (size_t)i * ldc;
 #pragma unroll
       for (int c = 0; c < KMAX; ++c)
-        if (c < k) C[i * k + c] = sub ? sub[i * k + c] - acc[c] : acc[c];
+        if (c < k) C[r + c] = sub ? sub[r + c] - acc[c] : acc[c];
     }
   }
   __syncthreads();
@@ -295,13 +310,25 @@ __device__ void backsub_inv(const float* U, float* V, int n, Smem& sm) {
   }
 }
 
-// out = V (V^T R), R and out (n x k) in global memory, Tb scratch.
+// out = V (V^T R) on one panel of kp <= KMAX columns: R and out panels of
+// row stride ld in global memory, Tb (n x kp, dense) scratch.
 __device__ void psolve(const float* V, const float* R, float* Tb, float* out,
-                       int n, int k, Smem& sm) {
-  load_rhs(R, n * k, sm);
-  skinny_t(n, n, V, n, k, true, Tb, sm);
-  load_rhs(Tb, n * k, sm);
-  skinny_n(n, n, V, n, k, true, nullptr, out, sm);
+                       int n, int ld, int kp, Smem& sm) {
+  load_rhs(R, n, ld, kp, sm);
+  skinny_t(n, n, V, n, kp, true, Tb, kp, sm);
+  load_rhs(Tb, n, kp, kp, sm);
+  skinny_n(n, n, V, n, kp, true, nullptr, out, ld, sm);
+}
+
+// Sum of squares of one (n x kp) panel of row stride ld, over the block.
+__device__ float panel_sq(const float* R, int n, int ld, int kp, Smem& sm) {
+  float p = 0.f;
+  for (int e = threadIdx.x; e < n * kp; e += NT) {
+    const int m = e / kp;
+    const float r = R[(size_t)m * ld + (e - m * kp)];
+    p = fmaf(r, r, p);
+  }
+  return block_sum(p, sm);
 }
 
 __device__ __host__ inline long long solve_ws(int n, int k) {
@@ -343,27 +370,21 @@ __device__ void solve_chain(const float* Sn, const float* Bw, float* Zout,
   backsub_inv(U, V, n, sm);
 
   // preconditioner solve, refinement, divergence guard
-  psolve(V, Bw, Tb, Z0, n, k, sm);
+  psolve(V, Bw, Tb, Z0, n, k, k, sm);
   for (int e = threadIdx.x; e < (int)nk; e += NT) Zc[e] = Z0[e];
   __syncthreads();
   float res_pre = 0.f;
   for (int it = 0; it < refine; ++it) {
-    load_rhs(Zc, n * k, sm);
-    skinny_n(n, n, Sn, n, k, false, Bw, R, sm);
-    if (it == 0) {
-      float p = 0.f;
-      for (int e = threadIdx.x; e < (int)nk; e += NT) p = fmaf(R[e], R[e], p);
-      res_pre = block_sum(p, sm);
-    }
-    psolve(V, R, Tb, D, n, k, sm);
+    load_rhs(Zc, n, k, k, sm);
+    skinny_n(n, n, Sn, n, k, false, Bw, R, k, sm);
+    if (it == 0) res_pre = panel_sq(R, n, k, k, sm);
+    psolve(V, R, Tb, D, n, k, k, sm);
     for (int e = threadIdx.x; e < (int)nk; e += NT) Zc[e] += D[e];
     __syncthreads();
   }
-  load_rhs(Zc, n * k, sm);
-  skinny_n(n, n, Sn, n, k, false, Bw, R, sm);
-  float p = 0.f;
-  for (int e = threadIdx.x; e < (int)nk; e += NT) p = fmaf(R[e], R[e], p);
-  const float res_ref = block_sum(p, sm);
+  load_rhs(Zc, n, k, k, sm);
+  skinny_n(n, n, Sn, n, k, false, Bw, R, k, sm);
+  const float res_ref = panel_sq(R, n, k, k, sm);
   if (refine == 0) res_pre = res_ref;
   const bool keep = res_ref <= res_pre;   // NaN -> keep the plain solve
   for (int e = threadIdx.x; e < (int)nk; e += NT) Zout[e] = keep ? Zc[e] : Z0[e];
@@ -955,7 +976,8 @@ int precond_smem_run(const float* Sn, float* U, float* V, float* E, int* tier,
 //                                     U, tier
 //   inverse   grid (ceil(n/CT), B)    V = U^-1, one column tile per block
 //   refine    grid (B)                psolve, the refinement passes, the
-//                                     guard: Z
+//                                     guard: Z (skinny panels for k <=
+//                                     KMAX, tiled products above)
 //   product   grid (tiles^2, B), x4   W1 = Sn - U^T U, W2 = V^T W1,
 //                                     W1 = W2 V (= E), X = W1 W1 (= E^2),
 //                                     one launch each
@@ -1016,6 +1038,13 @@ solve_inverse_block_kernel(float* ws, int n, int k) {
   backsub_inv(w.U, w.V, n, sm);
 }
 
+// The refined solve, one block per walker, on skinny products over the
+// right-hand side in panels of at most KMAX columns: the refine phase for
+// k <= KMAX (one panel), and for any k the baseline of chip_smoke.py's
+// refine A/B (the panels in series). Refinement is column by column, so a
+// panel's Z does not depend on the others; the divergence guard is the
+// walker's, over all k columns: both residual norms are summed across the
+// panels before Z or Z0 is chosen for the whole Z.
 __global__ void __launch_bounds__(NT)
 solve_refine_kernel(const float* __restrict__ Sn, const float* __restrict__ Bn,
                     float* Z, float* ws, int n, int k, int refine) {
@@ -1025,31 +1054,83 @@ solve_refine_kernel(const float* __restrict__ Sn, const float* __restrict__ Bn,
   const SolveWs w = solve_ws_at(ws, b, n, k);
   const float* S = Sn + (size_t)b * n * n;
   const float* Bw = Bn + (size_t)b * nk;
-  psolve(w.V, Bw, w.Tb, w.Z0, n, k, sm);
-  for (int e = threadIdx.x; e < nk; e += NT) w.Zc[e] = w.Z0[e];
-  __syncthreads();
-  float res_pre = 0.f;
-  for (int it = 0; it < refine; ++it) {
-    load_rhs(w.Zc, nk, sm);
-    skinny_n(n, n, S, n, k, false, Bw, w.R, sm);
-    if (it == 0) {
-      float p = 0.f;
-      for (int e = threadIdx.x; e < nk; e += NT) p = fmaf(w.R[e], w.R[e], p);
-      res_pre = block_sum(p, sm);
+  float res_pre = 0.f, res_ref = 0.f;
+  for (int c0 = 0; c0 < k; c0 += KMAX) {
+    const int kp = min(KMAX, k - c0);
+    const float* Bp = Bw + c0;
+    float* Z0 = w.Z0 + c0;
+    float* Zc = w.Zc + c0;
+    float* R = w.R + c0;
+    float* D = w.D + c0;
+    psolve(w.V, Bp, w.Tb, Z0, n, k, kp, sm);
+    for (int e = threadIdx.x; e < n * kp; e += NT) {
+      const int m = e / kp;
+      const size_t x = (size_t)m * k + (e - m * kp);
+      Zc[x] = Z0[x];
     }
-    psolve(w.V, w.R, w.Tb, w.D, n, k, sm);
-    for (int e = threadIdx.x; e < nk; e += NT) w.Zc[e] += w.D[e];
     __syncthreads();
+    for (int it = 0; it < refine; ++it) {
+      load_rhs(Zc, n, k, kp, sm);
+      skinny_n(n, n, S, n, kp, false, Bp, R, k, sm);
+      if (it == 0) res_pre += panel_sq(R, n, k, kp, sm);
+      psolve(w.V, R, w.Tb, D, n, k, kp, sm);
+      for (int e = threadIdx.x; e < n * kp; e += NT) {
+        const int m = e / kp;
+        const size_t x = (size_t)m * k + (e - m * kp);
+        Zc[x] += D[x];
+      }
+      __syncthreads();
+    }
+    load_rhs(Zc, n, k, kp, sm);
+    skinny_n(n, n, S, n, kp, false, Bp, R, k, sm);
+    res_ref += panel_sq(R, n, k, kp, sm);
   }
-  load_rhs(w.Zc, nk, sm);
-  skinny_n(n, n, S, n, k, false, Bw, w.R, sm);
-  float p = 0.f;
-  for (int e = threadIdx.x; e < nk; e += NT) p = fmaf(w.R[e], w.R[e], p);
-  const float res_ref = block_sum(p, sm);
   if (refine == 0) res_pre = res_ref;
   const bool keep = res_ref <= res_pre;   // NaN -> keep the plain solve
   float* Zb = Z + (size_t)b * nk;
   for (int e = threadIdx.x; e < nk; e += NT) Zb[e] = keep ? w.Zc[e] : w.Z0[e];
+}
+
+// The refine phase for k > KMAX, one block per walker: each product of
+// the chain over all k columns at once on block_gemm's 64 x 64 tiles
+// (T = V^T B, Z0 = V T; R = B - Sn Z, T = V^T R, D = V T per pass), then
+// the walker's guard. The skinny panels do a row's sum a thread, or a
+// warp and a shuffle tree, per 8 columns; the tiles do 4 x 4 outputs a
+// thread, about three times the panels' rate at (360, 100, 100), k 44
+// (PERF.md). Z is refined in place in the output.
+__global__ void __launch_bounds__(NT)
+solve_refine_tiled_kernel(const float* __restrict__ Sn,
+                          const float* __restrict__ Bn, float* Z, float* ws,
+                          int n, int k, int refine) {
+  __shared__ Smem sm;
+  const int b = blockIdx.x;
+  const int nk = n * k;
+  const SolveWs w = solve_ws_at(ws, b, n, k);
+  const float* S = Sn + (size_t)b * n * n;
+  const float* Bw = Bn + (size_t)b * nk;
+  float* Zc = Z + (size_t)b * nk;
+  block_gemm(n, k, n, w.V, n, true, Bw, k, false, w.Tb, k, 1.f, nullptr, 0,
+             sm);
+  block_gemm(n, k, n, w.V, n, false, w.Tb, k, false, w.Z0, k, 1.f, nullptr,
+             0, sm);
+  for (int e = threadIdx.x; e < nk; e += NT) Zc[e] = w.Z0[e];
+  __syncthreads();
+  float res_pre = 0.f;
+  for (int it = 0; it < refine; ++it) {
+    block_gemm(n, k, n, S, n, false, Zc, k, false, w.R, k, -1.f, Bw, k, sm);
+    if (it == 0) res_pre = panel_sq(w.R, n, k, k, sm);
+    block_gemm(n, k, n, w.V, n, true, w.R, k, false, w.Tb, k, 1.f, nullptr,
+               0, sm);
+    block_gemm(n, k, n, w.V, n, false, w.Tb, k, false, w.D, k, 1.f, nullptr,
+               0, sm);
+    for (int e = threadIdx.x; e < nk; e += NT) Zc[e] += w.D[e];
+    __syncthreads();
+  }
+  block_gemm(n, k, n, S, n, false, Zc, k, false, w.R, k, -1.f, Bw, k, sm);
+  const float res_ref = panel_sq(w.R, n, k, k, sm);
+  if (refine == 0) res_pre = res_ref;
+  if (!(res_ref <= res_pre))   // NaN -> keep the plain solve
+    for (int e = threadIdx.x; e < nk; e += NT) Zc[e] = w.Z0[e];
 }
 
 // Product p of the logdet correction on one walker's workspace:
@@ -1398,12 +1479,24 @@ int factor_smem_launch(const float* Sn, int* tier, float* ws, int B, int n,
   return (int)cudaGetLastError();
 }
 
+// The pipelines take any right-hand-side width up to KCAP: n k <= MAXN KCAP
+// (1.8e6) keeps every per-walker index inside int arithmetic, and a
+// walker's workspace (solve_ws, 5 n^2 + 5 n k floats) is indexed in
+// size_t. The refine phase takes a right-hand side wider than KMAX on
+// tiled products.
+constexpr int KCAP = 4096;
+
 bool like_args_ok(int B, int ntoa, int nb, int k) {
-  return B > 0 && ntoa > 0 && nb > 0 && nb <= LIKE_MAXN && k > 0 && k <= KMAX;
+  return B > 0 && ntoa > 0 && nb > 0 && nb <= LIKE_MAXN && k > 0 && k <= KCAP;
 }
 
 bool solve_args_ok(int B, int n, int k) {
-  return B > 0 && n > 0 && n <= MAXN && k > 0 && k <= KMAX;
+  return B > 0 && n > 0 && n <= MAXN && k > 0 && k <= KCAP;
+}
+
+// The single-launch baselines (solve_chain) keep the one-panel RHS.
+bool single_block_args_ok(int B, int n, int k) {
+  return solve_args_ok(B, n, k) && k <= KMAX;
 }
 
 // The side stream and the events of mega_like_launch's fork, one set per
@@ -1478,6 +1571,22 @@ int mega_solve_refine_launch(const float* Sn, const float* Bn, float* Z,
                              float* ws, int B, int n, int k, int refine,
                              void* stream) {
   if (!solve_args_ok(B, n, k) || refine < 0) return (int)cudaErrorInvalidValue;
+  if (k > KMAX)
+    solve_refine_tiled_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
+        Sn, Bn, Z, ws, n, k, refine);
+  else
+    solve_refine_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(Sn, Bn, Z, ws, n,
+                                                            k, refine);
+  return (int)cudaGetLastError();
+}
+
+// The refine phase on solve_refine_kernel's skinny panels at any k (in
+// series, one block per walker), kept only as the baseline of
+// chip_smoke.py's refine A/B at k > KMAX.
+int mega_solve_refine_serial_launch(const float* Sn, const float* Bn,
+                                    float* Z, float* ws, int B, int n, int k,
+                                    int refine, void* stream) {
+  if (!solve_args_ok(B, n, k) || refine < 0) return (int)cudaErrorInvalidValue;
   solve_refine_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(Sn, Bn, Z, ws, n, k,
                                                           refine);
   return (int)cudaGetLastError();
@@ -1529,7 +1638,8 @@ int mega_solve_single_block_launch(const float* Sn, const float* Bn, float* Z,
                                    float* ld, int* tier, float* ws, int B,
                                    int n, int k, float j1, float j2,
                                    int refine, void* stream) {
-  if (!solve_args_ok(B, n, k) || refine < 0) return (int)cudaErrorInvalidValue;
+  if (!single_block_args_ok(B, n, k) || refine < 0)
+    return (int)cudaErrorInvalidValue;
   mega_solve_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(Sn, Bn, Z, ld, tier, ws,
                                                         n, k, j1, j2, refine);
   return (int)cudaGetLastError();

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "mega_solve_factor_launch": ([_P] * 3 + [_I, _I, _I, _F, _F, _P], _I),
     "mega_solve_inverse_launch": ([_P, _I, _I, _I, _P], _I),
     "mega_solve_refine_launch": ([_P] * 4 + [_I, _I, _I, _I, _P], _I),
+    "mega_solve_refine_serial_launch": ([_P] * 4 + [_I, _I, _I, _I, _P], _I),
     "mega_solve_product_launch": ([_P] * 2 + [_I, _I, _I, _I, _P], _I),
     "mega_solve_logdet_launch": ([_P] * 2 + [_I, _I, _I, _P], _I),
     "mega_solve_inverse_single_block_launch": ([_P, _I, _I, _I, _P], _I),

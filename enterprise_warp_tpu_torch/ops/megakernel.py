@@ -12,7 +12,9 @@ are hand-written CUDA here (``csrc/megakernel.cu``, built and bound by
   divergence guard and the trace-corrected logdet, as a pipeline of
   eight phase launches on one workspace (:func:`_mega_solve_phases`): the
   triangular inverse and the four logdet products run on grids over
-  (tile, walker), the rest one block per walker.
+  (tile, walker), the rest one block per walker (the refined solve on
+  skinny products up to 8 right-hand-side columns, on tiled products
+  above).
 - :func:`mega_marginalized_loglike` — the single-pulsar likelihood: its
   device half (:func:`mega_like`) adds the per-walker basis Gram and the
   Sigma assembly in front of the same chain, as one C call that enqueues

@@ -35,6 +35,15 @@ from enterprise_warp_tpu_torch.ops import routes as troutes
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _kernels_not_opted_out(monkeypatch):
+    """The route decisions read ``EWT_PALLAS``/``EWT_PALLAS_MEGA``; an
+    in-process demotion elsewhere in the suite may have left the opt-out
+    set, so each test here starts without it."""
+    monkeypatch.delenv("EWT_PALLAS", raising=False)
+    monkeypatch.delenv("EWT_PALLAS_MEGA", raising=False)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "enterprise_warp_tpu_torch")
 EXAMPLES = os.path.join(REPO, "examples")

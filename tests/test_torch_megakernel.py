@@ -8,6 +8,12 @@ twins (``_mega_solve_xla``, ``_mega_like_xla``) at the slice's shapes:
 - the solve kernel on the ``_spd_batch`` fixture (n 40, B 5, k 4):
   atol 2e-5, the reference's own kernel-vs-twin tolerance;
 - the three-tier and odd-batch fixtures: rtol/atol 2e-4;
+- a right-hand side wider than the CUDA refine phase's 8-column panel,
+  (4, 20, 20) with k = 44, against the interpret-mode kernel and the XLA
+  twin: atol 5e-4; and the divergence guard, which keeps or reverts a
+  walker's whole Z on its residual summed over all columns (a fixture
+  whose refinement diverges in one panel only): against the XLA twin
+  within 1e-5 and against float64 refinement arithmetic;
 - 16 x 250 x 4 (the ``--num 0`` solve shape) against the XLA twin;
 - the likelihood kernel at nb 24 / ntoa 96 (interpret) and 122 x 120
   (the ``--num 1`` shape, XLA twin);
@@ -169,6 +175,74 @@ def test_solve_ragged_shapes(n, B):
     tol = dict(atol=2e-5) if interpret else dict(rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(Zt, Zj, **tol)
     np.testing.assert_allclose(ldt, ldj, **tol)
+
+
+# ---- right-hand sides wider than the kernel's 8-column panel ---------- #
+
+# the reference probe's tolerance on Z and ld (ops/megakernel.py:823-827)
+WIDE_ATOL = 5e-4
+
+
+@pytest.mark.parametrize("interpret", [True, False],
+                         ids=["interpret", "xla"])
+def test_solve_wide_rhs_matches_jax(interpret):
+    # k = 44: the 45-pulsar array's stage-1 right-hand side (1 + MW + n_g
+    # = 1 + 3 + 40); the CUDA refine phase walks it in six panels
+    Sn = _spd_batch(4, 20, seed=21)
+    Bn = np.random.default_rng(21).standard_normal((4, 20, 44)).astype(
+        np.float32)
+    (Zj, ldj), (Zt, ldt) = _solve_both(Sn, Bn, 3e-6, 9e-5, 3,
+                                       interpret=interpret)
+    assert Zt.shape == (4, 20, 44)
+    np.testing.assert_allclose(Zt, Zj, atol=WIDE_ATOL)
+    np.testing.assert_allclose(ldt, ldj, atol=WIDE_ATOL)
+
+
+def _guard_fixture(n=20, k=16):
+    """Two walkers on the identity preconditioner (tier 3: Sn has the
+    eigenvalue -0.3, so both jittered factors fail), whose refinement
+    converges on columns 0-7 (the stable eigenvectors only) and diverges
+    on columns 8-15 (a component along the unstable one). Walker 0: the
+    residual summed over all columns falls, so the guard keeps the
+    refined Z everywhere, the diverged panel included; walker 1: it
+    rises, so the guard reverts to Z0 everywhere, the converged panel
+    included. A guard taken panel by panel would split both walkers."""
+    rng = np.random.default_rng(29)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    ev = np.linspace(0.6, 1.4, n)
+    ev[0] = -0.3
+    S = (Q * ev) @ Q.T
+
+    def cols(amp_stable, amp_unstable, m):
+        c = rng.standard_normal((n, m)) * amp_stable
+        c[0] = amp_unstable * rng.choice([-1.0, 1.0], m)
+        return Q @ c
+    keep = np.concatenate([cols(1.0, 0.0, 8), cols(0.02, 0.1, k - 8)], 1)
+    revert = np.concatenate([cols(0.02, 0.0, 8), cols(0.02, 0.1, k - 8)], 1)
+    return (np.stack([S, S]).astype(np.float32),
+            np.stack([keep, revert]).astype(np.float32))
+
+
+def test_solve_guard_is_per_walker_over_all_columns():
+    Sn, Bn = _guard_fixture()
+    refine = 3
+    (Zj, ldj), (Zt, ldt) = _solve_both(Sn, Bn, 1e-6, 1e-3, refine,
+                                       interpret=False)
+    np.testing.assert_allclose(Zt, Zj, atol=1e-5)
+    np.testing.assert_allclose(ldt, ldj, atol=1e-5)
+    S, B = Sn.astype(np.float64), Bn.astype(np.float64)
+    Z = B.copy()                           # Z0 = B on the identity tier
+    for _ in range(refine):
+        Z = Z + (B - S @ Z)
+    r0, rf = B - S @ B, B - S @ Z
+    panels = (slice(0, 8), slice(8, 16))
+    for b, kept in ((0, True), (1, False)):
+        pre = [float(np.sum(r0[b, :, p] ** 2)) for p in panels]
+        ref = [float(np.sum(rf[b, :, p] ** 2)) for p in panels]
+        # panel 1 converges and panel 2 diverges on both walkers
+        assert ref[0] < pre[0] and ref[1] > pre[1]
+        assert (sum(ref) <= sum(pre)) == kept
+        np.testing.assert_allclose(Zt[b], Z[b] if kept else B[b], atol=1e-4)
 
 
 class _FakeLib:
@@ -571,3 +645,37 @@ def test_cuda_like_pipeline_ragged_shapes(cuda, nb, ntoa, B):
     for Zr, ldr in ((Zp, ldp), (Zo, ldo)):
         assert float((Zk - Zr).abs().max()) <= 5e-4
         assert float((ldk - ldr).abs().max()) <= 5e-4
+
+
+@pytest.mark.parametrize("k", [9, 24, 44])
+def test_cuda_solve_kernel_wide_rhs(cuda, k):
+    Sn = torch.as_tensor(_spd_batch(16, 20, seed=k), device=cuda)
+    Bn = torch.randn(16, 20, k, dtype=torch.float32, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(k))
+    n0 = troutes.LAUNCHES["mega_solve"]
+    Zk, ldk = tmk.mega_solve_logdet(Sn, Bn, 3e-6, 9e-5, 3)
+    torch.cuda.synchronize()
+    assert troutes.LAUNCHES["mega_solve"] == n0 + 1
+    Zp, ldp = tmk._mega_solve_torch(Sn, Bn, 3e-6, 9e-5, 3)
+    assert float((Zk - Zp).abs().max()) <= WIDE_ATOL
+    assert float((ldk - ldp).abs().max()) <= WIDE_ATOL
+
+
+def test_cuda_like_kernel_wide_rhs(cuda):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _like_inputs(334, 60, 8, 33, seed=33)]
+    Zk, ldk = tmk.mega_like(*args, 3e-6, 9e-5, 3)
+    Zp, ldp = tmk._mega_like_torch(*args, 3e-6, 9e-5, 3)
+    torch.cuda.synchronize()
+    assert float((Zk - Zp).abs().max()) <= WIDE_ATOL
+    assert float((ldk - ldp).abs().max()) <= WIDE_ATOL
+
+
+def test_cuda_solve_guard_is_per_walker(cuda):
+    Sn, Bn = (torch.as_tensor(a, device=cuda) for a in _guard_fixture())
+    Zk, ldk, tk = tmk._mega_solve_cuda(Sn, Bn, 1e-6, 1e-3, 3)
+    Zp, ldp = tmk._mega_solve_torch(Sn, Bn, 1e-6, 1e-3, 3)
+    torch.cuda.synchronize()
+    assert tk.tolist() == [3, 3]
+    assert float((Zk - Zp).abs().max()) <= 1e-4
+    assert float((ldk - ldp).abs().max()) <= 1e-4

@@ -49,6 +49,15 @@ from test_torch_models import RTOL, _opts
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _kernels_not_opted_out(monkeypatch):
+    """The route decisions read ``EWT_PALLAS``/``EWT_PALLAS_MEGA``; an
+    in-process demotion elsewhere in the suite may have left the opt-out
+    set, so each test here starts without it."""
+    monkeypatch.delenv("EWT_PALLAS", raising=False)
+    monkeypatch.delenv("EWT_PALLAS_MEGA", raising=False)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRFILE = os.path.join(REPO, "examples", "example_params",
                       "sampled_timing_model.dat")
