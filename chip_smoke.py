@@ -118,8 +118,23 @@ Phases (any failure exits non-zero before the result line):
    steps): two solve-kernel launches per likelihood call (stage 1 at
    (16, 20, 20), k 24; stage 3 at (8, 40, 40), k 1) and no other
    kernel, each stage held walker by walker on the run's last inputs,
-   the chain's largest lnL against the float64 dense oracle on the CPU
-   (5e-2 + 1e-7 |lnL|), and the results CLI on the output. Then
+   the chain's largest lnL held against the float64 dense oracle on the
+   CPU (5e-2 + 1e-7 |lnL|; outside it, ``corner_attribution`` prints the
+   per-pulsar gaps and the smoke fails) with the CLI's own float64 check
+   silent, ``mask_stats.json`` (the reference's keys; site + common +
+   full = nchains x steps; site + common = the cold prior draws), the
+   results CLI on the output. Then the float32 corners on the card: 400
+   prior draws scored by the split Schur path (the reference's clamp,
+   the float64 redo of flagged pairs) and by the dense float64 oracle on
+   the card, each gap attributed to its pairs (``parallel/corners.py``),
+   and ``GWB_CORNER`` held in the class; the evaluation cache
+   (``CachedEvaluator``) through 64 seeded site, common, full and
+   rejected updates, each held against a full recompute in the class,
+   its site updates' one-system stage-1 launches held walker by walker
+   and timed, one update of each kind timed; ``python -m
+   enterprise_warp_tpu_torch.results --optimal_statistic 1`` on the
+   paramfile, which must exit 0 and write ``optimal_statistic.pkl`` with
+   the reference's payload keys. Then
    BASELINE config 3, 45 fake pulsars of 1000 TOAs
    (``make_fake_pta(45, 1000, seed 45)``, efac/equad, spin noise 30
    modes, DM noise 20, a Hellings-Downs ``gwb`` of 20 modes; 272
@@ -129,9 +144,17 @@ Phases (any failure exits non-zero before the result line):
    phase) and stage 3 (n = 1800) over the kernels' cap on the classic
    chain, counted as ``over-cap`` routes; two near-typical points
    against the dense float64 oracle on the card (n 6435), differences
-   within 0.5 + 5e-4 |dlnL|; prior corners inset by 1e-3 of the range
-   give no NaN. Each joint path prints its stages' shares of a call
-   (CUDA events);
+   within 0.5 + 5e-4 |dlnL|; the corner scan on 64 prior draws; the
+   evaluation cache as on ``gwb_array.dat`` (64 updates; the site, common
+   and full update timed at one theta); the optimal statistic (990 pairs)
+   at the chain's median and over 1000 of its draws on the card, timed
+   and set against the same function on the CPU in float64 (reported:
+   the chain, 2000 steps from prior draws, is far from its posterior and
+   the per-pulsar float64 factor sits at its edge at many of its draws),
+   and at 1000 near-typical draws and their median, held there (rho and
+   sig within 1e-6 of the CPU's sig); prior corners inset by
+   1e-3 of the range give no NaN. Each joint path prints its stages'
+   shares of a call (CUDA events);
 9. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
@@ -204,6 +227,12 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
                 "correlated-GWB likelihood of two pulsars, 8 walkers",
          "pta45": "BASELINE config 3, 45 fake pulsars of 1000 TOAs: "
                   "build_pta_likelihood and run_ptmcmc, 8 walkers",
+         "gwb_site": "gwb_array.dat --num 0: the evaluation cache's site "
+                     "updates (CachedEvaluator, one theta, one pulsar "
+                     "re-solved)",
+         "pta45_site": "BASELINE config 3: the evaluation cache's site "
+                       "updates (CachedEvaluator, one theta, one pulsar "
+                       "re-solved)",
          "wide_k": "seeded fixtures: right-hand sides wider than the refine "
                    "phase's 8-column panel (no main-path launches: the "
                    "paths' own rows carry those)"}
@@ -215,6 +244,27 @@ PTA45 = dict(npsr=45, ntoa=1000, seed=45)
 DIFF45_ATOL, DIFF45_RTOL = 0.5, 5e-4
 # the joint Schur path's lnL against float64 (tests/test_parallel.py)
 JOINT_ATOL, JOINT_RTOL = 5e-2, 1e-7
+# the evaluation cache: seeded updates held against a full recompute at
+# each of the joint paths; prior draws of the corner scans
+CACHE_UPDATES = 64
+CORNER_DRAWS = {"gwb": 400, "pta45": 64}
+# the optimal statistic at config 3: draws (the results CLI's default),
+# and its card-against-CPU limit on sig and on rho relative to sig
+OS_DRAWS = 1000
+OS_RTOL = 1e-6
+# a prior draw of gwb_array.dat where the reference's split Schur path
+# lies 3.9e10 above float64 (tests/test_torch_pta.py); the port's float64
+# redo of the flagged pair must bring it into the class
+GWB_CORNER = [9.550267261985898, 9.864879953879617, 0.21294984471825207,
+              7.983805557016662, -7.573009349530989, -9.090666556223736,
+              -5.3159387846797745, -8.518091457654648, -15.409271725939389,
+              9.74767137573976, -14.455641670495108, 9.643583519953092,
+              0.006367229449742995, -9.329792781673513, -12.034782490427611,
+              5.720836340350981]
+# mask_stats.json: the reference's keys (utils/diagnostics.py:
+# cache_hit_summary)
+MASK_KEYS = (["cache_hit_rate", "proposals", "total"],
+             ["common", "full", "site"])
 # the widest right-hand side of the earlier single-launch solve design
 # (one 8-column panel), which only this script still launches
 SINGLE_LAUNCH_KMAX = 8
@@ -401,6 +451,23 @@ class RecordBatches(Record):
             W = args[self.batch_arg].shape[0]
             self.last[W] = args
             self.sizes[args[0].shape[-1]][W] += 1
+            return self.orig(*args)
+        setattr(self.mk, self.name, rec)
+        return self
+
+
+class RecordShapes(Record):
+    """:class:`Record` that keeps every call's inputs, per matrix order and
+    walker batch (``calls[(n, W)]``), beside the calls per order and
+    batch size."""
+
+    def __enter__(self):
+        self.calls = collections.defaultdict(list)
+
+        def rec(*args):
+            n, W = args[0].shape[-1], args[self.batch_arg].shape[0]
+            self.calls[(n, W)].append(args)
+            self.sizes[n][W] += 1
             return self.orig(*args)
         setattr(self.mk, self.name, rec)
         return self
@@ -1229,17 +1296,16 @@ def config3_theta(like, shift=0.0):
 
 
 def corner_attribution(like, params, row, gap, label):
-    """A chain that locked on a float32 corner of the joint likelihood
-    (``ROADMAP.md`` Queue 3, shared with the reference): at ``row`` the
-    card's Schur path lies ``gap`` above float64. The known cause is one
-    pulsar's stage 2: its stage-1 solve in float32 leaves the
-    timing-model Schur complement indefinite, and the reference's
-    relative eigenvalue clamp turns it into a huge quadratic form, which
-    reaches stage 3 through that pulsar's GW projection. Held, against
-    the float64 Schur path on the CPU: the card lies above float64, one
-    pulsar's ``ld_tm`` moved by more than 1 (the clamp's signature) and
-    its ``q1`` rose, and every other pulsar's ``q1`` is within 1 of
-    float64; anything else fails."""
+    """The diagnostic printed when a joint chain's largest lnL lies
+    outside the class of float64 (``ROADMAP.md`` Queue 3): at ``row`` the
+    card's Schur path lies ``gap`` from float64. The cause the reference
+    shares is one pulsar's stage 2: its stage-1 solve on the split Gram
+    leaves the timing-model Schur complement indefinite, and the relative
+    eigenvalue clamp turns it into a huge quadratic form, which reaches
+    stage 3 through that pulsar's GW projection (the port redoes such a
+    pair in float64). Printed, against the float64 Schur path on the CPU:
+    each pulsar's ``q1`` and ``ld_tm`` gaps; it fails unless the gap is
+    that signature (the caller fails either way)."""
     import numpy as np
     import torch
     from enterprise_warp_tpu_torch.models.assemble import \
@@ -1295,6 +1361,157 @@ def stage_shares(like, theta, label, smi):
                     for k, v in ms.items() if k != "call")
           + f" (CUDA events, median of 10) [{smi}]")
     return ms
+
+
+def corner_report(like, oracle, theta, label, chunk):
+    """The joint likelihood's float32 corners on the card (``parallel/
+    corners.py:corner_scan``): ``theta`` scored by the split Schur path
+    (the reference's clamp alone, the shipped float64 redo at CORNER_C
+    and other thresholds) and by the dense float64 oracle, each gap
+    attributed to its (walker, pulsar) pairs; the summary is printed as
+    one JSON object and returned."""
+    from enterprise_warp_tpu_torch.parallel.corners import corner_scan
+    t0 = time.perf_counter()
+    summary, _ = corner_scan(like, oracle, theta, chunk=chunk)
+    print(f"{label}: corner scan of {len(theta)} prior draws in "
+          f"{time.perf_counter() - t0:.3f} s: {json.dumps(summary)}")
+    return summary
+
+
+def cache_sequence(like, theta0, nupd, seed, label):
+    """Drive ``CachedEvaluator`` through ``nupd`` seeded updates, a
+    quarter each of site (one pulsar's parameters), common (the GW
+    block), full, and site updates that are then rejected; hold every
+    lnL against a full recompute at the same theta within the joint
+    class and every rejection to the value before it. Returns the
+    evaluator and the largest difference."""
+    import numpy as np
+    from enterprise_warp_tpu_torch.samplers.evalproto import (
+        BLOCK_COMMON, CachedEvaluator)
+    pb = np.asarray(like.param_blocks)
+    npsr = int(pb.max()) + 1
+    rng = np.random.default_rng(seed)
+    ev = CachedEvaluator(like, theta0)
+    th = ev.theta.copy()
+
+    def full(t):
+        return float(like.loglike_batch(t[None])[0])
+
+    worst = abs(ev.lnl - full(th))
+    kinds = rng.permutation(np.resize(np.arange(4), nupd))
+    for kind in kinds:
+        nxt = th.copy()
+        if kind in (0, 3):
+            a = int(rng.integers(npsr))
+            idx = np.nonzero(pb == a)[0]
+            nxt[idx] += 0.01 * rng.standard_normal(len(idx))
+            mask = ("psr", a)
+        elif kind == 1:
+            idx = np.nonzero(pb == BLOCK_COMMON)[0]
+            nxt[idx] += 0.01 * rng.standard_normal(len(idx))
+            mask = ("common",)
+        else:
+            nxt += 0.002 * rng.standard_normal(len(th))
+            mask = None
+        before = ev.lnl
+        lnl, ref = ev.update(nxt, mask), full(nxt)
+        if not abs(lnl - ref) <= JOINT_ATOL + JOINT_RTOL * abs(ref):
+            fail(f"{label}: a {mask} update gave lnL {lnl!r} against "
+                 f"{ref!r} from a full recompute")
+        worst = max(worst, abs(lnl - ref))
+        if kind == 3:
+            if ev.reject() != before:
+                fail(f"{label}: reject did not restore lnL")
+        else:
+            th = nxt
+    print(f"{label}: {len(kinds)} cached updates {ev.counters}, cache hit "
+          f"rate {ev.cache_hit_rate:.3f}; largest |cached - full "
+          f"recompute| {worst:.3e} (class {JOINT_ATOL:g} + {JOINT_RTOL:g} "
+          "|lnL|)")
+    return ev, worst
+
+
+def cache_times(like, ev, label, smi):
+    """One site, one common and one full update of the evaluation cache
+    at the evaluator's theta, each timed alone (CUDA events, median of
+    10), in ms."""
+    import torch
+    th = torch.as_tensor(ev.theta, dtype=torch.float64, device=like.device)
+    cache = ev._cache
+    ms = dict(site=time_cuda(lambda: like._cache_site(th, 0, cache), warm=2,
+                             reps=10),
+              common=time_cuda(lambda: like._cache_common(th, cache),
+                               warm=2, reps=10),
+              full=time_cuda(lambda: like._cache_init(th), warm=2, reps=10))
+    print(f"{label}: one update of the evaluation cache at one theta, "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f" (CUDA events, median of 10) [{smi}]")
+    return ms
+
+
+def os_check(psrs, tls, like, chain, nmarg, label, smi):
+    """The optimal statistic of ``psrs`` on the card, timed, and against
+    the same function on the CPU in float64 (``max(|d rho|, |d sig|)``
+    over the CPU's sig, per draw; rho crosses zero), on two sets: the
+    chain's median and ``nmarg`` seeded draws of it, as
+    ``OptimalStatisticWarp`` picks them (reported: a chain still far from
+    its posterior holds draws where the per-pulsar float64 factor is at
+    its edge on either device), and ``nmarg`` near-typical draws and
+    their median (held within OS_RTOL at every draw and pair). Returns
+    the card's wall time on the chain's draws, in s."""
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch.results.optstat import (combine_os,
+                                                           make_os_fn)
+    fn, pairs, xi, sampled = make_os_fn(psrs, tls, device="cuda")
+    fn_cpu = make_os_fn(psrs, tls, device="cpu")[0]
+    if [p.name for p in sampled] != like.param_names:
+        fail(f"{label}: the optimal statistic's parameters are not the "
+             "likelihood's")
+    draws = chain[len(chain) // 4:, :like.ndim]
+    sel = np.random.default_rng(0).choice(len(draws), size=nmarg,
+                                          replace=False)
+    typical = near_typical(like, nmarg, 46)
+    pos = np.stack([p.pos for p in psrs])
+    walls = {}
+    for name, th in (("chain", draws[sel]), ("near-typical", typical)):
+        med = np.median(th, axis=0)
+        fn(med)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rho, sig = fn(med)
+        rho_m, sig_m = fn(th)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rho_c, sig_c = fn_cpu(med)
+        rho_mc, sig_mc = fn_cpu(th)
+        cpu_wall = time.perf_counter() - t0
+        r = np.vstack([rho, rho_m])
+        s_ = np.vstack([sig, sig_m])
+        rc = np.vstack([rho_c, rho_mc])
+        sc = np.vstack([sig_c, sig_mc])
+        fk, fc = np.isfinite(s_).all(axis=1), np.isfinite(sc).all(axis=1)
+        both = fk & fc
+        g = np.max(np.maximum(np.abs(r - rc), np.abs(s_ - sc))[both]
+                   / np.abs(sc[both]), axis=1)
+        a2, a2e, snr = combine_os(rho, sig, xi, "hd", pos)
+        print(f"{label}, {name} draws: optimal statistic over {len(pairs)} "
+              f"pairs at the median and {nmarg} draws on the card in "
+              f"{walls[name]:.3f} s (the CPU in float64: {cpu_wall:.3f} s); "
+              f"hd A^2 at the median {a2:.4e} +- {a2e:.4e}, S/N {snr:.3f}; "
+              f"max(|d rho|, |d sig|) / sig against the CPU over the "
+              f"{int(both.sum())} of {len(r)} points finite on both: max "
+              f"{g.max(initial=0.0):.3e}, median "
+              f"{np.median(g) if len(g) else 0.0:.3e}, "
+              f"{int((g > OS_RTOL).sum())} above {OS_RTOL:g}; finite on the "
+              f"card only {int((fk & ~fc).sum())}, on the CPU only "
+              f"{int((fc & ~fk).sum())} [{smi}]")
+        if name == "near-typical" and not (both.all()
+                                           and g.max() <= OS_RTOL):
+            fail(f"{label}: the optimal statistic on the card disagrees with "
+                 "the CPU in float64 at near-typical draws")
+    return walls["chain"]
 
 
 def main():
@@ -1444,6 +1661,41 @@ def main():
         results[entry] = dict(run=run, shape=shape, max_abs_err=max(ez, el),
                               ms=ms, plain_ms=plain_ms, bound_ms=bms,
                               bound_by=bby)
+
+    def site_row(entry, run, rec, n, ev):
+        """The row of the evaluation cache's site updates: their stage-1
+        launches, one system each (order ``n``, batch 1), one per site
+        update. Every such system of the sequence is held against the
+        plain version walker by walker under the condition bound (as one
+        stacked batch); the kernel and the plain version are timed at
+        batch 1 on the last one."""
+        calls = rec.calls[(n, 1)]
+        if not 0 < len(calls) == ev.counters["site"] \
+                <= launches[run]["mega_solve"]:
+            fail(f"{entry}: {len(calls)} one-system stage-1 launches for "
+                 f"{ev.counters['site']} site updates and "
+                 f"{launches[run]['mega_solve']} counted launches")
+        a = calls[-1]
+        stack = (torch.cat([c[0] for c in calls]),
+                 torch.cat([c[1] for c in calls]), *a[2:])
+        shape = f"Sn {tuple(a[0].shape)} Bn {tuple(a[1].shape)}"
+        err, _ = hold_last_step(
+            f"{entry}, the sequence's {len(calls)} site systems",
+            lambda: mk._mega_solve_cuda(*stack),
+            lambda: mk._mega_solve_torch(*stack),
+            f"Sn {tuple(stack[0].shape)}", lambda: exact_solve(*stack[:2]))
+        tk = mk._mega_solve_cuda(*a)[2]
+        ms = time_cuda(lambda: mk._mega_solve_cuda(*a))
+        plain_ms = time_cuda(lambda: mk._mega_solve_torch(*a))
+        flops, nbytes = solve_cost(*a[1].shape, a[4], tk.tolist())
+        bms, bby = bound(flops, nbytes)
+        print(f"{entry} at {shape}: kernel {ms:.4f} ms  plain {plain_ms:.4f}"
+              f" ms  bound {bms:.4f} ms ({bby}; {flops / 1e9:.6f} GFLOP, "
+              f"{nbytes / 1e6:.4f} MB) [{smi}]")
+        results[entry] = dict(run=run, shape=shape, max_abs_err=err, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                              launches=len(calls),
+                              batch_sizes=dict(rec.sizes[n]))
 
     def hold_like(entry, run, args):
         S32, w, s, ivb, Bl, j1, j2, refine = args
@@ -2292,8 +2544,19 @@ def main():
         wlog = logging.getLogger(f"{PKG}.cli")
         whandler = Warnings(logging.WARNING)
         wlog.addHandler(whandler)
-        with Record(mk, "mega_solve_logdet", 0) as rec:
-            chain, launches["gwb"], gdir = drive(gpf, 0, ["mega_solve"])
+        import enterprise_warp_tpu_torch.samplers as samplers_pkg
+        gsamplers = []
+        run_pt = samplers_pkg.run_ptmcmc
+
+        def run_and_keep(*a, **k):
+            gsamplers.append(run_pt(*a, **k))
+            return gsamplers[-1]
+        samplers_pkg.run_ptmcmc = run_and_keep
+        try:
+            with Record(mk, "mega_solve_logdet", 0) as rec:
+                chain, launches["gwb"], gdir = drive(gpf, 0, ["mega_solve"])
+        finally:
+            samplers_pkg.run_ptmcmc = run_pt
         wlog.removeHandler(whandler)
         pt_report(gname, chain)
         sizes = {n: dict(sorted(c.items())) for n, c in
@@ -2325,16 +2588,29 @@ def main():
         ref = float(goracle.loglike_batch(row)[0])
         print(f"{gname}: largest lnL in the chain {chain[top, -3]:.6f} (row "
               f"{top}); float64 dense oracle on the CPU there {ref:.6f}")
-        locked = not abs(chain[top, -3] - ref) \
-            <= JOINT_ATOL + JOINT_RTOL * abs(ref)
-        if locked:
+        print(f"{gname}: the CLI's warnings {cli_warnings}")
+        if not abs(chain[top, -3] - ref) <= JOINT_ATOL + JOINT_RTOL * abs(ref):
             corner_attribution(glike, gparams, row, chain[top, -3] - ref,
                                gname)
-        print(f"{gname}: the CLI's warnings {cli_warnings}")
-        if locked != any("locked the chain" in m for m in cli_warnings):
-            fail(f"{gname}: the CLI's float64 check of the chain "
-                 f"{'missed' if locked else 'wrongly flagged'} a chain "
-                 "locked on a corner")
+            fail(f"{gname}: the chain's largest lnL lies outside the class "
+                 "of the float64 oracle (a float32 corner)")
+        if any("locked the chain" in m for m in cli_warnings):
+            fail(f"{gname}: the CLI's float64 check warned on a chain "
+                 "within the class")
+        # mask_stats.json: the reference's keys; the cold proposals, all
+        # counted; the maskable ones are the cold prior draws
+        ms = json.load(open(os.path.join(gdir, "mask_stats.json")))
+        prop = ms["proposals"]
+        gs = gsamplers[-1]
+        print(f"{gname}: mask_stats.json {ms}; cold prior draws proposed "
+              f"{gs.fam_propose[3]:.0f} of {gs.nchains * NSAMP} cold "
+              "proposals")
+        if (sorted(ms), sorted(prop)) != MASK_KEYS or \
+                prop["site"] + prop["common"] + prop["full"] != ms["total"] \
+                or ms["total"] != gs.nchains * NSAMP or \
+                prop["site"] + prop["common"] != gs.fam_propose[3]:
+            fail(f"{gname}: mask_stats.json is not the reference's record of "
+                 "this run's cold proposals")
         for n, args in sorted(rec.last.items()):
             kern, plain, shape, exact = solve_calls(args)
             hold_last_step(f"mega_solve@gwb n={n}, the run's last step",
@@ -2350,6 +2626,59 @@ def main():
             results[f"mega_solve@gwb_{stage}"].update(
                 launches=calls[n], batch_sizes=sizes[n])
         stage_shares(glike, th, gname, smi)
+        # how often the chain's own points take the float64 redo: the
+        # flagged pairs over the chain's rows after burn-in
+        post = chain[len(chain) // 4:, :glike.ndim]
+        st_g = glike._stages
+        com = st_g["common"](glike.as_theta(post))
+        ratio = st_g["stage12"](com[0], com[1], com[5],
+                                corner_c=None)["ev_ratio"]
+        from enterprise_warp_tpu_torch.parallel.pta import CORNER_C
+        print(f"{gname}: over the chain's {len(post)} rows after burn-in, "
+              f"pairs flagged for the float64 redo per pulsar "
+              f"{(ratio < CORNER_C).sum(dim=0).tolist()} (min(evA)/max|evA| "
+              f"median per pulsar {ratio.median(dim=0).values.tolist()})")
+        del com
+        # the float32 corners on the card: prior draws against the dense
+        # float64 oracle on the card, and GWB_CORNER repaired
+        gdense = load_likes(gpf, 0, dev, gram_mode="f64")[1][0]
+        corner_report(glike, gdense, glike.sample_prior(
+            np.random.default_rng(0), CORNER_DRAWS["gwb"]),
+            f"{gname} on the card", chunk=CORNER_DRAWS["gwb"])
+        lc = float(glike.loglike_batch(np.asarray([GWB_CORNER]))[0])
+        l64 = float(goracle.loglike_batch(np.asarray([GWB_CORNER]))[0])
+        print(f"{gname} at GWB_CORNER: the card {lc:.6f}, float64 {l64:.6f}")
+        if not abs(lc - l64) <= JOINT_ATOL + JOINT_RTOL * abs(l64):
+            fail(f"{gname}: GWB_CORNER is not repaired on the card")
+        # the evaluation cache: seeded updates against full recomputes,
+        # and the site updates' one-system stage-1 launches
+        with RecordShapes(mk, "mega_solve_logdet", 0) as rec:
+            routes.reset_counts()
+            gev, _ = cache_sequence(glike, near_typical(glike, 1, 21)[0],
+                                    CACHE_UPDATES, 21, f"{gname} cache")
+            launches["gwb_site"] = dict(routes.LAUNCHES)
+        site_row("mega_solve@gwb_site", "gwb_site", rec, 20, gev)
+        cache_times(glike, gev, f"{gname} cache", smi)
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.results", "--result", gpf,
+             "--optimal_statistic", "1"], cwd=HERE, capture_output=True,
+            text=True, timeout=600)
+        pkl = os.path.join(gdir, "optimal_statistic.pkl")
+        print(f"results CLI --optimal_statistic 1 on {gname}: rc "
+              f"{proc.returncode}")
+        if proc.returncode != 0 or not os.path.exists(pkl):
+            fail(f"the optimal statistic failed on {gpf}: "
+                 + proc.stderr[-2000:])
+        import pickle
+        payload = pickle.load(open(pkl, "rb"))
+        print(f"{gname}: optimal_statistic.pkl ORFs {list(payload)}, hd A^2 "
+              f"{payload['hd']['a2']:.4e} +- {payload['hd']['a2_err']:.4e}, "
+              f"S/N {payload['hd']['snr']:.4f}")
+        if list(payload) != ["hd", "dipole", "monopole"] or any(
+                sorted(v) != ["a2", "a2_err", "marginalized", "rho", "sig",
+                              "snr", "xi"] for v in payload.values()):
+            fail(f"{gname}: optimal_statistic.pkl is not the reference's "
+                 "payload")
         proc = subprocess.run(
             [sys.executable, "-m", f"{PKG}.results", "--result", gdir,
              "--info", "1", "--noisefiles", "1", "--credlevels", "1",
@@ -2447,7 +2776,26 @@ def main():
                 <= DIFF45_ATOL + DIFF45_RTOL * abs(dd)):
             fail("config 3: lnL differences disagree with the float64 "
                  "dense oracle")
+        corner_report(like45, dense45, like45.sample_prior(
+            np.random.default_rng(0), CORNER_DRAWS["pta45"]), "config 3",
+            chunk=8)
         del dense45
+        # the evaluation cache at config 3, from where the chain's last
+        # cold walker stands (at the near-typical points every noise block
+        # lies above the condition bound; see the stage-1 row above)
+        with RecordShapes(mk, "mega_solve_logdet", 0) as rec:
+            routes.reset_counts()
+            ev45, _ = cache_sequence(like45, chain[-1, :like45.ndim],
+                                     CACHE_UPDATES, 45, "config 3 cache")
+            launches["pta45_site"] = dict(routes.LAUNCHES)
+        site_row("mega_solve@pta45_site", "pta45_site", rec, 100, ev45)
+        ms45 = cache_times(like45, ev45, "config 3 cache", smi)
+        print(f"config 3 cache: site + stage 3 {ms45['site']:.3f} ms against a "
+              f"full update {ms45['full']:.3f} ms at one theta; ROADMAP's "
+              "estimate of the most the cache can save at W 8: the front end "
+              "plus stages 1-2, 9.2 of a 35.7 ms call")
+        # the optimal statistic at config 3 on the run_ptmcmc chain
+        os_check(psrs45, tls45, like45, chain, OS_DRAWS, "config 3", smi)
         lo = np.array([p.prior.lo for p in like45.params])
         hi = np.array([p.prior.hi for p in like45.params])
         eps = 1e-3 * (hi - lo)

@@ -138,9 +138,11 @@ def main(argv=None, device="cuda"):
 
 def check_joint_chain(params, like, device):
     """Re-score a joint PT chain's largest lnL with the dense float64
-    oracle at the same point. The float32 Schur path can lock a chain on a
-    corner where it lies far above float64 (ROADMAP.md Queue 3, shared
-    with the reference); such a run logs a warning. Returns ``(lnl,
+    oracle at the same point. A float32 Schur path can lock a chain on a
+    corner where it lies far above float64 (the reference's does; the
+    port's float64 Gram and redo of near-singular pairs, ``parallel/
+    pta.py:CORNER_C``, remove the corners measured); a run whose chain
+    lies outside the class there logs a warning. Returns ``(lnl,
     lnl_f64)`` at that row, or None where ``like`` is not a float32 joint
     likelihood or the chain has no finite lnL."""
     import numpy as np
@@ -164,8 +166,8 @@ def check_joint_chain(params, like, device):
         _log.warning(
             "the chain's largest lnL %.8g (row %d) lies %.6g from the "
             "float64 oracle's %.8g at the same point: the float32 Schur "
-            "path has locked the chain on a corner (ROADMAP.md Queue 3); "
-            "discard this posterior or rerun with --gram_mode f64",
+            "path has locked the chain on a corner; discard this posterior "
+            "or rerun with --gram_mode f64",
             lnl[top], top, lnl[top] - ref, ref)
     return float(lnl[top]), ref
 

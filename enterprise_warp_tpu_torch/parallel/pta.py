@@ -24,7 +24,9 @@ complements (``joint_mode='schur'``):
    flat batch of W·P systems where the reference vmaps twice;
 2. the timing model marginalized exactly through a float64 (MW x MW)
    Schur complement per pulsar, factored by ``eigh`` with the
-   reference's relative eigenvalue clamp;
+   reference's relative eigenvalue clamp; a pair whose complement comes
+   out near singular (``CORNER_C``) is solved again in float64 from
+   stage 1 instead;
 3. the ORF coupling collapses to one (P·n_g)^2 system per walker,
    ``S = blockdiag_a(D_a - C_a^T A_a^-1 C_a) + K`` (``K`` scatters the
    per-frequency ``B_k^-1`` blocks), solved by the same mixed solve: the
@@ -32,19 +34,25 @@ complements (``joint_mode='schur'``):
    in the reference. Low-rank ORFs (monopole, dipole) take a float64
    equilibrated Cholesky here instead.
 
-``joint_mode='dense'`` (the default for ``gram_mode='f64'``) assembles
-and factors the whole (P·nb_tot)^2 Sigma per walker in float64: the
-oracle. Parameter evaluation (white-noise selections, PSD priors) is
-compiled at build time into flat gather/scatter programs.
+The whitened Grams feeding both are formed in float64 in every Gram
+mode (the reference's split mode uses hi/lo float32 products there; see
+``CORNER_C``). ``joint_mode='dense'`` (the default for
+``gram_mode='f64'``) assembles and factors the whole (P·nb_tot)^2 Sigma
+per walker in float64: the oracle. Parameter evaluation (white-noise
+selections, PSD priors) is compiled at build time into flat
+gather/scatter programs. The Schur path carries the reference's
+evaluation cache (``samplers/evalproto.py``): ``param_blocks`` and
+``_cache_init``/``_cache_site``/``_cache_common``.
 
 Out of this module, as later slices of the port (``ROADMAP.md``): the
-pulsar-axis mesh, the health words, the block-update cache and a sampled
-chromatic index (which raises ``NotImplementedError``).
+pulsar-axis mesh, the health words and a sampled chromatic index (which
+raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -59,6 +67,8 @@ from ..ops.kernel import (CHOL_JITTER, _gram_pair, _mixed_psd_solve_logdet,
 from ..ops.megakernel import _safe_eigh
 from ..ops.spectra import (broken_powerlaw_psd, free_spectrum_psd,
                            powerlaw_psd)
+from ..samplers.evalproto import (BLOCK_COMMON, BLOCK_GLOBAL,
+                                  install_masked_protocol)
 from .orf import is_low_rank, is_positive_definite, orf_matrix
 
 # Improper-flat-prior stand-in for timing-model columns on the dense oracle
@@ -71,6 +81,29 @@ def _bmm64(A, B):
     """Batched float64 ``A^T B`` over the row axis: (..., n, m), (..., n, k)
     -> (..., m, k)."""
     return _t(A) @ B
+
+
+# The port departs from the reference's Schur path in two places, both
+# chosen from measurements against the dense float64 oracle
+# (``parallel/corners.py``; PERF.md): the front-end Gram is formed in
+# float64 in every Gram mode, where the reference's split mode forms it
+# from hi/lo float32 products, about 2e-6 of max|G| off, an error the
+# nested Schur stages amplify into attractive float32 corners; and a
+# (walker, pulsar) pair whose timing-model complement comes out with its
+# smallest eigenvalue below CORNER_C times its largest magnitude has its
+# stage-1 solve done again in float64 (``_pairs12``), where the reference
+# clamps the eigenvalues.
+CORNER_C = 1e-5
+
+
+def _solve_f64(S, B, jitter):
+    """``S Z = B`` and ``log|S|`` in float64 by an equilibrated Cholesky,
+    retried with ``jitter`` on the unit diagonal where the factor fails
+    (a system beyond float64; NaN, which ``evaluate`` maps to -inf, only
+    where that fails too): ``(Z, logdet)``."""
+    L, s, logdet = equilibrated_cholesky(S, jitter)
+    Z = torch.cholesky_solve(s[..., None] * B, L, upper=False)
+    return s[..., None] * Z, logdet
 
 
 class PTALikelihood(PriorMixin):
@@ -428,7 +461,7 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
             Tst[a, :n_a, new_off:new_off + blk.ncols] = st["T_w"][:, sl]
             cs2_N[a, new_off:new_off + blk.ncols] = st["cs2"][sl]
             noise_specs.append(dict(
-                psd=blk.psd, freqs=blk.freqs, df=blk.df,
+                psr=a, psd=blk.psd, freqs=blk.freqs, df=blk.df,
                 refs=[mapping[p.name] for p in blk.params],
                 flat_idx=a * NW + new_off + np.arange(blk.ncols),
                 fixed=blk.fixed_phi, ncols=blk.ncols))
@@ -455,6 +488,33 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
                       fixed_phi=None, ncols=blk.ncols)
                  for blk in corr_blocks]
     low_rank = any(is_low_rank(blk.orf) for blk in corr_blocks)
+
+    # ---- parameter -> block classification (the update_mask contract,
+    # samplers/evalproto.py): the pulsar block a parameter touches, the
+    # coupling-only common block (correlated GW parameters), or
+    # BLOCK_GLOBAL where it appears in more than one block or in none
+    param_blocks = np.full(len(sampled), BLOCK_GLOBAL, dtype=np.int64)
+    seen = {}
+
+    def mark(ref, blk):
+        if ref[0] != "theta":
+            return
+        i = ref[1]
+        if i not in seen:
+            seen[i] = param_blocks[i] = blk
+        elif seen[i] != blk:
+            seen[i] = param_blocks[i] = BLOCK_GLOBAL
+
+    for a, (wbs, _, _) in enumerate(lowered):
+        for wb in wbs:
+            for p in wb.params:
+                mark(mapping[p.name], a)
+    for spec in noise_specs:
+        for ref in spec["refs"]:
+            mark(ref, spec["psr"])
+    for cb in cb_static:
+        for ref in cb["idx_map"]:
+            mark(ref, BLOCK_COMMON)
 
     # (row, column) targets of the coupling K inside the (npsr·n_g)^2
     # Schur system and inside the (npsr·nb_tot)^2 dense Sigma, flattened
@@ -510,74 +570,112 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
         torch.diagonal(M, dim1=1, dim2=3).copy_(blocks.permute(0, 2, 3, 1))
         return M.reshape(W, npsr * m, npsr * m)
 
-    def _common(theta):
+    def _common(theta, gram="f64"):
         """Shared front end: white noise and PSD programs, whitened Grams.
         Returns ``(G, X, rwr_p, logdet_n, logphi, invphi_N)``: ``G`` (W,
         npsr, nb_tot, nb_tot), ``X`` (W, npsr, nb_tot), the per-pulsar
-        whitened-residual norms ``rwr_p`` (W, npsr)."""
+        whitened-residual norms ``rwr_p`` (W, npsr). ``gram`` is the Gram's
+        precision (``ops/kernel.py:_gram_pair``): float64 in every Gram
+        mode (the port's departure from the reference, see CORNER_C);
+        ``"split"`` gives the reference's front end, for measurement."""
         nw = eval_white(theta, sigma2_t)                # (W, npsr, ntoa)
         phi_N = eval_phi(theta) * cs2_N_t               # (W, npsr, NW)
         logphi = torch.sum(torch.log(phi_N), dim=(1, 2))
         sqw = torch.sqrt(mask_t / nw)
         Ts = T_t * sqw[..., None]
         rs = R_t * sqw
-        # the large Gram: a plain product outside any kernel, as in the
-        # reference (the split mode's hi/lo float32 products with chunked
-        # float64 accumulation, batched over walkers and pulsars; TF32 off)
-        G = _gram_pair(Ts, Ts, gram_mode).to(F64)
+        # the large Gram: a plain product outside any kernel, batched over
+        # walkers and pulsars
+        G = _gram_pair(Ts, Ts, gram).to(F64)
         X = torch.einsum("wpik,wpi->wpk", Ts, rs)
         rwr_p = torch.sum(rs * rs, dim=-1)
         logdet_n = torch.sum(torch.log(nw) * mask_t, dim=(1, 2))
         return G, X, rwr_p, logdet_n, logphi, 1.0 / phi_N
 
-    def _stage12(G, X, invphi_N):
-        """Stages 1 and 2 for every (walker, pulsar) pair at once: the
-        mixed-precision solve of the noise blocks as one flat batch of
-        W·npsr systems (one kernel launch on the card), the float64
-        timing-model marginalization, and each pulsar's contribution to
-        the GW Schur system: ``q1``, ``ld_nn``, ``ld_tm`` (W, npsr), ``Xs``
-        (W, npsr, n_g), ``Ss`` (W, npsr, n_g, n_g)."""
-        W = G.shape[0]
-        B = W * npsr
-        G = G.reshape(B, nb_tot, nb_tot)
-        X = X.reshape(B, nb_tot)
-        Gnn = G[:, :NW, :NW] + torch.diag_embed(invphi_N.reshape(B, NW))
+    def _split(G, X, invphi_N, tm_pad):
+        """A flat batch of (walker, pulsar) pairs, ``G`` (B, nb_tot,
+        nb_tot), ``X`` (B, nb_tot), ``invphi_N`` (B, NW), ``tm_pad`` (B,
+        MW), cut into the regions of the nested Schur elimination: the
+        noise block ``Gnn``, its right-hand side ``[Xn | H | Cng]`` and
+        the rest of ``G`` and ``X``."""
         H = G[:, :NW, NW:NW + MW]
-        P = G[:, NW:NW + MW, NW:NW + MW] + torch.diag_embed(
-            tm_pad_t.repeat(W, 1))
         Cng = G[:, :NW, NW + MW:]
-        Cmg = G[:, NW:NW + MW, NW + MW:]
-        Dgg = G[:, NW + MW:, NW + MW:]
-        Xn, Xm, Xg = X[:, :NW], X[:, NW:NW + MW], X[:, NW + MW:]
+        return dict(
+            Gnn=G[:, :NW, :NW] + torch.diag_embed(invphi_N),
+            RHS=torch.cat([X[:, :NW, None], H, Cng], dim=-1),
+            P=G[:, NW:NW + MW, NW:NW + MW] + torch.diag_embed(tm_pad),
+            H=H, Cng=Cng, Cmg=G[:, NW:NW + MW, NW + MW:],
+            Dgg=G[:, NW + MW:, NW + MW:], Xn=X[:, :NW],
+            Xm=X[:, NW:NW + MW], Xg=X[:, NW + MW:])
 
-        # stage 1: the noise block against [Xn | H | Cng]
-        RHS = torch.cat([Xn[..., None], H, Cng], dim=-1)
-        Z, ld_nn = _mixed_psd_solve_logdet(Gnn, RHS, jitter, refine=3,
-                                           delta_mode=stage1_delta, mega=mega)
+    def _stage2(r, Z, ld_nn):
+        """Exact timing-model marginalization in float64 from the
+        stage-1 solution ``Z`` of the regions ``r`` (:func:`_split`): the
+        (MW x MW) complement is factored by ``eigh`` with the reference's
+        relative clamp (a condition-bounded PSD solve, never NaN). Returns
+        each pair's ``q1``, ``ld_nn``, ``ld_tm``, ``Xs``, ``Ss`` and
+        ``ev_ratio``, the complement's smallest eigenvalue over its
+        largest magnitude."""
+        H, Cng, Xn = r["H"], r["Cng"], r["Xn"]
         Zx, ZH, ZC = Z[:, :, 0], Z[:, :, 1:1 + MW], Z[:, :, 1 + MW:]
-
-        # stage 2: exact timing-model marginalization, float64; the
-        # (MW x MW) block is factored by eigh with the reference's
-        # relative clamp (a condition-bounded PSD solve, never NaN)
-        Atm = P - _bmm64(H, ZH)
-        ym = Xm - torch.sum(H * Zx[..., None], dim=1)
-        Cmt = Cmg - _bmm64(H, ZC)
+        Atm = r["P"] - _bmm64(H, ZH)
+        ym = r["Xm"] - torch.sum(H * Zx[..., None], dim=1)
+        Cmt = r["Cmg"] - _bmm64(H, ZC)
         evA, VA = _safe_eigh(Atm)
         emax = evA.abs().amax(dim=-1, keepdim=True)
         evA_cl = torch.maximum(evA, 1e-13 * emax + 1e-300)
-        ld_tm = torch.sum(torch.log(evA_cl), dim=-1)
         rhs_m = torch.cat([ym[..., None], Cmt], dim=-1)
         Wm = VA @ ((_t(VA) @ rhs_m) / evA_cl[..., None])
         Wy, WC = Wm[:, :, 0], Wm[:, :, 1:]
+        return dict(
+            q1=torch.sum(Xn * Zx, dim=-1) + torch.sum(ym * Wy, dim=-1),
+            ld_nn=ld_nn, ld_tm=torch.sum(torch.log(evA_cl), dim=-1),
+            Xs=r["Xg"] - torch.sum(Cng * Zx[..., None], dim=1)
+            - torch.sum(Cmt * Wy[..., None], dim=1),
+            Ss=r["Dgg"] - _bmm64(Cng, ZC) - _bmm64(Cmt, WC),
+            ev_ratio=evA[:, 0] / emax[:, 0])
 
-        q1 = torch.sum(Xn * Zx, dim=-1) + torch.sum(ym * Wy, dim=-1)
-        Xs = Xg - torch.sum(Cng * Zx[..., None], dim=1) \
-            - torch.sum(Cmt * Wy[..., None], dim=1)
-        Ss = Dgg - _bmm64(Cng, ZC) - _bmm64(Cmt, WC)
-        return dict(q1=q1.reshape(W, npsr), ld_nn=ld_nn.reshape(W, npsr),
-                    ld_tm=ld_tm.reshape(W, npsr),
-                    Xs=Xs.reshape(W, npsr, n_g),
-                    Ss=Ss.reshape(W, npsr, n_g, n_g))
+    def _pairs12(G, X, invphi_N, psr, corner_c):
+        """Stages 1 and 2 of a flat batch of (walker, pulsar) pairs:
+        ``G`` (B, nb_tot, nb_tot), ``X`` (B, nb_tot), ``invphi_N`` (B,
+        NW), ``psr`` (B,) each pair's pulsar. One mixed-precision solve of
+        the noise blocks over the batch (one kernel launch on the card),
+        then stage 2; a pair whose timing-model complement came out with
+        ``ev_ratio`` below ``corner_c`` (or not finite) has its stage-1
+        solve done again in float64 (:func:`_solve_f64`) and its stage 2
+        from that. Every other pair keeps its values bit for bit."""
+        tm_pad = tm_pad_t[psr]
+        r = _split(G, X, invphi_N, tm_pad)
+        Z, ld_nn = _mixed_psd_solve_logdet(r["Gnn"], r["RHS"], jitter,
+                                           refine=3, delta_mode=stage1_delta,
+                                           mega=mega)
+        st = _stage2(r, Z, ld_nn)
+        if corner_c is not None and gram_mode != "f64":
+            flag = ~(st["ev_ratio"] >= corner_c)
+            if bool(flag.any()):
+                idx = flag.nonzero()[:, 0]
+                ri = {k: v[idx] for k, v in r.items()}
+                fix = _stage2(ri, *_solve_f64(ri["Gnn"], ri["RHS"],
+                                              jitter))
+                st = {k: v.index_put((idx,), fix[k]) for k, v in st.items()}
+        return st
+
+    def _stage12(G, X, invphi_N, corner_c=CORNER_C):
+        """Stages 1 and 2 for every (walker, pulsar) pair at once, as one
+        flat batch of W·npsr systems (:func:`_pairs12`), and each pulsar's
+        contribution to the GW Schur system: ``q1``, ``ld_nn``, ``ld_tm``,
+        ``ev_ratio`` (W, npsr), ``Xs`` (W, npsr, n_g), ``Ss`` (W, npsr,
+        n_g, n_g). ``corner_c`` is the float64 redo's threshold
+        (``CORNER_C``); ``None`` is the reference's clamp alone and
+        ``math.inf`` redoes every pair; the float64 Gram mode never redoes
+        a pair."""
+        W = G.shape[0]
+        B = W * npsr
+        st = _pairs12(G.reshape(B, nb_tot, nb_tot), X.reshape(B, nb_tot),
+                      invphi_N.reshape(B, NW),
+                      torch.arange(npsr, device=G.device).repeat(W),
+                      corner_c)
+        return {k: v.reshape(W, npsr, *v.shape[1:]) for k, v in st.items()}
 
     def _stage3(theta, st, rwr_p, logdet_n, logphi):
         """The GW Schur system with the ORF coupling, and the scalar sums."""
@@ -614,6 +712,49 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
         return _stage3(theta, _stage12(G, X, invphi_N), rwr_p, logdet_n,
                        logphi)
 
+    # ---- the update_mask contract (samplers/evalproto.py): one
+    # parameter vector (ndim,), the cache a dict of (1, ...) tensors -----
+    def _cache_lnl(th, cache):
+        lnl = _stage3(th, cache, cache["rwr"], cache["ldn"], cache["lphi"])[0]
+        return torch.where(torch.isnan(lnl), -math.inf, lnl)
+
+    def _cache_init(theta):
+        """Full recompute: ``(lnl, cache)``; the cache holds every
+        per-pulsar stage-1/2 result that stage 3 reads."""
+        th = theta[None]
+        G, X, rwr_p, logdet_n, logphi, invphi_N = _common(th)
+        cache = dict(_stage12(G, X, invphi_N), rwr=rwr_p, ldn=logdet_n,
+                     lphi=logphi)
+        return _cache_lnl(th, cache), cache
+
+    def _cache_site(theta, a, cache):
+        """Only pulsar ``a``'s parameters changed: re-Gram and re-solve
+        that pulsar alone (one system through stages 1-2), recompute the
+        scalar sums in full, as the reference does, and rerun stage 3.
+        Returns a new cache; ``cache`` is left as it was."""
+        th = theta[None]
+        nw = eval_white(th, sigma2_t)
+        phi_N = eval_phi(th) * cs2_N_t
+        sqw = torch.sqrt(mask_t[a] / nw[:, a])          # (1, ntoa_max)
+        Ts = T_t[a] * sqw[..., None]
+        rs = R_t[a] * sqw
+        G_a = _gram_pair(Ts, Ts, "f64")
+        X_a = torch.einsum("wik,wi->wk", Ts, rs)
+        st_a = _pairs12(G_a, X_a, 1.0 / phi_N[:, a],
+                        torch.full((1,), a, device=device), CORNER_C)
+        idx = (torch.zeros(1, dtype=torch.long, device=device),
+               torch.full((1,), a, device=device))
+        new = {k: cache[k].index_put(idx, v) for k, v in st_a.items()}
+        new["rwr"] = cache["rwr"].index_put(idx, torch.sum(rs * rs, dim=-1))
+        new["ldn"] = torch.sum(torch.log(nw) * mask_t, dim=(1, 2))
+        new["lphi"] = torch.sum(torch.log(phi_N), dim=(1, 2))
+        return _cache_lnl(th, new), new
+
+    def _cache_common(theta, cache):
+        """Only coupling-only GW parameters changed: every per-pulsar
+        result is reused and stage 3 reruns."""
+        return _cache_lnl(theta[None], cache), cache
+
     def loglike_dense(theta):
         G, X, rwr_p, logdet_n, logphi, invphi_N = _common(theta)
         W = theta.shape[0]
@@ -644,6 +785,12 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
 
     like = PTALikelihood(psrs, sampled, evaluate, gram_mode, device)
     like.joint_mode = joint_mode
+    # the update_mask contract, under the reference's conditions (the
+    # Schur path, no mesh, a static basis) unless EWT_UPDATE_MASK=0
+    if joint_mode == "schur" and os.environ.get("EWT_UPDATE_MASK",
+                                                "1") != "0":
+        install_masked_protocol(like, _cache_init, _cache_site,
+                                _cache_common, param_blocks)
     like._stages = dict(common=_common, stage12=_stage12, stage3=_stage3,
                         NW=NW, MW=MW, n_g=n_g, npsr=npsr, nb_tot=nb_tot)
     return like

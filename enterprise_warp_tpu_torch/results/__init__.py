@@ -6,7 +6,8 @@ credible levels, corner/trace plots, covariance collection and
 Bilby-style result-JSON runs — plain numpy over the on-disk layout
 (``pars.txt`` + ``chain_1.txt`` + ``cov.npy`` per pulsar directory), so
 chains from either package round-trip. The frequentist optimal
-statistic and the noise reconstruction are later slices of the port.
+statistic (``optstat.py``) rebuilds the array's terms and runs in torch
+on the card; the noise reconstruction is a later slice of the port.
 """
 
 from .bilbylike import BilbyWarpResult  # noqa: F401

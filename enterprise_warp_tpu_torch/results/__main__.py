@@ -2,10 +2,11 @@
 the results CLI.
 
 Counterpart of ``enterprise_warp_tpu/results/__main__.py``: dynamic
-import of a user model file, then EnterpriseWarpResult or
-BilbyWarpResult by option. ``--optimal_statistic`` is a later slice of
-the port (``ROADMAP.md`` Queue 1 item 10) and raises
-``NotImplementedError``.
+import of a user model file, then OptimalStatisticWarp,
+BilbyWarpResult or EnterpriseWarpResult by option. The optimal
+statistic rebuilds the array's likelihood terms and runs on the card
+(``main(argv, device="cpu")`` is the library entry for the host); the
+rest is numpy.
 """
 
 import sys
@@ -13,20 +14,19 @@ import sys
 from .core import EnterpriseWarpResult, parse_commandline
 
 
-def main(argv=None):
+def main(argv=None, device="cuda"):
     opts = parse_commandline(argv)
-    if opts.optimal_statistic:
-        raise NotImplementedError(
-            "--optimal_statistic (results/optstat.py) is a later slice of "
-            "the port (ROADMAP.md Queue 1 item 10)")
-
     custom = None
     if opts.custom_models_py and opts.custom_models:
         from ..cli import import_custom_models
         custom = import_custom_models(opts.custom_models_py,
                                       opts.custom_models)
 
-    if opts.bilby:
+    if opts.optimal_statistic:
+        from .optstat import OptimalStatisticWarp
+        result = OptimalStatisticWarp(opts, custom_models_obj=custom,
+                                      device=device)
+    elif opts.bilby:
         from .bilbylike import BilbyWarpResult
         result = BilbyWarpResult(opts, custom_models_obj=custom)
     else:

@@ -42,9 +42,11 @@ import numpy as np
 import torch
 
 from .. import F64
-from ..io.writers import (checkpoint_replace, resolve_checkpoint,
-                          write_table)
+from ..io.writers import (atomic_write_json, checkpoint_replace,
+                          resolve_checkpoint, write_table)
+from ..utils.diagnostics import cache_hit_summary
 from ..utils.logging import get_logger
+from .evalproto import BLOCK_COMMON
 
 _log = get_logger("ewt.ptmcmc")
 
@@ -122,6 +124,13 @@ class PTSampler:
         # per-family cold-rung counters (this process only, not checkpointed)
         self.fam_accept = np.zeros(_NFAM)
         self.fam_propose = np.zeros(_NFAM)
+        # update_mask emission: where the likelihood sorts its parameters
+        # into blocks (``like.param_blocks``, samplers/evalproto.py), each
+        # cold proposal is counted by the block class it touched [site,
+        # common, full] into mask_stats.json. Of the ported families only
+        # the prior draw (one dimension) can stay inside a block.
+        self.use_maskstats = getattr(like, "param_blocks", None) is not None
+        self.mask_counts = np.zeros(3)
         os.makedirs(outdir, exist_ok=True)
 
     # ---------------- initialization / resume -------------------------- #
@@ -232,6 +241,13 @@ class PTSampler:
         out_x = torch.empty((todo, nchains, nd), dtype=F64, device=dev)
         out_l = torch.empty((todo, nchains), dtype=F64, device=dev)
         out_p = torch.empty((todo, nchains), dtype=F64, device=dev)
+        mask_counts = torch.zeros(3, dtype=F64, device=dev)
+        if self.use_maskstats:
+            pb = torch.as_tensor(like.param_blocks, device=dev)
+            # block id -> class: 0 one pulsar's block, 1 the coupling-only
+            # common block, 2 a full recompute
+            blk_cls = torch.where(pb >= 0, 0, torch.where(pb == BLOCK_COMMON,
+                                                          1, 2))
         n_swaps = 0
         am_scale = 2.38 / math.sqrt(nd)
         gamma_de = 2.38 / math.sqrt(2 * nd)
@@ -284,6 +300,9 @@ class PTSampler:
             fam_prop += torch.bincount(cold_ch, minlength=_NFAM).to(F64)
             fam_acc += torch.bincount(cold_ch, weights=accept[:nchains]
                                       .to(F64), minlength=_NFAM)
+            if self.use_maskstats:
+                cls = torch.where(choice == 3, blk_cls[jp], 2)
+                mask_counts += torch.bincount(cls[:nchains], minlength=3)
 
             # --- parallel-tempering swaps every swap_every steps ------
             if ntemps > 1 and step_idx % self.swap_every \
@@ -328,6 +347,7 @@ class PTSampler:
             st.swaps_proposed = st.swaps_proposed + n_swaps * nchains
         self.fam_accept += fam_acc.cpu().numpy()
         self.fam_propose += fam_prop.cpu().numpy()
+        self.mask_counts += mask_counts.cpu().numpy()
         return out_x.cpu().numpy(), out_l.cpu().numpy(), out_p.cpu().numpy()
 
     def _truncate_chain_to(self, step, thin, block_size):
@@ -413,6 +433,10 @@ class PTSampler:
                 np.full((nrow, 1), swap_rate)], axis=1)
             write_table(chain_path, rows, append=True)
             np.save(os.path.join(self.outdir, "cov.npy"), st.cov)
+            if self.use_maskstats:
+                atomic_write_json(os.path.join(self.outdir,
+                                               "mask_stats.json"),
+                                  cache_hit_summary(*self.mask_counts))
             self._write_ckpt(st)
             stats = {"step": st.step, "steps": todo, "walkers": self.W,
                      "block_s": block_s,

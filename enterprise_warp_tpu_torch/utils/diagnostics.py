@@ -6,9 +6,9 @@ workflow publishes no convergence criteria (runs are judged by eye or by
 fixed ``nsamp`` budgets, e.g. ``nsamp: 100000`` in
 ``examples/example_params/default_hypermodel.dat``), so R-hat and ESS
 are first-class here; the results layer's ``--diagnostics`` reads them.
-The sampler-side helpers of the JAX module (``throttled_block_worst``,
-``cache_hit_summary``) come with the heartbeat and cache layers that
-call them.
+``cache_hit_summary`` is the PT sampler's ``mask_stats.json``; the
+heartbeat helper ``throttled_block_worst`` comes with the heartbeat
+layer that calls it.
 
 Pure numpy (host-side post-processing, like the results layer). Formulas
 follow Gelman et al. (BDA3) / Vehtari et al. 2021 rank-normalized
@@ -140,3 +140,19 @@ def summarize_chains(chains, names=None):
         else None,
     }
     return out
+
+
+def cache_hit_summary(site, common, full):
+    """The evaluation cache's record (JSON-ready), the reference's keys:
+    ``site``/``common``/``full`` count evaluations (or emitted proposal
+    masks) by update_mask class (``samplers/evalproto.py``), and
+    ``cache_hit_rate`` is the share that could reuse cached per-pulsar
+    factorizations."""
+    site, common, full = float(site), float(common), float(full)
+    total = site + common + full
+    rate = (site + common) / total if total else 0.0
+    return {
+        "proposals": {"site": site, "common": common, "full": full},
+        "total": total,
+        "cache_hit_rate": round(rate, 4),
+    }

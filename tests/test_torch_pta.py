@@ -21,13 +21,19 @@ Inputs are made from a seed with numpy and go through both packages:
   reference's own float64 class, for the low-rank ORFs' conditioning);
 - ``examples/example_params/gwb_array.dat`` through both packages'
   ``init_model_likelihoods``: the same ``param_names`` and
-  ``noise_pairs``, lnL in the Schur class at prior draws and the dense
-  oracles within rtol 1e-9 at near-typical points;
-- at a prior corner of ``gwb_array.dat`` (``GWB_CORNER``) the split
-  Schur path lies 3.9e10 above float64 in the reference and in the port
-  alike (the reference's stage-2 clamp; ``ROADMAP.md`` Queue 3): both
-  far above float64, the port within the class of the reference, the
-  float64 Schur path within the class of the dense oracle;
+  ``noise_pairs``; at prior draws the reference's algebra in the port
+  (the split Gram, the clamp) in the Schur class of the reference's, and
+  the port's lnL (its float64 Gram, the float64 redo of flagged pairs:
+  ``parallel/pta.py``, ``CORNER_C``) in the class of its dense float64
+  oracle and, bit for bit, its clamp path's on every walker with no pair
+  flagged; the dense oracles within rtol 1e-9 at near-typical points;
+- at a prior corner of ``gwb_array.dat`` (``GWB_CORNER``) the
+  reference's split Schur path lies 3.9e10 above float64 (its stage-2
+  clamp; ``ROADMAP.md`` Queue 3) and so does its algebra in the port;
+  the port's likelihood, one pair flagged and redone in float64, lies in
+  the class of the dense float64 oracle: the port's departure from the
+  reference, recorded; unflagged pairs and walkers keep the clamp path's
+  values bit for bit;
 - ``MultiPulsarLikelihood`` (a ``gwb`` with no ORF): lnL within rtol
   1e-9 of the reference's in float64, the same names and pairs;
 - the port's CLI on ``gwb_array.dat`` (40 steps on the CPU) and its
@@ -69,6 +75,7 @@ from enterprise_warp_tpu_torch.models.assemble import \
 from enterprise_warp_tpu_torch.ops import routes as troutes
 from enterprise_warp_tpu_torch.parallel import build_pta_likelihood as t_build
 from enterprise_warp_tpu_torch.parallel import orf as torf
+from enterprise_warp_tpu_torch.parallel.pta import CORNER_C
 from enterprise_warp_tpu_torch.results import EnterpriseWarpResult as TResult
 from enterprise_warp_tpu_torch.sim import make_fake_pta as t_fake
 
@@ -287,7 +294,26 @@ def test_gwb_array_paramfile_matches_jax(gwb_array):
     rng = np.random.default_rng(5)
     u = rng.uniform(size=(W, ts.ndim))
     th = ts.from_unit(torch.as_tensor(u)).numpy()
-    _in_class(ts.loglike_batch(th).numpy(), np.asarray(js.loglike_batch(th)))
+    # at prior draws the reference's algebra in the port (the split Gram
+    # and the clamp alone) lies in the Schur class of the reference's; the
+    # port's likelihood (float64 Gram, the float64 redo of flagged pairs:
+    # parallel/pta.py, CORNER_C) keeps the clamp path's value bit for bit
+    # on every walker with no pair flagged, and lies in the class of the
+    # port's dense float64 oracle at every draw
+    st, t = ts._stages, ts.as_theta(th)
+    com = st["common"](t, gram="split")
+    ref = st["stage12"](com[0], com[1], com[5], corner_c=None)
+    _in_class(st["stage3"](t, ref, *com[2:5]).numpy(),
+              np.asarray(js.loglike_batch(th)))
+    com = st["common"](t)
+    clamp = st["stage12"](com[0], com[1], com[5], corner_c=None)
+    l_clamp = st["stage3"](t, clamp, *com[2:5]).numpy()
+    lnl = ts.loglike_batch(th).numpy()
+    keep = (clamp["ev_ratio"] >= CORNER_C).all(dim=1).numpy()
+    assert keep.any() and not keep.all()
+    np.testing.assert_array_equal(lnl[keep], l_clamp[keep])
+    _in_class(lnl, t_init(tp, gram_mode="f64", write_pars=False,
+                          device="cpu")[0].loglike_batch(th).numpy())
     # float64 at near-typical points: at prior draws the float64 algebras
     # of either package spread by up to 1e-4 (red-noise log10_A -8.9)
     th = _theta(ts.param_names, seed=5)
@@ -299,11 +325,12 @@ def test_gwb_array_paramfile_matches_jax(gwb_array):
 
 
 # a prior draw of gwb_array.dat (J0042-0000 efac 0.0064, log10 equad
-# -9.33) where the split Schur path lies 3.9e10 above float64, in the
-# reference as in the port: J0042-0000's stage-1 solve in float32 leaves
-# its timing-model Schur complement indefinite, and the relative
-# eigenvalue clamp turns it into a huge quadratic form (ROADMAP.md Queue
-# 3). A PT chain on the card locks on such corners.
+# -9.33) where the reference's split Schur path lies 3.9e10 above float64:
+# J0042-0000's stage-1 solve on the split Gram leaves its timing-model
+# Schur complement indefinite, and the relative eigenvalue clamp turns it
+# into a huge quadratic form. A PT chain on the card locked on such
+# corners (ROADMAP.md Queue 3). The port does that pair again in float64
+# (parallel/pta.py, CORNER_C).
 GWB_CORNER = [9.550267261985898, 9.864879953879617, 0.21294984471825207,
               7.983805557016662, -7.573009349530989, -9.090666556223736,
               -5.3159387846797745, -8.518091457654648, -15.409271725939389,
@@ -313,21 +340,65 @@ GWB_CORNER = [9.550267261985898, 9.864879953879617, 0.21294984471825207,
 
 
 def test_gwb_corner_shared_with_reference(gwb_array):
+    """The port's departure at ``GWB_CORNER``: the reference still gives
+    3.885e10 there, and so does the reference's algebra in the port (the
+    split Gram and the clamp); the port's likelihood (the float64 Gram,
+    J0042-0000's pair flagged and redone in float64) lies within the
+    class of the dense float64 oracle."""
     jp, tp = gwb_array
     row = np.asarray([GWB_CORNER])
     ref = float(t_init(tp, gram_mode="f64", write_pars=False,
                        device="cpu")[0].loglike_batch(row)[0])
     jval = float(np.asarray(j_init(jp, write_pars=False)[0]
                             .loglike_batch(row))[0])
-    tval = float(t_init(tp, write_pars=False, device="cpu")[0]
-                 .loglike_batch(row)[0])
-    assert np.isfinite(ref) and jval > ref + 1e9 and tval > ref + 1e9
-    # the port reproduces the reference's value, corner and all
-    _in_class(tval, jval)
-    # and the float64 Schur algebra is right there: the fault is float32's
+    like = t_init(tp, write_pars=False, device="cpu")[0]
+    tval = float(like.loglike_batch(row)[0])
+    assert np.isfinite(ref) and jval == pytest.approx(3.885e10, rel=1e-3)
+    # the reference's algebra in the port reproduces the reference's
+    # value, corner and all, with J0042-0000's complement indefinite
+    st = like._stages
+    th = like.as_theta(row)
+    com = st["common"](th, gram="split")
+    ref_st = st["stage12"](com[0], com[1], com[5], corner_c=None)
+    _in_class(float(st["stage3"](th, ref_st, *com[2:5])[0]), jval)
+    assert ref_st["ev_ratio"][0, 1] < 0
+    # on the port's Gram one pair (J0042-0000's) is flagged there
+    com = st["common"](th)
+    clamp = st["stage12"](com[0], com[1], com[5], corner_c=None)
+    flagged = (clamp["ev_ratio"][0] < CORNER_C).tolist()
+    assert flagged == [False, True]
+    # the port's likelihood: within the class of float64
+    assert tval < ref + 1e3
+    _in_class(tval, ref)
+    # and the float64 Schur algebra is right there
     tl = t_build(tp.psrs, _termlists(tp), gram_mode="f64",
                  joint_mode="schur", device="cpu")
     _in_class(float(tl.loglike_batch(row)[0]), ref)
+
+
+def test_unflagged_pairs_bit_for_bit(gwb_array):
+    """Pairs the repair does not flag keep the clamp path's stage-1/2
+    values and the walker its lnL, bit for bit, at near-typical points
+    (none flagged there) and beside a flagged walker in one batch."""
+    _, tp = gwb_array
+    like = t_init(tp, write_pars=False, device="cpu")[0]
+    st = like._stages
+    th = _theta(like.param_names, nwalk=W, seed=9)
+    th[3] = GWB_CORNER
+    t = like.as_theta(th)
+    com = st["common"](t)
+    clamp = st["stage12"](com[0], com[1], com[5], corner_c=None)
+    fixed = st["stage12"](com[0], com[1], com[5])
+    flag = ~(clamp["ev_ratio"] >= CORNER_C)
+    assert flag.sum() == 1 and flag[3, 1]
+    for k, v in clamp.items():
+        assert torch.equal(v[~flag], fixed[k][~flag]), k
+        assert not torch.equal(v[flag], fixed[k][flag]), k
+    l_clamp = st["stage3"](t, clamp, *com[2:5])
+    lnl = like.loglike_batch(th)
+    keep = torch.ones(W, dtype=torch.bool)
+    keep[3] = False
+    assert torch.equal(lnl[keep], l_clamp[keep])
 
 
 def _termlists(params):
@@ -410,14 +481,21 @@ def test_cli_and_results_on_gwb_array(tmp_path):
 def test_cli_warns_on_a_chain_locked_on_a_corner(tmp_path, caplog, corner):
     """``cli.check_joint_chain`` re-scores a joint chain's largest lnL in
     float64 and warns where the float32 Schur path lies outside the
-    reference's class there (a chain locked on ``GWB_CORNER``), and only
-    there."""
-    tp = TParams(_paramfile(tmp_path, 40, "gwb_array.dat"), opts=_opts())
+    reference's class there (a chain locked on ``GWB_CORNER``, as a run
+    with the reference's algebra locks), and only there."""
+    prfile = _paramfile(tmp_path, 40, "gwb_array.dat")
+    tp = TParams(prfile, opts=_opts())
     like = t_init(tp, write_pars=False, device="cpu")[0]
     th = _theta(like.param_names, nwalk=2, seed=7)
     if corner:
         th[1] = GWB_CORNER
     lnl = like.loglike_batch(th).numpy()
+    if corner:
+        # the chain of a run locked on the corner holds the value the
+        # reference's algebra gives there
+        lnl[1] = np.asarray(j_init(JParams(prfile, opts=_opts()),
+                                   write_pars=False)[0]
+                            .loglike_batch(th[1:2]))[0]
     os.makedirs(tp.output_dir, exist_ok=True)
     np.savetxt(os.path.join(tp.output_dir, "chain_1.txt"),
                np.column_stack([th, lnl, lnl, np.ones((2, 2))]))

@@ -126,6 +126,53 @@ def test_unported_families_raise(tmp_path):
             PTSampler(like, str(tmp_path), **kw)
 
 
+def _joint_like():
+    """A small joint PTA likelihood (3 fake pulsars, efac, spin noise and
+    a Hellings-Downs ``gwb``), whose parameters fall into blocks."""
+    from enterprise_warp_tpu_torch.models import StandardModels, TermList
+    from enterprise_warp_tpu_torch.parallel import build_pta_likelihood
+    from enterprise_warp_tpu_torch.sim import make_fake_pta
+    psrs = make_fake_pta(npsr=3, ntoa=60, seed=4)
+    rng = np.random.default_rng(4)
+    tls = []
+    for p in psrs:
+        p.residuals = p.toaerrs * rng.standard_normal(len(p))
+        m = StandardModels(psr=p)
+        tls.append(TermList(p, [m.efac("by_backend"),
+                                m.spin_noise("powerlaw_3_nfreqs"),
+                                m.gwb("hd_vary_gamma_3_nfreqs")]))
+    return build_pta_likelihood(psrs, tls, device="cpu")
+
+
+@pytest.mark.parametrize("joint", [True, False], ids=["joint", "single"])
+def test_mask_stats(tmp_path, monkeypatch, joint):
+    """A joint run writes ``mask_stats.json`` with the reference's keys,
+    its counts summing to the cold proposals (nchains x steps) and its
+    maskable share equal to the cold prior draws; a likelihood without
+    parameter blocks writes none."""
+    from enterprise_warp_tpu.utils.diagnostics import \
+        cache_hit_summary as j_summary
+    monkeypatch.delenv("EWT_UPDATE_MASK", raising=False)
+    like = _joint_like() if joint else GaussianLike([0.0, 1.0], [1.0, 0.5])
+    s = PTSampler(like, str(tmp_path), ntemps=2, nchains=4, seed=5,
+                  cov_update=15, prior_weight=40)
+    s.sample(30, resume=False, verbose=False)
+    path = tmp_path / "mask_stats.json"
+    if not joint:
+        assert not path.exists()
+        return
+    import json
+    got = json.load(open(path))
+    ref = j_summary(1, 2, 3)
+    assert sorted(got) == sorted(ref)
+    assert sorted(got["proposals"]) == sorted(ref["proposals"])
+    p = got["proposals"]
+    assert p["site"] + p["common"] + p["full"] == got["total"] == 4 * 30
+    assert p["site"] + p["common"] == s.fam_propose[3] > 0
+    assert p["site"] > 0 and p["common"] > 0
+    assert got == j_summary(*s.mask_counts)
+
+
 def _port_run(tmp_path):
     psr = "J0000+0000"
     like = GaussianLike([1.0, -14.0, 3.0], [0.1, 0.2, 0.3], lo=-20, hi=20)

@@ -10,9 +10,10 @@ JSON, the diagnostics JSON and the logBF visit counts must be equal
 within rtol 1e-12 (summation order is the only freedom) and
 ``covm_all.csv`` must be the same text. ``utils/diagnostics.py``'s
 ``summarize_chains`` is held against the JAX package's likewise.
-``python -m enterprise_warp_tpu_torch.results`` runs as a program;
-``--optimal_statistic`` raises ``NotImplementedError``; without pandas
-the covariance collection still writes its CSV and skips the pickle.
+``python -m enterprise_warp_tpu_torch.results`` runs as a program
+(``--optimal_statistic``: ``tests/test_torch_optstat.py``); without
+pandas the covariance collection still writes its CSV and skips the
+pickle.
 """
 
 import json
@@ -32,7 +33,6 @@ from enterprise_warp_tpu.utils.diagnostics import \
     summarize_chains as j_summarize
 from enterprise_warp_tpu_torch import cli
 from enterprise_warp_tpu_torch.results import EnterpriseWarpResult as TResult
-from enterprise_warp_tpu_torch.results.__main__ import main as t_main
 from enterprise_warp_tpu_torch.utils.diagnostics import \
     summarize_chains as t_summarize
 
@@ -144,8 +144,6 @@ def test_results_program(tmp_path, port_run):
     assert os.path.exists(os.path.join(out, "noisefiles",
                                        "J1234-5678_noise.json"))
     assert "logBF" in proc.stderr or "only model" in proc.stderr
-    with pytest.raises(NotImplementedError):
-        t_main(["--result", out, "--optimal_statistic", "1"])
 
 
 def test_covm_without_pandas(tmp_path, monkeypatch):
