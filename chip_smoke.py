@@ -126,7 +126,7 @@ Phases (any failure exits non-zero before the result line):
    results CLI on the output. Then the float32 corners on the card: 400
    prior draws scored by the split Schur path (the reference's clamp,
    the float64 redo of flagged pairs) and by the dense float64 oracle on
-   the card, each gap attributed to its pairs (``parallel/corners.py``),
+   the card, each gap attributed to its pairs (:func:`corner_scan`),
    and ``GWB_CORNER`` held in the class; the evaluation cache
    (``CachedEvaluator``) through 64 seeded site, common, full and
    rejected updates, each held against a full recompute in the class,
@@ -248,6 +248,13 @@ JOINT_ATOL, JOINT_RTOL = 5e-2, 1e-7
 # each of the joint paths; prior draws of the corner scans
 CACHE_UPDATES = 64
 CORNER_DRAWS = {"gwb": 400, "pta45": 64}
+# the corner scans: a gap beyond CORNER_FAR nats above float64 is an
+# attractive corner for a PT chain; the float64 redo is also scored at
+# these thresholds beside the shipped CORNER_C
+CORNER_FAR = 1e3
+CORNER_THRESHOLDS = (0.0, 1e-6)
+# the redo's cost: batches of a joint chain's rows timed
+REDO_BATCHES = 4
 # the optimal statistic at config 3: draws (the results CLI's default),
 # and its card-against-CPU limit on sig and on rho relative to sig
 OS_DRAWS = 1000
@@ -1363,14 +1370,180 @@ def stage_shares(like, theta, label, smi):
     return ms
 
 
+def chain_batches(post, walkers, nbatch=REDO_BATCHES):
+    """``nbatch`` batches of ``walkers`` consecutive rows (one thinned
+    step of every walker), evenly spaced over a chain's rows ``post``."""
+    import numpy as np
+    steps = len(post) // walkers
+    return [post[i * walkers:(i + 1) * walkers]
+            for i in np.linspace(0, steps - 1, nbatch).astype(int)]
+
+
+def redo_share(like, rows, label, smi):
+    """What the float64 redo of flagged pairs costs on a joint chain's
+    own rows: a likelihood call (front end, stages 1-2, stage 3) and its
+    stages 1-2 alone, timed with the redo off (``corner_c`` None: the
+    reference's clamp, no host sync), with its host sync alone
+    (``-inf``: the flag is read, no pair redone), below 1e-6 and below
+    the shipped ``CORNER_C``; CUDA events, the median of 10 on each of
+    ``rows``' batches of W, averaged over the batches. Returns the ms per
+    mode."""
+    import math
+
+    import numpy as np
+    from enterprise_warp_tpu_torch.parallel.pta import CORNER_C
+    st = like._stages
+    modes = {"off": None, "sync alone": -math.inf, "1e-06": 1e-6,
+             f"CORNER_C {CORNER_C:g}": CORNER_C}
+    ms = {k: [] for k in modes}
+    ms12 = {k: [] for k in modes}
+    flagged = {k: 0 for k in modes}
+    for batch in rows:
+        th = like.as_theta(batch)
+        com = st["common"](th)
+        ratio = st["stage12"](com[0], com[1], com[5],
+                              corner_c=None)["ev_ratio"]
+        for k, c in modes.items():
+            if c is not None:
+                flagged[k] += int((~(ratio >= c)).sum())
+
+            def call(c=c):
+                cm = st["common"](th)
+                return st["stage3"](th, st["stage12"](cm[0], cm[1], cm[5],
+                                                      corner_c=c), *cm[2:5])
+            ms[k].append(time_cuda(call, warm=2, reps=10))
+            ms12[k].append(time_cuda(
+                lambda c=c: st["stage12"](com[0], com[1], com[5],
+                                          corner_c=c), warm=2, reps=10))
+        del com
+    out = {k: dict(call_ms=float(np.mean(ms[k])),
+                   stages_1_2_ms=float(np.mean(ms12[k])),
+                   pairs_flagged=flagged[k]) for k in modes}
+    nwalk = sum(len(b) for b in rows)
+    print(f"{label}: the float64 redo's cost on {len(rows)} batches of the "
+          f"chain's rows at W {len(rows[0])} ({nwalk * st['npsr']} pairs): "
+          + "; ".join(f"{k}: call {v['call_ms']:.3f} ms, stages 1-2 "
+                      f"{v['stages_1_2_ms']:.3f} ms, pairs flagged "
+                      f"{v['pairs_flagged']}" for k, v in out.items())
+          + f" (CUDA events, median of 10 per batch, mean over batches) "
+          f"[{smi}]")
+    return out
+
+
+def _gap_stats(lnl, l64, fin):
+    """Walkers outside the class of float64, above it, far above it."""
+    import numpy as np
+    gap = lnl - l64
+    out = fin & ~(np.abs(gap) <= JOINT_ATOL + JOINT_RTOL * np.abs(l64))
+    return dict(out_of_class=int(out.sum()),
+                out_above=int((out & (gap > 0)).sum()),
+                far_above=int((fin & (gap > CORNER_FAR)).sum()),
+                max_gap_above=float(gap[out].max()) if out.any() else 0.0,
+                max_abs_gap=float(np.abs(gap[fin]).max()) if fin.any()
+                else 0.0,
+                nan=int(np.isnan(lnl).sum()))
+
+
+def corner_scan(like, oracle, theta, chunk=64):
+    """The joint likelihood's float32 corners against float64: score
+    ``theta`` (N, ndim) with the Schur path of ``like`` several ways and
+    with the dense float64 ``oracle``, and attribute each gap of the
+    reference's algebra to its (walker, pulsar) pairs.
+
+    The ways: ``reference``, the reference's algebra (the split Gram and
+    the relative eigenvalue clamp); ``clamp``, the port's float64 Gram and
+    the clamp; ``repaired``, the port's likelihood (float64 Gram, the
+    float64 stage-1 redo of pairs below ``CORNER_C``); ``every_pair_f64``,
+    every pair's stage 1 in float64; and the redo below each of
+    ``CORNER_THRESHOLDS``. For each, the walkers outside the lnL class of
+    float64, above it, and far (``CORNER_FAR``) above it. Per pair:
+    ``ev_ratio``, the timing-model complement's smallest eigenvalue over
+    its largest magnitude on the port's Gram (what the repair reads) and
+    on the reference's, and ``share``, the part of the reference
+    algebra's gap that goes when that pair alone takes its
+    ``every_pair_f64`` values. Returns ``(summary, arrays)``: the summary
+    is JSON-ready (with the split Gram's relative error and what a
+    rejection of negative ratios would remove); ``arrays`` holds
+    ``lnl_reference``, ``lnl``, ``lnl_f64``, ``ev_ratio``,
+    ``ev_ratio_reference`` and ``share``."""
+    import math
+
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch.parallel.pta import CORNER_C
+    st = like._stages
+    npsr = st["npsr"]
+    ways = dict(clamp=None, repaired=CORNER_C, every_pair_f64=math.inf,
+                **{f"{c:g}": c for c in CORNER_THRESHOLDS})
+    lnl = {k: [] for k in ["reference", *ways]}
+    ratio, ratio_ref, share, l64, gram_err = [], [], [], [], 0.0
+    for i in range(0, len(theta), chunk):
+        th = like.as_theta(theta[i:i + chunk])
+        com_ref = st["common"](th, gram="split")
+        com = st["common"](th)
+        gram_err = max(gram_err, float(
+            ((com_ref[0] - com[0]).abs().amax(dim=(-2, -1))
+             / com[0].abs().amax(dim=(-2, -1))).max()))
+        ref = st["stage12"](com_ref[0], com_ref[1], com_ref[5],
+                            corner_c=None)
+        lnl["reference"].append(st["stage3"](th, ref, *com[2:5]).cpu())
+        outs = {}
+        for k, c in ways.items():
+            outs[k] = st["stage12"](com[0], com[1], com[5], corner_c=c)
+            lnl[k].append(st["stage3"](th, outs[k], *com[2:5]).cpu())
+        ratio.append(outs["clamp"]["ev_ratio"].cpu())
+        ratio_ref.append(ref["ev_ratio"].cpu())
+        lr = lnl["reference"][-1]
+        lf = oracle.loglike_batch(th.to(oracle.device)).cpu()
+        l64.append(lf)
+        sh = torch.empty_like(ratio[-1])
+        for a in range(npsr):
+            mix = {k: v.clone() for k, v in ref.items()}
+            for k in mix:
+                mix[k][:, a] = outs["every_pair_f64"][k][:, a]
+            sh[:, a] = (lr - st["stage3"](th, mix, *com[2:5]).cpu()) \
+                / (lr - lf)
+        share.append(sh)
+        del com, com_ref, ref, outs
+    cat = {k: torch.cat(v).numpy() for k, v in lnl.items()}
+    arrays = dict(lnl_reference=cat["reference"], lnl=cat["repaired"],
+                  lnl_f64=torch.cat(l64).numpy(),
+                  ev_ratio=torch.cat(ratio).numpy(),
+                  ev_ratio_reference=torch.cat(ratio_ref).numpy(),
+                  share=torch.cat(share).numpy())
+    l64, r = arrays["lnl_f64"], arrays["ev_ratio"]
+    r_ref = arrays["ev_ratio_reference"]
+    fin = np.isfinite(l64)
+    gap_r = cat["reference"] - l64
+    out_r = fin & ~(np.abs(gap_r) <= JOINT_ATOL + JOINT_RTOL * np.abs(l64))
+    carrier = np.argmax(np.nan_to_num(arrays["share"], nan=-np.inf), axis=1)
+    r_car = r_ref[np.arange(len(r_ref)), carrier][out_r]
+    far = gap_r[out_r] > CORNER_FAR
+    r_in = r_ref[fin & ~out_r].min(axis=1)
+    neg = (r_ref < 0).any(axis=1)
+    summary = dict(
+        draws=len(theta), finite_f64=int(fin.sum()),
+        split_gram_rel_err=gram_err,
+        reference=_gap_stats(cat["reference"], l64, fin),
+        **{k: _gap_stats(cat[k], l64, fin) for k in ways},
+        flagged=dict(corner_c=CORNER_C, pairs=int(r.size),
+                     **{k: int((~(r >= c)).sum()) for k, c in ways.items()
+                        if c is not None and c != math.inf}),
+        walkers_flagged=int((~(r >= CORNER_C)).any(axis=1).sum()),
+        ev_ratio_in_class_min=float(r_in.min()) if r_in.size else None,
+        ev_ratio_carriers=dict(
+            min=float(r_car.min()) if r_car.size else None,
+            max=float(r_car.max()) if r_car.size else None,
+            below_corner_c=int((r_car < CORNER_C).sum()),
+            far_above_max=float(r_car[far].max()) if far.any() else None),
+        reject_negative=dict(walkers=int(neg.sum()),
+                             in_class=int((neg & fin & ~out_r).sum())))
+    return summary, arrays
+
+
 def corner_report(like, oracle, theta, label, chunk):
-    """The joint likelihood's float32 corners on the card (``parallel/
-    corners.py:corner_scan``): ``theta`` scored by the split Schur path
-    (the reference's clamp alone, the shipped float64 redo at CORNER_C
-    and other thresholds) and by the dense float64 oracle, each gap
-    attributed to its (walker, pulsar) pairs; the summary is printed as
-    one JSON object and returned."""
-    from enterprise_warp_tpu_torch.parallel.corners import corner_scan
+    """The joint likelihood's float32 corners on the card
+    (:func:`corner_scan`), printed as one JSON object and returned."""
     t0 = time.perf_counter()
     summary, _ = corner_scan(like, oracle, theta, chunk=chunk)
     print(f"{label}: corner scan of {len(theta)} prior draws in "
@@ -1449,6 +1622,76 @@ def cache_times(like, ev, label, smi):
     return ms
 
 
+def os_longdouble(inputs, theta):
+    """The optimal statistic's pair values at one draw ``theta`` (ndim,)
+    by the reference's algebra (``results/optstat.py:make_os_fn``) in
+    numpy long double (x86 80-bit, eps 1.1e-19): a third computation
+    beside the card's and the CPU's float64, from the same CPU inputs
+    (:func:`os_inputs`; the noise variances from ``os_noise`` in float64).
+    Returns ``(rho, sig, kappa)``, ``kappa`` the largest 2-norm condition
+    number of a pulsar's equilibrated Sigma (float64 estimate, saturating
+    near 1e16); ``rho`` and ``sig`` NaN where a long-double factor
+    fails."""
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch.results.optstat import os_noise
+    LD = np.longdouble
+    per_psr, phihat, _ = inputs
+
+    def chol(A):
+        n = len(A)
+        L = np.zeros_like(A)
+        for j in range(n):
+            d = A[j, j] - L[j, :j] @ L[j, :j]
+            if not d > 0:
+                return None
+            L[j, j] = np.sqrt(d)
+            L[j + 1:, j] = (A[j + 1:, j] - L[j + 1:, :j] @ L[j, :j]) / L[j, j]
+        return L
+
+    def cho_solve(L, B):
+        n = len(L)
+        y = np.zeros_like(B)
+        for i in range(n):
+            y[i] = (B[i] - L[i, :i] @ y[:i]) / L[i, i]
+        x = np.zeros_like(B)
+        for i in range(n - 1, -1, -1):
+            x[i] = (y[i] - L[i + 1:, i] @ x[i + 1:]) / L[i, i]
+        return x
+
+    ph = phihat.cpu().numpy().astype(LD)
+    th = torch.as_tensor(np.asarray(theta, dtype=np.float64)[None])
+    X, Z, kappa = [], [], 0.0
+    for pp in per_psr:
+        nw, phi = os_noise(th, pp)
+        w = 1 / nw[0].numpy().astype(LD)
+        T = pp["T"].numpy().astype(LD)
+        Tw = T * w[:, None]
+        S = np.diag(1 / phi[0].numpy().astype(LD)) + np.einsum(
+            "ik,il->kl", T, Tw)
+        d = 1 / np.sqrt(np.diag(S))
+        kappa = max(kappa, float(np.linalg.cond(
+            (S * d[:, None] * d[None, :]).astype(np.float64))))
+        L = chol(S)
+        if L is None:
+            nan = np.full(len(per_psr) * (len(per_psr) - 1) // 2, np.nan)
+            return nan, nan, kappa
+        F = pp["F_w"].numpy().astype(LD)
+        y = np.concatenate([pp["r_w"].numpy().astype(LD)[:, None], F],
+                           axis=1) * w[:, None]
+        Px = np.einsum("ik,il->kl", F,
+                       y - Tw @ cho_solve(L, np.einsum("ik,il->kl", T, y)))
+        X.append(Px[:, 0])
+        Z.append(Px[:, 1:] * ph)                        # Z_a phihat
+    rho, sig = [], []
+    for a in range(len(X)):
+        for b in range(a + 1, len(X)):
+            den = np.sum(Z[a] * Z[b].T)
+            rho.append(np.sum(X[a] * ph * X[b]) / den)
+            sig.append(1 / np.sqrt(den) if den > 0 else np.nan)
+    return np.asarray(rho, LD), np.asarray(sig, LD), kappa
+
+
 def os_check(psrs, tls, like, chain, nmarg, label, smi):
     """The optimal statistic of ``psrs`` on the card, timed, and against
     the same function on the CPU in float64 (``max(|d rho|, |d sig|)``
@@ -1457,14 +1700,18 @@ def os_check(psrs, tls, like, chain, nmarg, label, smi):
     ``OptimalStatisticWarp`` picks them (reported: a chain still far from
     its posterior holds draws where the per-pulsar float64 factor is at
     its edge on either device), and ``nmarg`` near-typical draws and
-    their median (held within OS_RTOL at every draw and pair). Returns
-    the card's wall time on the chain's draws, in s."""
+    their median (held within OS_RTOL at every draw and pair). On the
+    chain's draws a long-double witness (:func:`os_witness`) is printed
+    where the two disagree. Returns the card's wall time on the chain's
+    draws, in s."""
     import numpy as np
     import torch
     from enterprise_warp_tpu_torch.results.optstat import (combine_os,
-                                                           make_os_fn)
+                                                           make_os_fn,
+                                                           os_inputs)
     fn, pairs, xi, sampled = make_os_fn(psrs, tls, device="cuda")
     fn_cpu = make_os_fn(psrs, tls, device="cpu")[0]
+    inputs = os_inputs(psrs, tls, device="cpu")
     if [p.name for p in sampled] != like.param_names:
         fail(f"{label}: the optimal statistic's parameters are not the "
              "likelihood's")
@@ -1511,7 +1758,45 @@ def os_check(psrs, tls, like, chain, nmarg, label, smi):
                                            and g.max() <= OS_RTOL):
             fail(f"{label}: the optimal statistic on the card disagrees with "
                  "the CPU in float64 at near-typical draws")
+        if name == "chain":
+            os_witness(inputs, np.vstack([med, th]), r, s_, rc, sc, label)
     return walls["chain"]
+
+
+def os_witness(inputs, th, r, s_, rc, sc, label):
+    """A third computation where the card and the CPU disagree on the
+    chain's draws: :func:`os_longdouble` at the median (row 0), the two
+    draws where card and CPU lie farthest apart, and the first draw finite
+    on the card only and on the CPU only. Printed per draw: each float64
+    result's ``max(|d rho|, |d sig|)`` over the witness's sig, the side
+    the witness takes (one within a tenth of the other's distance), and
+    the largest condition number of a pulsar's equilibrated Sigma."""
+    import numpy as np
+    fk, fc = np.isfinite(s_).all(axis=1), np.isfinite(sc).all(axis=1)
+    g = np.where(fk & fc, np.max(np.maximum(np.abs(r - rc), np.abs(s_ - sc))
+                                 / np.abs(sc), axis=1), -np.inf)
+    picks = [0] + [int(i) for i in np.argsort(-g[1:])[:2] + 1
+                   if np.isfinite(g[i])]
+    for only in (fk & ~fc, fc & ~fk):
+        if only[1:].any():
+            picks.append(int(np.argmax(only[1:])) + 1)
+    t0 = time.perf_counter()
+    for i in picks:
+        rl, sl, kappa = os_longdouble(inputs, th[i])
+        e = [float(np.max(np.maximum(np.abs(a[i] - rl), np.abs(b[i] - sl))
+                          / sl)) if np.isfinite(b[i]).all() else np.nan
+             for a, b in ((r, s_), (rc, sc))]
+        side = ("no long-double value" if not np.isfinite(sl).all() else
+                "the card" if e[0] < 0.1 * e[1] or np.isnan(e[1]) else
+                "the CPU" if e[1] < 0.1 * e[0] or np.isnan(e[0]) else
+                "neither")
+        gap = f"{g[i]:.3e}" if np.isfinite(g[i]) else "(one side not finite)"
+        print(f"{label}, chain draw {'median' if i == 0 else i}: card "
+              f"against CPU {gap}; against the long-double witness: "
+              f"card {e[0]:.3e}, CPU {e[1]:.3e}; witness sides with {side}; "
+              f"largest equilibrated cond(Sigma) {kappa:.3e}")
+    print(f"{label}: long-double witness at {len(picks)} chain draws in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -2639,6 +2924,7 @@ def main():
               f"{(ratio < CORNER_C).sum(dim=0).tolist()} (min(evA)/max|evA| "
               f"median per pulsar {ratio.median(dim=0).values.tolist()})")
         del com
+        redo_share(glike, chain_batches(post, walkers), gname, smi)
         # the float32 corners on the card: prior draws against the dense
         # float64 oracle on the card, and GWB_CORNER repaired
         gdense = load_likes(gpf, 0, dev, gram_mode="f64")[1][0]
@@ -2756,6 +3042,9 @@ def main():
             smi, label=entry)
         stage_shares(like45, near_typical(like45, walkers, 13), "config 3",
                      smi)
+        redo_share(like45, chain_batches(chain[len(chain) // 4:,
+                                               :like45.ndim], walkers),
+                   "config 3", smi)
         # two near-typical points against the dense float64 oracle on the
         # card: their lnL difference (tests/test_parallel.py:612)
         th2 = np.stack([config3_theta(like45), config3_theta(like45, 0.3)])

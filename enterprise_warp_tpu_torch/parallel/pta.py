@@ -85,7 +85,7 @@ def _bmm64(A, B):
 
 # The port departs from the reference's Schur path in two places, both
 # chosen from measurements against the dense float64 oracle
-# (``parallel/corners.py``; PERF.md): the front-end Gram is formed in
+# (``chip_smoke.py:corner_scan``; PERF.md): the front-end Gram is formed in
 # float64 in every Gram mode, where the reference's split mode forms it
 # from hi/lo float32 products, about 2e-6 of max|G| off, an error the
 # nested Schur stages amplify into attractive float32 corners; and a
@@ -666,9 +666,8 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
         contribution to the GW Schur system: ``q1``, ``ld_nn``, ``ld_tm``,
         ``ev_ratio`` (W, npsr), ``Xs`` (W, npsr, n_g), ``Ss`` (W, npsr,
         n_g, n_g). ``corner_c`` is the float64 redo's threshold
-        (``CORNER_C``); ``None`` is the reference's clamp alone and
-        ``math.inf`` redoes every pair; the float64 Gram mode never redoes
-        a pair."""
+        (``CORNER_C``); ``None`` is the reference's clamp alone; the
+        float64 Gram mode never redoes a pair."""
         W = G.shape[0]
         B = W * npsr
         st = _pairs12(G.reshape(B, nb_tot, nb_tot), X.reshape(B, nb_tot),

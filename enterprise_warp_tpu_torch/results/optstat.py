@@ -48,16 +48,14 @@ _GAMMA_GW = 13.0 / 3.0
 OS_CHUNK = 128
 
 
-def make_os_fn(psrs, termlists, fixed_values=None, gamma_gw=_GAMMA_GW,
-               device="cuda"):
-    """Build ``os_pairs(theta) -> (rho, sig)`` over all pulsar pairs.
-
-    Returns ``(fn, pairs, xi, sampled)``: ``fn`` takes one parameter
-    vector (ndim,) or a batch of draws (D, ndim) and returns numpy
-    float64 ``rho`` and ``sig``, (npairs,) or (D, npairs), pairs in the
-    reference's order ``(a, b), a < b``; ``xi`` are the pairs' angular
-    separations."""
-    device = resolve_device(device)
+def os_inputs(psrs, termlists, fixed_values=None, gamma_gw=_GAMMA_GW,
+              device="cuda"):
+    """The statistic's static inputs on ``device``: ``(per_psr, phihat,
+    sampled)``. ``per_psr`` holds, per pulsar, the white-noise and basis
+    programs (``wb``, ``bb``), the whitened residuals ``r_w``, the basis
+    ``T`` (its noise and GW columns, then the timing model's ``ntm``),
+    the column scales ``cs2``, ``sigma2``, ``ntoa`` and the whitened GW
+    columns ``F_w``; ``phihat`` is the unit-amplitude template spectrum."""
     t0 = min(p.toas.min() for p in psrs)
     t1 = max(p.toas.max() for p in psrs)
     lowered = [lower_terms(p, tl, common_grid=(t0, t1 - t0))
@@ -93,6 +91,38 @@ def make_os_fn(psrs, termlists, fixed_values=None, gamma_gw=_GAMMA_GW,
     one = torch.ones(1, dtype=F64, device=device)
     phihat = powerlaw_psd(dev(freqs), dev(df), 0.0 * one,
                           gamma_gw * one)[0]
+    return per_psr, phihat, sampled
+
+
+def os_noise(theta, pp):
+    """One pulsar's white-noise variances ``nw`` (D, ntoa) and prior
+    variances ``phi`` (D, nb) at draws ``theta`` (D, ndim); ``pp`` is its
+    entry of :func:`os_inputs`. The timing-model columns take
+    ``_TM_PHI``."""
+    nw = eval_nw(theta, pp["wb"], pp["ntoa"], pp["sigma2"])
+    phi = torch.cat([eval_block_phi(theta, bb) for bb in pp["bb"]],
+                    dim=-1) * pp["cs2"]
+    return nw, torch.cat([phi, torch.full(
+        (theta.shape[0], pp["ntm"]), _TM_PHI, dtype=F64,
+        device=theta.device)], dim=-1)
+
+
+def make_os_fn(psrs, termlists, fixed_values=None, gamma_gw=_GAMMA_GW,
+               device="cuda"):
+    """Build ``os_pairs(theta) -> (rho, sig)`` over all pulsar pairs.
+
+    Returns ``(fn, pairs, xi, sampled)``: ``fn`` takes one parameter
+    vector (ndim,) or a batch of draws (D, ndim) and returns numpy
+    float64 ``rho`` and ``sig``, (npairs,) or (D, npairs), pairs in the
+    reference's order ``(a, b), a < b``; ``xi`` are the pairs' angular
+    separations."""
+    device = resolve_device(device)
+    per_psr, phihat, sampled = os_inputs(psrs, termlists, fixed_values,
+                                         gamma_gw, device)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=F64,
+                               device=device)
 
     npsr = len(psrs)
     pairs = [(a, b) for a in range(npsr) for b in range(a + 1, npsr)]
@@ -105,12 +135,7 @@ def make_os_fn(psrs, termlists, fixed_values=None, gamma_gw=_GAMMA_GW,
     def per_pulsar_XZ(theta, pp):
         """``X`` (D, k) and ``Z`` (D, k, k) of one pulsar at draws
         ``theta`` (D, ndim)."""
-        D = theta.shape[0]
-        nw = eval_nw(theta, pp["wb"], pp["ntoa"], pp["sigma2"])
-        phi = torch.cat([eval_block_phi(theta, bb) for bb in pp["bb"]],
-                        dim=-1) * pp["cs2"]
-        phi = torch.cat([phi, torch.full((D, pp["ntm"]), _TM_PHI,
-                                         dtype=F64, device=device)], dim=-1)
+        nw, phi = os_noise(theta, pp)
         T = pp["T"]
         w = 1.0 / nw
         Tw = T * w[..., None]                           # (D, ntoa, nb)

@@ -21,19 +21,25 @@ Inputs are made from a seed with numpy and go through both packages:
   reference's own float64 class, for the low-rank ORFs' conditioning);
 - ``examples/example_params/gwb_array.dat`` through both packages'
   ``init_model_likelihoods``: the same ``param_names`` and
-  ``noise_pairs``; at prior draws the reference's algebra in the port
-  (the split Gram, the clamp) in the Schur class of the reference's, and
-  the port's lnL (its float64 Gram, the float64 redo of flagged pairs:
-  ``parallel/pta.py``, ``CORNER_C``) in the class of its dense float64
-  oracle and, bit for bit, its clamp path's on every walker with no pair
-  flagged; the dense oracles within rtol 1e-9 at near-typical points;
+  ``noise_pairs``; at prior draws the port's lnL (its float64 Gram, the
+  float64 redo of flagged pairs: ``parallel/pta.py``, ``CORNER_C``) in
+  the Schur class of the JAX package's dense float64 oracle and of the
+  port's, and, bit for bit, its clamp path's on every walker with no
+  pair flagged; the reference's algebra in the port (the split Gram,
+  the clamp) in the Schur class of the reference's; the dense oracles
+  within rtol 1e-9 at near-typical points;
 - at a prior corner of ``gwb_array.dat`` (``GWB_CORNER``) the
   reference's split Schur path lies 3.9e10 above float64 (its stage-2
   clamp; ``ROADMAP.md`` Queue 3) and so does its algebra in the port;
   the port's likelihood, one pair flagged and redone in float64, lies in
-  the class of the dense float64 oracle: the port's departure from the
-  reference, recorded; unflagged pairs and walkers keep the clamp path's
-  values bit for bit;
+  the class of the JAX package's dense float64 oracle and the port's:
+  the port's departure from the reference, recorded; unflagged pairs and
+  walkers keep the clamp path's values bit for bit;
+- ``chip_smoke.py:corner_scan`` (the card's corner scan) on 400 prior
+  draws: the reference's algebra in the port mostly outside the class of
+  float64 and often far above it, in the class of the JAX package's
+  split path; the port's lnL far above at none, outside at few, against
+  either package's float64 oracle (the two within 1e-4);
 - ``MultiPulsarLikelihood`` (a ``gwb`` with no ORF): lnL within rtol
   1e-9 of the reference's in float64, the same names and pairs;
 - the port's CLI on ``gwb_array.dat`` (40 steps on the CPU) and its
@@ -294,12 +300,18 @@ def test_gwb_array_paramfile_matches_jax(gwb_array):
     rng = np.random.default_rng(5)
     u = rng.uniform(size=(W, ts.ndim))
     th = ts.from_unit(torch.as_tensor(u)).numpy()
-    # at prior draws the reference's algebra in the port (the split Gram
-    # and the clamp alone) lies in the Schur class of the reference's; the
-    # port's likelihood (float64 Gram, the float64 redo of flagged pairs:
-    # parallel/pta.py, CORNER_C) keeps the clamp path's value bit for bit
-    # on every walker with no pair flagged, and lies in the class of the
-    # port's dense float64 oracle at every draw
+    # at prior draws the port's likelihood (float64 Gram, the float64 redo
+    # of flagged pairs: parallel/pta.py, CORNER_C) lies in the Schur class
+    # of the JAX package's dense float64 oracle (the reference's own split
+    # Schur path lies outside it there: its float32 corners); the
+    # reference's algebra in the port (the split Gram and the clamp
+    # alone) lies in the Schur class of the reference's; the port's
+    # likelihood keeps the clamp path's value bit for bit on every walker
+    # with no pair flagged, and lies in the class of the port's dense
+    # float64 oracle at every draw
+    lnl = ts.loglike_batch(th).numpy()
+    _in_class(lnl, np.asarray(j_init(jp, gram_mode="f64", write_pars=False)[0]
+                              .loglike_batch(th)))
     st, t = ts._stages, ts.as_theta(th)
     com = st["common"](t, gram="split")
     ref = st["stage12"](com[0], com[1], com[5], corner_c=None)
@@ -308,7 +320,6 @@ def test_gwb_array_paramfile_matches_jax(gwb_array):
     com = st["common"](t)
     clamp = st["stage12"](com[0], com[1], com[5], corner_c=None)
     l_clamp = st["stage3"](t, clamp, *com[2:5]).numpy()
-    lnl = ts.loglike_batch(th).numpy()
     keep = (clamp["ev_ratio"] >= CORNER_C).all(dim=1).numpy()
     assert keep.any() and not keep.all()
     np.testing.assert_array_equal(lnl[keep], l_clamp[keep])
@@ -344,16 +355,22 @@ def test_gwb_corner_shared_with_reference(gwb_array):
     3.885e10 there, and so does the reference's algebra in the port (the
     split Gram and the clamp); the port's likelihood (the float64 Gram,
     J0042-0000's pair flagged and redone in float64) lies within the
-    class of the dense float64 oracle."""
+    class of the JAX package's dense float64 oracle and of the port's."""
     jp, tp = gwb_array
     row = np.asarray([GWB_CORNER])
     ref = float(t_init(tp, gram_mode="f64", write_pars=False,
                        device="cpu")[0].loglike_batch(row)[0])
     jval = float(np.asarray(j_init(jp, write_pars=False)[0]
                             .loglike_batch(row))[0])
+    j64 = float(np.asarray(j_init(jp, gram_mode="f64", write_pars=False)[0]
+                           .loglike_batch(row))[0])
     like = t_init(tp, write_pars=False, device="cpu")[0]
     tval = float(like.loglike_batch(row)[0])
     assert np.isfinite(ref) and jval == pytest.approx(3.885e10, rel=1e-3)
+    # the port's likelihood there: within the class of the JAX package's
+    # dense float64 oracle, where the reference's lies 3.9e10 above it
+    _in_class(tval, j64)
+    assert jval > j64 + 1e9
     # the reference's algebra in the port reproduces the reference's
     # value, corner and all, with J0042-0000's complement indefinite
     st = like._stages
@@ -367,8 +384,7 @@ def test_gwb_corner_shared_with_reference(gwb_array):
     clamp = st["stage12"](com[0], com[1], com[5], corner_c=None)
     flagged = (clamp["ev_ratio"][0] < CORNER_C).tolist()
     assert flagged == [False, True]
-    # the port's likelihood: within the class of float64
-    assert tval < ref + 1e3
+    # and within the class of the port's own float64 oracle
     _in_class(tval, ref)
     # and the float64 Schur algebra is right there
     tl = t_build(tp.psrs, _termlists(tp), gram_mode="f64",
@@ -399,6 +415,45 @@ def test_unflagged_pairs_bit_for_bit(gwb_array):
     keep = torch.ones(W, dtype=torch.bool)
     keep[3] = False
     assert torch.equal(lnl[keep], l_clamp[keep])
+
+
+def test_corner_scan_on_prior_draws(gwb_array):
+    """``chip_smoke.py:corner_scan``, the scan the card runs, on the CPU
+    at 400 prior draws of ``gwb_array.dat`` (seed 0): the reference's
+    algebra in the port agrees with the JAX package's split Schur path in
+    its class wherever both are finite and lies outside the class of
+    float64 at most draws, many far above; the port's likelihood at none
+    far above and at few outside, against the port's dense float64
+    oracle and the JAX package's alike; the two oracles within 1e-4 of
+    each other (at prior draws the float64 algebras of either package
+    spread by up to 4.7e-5 relative, 0.069 absolute)."""
+    import sys
+    sys.path.insert(0, REPO)
+    from chip_smoke import CORNER_FAR, corner_scan
+    jp, tp = gwb_array
+    like = t_init(tp, write_pars=False, device="cpu")[0]
+    oracle = t_init(tp, gram_mode="f64", write_pars=False, device="cpu")[0]
+    theta = like.sample_prior(np.random.default_rng(0), 400)
+    summary, arr = corner_scan(like, oracle, theta, chunk=100)
+    print(json.dumps(summary))
+    fin = np.isfinite(arr["lnl_f64"])
+    assert summary["finite_f64"] == fin.sum() >= 390
+    ref, rep = summary["reference"], summary["repaired"]
+    assert ref["out_of_class"] >= 200 and ref["far_above"] >= 40
+    assert rep["far_above"] == 0 and rep["out_of_class"] <= 10
+    assert summary["every_pair_f64"]["far_above"] == 0
+    np.testing.assert_array_equal(arr["lnl"][fin],
+                                  like.loglike_batch(theta[fin]).numpy())
+    j64 = np.asarray(j_init(jp, gram_mode="f64", write_pars=False)[0]
+                     .loglike_batch(theta[fin]))
+    np.testing.assert_allclose(arr["lnl_f64"][fin], j64, rtol=1e-4)
+    gap = arr["lnl"][fin] - j64
+    assert np.all(gap <= CORNER_FAR)
+    assert np.sum(np.abs(gap) > VAL_ATOL + VAL_RTOL * np.abs(j64)) <= 10
+    jref = np.asarray(j_init(jp, write_pars=False)[0].loglike_batch(theta))
+    both = fin & np.isfinite(jref) & (np.abs(jref) < 1e12)
+    gap = np.abs(arr["lnl_reference"][both] - jref[both])
+    assert np.mean(gap <= VAL_ATOL + VAL_RTOL * np.abs(jref[both])) >= 0.95
 
 
 def _termlists(params):
