@@ -62,6 +62,13 @@ class Pulsar:
     def Tspan(self) -> float:
         return float(self.toas.max() - self.toas.min())
 
+    def flagvals(self, flag: str):
+        """The sorted distinct non-empty values of ``-flag``."""
+        vals = self.flags.get(flag)
+        if vals is None:
+            return []
+        return sorted({str(v) for v in vals if str(v)})
+
     def flag_mask(self, flag: str, value: str) -> np.ndarray:
         """Boolean TOA mask for ``-flag value`` (the selection primitive)."""
         vals = self.flags.get(flag)

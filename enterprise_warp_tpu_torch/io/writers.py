@@ -1,18 +1,29 @@
-"""Run-artifact writers the samplers use: durable atomic JSON, chain
-tables, and checkpoint generations with sha256 sidecars.
+"""Writers: the samplers' run artifacts (durable atomic JSON, chain
+tables, checkpoint generations with sha256 sidecars) and tempo2 ``.par``
+/ ``.tim`` files.
 
-The subset of the reference package's ``io/writers.py`` (and its
-``native.write_table``) that the PT, HMC and nested samplers' on-disk
-contracts need.
+Counterpart of the reference package's ``io/writers.py`` (and its
+``native.write_table``). Simulated pulsars are plain :class:`Pulsar`
+containers, so writing one to disk needs native writers: tempo2
+``FORMAT 1`` (tim) and line-oriented ``KEY value [fit]`` (par), the
+grammar the parsers read, so write -> parse is lossless. From the same
+pulsar the files are byte for byte the reference's.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
+import math
 import os
 
 import numpy as np
+
+from .. import constants as const
+from .par import ParFile
+from .pulsar import Pulsar
+from .tim import TimFile
 
 
 def fsync_dir(path: str):
@@ -234,3 +245,205 @@ def atomic_write_json(path: str, obj, indent: int = 1, sort_keys=False,
             os.remove(tmp)
         raise
     return path
+
+
+def atomic_write_text(path: str, text: str):
+    """Atomic (tmp + same-directory rename) text write without the
+    durability fsyncs of :func:`atomic_write_json`: for artifacts that
+    are rewritten often and only scraped, where a reader must never see
+    a torn file but losing the last refresh to a power cut costs
+    nothing."""
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "w") as fh:
+            fh.write(text)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+        raise
+    return path
+
+
+def _rad_to_hms(rad: float) -> str:
+    hours = (rad % (2.0 * math.pi)) * 12.0 / math.pi
+    h = int(hours)
+    m = int((hours - h) * 60.0)
+    s = ((hours - h) * 60.0 - m) * 60.0
+    return f"{h:02d}:{m:02d}:{s:011.8f}"
+
+
+def _rad_to_dms(rad: float) -> str:
+    sign = "-" if rad < 0 else "+"
+    deg = abs(rad) * 180.0 / math.pi
+    d = int(deg)
+    m = int((deg - d) * 60.0)
+    s = ((deg - d) * 60.0 - m) * 60.0
+    return f"{sign}{d:02d}:{m:02d}:{s:010.7f}"
+
+
+def write_par(par: ParFile, path: str):
+    """Write a :class:`ParFile`. Keys parsed from a real file round-trip
+    through ``par.raw`` (lossless string values); synthetic ParFiles
+    (``sim.make_fake_pulsar``) fall back to the typed fields."""
+    lines = []
+
+    def emit(key, value, fit=None):
+        if fit is None:
+            fit = par.fit_flags.get(key, False)
+        tail = "  1" if fit else ""
+        lines.append(f"{key:<12} {value}{tail}")
+
+    emit("PSRJ", par.name or "J0000+0000", fit=False)
+    emit("RAJ", par.raw.get("RAJ", _rad_to_hms(par.raj)))
+    emit("DECJ", par.raw.get("DECJ", _rad_to_dms(par.decj)))
+    for key in ("F0", "F1", "F2", "DM", "DM1", "DM2", "PMRA", "PMDEC",
+                "PX", "PB", "A1", "ECC", "T0", "OM"):
+        attr = key.lower()
+        val = par.raw.get(key, getattr(par, attr, 0.0))
+        # zero-valued params are still emitted when present in the source
+        # or marked for fitting (their design-matrix column must survive)
+        if float(val) != 0.0 or key == "F0" or key in par.raw \
+                or par.fit_flags.get(key):
+            emit(key, repr(float(val)) if key not in par.raw else val)
+    for key in ("PEPOCH", "POSEPOCH", "DMEPOCH", "TZRMJD", "TZRFRQ"):
+        attr = key.lower()
+        val = par.raw.get(key, getattr(par, attr, 0.0))
+        if float(val) != 0.0:
+            emit(key, val, fit=False)
+    if par.tzrsite:
+        emit("TZRSITE", par.tzrsite, fit=False)
+    for key, val in (("UNITS", par.units), ("EPHEM", par.ephem),
+                     ("CLK", par.clk)):
+        if val:
+            emit(key, val, fit=False)
+    # pass through every remaining raw key so real .par metadata
+    # (START/FINISH, TRES, NE_SW, BINARY, ...) survives the round trip
+    handled = {ln.split()[0] for ln in lines} | {"PSR"}
+    for key, val in par.raw.items():
+        if key not in handled:
+            emit(key, val)
+    for jmp in par.jumps:
+        lines.append(f"JUMP -{jmp.flag} {jmp.flagval} {jmp.value!r} "
+                     f"{1 if jmp.fit else 0}")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def write_tim(tim: TimFile, path: str, flags_order=None):
+    """Write a :class:`TimFile` as tempo2 FORMAT 1."""
+    flags_order = flags_order or sorted(tim.flags)
+    with open(path, "w") as fh:
+        fh.write("FORMAT 1\n")
+        for i in range(len(tim)):
+            frac = tim.sec[i] / const.day
+            day = int(tim.mjd_int[i])
+            if frac >= 1.0 or frac < 0.0:    # normalize day overflow
+                shift = int(np.floor(frac))
+                day += shift
+                frac -= shift
+            mjd = f"{day}.{format(frac, '.17f')[2:]}"
+            # error column: %.10g preserves sub-1e-4-us uncertainties that
+            # a fixed %.4f would serialize as 0.0000 (reloading sigma=0
+            # then divides by zero in whiten_inputs)
+            row = (f"{tim.names[i]} {tim.freqs[i]:.6f} {mjd} "
+                   f"{tim.errs[i]:.10g} {tim.sites[i]}")
+            for k in flags_order:
+                v = str(tim.flags[k][i])
+                if v:
+                    row += f" -{k} {v}"
+            fh.write(row + "\n")
+
+
+def _align_to_pulses(dt: np.ndarray, par: ParFile) -> np.ndarray:
+    """Shift PEPOCH-relative arrival times (< half a period) onto integer
+    pulse numbers of the par's spin solution, so a zero-residual simulated
+    pulsar re-loads with zero phase residuals."""
+    phase = dt * (par.f0 + dt * par.f1 / 2.0)
+    n = np.round(phase)
+    for _ in range(3):          # Newton refinement (exact when f1 == 0)
+        dt = dt + (n - dt * (par.f0 + dt * par.f1 / 2.0)) \
+            / (par.f0 + dt * par.f1)
+    return dt
+
+
+def pulsar_to_timfile(psr: Pulsar, par: ParFile | None = None,
+                      apply_residuals: bool = True) -> TimFile:
+    """Render a (typically simulated) :class:`Pulsar` back into TOA form.
+
+    With ``apply_residuals`` the stored residuals are added to the arrival
+    times — the libstempo convention where injection perturbs the TOAs
+    themselves, so a later ``load_pulsar`` recovers the injected noise as
+    phase residuals. With ``par`` given, noise-free arrival times are first
+    aligned to that spin solution's pulse grid (sub-period shifts).
+
+    Precision: with ``par`` given, the (MJD-int, seconds) split is computed
+    relative to PEPOCH — never through absolute seconds — so the split adds
+    ~3e-8 s error over a 10 yr span. Without ``par`` the split is taken
+    relative to the first TOA's day for the same reason, but the absolute
+    ``psr.toas`` float64 representation itself carries ~1 us ulp at
+    MJD-scale seconds, which bounds the par=None round-trip precision.
+    """
+    n = len(psr)
+    if par is not None:
+        base = int(np.floor(par.pepoch))
+        dt = _align_to_pulses(
+            psr.toas - par.pepoch * const.day, par) \
+            + (par.pepoch - base) * const.day
+    else:
+        base = int(np.floor(psr.toas[0] / const.day))
+        dt = psr.toas - base * const.day
+    day_off = np.floor(dt / const.day).astype(np.int64)
+    mjd_int = base + day_off
+    sec = dt - day_off * const.day
+    if apply_residuals:
+        sec = sec + psr.residuals
+    flags = {k: np.asarray(v, dtype=object) for k, v in psr.flags.items()}
+    return TimFile(
+        names=np.array([f"{psr.name}_{i:05d}" for i in range(n)],
+                       dtype=object),
+        freqs=psr.freqs.astype(np.float64),
+        mjd_int=mjd_int,
+        sec=sec,
+        errs=psr.toaerrs * 1e6,
+        sites=np.array(["bat"] * n, dtype=object),
+        flags=flags,
+    )
+
+
+def _synthesize_par(psr: Pulsar) -> ParFile:
+    """A minimal phase-connectable par for a simulated pulsar: spin F0/F1
+    fitted (matching the quadratic design matrix of ``make_fake_pulsar``),
+    barycentric site, PEPOCH at the first TOA."""
+    par = ParFile()
+    par.name = psr.name
+    par.raj, par.decj = float(psr.raj), float(psr.decj)
+    par.f0 = getattr(psr.par, "f0", 100.0) if psr.par else 100.0
+    par.pepoch = float(np.floor(psr.toas.min() / const.day))
+    par.posepoch = par.dmepoch = par.pepoch
+    par.tzrsite = "bat"
+    par.units = "TDB"
+    par.fit_flags = {"F0": True, "F1": True}
+    par.raw["F1"] = "0.0"
+    return par
+
+
+def save_pulsar_pair(psr: Pulsar, datadir: str, apply_residuals=True):
+    """Write ``<datadir>/<name>.par`` + ``.tim`` for a simulated pulsar."""
+    os.makedirs(datadir, exist_ok=True)
+    par = psr.par if (psr.par and psr.par.raw) else _synthesize_par(psr)
+    if not par.fit_flags.get("F0"):
+        # never mutate the caller's ParFile: adjust a shallow working copy
+        par = copy.copy(par)
+        par.fit_flags = dict(par.fit_flags)
+        par.fit_flags["F0"] = True
+        par.fit_flags["F1"] = True
+    parfile = os.path.join(datadir, f"{psr.name}.par")
+    timfile = os.path.join(datadir, f"{psr.name}.tim")
+    write_par(par, parfile)
+    write_tim(pulsar_to_timfile(psr, par=par,
+                                apply_residuals=apply_residuals), timfile)
+    return parfile, timfile

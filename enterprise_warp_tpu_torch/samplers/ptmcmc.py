@@ -22,17 +22,23 @@ enterprise_warp_tpu.results`` reads a port run unchanged): ``chain_1.txt``
 rows are ``[theta..., lnpost, lnlike, accept_rate, pt_accept_rate]`` in
 ``%.18e``; ``pars.txt`` lists the parameters; ``cov.npy`` holds the jump
 covariance; ``state.npz`` (positions, generator state, adaptation state)
-provides resume. Randomness comes from one explicit ``torch.Generator``
-on the likelihood's device; the reference's threefry streams are not
-reproduced.
+provides resume; with ``writeHotChains`` each tempered rung appends its
+own ``chain_<T>.txt`` (the ladder is then pinned). Randomness comes from
+one explicit ``torch.Generator`` on the likelihood's device; the
+reference's threefry streams are not reproduced.
+
+Warm starts, as the reference's: ``anneal_init`` (an SMC-style tempered
+bridge 64 -> 2 with multinomial resampling, :meth:`PTSampler.anneal_init`)
+and ``advi_init`` (a variational fit whose draws seed the walkers,
+``init_x``), both skipped on resume.
 
 Not ported (a paramfile that asks for them gets ``NotImplementedError``):
-the ind/cg/kde/ns/flow proposal families, hot-chain files, annealed and
-variational warm starts.
+the ind/cg/kde/ns/flow proposal families.
 """
 
 from __future__ import annotations
 
+import glob
 import math
 import os
 import time
@@ -42,8 +48,9 @@ import numpy as np
 import torch
 
 from .. import F64
-from ..io.writers import (atomic_write_json, checkpoint_replace,
-                          resolve_checkpoint, write_table)
+from ..io.writers import (atomic_write_json, checkpoint_exists,
+                          checkpoint_replace, resolve_checkpoint,
+                          write_table)
 from ..utils.diagnostics import cache_hit_summary
 from ..utils.logging import get_logger
 from .evalproto import BLOCK_COMMON
@@ -91,14 +98,12 @@ class PTSampler:
                  tmax=None, init_cov=None, burn=0, adapt_ladder=True,
                  ladder_t0=1000.0, swap_target=0.25,
                  write_hot_chains=False, ind_weight=0, cg_weight=0,
-                 kde_weight=0, ns_weight=0, device=None):
+                 kde_weight=0, ns_weight=0, init_x=None, device=None):
         for name, w in (("ind", ind_weight), ("cg", cg_weight),
                         ("kde", kde_weight), ("ns", ns_weight)):
             if w:
                 raise NotImplementedError(
                     f"the {name} proposal family (weight {w}) {_LATER}")
-        if write_hot_chains:
-            raise NotImplementedError(f"writeHotChains {_LATER}")
         self.like = like
         self.outdir = outdir
         self.ntemps = int(ntemps)
@@ -117,8 +122,17 @@ class PTSampler:
         self.init_ladder = _temperature_ladder(self.ntemps, tmax)
         self.ladder_t0 = float(ladder_t0)
         self.swap_target = float(swap_target)
-        self.adapt_ladder = adapt_ladder
+        self.write_hot = bool(write_hot_chains)
+        # hot-chain files are named by rung temperature, which only a
+        # static ladder keeps meaningful: writeHotChains pins it
+        self.adapt_ladder = adapt_ladder and not self.write_hot
         self.init_cov = init_cov
+        # an optional warm start (e.g. ADVI posterior draws): rows are
+        # cycled over the walkers; non-finite starters are re-drawn from
+        # the prior as any others
+        self.init_x = None if init_x is None else np.atleast_2d(
+            np.asarray(init_x, dtype=float))
+        self._anneal_state = None
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
         # per-family cold-rung counters (this process only, not checkpointed)
@@ -138,8 +152,15 @@ class PTSampler:
         return torch.as_tensor(np.asarray(a), dtype=F64, device=self.device)
 
     def _fresh_state(self):
+        if self._anneal_state is not None:
+            # one-shot: a later fresh start re-anneals or draws anew
+            st, self._anneal_state = self._anneal_state, None
+            return st
         rng = np.random.default_rng(self.seed)
         x0 = self.like.sample_prior(rng, self.W)
+        if self.init_x is not None:
+            reps = int(np.ceil(self.W / len(self.init_x)))
+            x0 = np.tile(self.init_x, (reps, 1))[:self.W]
         lnl = self.like.loglike_batch(self._tensor(x0)).cpu().numpy()
         # re-draw walkers that landed on a non-finite corner
         for _ in range(20):
@@ -223,14 +244,18 @@ class PTSampler:
         return self._tensor(eigvecs), self._tensor(eigvals), \
             self._tensor(chol)
 
-    def _run_block(self, st, todo):
-        """Advance ``st`` by ``todo`` steps; returns the block's cold-rung
-        emissions ``(x (todo, nchains, nd), lnl, lnp)`` as numpy."""
+    def _run_block(self, st, todo, temps=None):
+        """Advance ``st`` by ``todo`` steps at the ladder's temperatures
+        (or at ``temps``, one per walker); returns the block's emissions
+        ``(x (todo, n, nd), lnl, lnp)`` as numpy, ``n`` the cold rung's
+        ``nchains`` walkers, or all ``W`` with ``writeHotChains``."""
         like, gen, dev = self.like, self.gen, self.device
         W, nd = self.W, self.ndim
         ntemps, nchains = self.ntemps, self.nchains
+        nrec = W if self.write_hot else nchains
         eigvecs, eigvals, chol = self._host_prep(st)
-        temps = self._tensor(np.repeat(st.ladder, nchains))
+        temps = self._tensor(np.repeat(st.ladder, nchains) if temps is None
+                             else temps)
         cum_p = self._tensor(np.cumsum(self.jump_probs))
         x, lnl, lnp, hist = st.x, st.lnl, st.lnp, st.history
         hist_len = st.hist_len
@@ -238,9 +263,9 @@ class PTSampler:
         sacc = torch.zeros(max(ntemps - 1, 1), dtype=F64, device=dev)
         fam_acc = torch.zeros(_NFAM, dtype=F64, device=dev)
         fam_prop = torch.zeros(_NFAM, dtype=F64, device=dev)
-        out_x = torch.empty((todo, nchains, nd), dtype=F64, device=dev)
-        out_l = torch.empty((todo, nchains), dtype=F64, device=dev)
-        out_p = torch.empty((todo, nchains), dtype=F64, device=dev)
+        out_x = torch.empty((todo, nrec, nd), dtype=F64, device=dev)
+        out_l = torch.empty((todo, nrec), dtype=F64, device=dev)
+        out_p = torch.empty((todo, nrec), dtype=F64, device=dev)
         mask_counts = torch.zeros(3, dtype=F64, device=dev)
         if self.use_maskstats:
             pb = torch.as_tensor(like.param_blocks, device=dev)
@@ -333,9 +358,9 @@ class PTSampler:
             # --- DE history ring: one cold walker per step ------------
             hist = hist.clone() if step_idx == 0 else hist
             hist[(hist_len + step_idx) % _HISTORY] = x[step_idx % nchains]
-            out_x[step_idx] = x[:nchains]
-            out_l[step_idx] = lnl[:nchains]
-            out_p[step_idx] = lnp[:nchains]
+            out_x[step_idx] = x[:nrec]
+            out_l[step_idx] = lnl[:nrec]
+            out_p[step_idx] = lnp[:nrec]
 
         st.x, st.lnl, st.lnp, st.history = x, lnl, lnp, hist
         st.accepted = acc
@@ -350,24 +375,103 @@ class PTSampler:
         self.mask_counts += mask_counts.cpu().numpy()
         return out_x.cpu().numpy(), out_l.cpu().numpy(), out_p.cpu().numpy()
 
+    def anneal_init(self, schedule=None, steps_per=100, resample=True,
+                    ess_frac=0.5, verbose=True):
+        """SMC-style tempered initialization of the walker ensemble.
+
+        Runs the ensemble through a decreasing likelihood-temperature
+        schedule (every walker at the same temperature per stage; by
+        default geometric, 64 -> 2), adapting the jump covariance from
+        each stage's emissions and resampling the walkers (multinomial,
+        from ``np.random.default_rng(seed + 7)``) where the incremental
+        importance weights toward the next temperature fall below
+        ``ess_frac`` of the ensemble in effective size; the final
+        ensemble becomes :meth:`sample`'s fresh start. No chain rows are
+        written; the counters and the step count are reset so the
+        measurement starts clean. A no-op where a checkpoint exists (a
+        resumed run must not re-anneal). Meant for one rung
+        (``ntemps == 1``); a PT ladder is a bridge of its own."""
+        if checkpoint_exists(self._ckpt_path):
+            return None
+        if schedule is None:
+            schedule = (64.0, 32.0, 16.0, 8.0, 4.0, 2.0)
+        rng = np.random.default_rng(self.seed + 7)
+        st = self._fresh_state()
+        for i, T in enumerate(schedule):
+            cold, _, _ = self._run_block(st, int(steps_per),
+                                         temps=np.full(self.W, float(T)))
+            flat = cold[:, :self.nchains].reshape(-1, self.ndim)
+            if flat.shape[0] > 10:
+                st.cov = 0.5 * st.cov + 0.5 * np.cov(flat.T)
+            next_T = schedule[i + 1] if i + 1 < len(schedule) else 1.0
+            if resample:
+                lw = (1.0 / next_T - 1.0 / T) * st.lnl.cpu().numpy()
+                lw -= lw.max()
+                w = np.exp(lw)
+                w /= w.sum()
+                ess = 1.0 / np.sum(w ** 2)
+                if ess < ess_frac * self.W:
+                    idx = torch.as_tensor(rng.choice(self.W, self.W, p=w),
+                                          device=self.device)
+                    st.x, st.lnl, st.lnp = st.x[idx], st.lnl[idx], \
+                        st.lnp[idx]
+                if verbose:
+                    _log.info("anneal T=%g: acc_ess=%.0f/%d maxlnl=%.1f", T,
+                              ess, self.W, float(st.lnl.max()))
+        # the measurement starts here
+        st.accepted = torch.zeros_like(st.accepted)
+        st.swaps_accepted = np.zeros(self.ntemps - 1)
+        st.swaps_proposed = np.zeros(self.ntemps - 1)
+        st.step = 0
+        self.fam_accept = np.zeros(_NFAM)
+        self.fam_propose = np.zeros(_NFAM)
+        self.mask_counts = np.zeros(3)
+        self._anneal_state = st
+        return st
+
     def _truncate_chain_to(self, step, thin, block_size):
-        """Resume repair: cut ``chain_1.txt`` back to the rows the
-        checkpointed ``step`` accounts for (each committed block of ``b``
-        steps appended ``ceil(b / thin) * nchains`` rows)."""
-        path = os.path.join(self.outdir, "chain_1.txt")
-        if not os.path.exists(path):
-            return
+        """Resume repair: cut every chain file (``chain_1.txt`` and the
+        hot rungs' ``chain_<T>.txt``) back to the rows the checkpointed
+        ``step`` accounts for (each committed block of ``b`` steps
+        appended ``ceil(b / thin) * nchains`` rows to each file)."""
         B = max(int(block_size), 1)
         n_full, r = divmod(int(step), B)
         want = self.nchains * (n_full * (-(-B // thin)) + (-(-r // thin)))
-        with open(path) as fh:
-            lines = [ln for ln in fh.read().splitlines()
-                     if len(ln.split()) == self.ndim + 4]
-        if len(lines) != want:
-            _log.info("resume repair: truncating chain_1.txt to %d rows "
-                      "(had %d)", want, len(lines))
-        with open(path, "w") as fh:
-            fh.write("".join(ln + "\n" for ln in lines[:want]))
+        for path in sorted(glob.glob(os.path.join(self.outdir,
+                                                  "chain_*.txt"))):
+            with open(path) as fh:
+                lines = [ln for ln in fh.read().splitlines()
+                         if len(ln.split()) == self.ndim + 4]
+            if len(lines) != want:
+                _log.info("resume repair: truncating %s to %d rows "
+                          "(had %d)", os.path.basename(path), want,
+                          len(lines))
+            with open(path, "w") as fh:
+                fh.write("".join(ln + "\n" for ln in lines[:want]))
+
+    def _write_hot(self, st, full_x, full_l, full_p, accepted):
+        """One ``chain_<T>.txt`` per tempered rung, the cold file's
+        columns taken rung-locally: the tempered lnpost (lnprior +
+        lnlike / T), lnlike, the rung's acceptance rate, and the swap
+        rate of the edge to the colder rung. A rung at T <= 1 (a
+        degenerate ladder) is statistically the cold chain, and its file
+        would collide with ``chain_1.txt``: it is skipped."""
+        for k in range(1, self.ntemps):
+            T_k = float(st.ladder[k])
+            if T_k <= 1.0:
+                continue
+            sl = slice(k * self.nchains, (k + 1) * self.nchains)
+            acc_k = float(np.mean(accepted[sl]) / max(st.step, 1))
+            swap_k = (float(st.swaps_accepted[k - 1])
+                      / max(st.swaps_proposed[k - 1], 1.0))
+            nrow = full_x.shape[0] * self.nchains
+            rows = np.concatenate([
+                full_x[:, sl].reshape(-1, self.ndim),
+                (full_p[:, sl] + full_l[:, sl] / T_k).reshape(-1, 1),
+                full_l[:, sl].reshape(-1, 1), np.full((nrow, 1), acc_k),
+                np.full((nrow, 1), swap_k)], axis=1)
+            write_table(os.path.join(self.outdir, f"chain_{T_k:.6g}.txt"),
+                        rows, append=True)
 
     # ---------------- public API --------------------------------------- #
     def sample(self, nsamp, resume=True, verbose=True, thin=1,
@@ -383,7 +487,12 @@ class PTSampler:
             self._truncate_chain_to(st.step, thin, block_size)
         else:
             st = self._fresh_state()
+            # a fresh run: truncate the cold chain and remove any stale
+            # hot-rung file of an earlier run in the same directory
             open(os.path.join(self.outdir, "chain_1.txt"), "w").close()
+            for path in glob.glob(os.path.join(self.outdir, "chain_*.txt")):
+                if os.path.basename(path) != "chain_1.txt":
+                    os.remove(path)
         chain_path = os.path.join(self.outdir, "chain_1.txt")
         np.savetxt(os.path.join(self.outdir, "pars.txt"),
                    self.like.param_names, fmt="%s")
@@ -408,9 +517,12 @@ class PTSampler:
                     st.ladder = np.concatenate(
                         [[1.0], 1.0 + np.cumsum(np.exp(log_gap))])
 
-            cs = cold[::thin]
-            cl = cold_lnl[::thin]
-            cp = cold_lnp[::thin]
+            full_x = cold[::thin]
+            full_l = cold_lnl[::thin]
+            full_p = cold_lnp[::thin]
+            cs = full_x[:, :self.nchains]
+            cl = full_l[:, :self.nchains]
+            cp = full_p[:, :self.nchains]
             # --- adapt covariance from recent cold samples ------------
             flat = cs.reshape(-1, self.ndim)
             if flat.shape[0] > 10 and st.step > self.burn:
@@ -432,6 +544,8 @@ class PTSampler:
                 cl.reshape(-1, 1), np.full((nrow, 1), acc_rate),
                 np.full((nrow, 1), swap_rate)], axis=1)
             write_table(chain_path, rows, append=True)
+            if self.write_hot:
+                self._write_hot(st, full_x, full_l, full_p, accepted)
             np.save(os.path.join(self.outdir, "cov.npy"), st.cov)
             if self.use_maskstats:
                 atomic_write_json(os.path.join(self.outdir,
@@ -478,16 +592,21 @@ def sampler_options(params):
     thin = int(getattr(params, "thin", skw.get("thin", 1)) or 1)
     if skw.get("Tmax") is not None:
         opts["tmax"] = float(skw["Tmax"])
-    for knob in ("advi_init", "anneal_init"):
-        if getattr(params, knob, skw.get(knob, False)):
-            raise NotImplementedError(f"{knob} {_LATER}")
     return opts, thin
+
+
+def _knob(params, name):
+    return getattr(params, name,
+                   getattr(params, "sampler_kwargs", {}).get(name, False))
 
 
 def run_ptmcmc(like, outdir, nsamp, params=None, resume=True, seed=0,
                verbose=True, **kw):
-    """Convenience entry honouring the paramfile's sampler settings;
-    returns the sampler."""
+    """Convenience entry honouring the paramfile's sampler settings,
+    the warm starts included (``advi_init``: a variational fit of
+    ``advi_steps`` steps, 800 by default, seeds the walkers;
+    ``anneal_init``: :meth:`PTSampler.anneal_init`; both skipped on
+    resume); returns the sampler."""
     opts = dict(seed=seed)
     thin = 1
     if params is not None:
@@ -498,8 +617,22 @@ def run_ptmcmc(like, outdir, nsamp, params=None, resume=True, seed=0,
             cov = _covm_from_csv(covm, like.param_names)
             if cov is not None:
                 opts["init_cov"] = cov
+        resuming = resume and checkpoint_exists(
+            os.path.join(outdir, "state.npz"))
+        if _knob(params, "advi_init") and not resuming:
+            from .vi import fit_advi
+            if verbose:
+                _log.info("advi_init: fitting variational warm start")
+            skw = getattr(params, "sampler_kwargs", {})
+            fit = fit_advi(like, steps=int(skw.get("advi_steps", 800)),
+                           mc=8, seed=seed)
+            opts["init_x"] = fit["samples"]
     opts.update(kw)
     sampler = PTSampler(like, outdir, **opts)
+    if params is not None and _knob(params, "anneal_init"):
+        if verbose:
+            _log.info("anneal_init: tempered warm start")
+        sampler.anneal_init(verbose=verbose)
     sampler.sample(nsamp, resume=resume, verbose=verbose, thin=thin)
     return sampler
 

@@ -1,11 +1,15 @@
 """Noise injection and fake-dataset generation.
 
-Counterpart of the part of ``enterprise_warp_tpu/sim/noise.py`` that the
-array fixtures need (numpy, built on the port's own ``Pulsar``,
-``ParFile``, ``fourier_design`` and ``df_from_freqs``): the power-law PSD
-``red_psd``, white-noise and Fourier-basis process injection, and
-libstempo-style fake pulsars and arrays. For a seed, every array equals
-the reference's bit for bit.
+Counterpart of ``enterprise_warp_tpu/sim/noise.py`` (numpy, built on the
+port's own ``Pulsar``, ``ParFile``, ``fourier_design`` and
+``df_from_freqs``), the native replacement of the reference's
+``libstempo_warp``: the PSD formulas (``red_psd``, ``dm_psd``,
+``red_v1_psd``, ``lorenzian_red_psd``), the per-backend PSD export and
+plot, white-noise and Fourier-basis process injection, the
+PAL2-noise-dict-driven ``add_noise`` with its backend-flag-convention
+detection, and libstempo-style fake pulsars and arrays. For a seed, every
+array equals the reference's bit for bit: the same numpy draws in the
+same order.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from ..io.pulsar import Pulsar
 from ..ops import fourier_design
 from ..ops.spectra import df_from_freqs
 
+_FLAG_CONVENTIONS = ("group", "f", "g", "sys", "be", "B")
+
 
 def red_psd(f, log10_A, gamma):
     """One-sided power-law PSD in s^3 (the reference's libstempo_warp
@@ -25,6 +31,86 @@ def red_psd(f, log10_A, gamma):
     A2 = 10.0 ** (2.0 * np.asarray(log10_A))
     return (A2 / (12.0 * np.pi ** 2) * const.fyr ** (gamma - 3.0)
             * np.asarray(f) ** -gamma)
+
+
+def dm_psd(f, log10_A, gamma):
+    """DM-noise PSD (the same shape; the chromatic scaling is applied per
+    TOA)."""
+    return red_psd(f, log10_A, gamma)
+
+
+def red_v1_psd(f, log10_A, gamma, fc):
+    """Power-law PSD with a low-frequency turnover at ``fc`` Hz, the
+    reference's v1 convention: ``A^2/(12 pi^2) fyr^(gamma-3)
+    (f+fc)^-gamma``."""
+    A2 = 10.0 ** (2.0 * np.asarray(log10_A))
+    return (A2 / (12.0 * np.pi ** 2) * const.fyr ** (gamma - 3.0)
+            * (np.asarray(f) + fc) ** -gamma)
+
+
+def lorenzian_red_psd(f, P, fc, alpha):
+    """Lorentzian red-noise PSD ``P / (1 + (f/fc)^2)^(alpha/2)``: flat
+    below the corner frequency ``fc``, power law ``-alpha`` above."""
+    return P / (1.0 + (np.asarray(f) / fc) ** 2) ** (alpha / 2.0)
+
+
+def added_noise_psd_to_vector(added_noise_psd_params, param="efac"):
+    """Per-backend dict -> ``(values, backends)`` vectors for white-noise
+    re-injection."""
+    vals, bckds = [], []
+    for backend, entry in added_noise_psd_params.items():
+        if isinstance(entry, dict) and param in entry:
+            vals.append(entry[param])
+            bckds.append(backend)
+    return vals, bckds
+
+
+def plot_noise_psd_from_dict(psr, psd_params, backends, ff, ax=None):
+    """Overlay per-backend white-noise levels, the red-noise PSD
+    (power law by ``A``/``gamma`` or Lorentzian by ``P``/``fc``/``alpha``)
+    and the DM-noise PSD at the pulsar's highest observing frequency.
+    Needs matplotlib, which is imported here and nowhere else."""
+    try:
+        import matplotlib.pyplot as plt
+    except ImportError as exc:
+        raise ImportError("plot_noise_psd_from_dict needs matplotlib, "
+                          "which is not installed") from exc
+
+    if ax is None:
+        _, ax = plt.subplots()
+    ff = np.asarray(ff)
+    for backend in backends:
+        wpsd = psd_params[backend]["rms_toaerr"] * 1e-6
+        ax.loglog(ff, np.repeat(wpsd, len(ff)),
+                  label=f"RMS white noise in {backend}")
+    red = psd_params.get("red")
+    if red:
+        if "A" in red:
+            ax.loglog(ff, red_psd(ff, np.log10(red["A"]), red["gamma"]),
+                      label=(f"Red noise, lgA="
+                             f"{np.log10(red['A']):.2f}, "
+                             f"gamma={red['gamma']:.2f}"))
+        elif "P" in red:
+            ax.loglog(ff, lorenzian_red_psd(ff, red["P"], red["fc"],
+                                            red["alpha"]),
+                      label=(f"Red noise, lgP={np.log10(red['P']):.2f},"
+                             f" alpha={red['alpha']:.2f}"))
+    dm = psd_params.get("dm")
+    if dm and "A" in dm:
+        # the timing perturbation of DM noise scales as nu^-2: at the
+        # highest observing frequency the chromatic factor is
+        # (1400 MHz / nu_max)^2
+        numax = float(np.max(psr.freqs))
+        scale = (1400.0 / numax) ** 2
+        ax.loglog(ff, scale ** 2 * dm_psd(ff, np.log10(dm["A"]),
+                                          dm["gamma"]),
+                  label=(f"DM noise at {numax:.0f} MHz, "
+                         f"lgA={np.log10(dm['A']):.2f}, "
+                         f"gamma={dm['gamma']:.2f}"))
+    ax.set_xlabel("Frequency [Hz]")
+    ax.set_ylabel("PSD [s^3]")
+    ax.legend(fontsize=7)
+    return ax
 
 
 def inject_white(psr: Pulsar, efac=None, equad_log10=None, flag=None,
@@ -71,6 +157,62 @@ def inject_basis_process(psr: Pulsar, log10_A, gamma, components=30,
         sig = sig * (fref / psr.freqs) ** chromatic_idx
     psr.residuals = psr.residuals + sig
     return (sig, coeffs) if return_coeffs else sig
+
+
+def _detect_flag_convention(psr: Pulsar, noise_dict: dict):
+    """The TOA flag whose values appear in the noise-dict keys."""
+    for flag in _FLAG_CONVENTIONS:
+        vals = psr.flagvals(flag)
+        if vals and any(any(v in key for key in noise_dict) for v in vals):
+            return flag, vals
+    return None, []
+
+
+def add_noise(psr: Pulsar, noise_dict: dict, components=30, seed=0,
+              inc_efac=True, inc_equad=True, inc_red=True, inc_dm=True):
+    """Inject the noise a PAL2-format noise dict describes into
+    ``psr.residuals``: per-backend efac/equad matched by flag convention,
+    then ``components``-mode red and DM processes, all drawn from
+    ``np.random.default_rng(seed)`` in the reference's order."""
+    rng = np.random.default_rng(seed)
+    flag, vals = _detect_flag_convention(psr, noise_dict)
+
+    efac, equad = {}, {}
+    for key, val in noise_dict.items():
+        for v in vals:
+            if v in key and "efac" in key:
+                efac[v] = val
+            elif v in key and "equad" in key:
+                equad[v] = val
+    unused = [v for v in vals if v not in efac and v not in equad]
+    if unused:
+        from ..utils.logging import get_logger
+        get_logger("ewt.sim").warning(
+            "backends with no noise-dict entry: %s", unused)
+
+    if inc_efac and efac:
+        inject_white(psr, efac=efac, flag=flag, rng=rng)
+    elif inc_efac:
+        inject_white(psr, efac=1.0, rng=rng)
+    if inc_equad and equad:
+        inject_white(psr, efac=0.0, equad_log10=equad, flag=flag, rng=rng)
+
+    def find(suffix_a, suffix_b):
+        a = [v for k, v in noise_dict.items() if k.endswith(suffix_a)]
+        b = [v for k, v in noise_dict.items() if k.endswith(suffix_b)]
+        return (a[0], b[0]) if a and b else (None, None)
+
+    if inc_red:
+        lgA, gam = find("red_noise_log10_A", "red_noise_gamma")
+        if lgA is not None:
+            inject_basis_process(psr, lgA, gam, components=components,
+                                 rng=rng)
+    if inc_dm:
+        lgA, gam = find("dm_gp_log10_A", "dm_gp_gamma")
+        if lgA is not None:
+            inject_basis_process(psr, lgA, gam, components=components,
+                                 chromatic_idx=2.0, rng=rng)
+    return psr
 
 
 def make_fake_pulsar(name="J0000+0000", ntoa=200, cadence_days=14.0,

@@ -18,7 +18,9 @@ package's.
   its error and S/N within rtol 1e-8 of the reference's
   ``OptimalStatisticWarp`` on the same chain; over the same 20 draws, S/N
   within 1e-5 absolute and A^2 within 1e-5 of the draw's A^2 error, NaN
-  at the same draws (``MARG_SNR_ATOL``).
+  at the same draws (``MARG_SNR_ATOL``);
+- against a long-double witness (``chip_smoke.py:os_longdouble``) at
+  seeded ill-conditioned draws (see its docstring).
 """
 
 import os
@@ -165,3 +167,74 @@ def test_optimal_statistic_needs_a_paramfile(tmp_path):
     with pytest.raises(ValueError, match="needs a paramfile"):
         tos.OptimalStatisticWarp(types.SimpleNamespace(result=str(tmp_path)),
                                  device="cpu")
+
+
+def _witness_array(fake, SM, TL):
+    """6 fake pulsars of 120 TOAs at one radio frequency with BASELINE
+    config 3's terms at fewer modes: efac and equad, spin noise (10
+    modes), DM noise (10; at one frequency its columns are the spin
+    columns', only the priors separate them) and a ``gwb``."""
+    psrs = fake(npsr=6, ntoa=120, seed=9)
+    rng = np.random.default_rng(9)
+    tls = []
+    for p in psrs:
+        p.residuals = p.toaerrs * rng.standard_normal(len(p))
+        m = SM(psr=p)
+        tls.append(TL(p, [m.efac("by_backend"), m.equad("by_backend"),
+                          m.spin_noise("powerlaw_10_nfreqs"),
+                          m.dm_noise("powerlaw_10_nfreqs"),
+                          m.gwb("hd_vary_gamma_5_nfreqs")]))
+    return psrs, tls
+
+
+def test_os_against_long_double_witness():
+    """The port's optimal statistic and the JAX package's, both float64 on
+    the CPU, against the reference's algebra in long double
+    (``chip_smoke.py:os_longdouble``), at 40 seeded draws spread about
+    typical noise values (efac sigma 0.3, log10 amplitudes and gammas
+    sigma 1) of an array with collinear spin and DM columns: the
+    equilibrated Sigma's condition number reaches 4.7e7 there. Each
+    result's ``max(|d rho|, |d sig|)`` from the witness, over its sig,
+    must lie within the repair's limit of ``chip_smoke.py``: max(2 x the
+    JAX package's distance, 1e-6).
+
+    No CPU draw separates the algebras. On 150 seeded prior draws of this
+    array (condition numbers up to 1e15) the reference's algebra, its
+    form on the equilibrated factor and the form without the
+    cancellation all lie 1e-3 to 1 sig from the witness, and the
+    reference's algebra in the two packages' float64 (torch's and XLA's
+    LAPACK calls) already differs by more than 2x at a quarter of them;
+    the card, where the factor's rounding differs from the CPU's, is
+    where ``chip_smoke.py:os_witness`` measures them."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import (OS_WITNESS_FACTOR, OS_WITNESS_FLOOR,
+                            os_longdouble)
+    jp, jt = _witness_array(j_fake, JSM, JTL)
+    tp, tt = _witness_array(t_fake, TSM, TTL)
+    jfn = jos.make_os_fn(jp, jt)[0]
+    tfn, _, _, sampled = tos.make_os_fn(tp, tt, device="cpu")
+    inputs = tos.os_inputs(tp, tt, device="cpu")
+    names = [p.name for p in sampled]
+    base = np.array([1.0 if n.endswith("efac") else -7.0 if "equad" in n
+                     else -13.0 if n.endswith("log10_A") else 3.5
+                     for n in names])
+    spread = np.where([n.endswith("efac") for n in names], 0.3, 1.0)
+    draws = base + spread * np.random.default_rng(1).standard_normal(
+        (40, len(names)))
+    rho, sig = tfn(draws)
+    kappas = []
+    for k, th in enumerate(draws):
+        rl, sl, kappa = os_longdouble(inputs, th)
+        rl, sl = rl.astype(float), sl.astype(float)
+        kappas.append(kappa)
+        jr, js = (np.asarray(v) for v in jfn(jnp.asarray(th)))
+
+        def dist(r, s):
+            return np.max(np.maximum(np.abs(r - rl), np.abs(s - sl)) / sl)
+        dj = dist(jr, js)
+        assert dist(rho[k], sig[k]) <= max(OS_WITNESS_FACTOR * dj,
+                                           OS_WITNESS_FLOOR), k
+        assert dj <= OS_WITNESS_FLOOR, k
+    assert max(kappas) > 1e7

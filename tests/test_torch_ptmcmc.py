@@ -121,9 +121,176 @@ def test_resume_continues_the_same_chain(tmp_path):
 def test_unported_families_raise(tmp_path):
     like = GaussianLike([0.0], [1.0])
     for kw in (dict(ind_weight=5), dict(kde_weight=1), dict(cg_weight=2),
-               dict(ns_weight=1), dict(write_hot_chains=True)):
+               dict(ns_weight=1)):
         with pytest.raises(NotImplementedError):
             PTSampler(like, str(tmp_path), **kw)
+
+
+def _injected_block(lnl_of, nchains, ndim):
+    """A stand-in for a sampler's ``_run_block`` that moves no walker and
+    sets each walker's lnL from its marker (column 0 of its position):
+    the anneal's resampling then sees the same injected lnL in both
+    packages."""
+    def run_block(st, todo, temps=None):
+        marker = np.asarray(st.x)[:, 0].astype(int)
+        lnl = lnl_of[marker]
+        st.lnl = torch.as_tensor(lnl) if torch.is_tensor(st.x) else lnl
+        cold = np.zeros((todo, nchains, ndim))
+        return cold, cold[..., 0], cold[..., 0]
+    return run_block
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_anneal_resampling_matches_jax(tmp_path, seed):
+    """``anneal_init``'s resampling, bit for bit the reference's: with the
+    same injected lnL at every stage (a spread of 0 to 60 nats over 16
+    walkers, so the ESS test resamples at the hot stages and not at all
+    of them), the same walkers survive in the same order; the counters
+    are reset and the step count is 0."""
+    import jax.numpy as jnp  # noqa: F401  (JAX on the CPU, 64-bit)
+    from enterprise_warp_tpu.samplers import PTSampler as JPTSampler
+    from test_samplers import GaussianLike as JGaussianLike
+    W, nd = 16, 2
+    lnl_of = -np.random.default_rng(seed).uniform(0.0, 60.0, W)
+    markers = np.stack([np.arange(W, dtype=float), np.zeros(W)], axis=1)
+    out = []
+    for mod, Like in ((PTSampler, GaussianLike), (JPTSampler,
+                                                  JGaussianLike)):
+        like = Like([0.0, 0.0], [1.0, 1.0], lo=-100, hi=100)
+        s = mod(like, str(tmp_path / mod.__module__), ntemps=1, nchains=W,
+                seed=seed)
+        s._run_block = _injected_block(lnl_of, W, nd)
+        st = s._fresh_state()
+        if torch.is_tensor(st.x):
+            st.x = torch.as_tensor(markers)
+            st.lnl = torch.as_tensor(lnl_of)
+            st.accepted = st.accepted + 3.0
+        else:
+            st.x, st.lnl = markers.copy(), lnl_of.copy()
+            st.accepted = st.accepted + 3.0
+        s._fresh_state = lambda st=st: st
+        s.fam_accept[:] = 5.0
+        st = s.anneal_init(verbose=False)
+        out.append(np.asarray(st.x)[:, 0])
+        assert st.step == 0 and float(np.sum(np.asarray(st.accepted))) == 0
+        assert not s.fam_accept.any() and not s.fam_propose.any()
+        assert not s.mask_counts.any()
+        assert s._anneal_state is st
+    np.testing.assert_array_equal(out[0], out[1])
+    # the resampling ran: some walkers were dropped, some duplicated
+    assert len(np.unique(out[0])) < W
+
+
+def test_anneal_init_one_shot_and_reset(tmp_path):
+    """The reference's ``test_anneal_init_one_shot_and_reset`` on the
+    port: the annealed ensemble is :meth:`sample`'s fresh start, consumed
+    once; with a checkpoint on disk, ``anneal_init`` is a no-op."""
+    like = GaussianLike([1.0, -1.0], [0.5, 0.5])
+    s = PTSampler(like, str(tmp_path), ntemps=1, nchains=32, seed=0)
+    st = s.anneal_init(schedule=[8.0], steps_per=50, verbose=False)
+    assert st.step == 0 and float(st.accepted.sum()) == 0
+    assert torch.isfinite(st.lnl).all()
+    x0 = st.x.clone()
+    calls = like.calls
+    s.sample(100, resume=False, verbose=False)
+    assert like.calls == calls + 100      # no fresh prior draw
+    assert s._anneal_state is None
+    chain = np.loadtxt(tmp_path / "chain_1.txt")
+    assert chain.shape == (100 * 32, 6)
+    assert not np.allclose(chain[:32, :2], x0.numpy())   # it moved on
+    assert s.anneal_init(schedule=[8.0], steps_per=50) is None
+
+
+def test_hot_chain_files(tmp_path):
+    """``writeHotChains`` on a two-rung run: the ladder is pinned, the
+    tempered rung writes ``chain_<T>.txt`` with the cold file's columns
+    taken rung-locally (the tempered lnpost, lnlike, the rung's
+    acceptance, the swap rate of its edge), the cold file is unchanged
+    in form, and a fresh run removes a stale hot file."""
+    like = GaussianLike([1.0, -1.0], [0.5, 0.5])
+    (tmp_path / "chain_9.txt").write_text("stale\n")
+    s = PTSampler(like, str(tmp_path), ntemps=2, nchains=4, seed=2,
+                  cov_update=50, write_hot_chains=True, tmax=3.0)
+    st = s.sample(100, resume=False, verbose=False, thin=5)
+    assert not s.adapt_ladder and list(st.ladder) == [1.0, 3.0]
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        ["chain_1.txt", "chain_3.txt", "cov.npy", "pars.txt", "state.npz",
+         "state.npz.sha256"] + (["state.prev.npz", "state.prev.npz.sha256"]
+                                if os.path.exists(tmp_path / "state.prev.npz")
+                                else []))
+    cold = np.loadtxt(tmp_path / "chain_1.txt")
+    hot = np.loadtxt(tmp_path / "chain_3.txt")
+    assert cold.shape == hot.shape == (100 // 5 * 4, 6)
+    theta, lnpost, lnl, acc, swap = (hot[:, :2], hot[:, 2], hot[:, 3],
+                                     hot[:, 4], hot[:, 5])
+    lp = like.log_prior(torch.as_tensor(theta)).numpy()
+    np.testing.assert_allclose(lnpost, lp + lnl / 3.0, rtol=1e-12)
+    np.testing.assert_allclose(
+        lnl, like.loglike_batch(torch.as_tensor(theta)).numpy(), rtol=1e-12)
+    accepted = st.accepted.numpy()
+    assert acc[-1] == pytest.approx(accepted[4:].mean() / 100)
+    assert swap[-1] == pytest.approx(st.swaps_accepted[0]
+                                     / st.swaps_proposed[0])
+    assert acc[-1] != cold[-1, 4]
+
+
+def test_resume_cuts_hot_chain_files(tmp_path):
+    """A run killed after a block's rows reached the chain files but
+    before its checkpoint: the resume cuts the cold file and every hot
+    rung's ``chain_<T>.txt`` back to the checkpoint, so both end as an
+    uninterrupted run's, with equal rows."""
+    like = GaussianLike([1.0, -1.0], [0.5, 0.5])
+    kw = dict(ntemps=2, nchains=4, seed=7, cov_update=100,
+              write_hot_chains=True, tmax=3.0)
+    PTSampler(like, str(tmp_path / "a"), **kw).sample(
+        600, resume=False, verbose=False)
+    PTSampler(like, str(tmp_path / "b"), **kw).sample(
+        300, resume=False, verbose=False)
+    for name in ("chain_1.txt", "chain_3.txt"):
+        path = tmp_path / "b" / name
+        rows = path.read_text().splitlines(keepends=True)
+        with open(path, "a") as fh:
+            fh.writelines(rows[-8:])
+    PTSampler(like, str(tmp_path / "b"), **kw).sample(
+        600, resume=True, verbose=False)
+    for name in ("chain_1.txt", "chain_3.txt"):
+        a = np.loadtxt(tmp_path / "a" / name)
+        b = np.loadtxt(tmp_path / "b" / name)
+        assert a.shape == b.shape == (600 * 4, 6)
+        np.testing.assert_array_equal(a[:, :2], b[:, :2])
+
+
+def test_run_ptmcmc_warm_starts(tmp_path, monkeypatch):
+    """``run_ptmcmc`` reads ``advi_init`` (the variational fit's draws seed
+    the walkers, ``advi_steps`` steps) and ``anneal_init`` from the
+    paramfile, and skips both on resume."""
+    from enterprise_warp_tpu_torch.samplers import ptmcmc, vi
+    like = GaussianLike([1.0, -1.0], [0.5, 0.5])
+    fits, anneals = [], []
+    real_fit = vi.fit_advi
+
+    def fit(like, steps, mc, seed):
+        fits.append(steps)
+        return real_fit(like, steps=steps, mc=mc, seed=seed)
+    monkeypatch.setattr(vi, "fit_advi", fit)
+    real_anneal = PTSampler.anneal_init
+
+    def anneal(self, **kw):
+        anneals.append(self.init_x is not None)
+        return real_anneal(self, schedule=[4.0], steps_per=20, **kw)
+    monkeypatch.setattr(PTSampler, "anneal_init", anneal)
+    params = types.SimpleNamespace(
+        sampler_kwargs=dict(ntemps=1, advi_init=True, advi_steps=30,
+                            anneal_init=True), covUpdate=50)
+    s = ptmcmc.run_ptmcmc(like, str(tmp_path), 60, params=params,
+                          resume=True, verbose=False)
+    assert fits == [30] and anneals == [True]
+    assert s.init_x.shape == (4096, 2)
+    assert np.loadtxt(tmp_path / "chain_1.txt").shape == (60 * 8, 6)
+    ptmcmc.run_ptmcmc(like, str(tmp_path), 80, params=params, resume=True,
+                      verbose=False)
+    assert fits == [30] and len(anneals) == 2    # the anneal was a no-op
+    assert np.loadtxt(tmp_path / "chain_1.txt").shape == (80 * 8, 6)
 
 
 def _joint_like():
