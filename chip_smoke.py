@@ -8,7 +8,9 @@ Phases (any failure exits non-zero before the result line):
 1. environment: torch/CUDA versions and ``nvidia-smi``'s card name and
    power limit;
 2. build: every hand-written kernel is compiled from
-   ``enterprise_warp_tpu_torch/ops/csrc`` with ``nvcc`` for ``sm_90a``;
+   ``enterprise_warp_tpu_torch/ops/csrc`` with ``nvcc`` for ``sm_90a``,
+   and the native IO core (``native/fastio.cpp``, the ``.tim`` parser and
+   chain tables) with ``g++`` into the port's ``_build/``: it must load;
 3. kernels vs plain versions: the megakernels' inputs are captured from
    the two real likelihoods of ``examples/example_params/system_noise.dat``
    (``--num 0``: J1234-5678, nb = 250, the solve kernel; ``--num 1``:
@@ -53,10 +55,10 @@ Phases (any failure exits non-zero before the result line):
    the plain version, and both designs are timed at the cap;
 5. main paths: ``enterprise_warp_tpu_torch.cli.main`` runs both pulsars
    of ``system_noise.dat`` (temporary copies of the paramfile with
-   ``nsamp: 2000``, so that the ``covUpdate``=1000 adaptation fires),
+   ``nsamp: 1200``, so that the ``covUpdate``=1000 adaptation fires),
    then the HMC path (``hmc_single_psr.dat --num 0`` at its full width,
-   64 chains and 16 leapfrog steps, with the ADVI warm start, 200 steps
-   of which 100 warmup), with the launch counters zeroed just before
+   64 chains and 16 leapfrog steps, with the ADVI warm start, 100 steps
+   of which 50 warmup), with the launch counters zeroed just before
    each run and read just after (the HMC run also where the ADVI warm
    start ends); the expected kernels must have launched in each run and
    phase, and the chain must be finite with a plausible acceptance rate.
@@ -77,7 +79,10 @@ Phases (any failure exits non-zero before the result line):
    each run's last likelihood-kernel inputs (per walker batch: the ADVI
    fit's 8 draws and the PT step's 16 walkers in the second) and the ADVI
    fit's last preconditioner input held against their plain versions,
-   each run with its rows in the ``kernels`` line;
+   each run with its rows in the ``kernels`` line. The same for ``--num
+   1`` with the ensemble families set in the paramfile (``IndWeight``,
+   ``CGWeight``, ``KDEWeight``, ``NSWeight``): every family proposed and
+   accepted on the cold rung, each family's acceptance printed;
 6. model selection, the sampled timing model and folded Grams: the CLI
    runs ``sampled_timing_model.dat --num 0`` (the solve kernel at
    (8, 40, 40) with k = 1; the likelihood kernel's route declines with no
@@ -87,7 +92,7 @@ Phases (any failure exits non-zero before the result line):
    from step to step; the per-call batch sizes and the share of samples
    in each ``nmodel`` bin are printed) and ``fixed_white_noise.dat --num
    0`` (Grams folded at build time: the solve kernel at (8, 250, 250),
-   no likelihood kernel), each with ``nsamp: 2000`` and its launch
+   no likelihood kernel), each with ``nsamp: 1200`` and its launch
    counts zeroed just before and read just after. Each kernel is held
    against its plain version on the inputs of the run's last step, where
    the chain stood then, walker by walker: a walker whose equilibrated
@@ -132,15 +137,24 @@ Phases (any failure exits non-zero before the result line):
    keeps or reverts a walker's whole Z), and the likelihood kernel at
    k = 33 (J1234-5678's basis S (334, 60) with a seeded 32-column timing
    model), each against its plain version within 5e-4. Then the CLI runs
-   ``gwb_array.dat --num 0`` (two pulsars, Hellings-Downs ``gwb``; 2000
-   steps): two solve-kernel launches per likelihood call (stage 1 at
+   ``gwb_array.dat --num 0`` (two pulsars, Hellings-Downs ``gwb``; 1200
+   steps; ``CGWeight``, ``KDEWeight`` and ``NSWeight`` set, every family
+   proposed and accepted): two solve-kernel launches per likelihood call
+   (stage 1 at
    (16, 20, 20), k 24; stage 3 at (8, 40, 40), k 1) and no other
-   kernel, each stage held walker by walker on the run's last inputs,
+   kernel, each stage held walker by walker on the run's last inputs
+   and, on every call of the run, the kernel's refined Z against float64
+   beside the plain version's (:func:`refine_floor`: the kernel, whose
+   residual is summed in float64, never the worse by more than twice plus
+   5e-4),
    the chain's largest lnL held against the float64 dense oracle on the
    CPU (5e-2 + 1e-7 |lnL|; outside it, ``corner_attribution`` prints the
    per-pulsar gaps and the smoke fails) with the CLI's own float64 check
    silent, ``mask_stats.json`` (the reference's keys; site + common +
-   full = nchains x steps; site + common = the cold prior draws), the
+   full = nchains x steps; site + common above the cold prior draws and
+   noise slides, which always stay in one block, by the cg and kde
+   subsets whose dimensions share one, and at most all of them), the
+   subset classes on the card against the reference's rule, the
    results CLI on the output. Then the float32 corners on the card: 400
    prior draws scored by the split Schur path (the reference's clamp,
    the float64 redo of flagged pairs) and by the dense float64 oracle on
@@ -157,11 +171,14 @@ Phases (any failure exits non-zero before the result line):
    (``make_fake_pta(45, 1000, seed 45)``, efac/equad, spin noise 30
    modes, DM noise 20, a Hellings-Downs ``gwb`` of 20 modes; 272
    parameters), written to ``.par``/``.tim`` by the port's
-   ``save_pulsar_pair`` and read back with their residuals
-   (:func:`config3_on_disk`), then a paramfile and noise-model JSON with
-   the same terms through the CLI (8 walkers, 2000 steps; its set-up wall
-   time printed apart from the sampling, and the verdict of its float64
-   check of the chain): one solve-kernel launch per call (stage 1 at
+   ``save_pulsar_pair`` and read back with their residuals, each
+   ``.tim`` parsed by the native core equal to the Python engine's
+   (integer MJDs, names, sites and flags exactly, seconds within 1e-9 s;
+   both engines timed) (:func:`config3_on_disk`), then a paramfile and
+   noise-model JSON with the same terms through the CLI (8 walkers, 1200
+   steps; its set-up wall time printed apart from the sampling, its TIM
+   engine the native core, and the verdict of its float64 check of the
+   chain): one solve-kernel launch per call (stage 1 at
    (360, 100, 100), k 44, held on the last inputs and timed phase by
    phase) and stage 3 (n = 1800) over the kernels' cap on the classic
    chain, counted as ``over-cap`` routes; two near-typical points
@@ -171,14 +188,35 @@ Phases (any failure exits non-zero before the result line):
    and full update timed at one theta); ``python -m
    enterprise_warp_tpu_torch.results --optimal_statistic 1`` on the
    paramfile; the optimal statistic (990 pairs) at the chain's median and
-   over 1000 of its draws on the card, timed and set against the same
+   over 250 of its draws on the card, timed and set against the same
    function on the CPU in float64, both measured against a long-double
    witness at the draws where they differ most (:func:`os_witness`), and
-   at 1000 near-typical draws and their median,
+   at 250 near-typical draws and their median,
    held there (rho and sig within 1e-6 of the CPU's sig); prior corners inset by
    1e-3 of the range give no NaN. Each joint path prints its stages'
    shares of a call (CUDA events);
-9. the ``kernels`` JSON line, one entry per kernel and main path that
+9. the north star's pipeline leg (``tools/north_star.py``, ``LEGS
+   ["pipeline"]``) on the port (:func:`run_north_star`): the
+   J1832-0836-scale pulsar of :func:`north_star_problem` (334 TOAs, 12
+   parameters), ``PTSampler`` with 256 chains on one rung and the
+   ensemble jump mix, ``anneal_init`` (64, 16, 4; 100 steps each), then
+   ``sample_to_convergence`` to ESS >= 1000 and R-hat <= 1.01 (checks
+   every 100 steps growing by 1.08, diagnostics on at most 2000 kept
+   steps), capped at 40000 steps, with the launch counts zeroed just
+   before and read just after: one likelihood-kernel launch at W 256 per
+   step. Held: convergence; every family's cold acceptance finite and
+   above 0; the posterior against ``NORTH_STAR.json``'s float64 CPU leg
+   by a copy of the reference's ``_posterior_match`` (:func:`
+   posterior_match`: adjusted mean shift <= 0.25 sigma, width ratio <=
+   1.25); the likelihood kernel against its plain version walker by
+   walker on the leg's last step (row ``mega_like@north_star``).
+   Printed: steps, wall and steady wall, ms per step, ESS per second,
+   the time of the anneal, the blocks, the chain writes, the host fits
+   and the checks, each family's acceptance, every parameter's shift and
+   ratio also against the TPU leg, and one more block of 50 steps under
+   ``torch.profiler`` (:func:`profile_block`: the device's busy share,
+   the kernels by device time);
+10. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``, after the smoke's wall time.
@@ -190,6 +228,7 @@ import collections
 import json
 import logging
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -217,9 +256,19 @@ ATOL = 5e-4
 # float64 value from it
 KAPPA_MAX = 1e4
 ARB_REL = KAPPA_MAX * 2.0 ** -23
+# the likelihood kernel's float32 Gram, on a walker arbitrated on its own
+# system: within this share of the worst-case rounding bound of float32
+# dot products (own_system). Run 13d of PR 13 read 0.03-0.07 on the
+# arbitrated walkers of the H100 80GB HBM3, so a Gram some 4x worse than
+# the kernel's own fails
+GRAM_BOUND_FRAC = 0.25
 # sampler steps per main-path run: past covUpdate = 1000, so the
-# covariance adaptation fires
-NSAMP = 2000
+# covariance adaptation fires (blocks of 1000 and 200 steps). The
+# earlier paths are cut to this depth so that the script, the north
+# star leg at its full targets included, ends well inside its 1200 s
+# limit on a card whose host is slower: at 2000 steps, 1000 optimal-
+# statistic draws and 200 HMC steps it ran past the limit (PERF.md)
+NSAMP = 1200
 # the reference's interpret-vs-XLA limits on the preconditioner trio
 # (tests/test_cholfuse.py): U, V, E
 CHOL_ATOL = (2e-5, 2e-4, 2e-5)
@@ -230,9 +279,9 @@ CHOL_ATOL = (2e-5, 2e-4, 2e-5)
 # in float32, as chol_precond_kernel sums it, is about 2e-2 there
 E_OWN_RTOL, E_OWN_ATOL = 1e-4, 1e-12
 # the HMC path: the paramfile's full width (64 chains, 16 leapfrog
-# steps), 200 steps of which 100 warmup (explicit, so run_hmc keeps it)
-# after the ADVI warm start (1500 steps of 16 draws)
-HMC_KEYS = dict(nsamp=200, warmup=100, nchains=64, n_leapfrog=16)
+# steps), 100 steps of which 50 warmup (explicit, so run_hmc keeps it)
+# after the ADVI warm start (1500 steps of 16 draws); cut as NSAMP is
+HMC_KEYS = dict(nsamp=100, warmup=50, nchains=64, n_leapfrog=16)
 # the main-path runs, each with its own launch counts
 PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
          "pt1": "system_noise.dat --num 1: PT-MCMC, 8 walkers",
@@ -250,8 +299,9 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
                    "800 live points, 160 walkers a call",
          "nested_live": "default_model_nested.dat --num 0: nested "
                         "sampling, the fresh live set of 800 prior draws",
-         "gwb": "gwb_array.dat --num 0: PT-MCMC over the joint "
-                "correlated-GWB likelihood of two pulsars, 8 walkers",
+         "gwb": "gwb_array.dat --num 0 with CGWeight, KDEWeight and "
+                "NSWeight: PT-MCMC over the joint correlated-GWB "
+                "likelihood of two pulsars, 8 walkers",
          "pta45": "BASELINE config 3, 45 fake pulsars of 1000 TOAs "
                   "written to .par/.tim by the port: the paramfile through "
                   "the CLI, PT-MCMC, 8 walkers",
@@ -261,6 +311,13 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
          "pta45_site": "BASELINE config 3: the evaluation cache's site "
                        "updates (CachedEvaluator, one theta, one pulsar "
                        "re-solved)",
+         "families": "system_noise.dat --num 1 with IndWeight, CGWeight, "
+                     "KDEWeight and NSWeight: PT-MCMC with the ensemble "
+                     "families, 8 walkers",
+         "north_star": "the north star's pipeline leg: J1832-0836-scale "
+                       "pulsar (334 TOAs, 12 parameters), 256 chains, SMC "
+                       "anneal, ensemble families, sample_to_convergence "
+                       "to ESS >= 1000 and R-hat <= 1.01",
          "wide_k": "seeded fixtures: right-hand sides wider than the refine "
                    "phase's 8-column panel (no main-path launches: the "
                    "paths' own rows carry those)"}
@@ -294,9 +351,13 @@ CORNER_FAR = 1e3
 CORNER_THRESHOLDS = (0.0, 1e-6)
 # the redo's cost: batches of a joint chain's rows timed
 REDO_BATCHES = 4
-# the optimal statistic at config 3: draws (the results CLI's default),
-# and its card-against-CPU limit on sig and on rho relative to sig
-OS_DRAWS = 1000
+# systems per batched eigenvalue call of refine_floor
+EIG_BATCH = 4096
+# the optimal statistic at config 3: the draws held against the CPU in
+# float64 (the results CLI's default is 1000; cut as NSAMP is, since the
+# CPU's float64 side takes some 50 s per 1000 draws), and its
+# card-against-CPU limit on sig and on rho relative to sig
+OS_DRAWS = 250
 OS_RTOL = 1e-6
 # the optimal statistic's factor (the reference's algebra) against a
 # long-double witness at the chain's draws, and the limit a repair must
@@ -339,6 +400,22 @@ CORNER = [0.0007849382887030049, 8.404088323451239, 4.915462071268632,
 # batch of the float64 re-scoring of the dead points
 PRIOR_DRAWS = 8000
 RESCORE_BATCH = 1000
+# the north star's pipeline leg (tools/north_star.py: LEGS["pipeline"],
+# TARGET_ESS, RHAT_MAX, META["diag_max_kept"]): 256 chains of one rung,
+# the ensemble jump mix, an SMC anneal, then convergence-gated sampling
+# to ESS >= 1000 and R-hat <= 1.01; NORTH_STAR_MAX_STEPS caps the phase
+NORTH_STAR_SAMPLER = dict(ntemps=1, nchains=256, seed=0, scam_weight=8,
+                          am_weight=2, de_weight=10, prior_weight=12,
+                          ind_weight=0, cg_weight=15, cg_k=3, kde_weight=18,
+                          ns_weight=35)
+NORTH_STAR_ANNEAL = dict(schedule=[64.0, 16.0, 4.0], steps_per=100)
+NORTH_STAR_GATE = dict(target_ess=1000.0, rhat_max=1.01, check_every=100,
+                       block_size=100, check_growth=1.08, diag_max_kept=2000)
+NORTH_STAR_MAX_STEPS = 40000
+# the ensemble families through the CLI: the pipeline leg's weights for
+# cg, kde and ns, and an independence weight besides the paramfile's own
+FAMILY_KEYS = {"IndWeight": 10, "CGWeight": 15, "KDEWeight": 18,
+               "NSWeight": 35}
 # injected noise parameters of the example data (examples/
 # example_noisefiles/J1234-5678_noise.json; examples/make_example_data.py
 # for fake_psr_0); parameters with no injected value sit mid-prior
@@ -355,6 +432,42 @@ TRUTH = {
     "J0042-0000_efac": 1.0, "J0042-0000_red_noise_log10_A": -12.9,
     "J0042-0000_red_noise_gamma": 3.5,
 }
+
+
+class KeepSamplers:
+    """Keep every sampler the CLI's ``run_ptmcmc`` returns while it runs
+    (``samplers``), and the likelihood and parsed paramfile it was given
+    (``calls``)."""
+
+    def __enter__(self):
+        import enterprise_warp_tpu_torch.samplers as samplers_pkg
+        self.pkg, self.orig = samplers_pkg, samplers_pkg.run_ptmcmc
+        self.samplers, self.calls = [], []
+
+        def run(like, *a, **k):
+            self.calls.append((like, k.get("params")))
+            self.samplers.append(self.orig(like, *a, **k))
+            return self.samplers[-1]
+        samplers_pkg.run_ptmcmc = run
+        return self
+
+    def __exit__(self, *exc):
+        self.pkg.run_ptmcmc = self.orig
+
+
+def family_report(label, sampler, expect):
+    """Each proposal family's cold proposals and acceptance of a PT run;
+    every family in ``expect`` must have been proposed and accepted (a
+    finite rate above 0), and no other proposed."""
+    from enterprise_warp_tpu_torch.samplers.ptmcmc import _FAM_NAMES
+    rates = {n: (int(p), a / p if p else None) for n, a, p in zip(
+        _FAM_NAMES, sampler.fam_accept, sampler.fam_propose) if p}
+    print(f"{label}: cold proposals and acceptance per family {rates}")
+    if sorted(rates) != sorted(expect) or not all(
+            r is not None and 0 < r <= 1 for _, r in rates.values()):
+        fail(f"{label}: the families proposed and accepted are not "
+             f"{list(expect)}")
+    return rates
 
 
 def fail(msg):
@@ -517,9 +630,8 @@ class RecordBatches(Record):
 
 
 class RecordShapes(Record):
-    """:class:`Record` that keeps every call's inputs, per matrix order and
-    walker batch (``calls[(n, W)]``), beside the calls per order and
-    batch size."""
+    """:class:`Record` that also keeps every call's inputs, per matrix
+    order and walker batch (``calls[(n, W)]``)."""
 
     def __enter__(self):
         self.calls = collections.defaultdict(list)
@@ -527,6 +639,7 @@ class RecordShapes(Record):
         def rec(*args):
             n, W = args[0].shape[-1], args[self.batch_arg].shape[0]
             self.calls[(n, W)].append(args)
+            self.last[n] = args
             self.sizes[n][W] += 1
             return self.orig(*args)
         setattr(self.mk, self.name, rec)
@@ -671,11 +784,104 @@ def like_system(S32, w, s, ivb, Bn):
     return Sn, Bn
 
 
+def own_system(args):
+    """The likelihood kernel's own float32 systems on ``args``: its ``Sn``
+    as its Gram launch formed it (read from the workspace after one call
+    of ``mega_like_launch``), and per walker the largest ratio of |Sn -
+    Sn64| to the rounding-error bound of float32 dot products,
+    gamma_(ntoa+8) (s_i s_j (|Ss|^T |Ss|)_ij + |ivb_i| delta_ij) with
+    gamma_m = m u / (1 - m u), u = 2^-24 (Higham, Accuracy and Stability
+    of Numerical Algorithms, 3.1: the products, the square roots, the
+    scaling and the diagonal add), ``Sn64`` the system formed in float64
+    from the same float32 inputs. A float32 Gram lies within the bound
+    (ratio <= 1) whatever its summation order. Returns ``(Sn, ratio,
+    (Bn, j1, j2, refine))``."""
+    import torch
+    from enterprise_warp_tpu_torch.ops import cuda_lib
+    from enterprise_warp_tpu_torch.ops import megakernel as mk
+    S32, w, s, ivb, Bn, j1, j2, refine = args
+    (ntoa, nb), (B, _, k) = S32.shape, Bn.shape
+    lib = cuda_lib.load_library()
+    bufs = mk._mega_like_buffers(lib, Bn)
+    with torch.cuda.device(Bn.device):
+        rc = lib.mega_like_launch(
+            S32.data_ptr(), w.data_ptr(), s.data_ptr(), ivb.data_ptr(),
+            Bn.data_ptr(), *(t.data_ptr() for t in bufs[:4]), B, ntoa, nb,
+            k, float(j1), float(j2), int(refine),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fail(f"mega_like_launch returned cudaError {rc}")
+    Sn = bufs[4].clone()
+    Sn64, _ = like_system(S32, w, s, ivb, Bn)
+    Sa = S32.double().abs()[None] * torch.sqrt(w.double())[:, :, None]
+    sd = s.double().abs()
+    A = (torch.einsum("bik,bil->bkl", Sa, Sa) * sd[:, :, None]
+         * sd[:, None, :] + torch.diag_embed(ivb.double().abs()))
+    m = ntoa + 8
+    gamma = m * 2.0 ** -24 / (1.0 - m * 2.0 ** -24)
+    err = (Sn.double() - Sn64).abs()
+    ratio = torch.where(A > 0, err / (gamma * A),
+                        torch.where(err > 0, torch.inf, 0.0))
+    return Sn, ratio.flatten(1).amax(1), (Bn, j1, j2, refine)
+
+
 def bound(flops, nbytes):
     t_ops = flops / PEAK_F32_FLOPS
     t_mem = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem
                                      else "bytes")
+
+
+def refine_floor(label, calls):
+    """The solve kernel and its plain version against float64 on every
+    system of ``calls`` (the recorded inputs of one order): their errors
+    relative to each walker's largest |Z|, and on the walkers within the
+    condition bound the count where one lies more than twice as far from
+    float64 as the other plus ATOL. The kernel sums the refinement's
+    residual in float64, the plain version in float32 as the reference
+    does, so the kernel may never be the worse one."""
+    import torch
+    from enterprise_warp_tpu_torch.ops import megakernel as mk
+    Sn = torch.cat([c[0] for c in calls])
+    Bn = torch.cat([c[1] for c in calls])
+    j1, j2, refine = calls[-1][2:]
+    Zk = mk._mega_solve_cuda(Sn, Bn, j1, j2, refine)[0]
+    Zp = mk._mega_solve_torch(Sn, Bn, j1, j2, refine)[0]
+    S = Sn.double()
+    Za, info = torch.linalg.solve_ex(S, Bn.double())
+    # the 2-norm condition number of the symmetric systems, from their
+    # eigenvalues (a batched SVD of every system is slow), in batches of
+    # EIG_BATCH (cuSOLVER's batched eigensolver refused 32016 systems of
+    # order 20 at once); non-finite, singular or not positive definite:
+    # infinite
+    finite = torch.isfinite(S).flatten(1).all(1)
+    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+    ev = torch.cat([torch.linalg.eigvalsh(c) for c in
+                    torch.where(finite[:, None, None], S, eye)
+                    .split(EIG_BATCH)])
+    kappa = torch.where(finite & (ev[:, 0] > 0) & (info == 0),
+                        ev[:, -1] / ev[:, 0], torch.inf)
+    zmax = Za.abs().flatten(1).amax(1)
+    ek = (Zk.double() - Za).abs().flatten(1).amax(1)
+    ep = (Zp.double() - Za).abs().flatten(1).amax(1)
+    held = kappa <= KAPPA_MAX
+    qs = torch.tensor([0.5, 0.99, 0.999, 1.0], dtype=torch.float64,
+                      device=Sn.device)
+    kq = torch.quantile((ek / zmax)[held], qs).tolist()
+    pq = torch.quantile((ep / zmax)[held], qs).tolist()
+    k_worse = int((held & (ek > 2 * ep + ATOL)).sum())
+    p_worse = int((held & (ep > 2 * ek + ATOL)).sum())
+    print(f"{label}: the refined Z of {len(Sn)} systems {tuple(Sn.shape[1:])} "
+          f"({int(held.sum())} within cond {KAPPA_MAX:g}) against float64, "
+          f"|error| / max|Z| at the median, 0.99, 0.999 and max: kernel "
+          f"(float64 residual) {['%.2e' % q for q in kq]}, plain version "
+          f"(float32 residual) {['%.2e' % q for q in pq]}; walkers where "
+          f"the kernel lies more than twice as far from float64 as the plain "
+          f"version plus atol {k_worse}, the plain version so far from the "
+          f"kernel's {p_worse}")
+    if k_worse:
+        fail(f"{label}: the kernel's refined Z is less accurate than the "
+             "plain version's")
 
 
 def three_tier_fixture(torch, dev, n=16, k=2):
@@ -1315,6 +1521,160 @@ def wide_like_args(torch, args, ntm=32, seed=33, W=8):
             Bn.contiguous(), *args[5:])
 
 
+def north_star_problem(gram_mode, dev):
+    """The north star's single-pulsar problem, a copy of
+    ``tools/north_star.py:build_problem`` on the port: J1832-0836's scale
+    (334 TOAs, four backends, three radio frequencies), white noise
+    (efac 1.2, equad -6.5) and a red process (log10_A -13, gamma 3.5, 20
+    modes) injected from the same numpy generators, and the model efac +
+    equad by backend, spin and DM noise of 20 frequencies: 12 parameters.
+    """
+    from enterprise_warp_tpu_torch.models import (StandardModels, TermList,
+                                                  build_pulsar_likelihood)
+    from enterprise_warp_tpu_torch.sim.noise import (inject_basis_process,
+                                                     inject_white,
+                                                     make_fake_pulsar)
+    import numpy as np
+    psr = make_fake_pulsar(name="J1832-0836", ntoa=334,
+                           backends=("CPSR2m", "CPSR2n", "CASPSR", "DFB"),
+                           freqs_mhz=(700.0, 1400.0, 3100.0), seed=11)
+    psr.residuals = 0.0 * psr.toaerrs
+    inject_white(psr, efac=1.2, equad_log10=-6.5,
+                 rng=np.random.default_rng(1))
+    inject_basis_process(psr, log10_A=-13.0, gamma=3.5, components=20,
+                         rng=np.random.default_rng(2))
+    m = StandardModels(psr=psr)
+    terms = TermList(psr, [m.efac("by_backend"), m.equad("by_backend"),
+                           m.spin_noise("powerlaw_20_nfreqs"),
+                           m.dm_noise("powerlaw_20_nfreqs")])
+    return build_pulsar_likelihood(psr, terms, gram_mode=gram_mode,
+                                   device=dev)
+
+
+def run_north_star(dev, outdir):
+    """The north star's pipeline leg on the port, as
+    ``tools/north_star.py:run_leg`` drives it: :func:`north_star_problem`
+    at ``gram_mode="split"``, ``PTSampler`` with ``NORTH_STAR_SAMPLER``,
+    ``anneal_init`` with ``NORTH_STAR_ANNEAL``, then
+    ``sample_to_convergence`` with ``NORTH_STAR_GATE`` up to
+    ``NORTH_STAR_MAX_STEPS``. Returns the report, the sampler, the
+    leg's posterior in ``NORTH_STAR.json``'s form (``mean_err =
+    std / sqrt(ESS)``, as the reference computes it) and the wall times
+    of its parts (the anneal, the blocks, the chain-file writes on the
+    sampler's writer thread, which overlap the next block, the per-block
+    host fits and the convergence checks), in seconds."""
+    import torch
+    from enterprise_warp_tpu_torch.samplers import PTSampler
+    from enterprise_warp_tpu_torch.samplers import convergence
+    from enterprise_warp_tpu_torch.samplers import ptmcmc
+    parts = collections.Counter()
+
+    def timed(key, fn, sync=False):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            parts[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    t0 = time.perf_counter()
+    like = north_star_problem("split", dev)
+    parts["build_s"] = time.perf_counter() - t0
+    sampler = PTSampler(like, outdir, **NORTH_STAR_SAMPLER)
+    sampler._run_block = timed("blocks_s", sampler._run_block, sync=True)
+    sampler._host_prep = timed("host_fits_s", sampler._host_prep)
+    saved = (ptmcmc.write_table, convergence.summarize_chains)
+    ptmcmc.write_table = timed("chain_writes_s", ptmcmc.write_table)
+    convergence.summarize_chains = timed("checks_s",
+                                         convergence.summarize_chains)
+    checks = []
+    try:
+        t0 = time.perf_counter()
+        sampler.anneal_init(verbose=False, **NORTH_STAR_ANNEAL)
+        torch.cuda.synchronize()
+        parts["anneal_s"] = time.perf_counter() - t0
+        parts["blocks_s"] = 0.0
+        rep = convergence.sample_to_convergence(
+            sampler, max_steps=NORTH_STAR_MAX_STEPS, verbose=False,
+            on_check=lambda *a: checks.append(a), **NORTH_STAR_GATE)
+    finally:
+        ptmcmc.write_table, convergence.summarize_chains = saved
+    posterior = {k: {"mean": v["mean"], "std": v["std"],
+                     "mean_err": v["std"] / max(v["ess"], 1.0) ** 0.5}
+                 for k, v in rep.summary.items() if not k.startswith("_")}
+    parts["checks"] = len(checks)
+    return rep, sampler, posterior, dict(parts)
+
+
+def profile_block(sampler, start, steps):
+    """One more block of ``steps`` PT steps of ``sampler`` (continuing its
+    run from step ``start``) under ``torch.profiler``: the block's wall time, the device time
+    summed over its kernels, their ratio (the device's busy share; kernels
+    on two streams at once would count twice) and the kernels that took
+    most device time. ``None`` for the device figures where the profiler
+    records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    act = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        sampler.sample(start + steps, resume=True, verbose=False,
+                       block_size=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+    # the kernels themselves (a CPU op's device time repeats its kernels')
+    ev = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None) == DeviceType.CUDA
+          and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in ev) * 1e-6
+    top = sorted(ev, key=dev_us, reverse=True)[:8]
+    return dict(steps=steps, wall_s=wall,
+                device_s=busy if ev else None,
+                busy_share=busy / wall if ev else None,
+                top=[(e.key[:60], e.count, round(dev_us(e) * 1e-3, 3))
+                     for e in top])
+
+
+def posterior_match(leg, cpu_leg):
+    """A copy of ``tools/north_star.py:_posterior_match``: the worst mean
+    shift (in the larger sigma) and the worst width ratio of a leg's
+    posterior against the float64 CPU leg's, each also discounted by 2
+    sigma of the estimators' own noise (``mean_err``, ``std_err`` where a
+    leg reports them); ``match`` at the reference's gates, adjusted shift
+    <= 0.25 and adjusted ratio <= 1.25."""
+    worst_mean, worst_mean_adj = 0.0, 0.0
+    worst_ratio, worst_adj = 1.0, 1.0
+    for k, d in leg["posterior"].items():
+        c = cpu_leg["posterior"][k]
+        s = max(d["std"], c["std"], 1e-12)
+        shift = abs(d["mean"] - c["mean"]) / s
+        merr = ((d.get("mean_err", 0.0) ** 2
+                 + c.get("mean_err", 0.0) ** 2) ** 0.5) / s
+        worst_mean = max(worst_mean, shift)
+        worst_mean_adj = max(worst_mean_adj,
+                             max(0.0, shift - 2.0 * merr))
+        r = d["std"] / max(c["std"], 1e-12)
+        r = max(r, 1.0 / max(r, 1e-12))
+        rel = (d.get("std_err", 0.0) / max(d["std"], 1e-12)
+               + c.get("std_err", 0.0) / max(c["std"], 1e-12))
+        worst_ratio = max(worst_ratio, r)
+        worst_adj = max(worst_adj, r / (1.0 + 2.0 * rel))
+    match = worst_mean_adj <= 0.25 and worst_adj <= 1.25
+    return dict(match=match,
+                mean=round(worst_mean, 3),
+                mean_adj=round(worst_mean_adj, 3),
+                ratio=round(worst_ratio, 3),
+                ratio_adj=round(worst_adj, 3))
+
+
 def config3_array():
     """BASELINE config 3 at its full size (``tests/test_parallel.py:
     549-567``): ``make_fake_pta(npsr=45, ntoa=1000, seed=45)``, residuals
@@ -1396,6 +1756,55 @@ def config3_on_disk(tmp):
           f"{statistics.median(errs):.3e}; {sum(e > ROUNDTRIP_ATOL for e in errs)}"
           f" pulsars above the reference's {ROUNDTRIP_ATOL:g} s, all within "
           f"2 eps Tspan = {max(lims):.3e} s)")
+    # the native TIM engine against the Python engine on the written files
+    from enterprise_warp_tpu_torch import native
+    from enterprise_warp_tpu_torch.io.tim import parse_tim
+    if native.load() is None:
+        fail("config 3: the native IO core is not loaded")
+    secs = {"auto": 0.0, "python": 0.0}
+    dsec = 0.0
+    for p in psrs:
+        path = os.path.join(data, f"{p.name}.tim")
+        parsed = {}
+        for engine in secs:
+            t0 = time.perf_counter()
+            parsed[engine] = parse_tim(path, engine=engine)
+            secs[engine] += time.perf_counter() - t0
+        a, b = parsed["auto"], parsed["python"]
+        dsec = max(dsec, float(np.max(np.abs(a.sec - b.sec))))
+        same = (np.array_equal(a.mjd_int, b.mjd_int)
+                and np.array_equal(a.freqs, b.freqs)
+                and np.array_equal(a.errs, b.errs)
+                and list(a.names) == list(b.names)
+                and list(a.sites) == list(b.sites)
+                and sorted(a.flags) == sorted(b.flags)
+                and all(list(a.flags[k]) == list(b.flags[k]) for k in a.flags))
+        if not same or not dsec <= 1e-9:
+            fail(f"config 3: the native parse of {p.name}.tim differs from "
+                 f"the Python engine's (seconds {dsec:.3e})")
+    print(f"config 3 on disk: the {len(psrs)} .tim files parsed by the native "
+          f"core in {secs['auto']:.3f} s, by the Python engine in "
+          f"{secs['python']:.3f} s; equal (integer MJDs, frequencies, errors, "
+          f"names, sites, flags exactly; seconds within {dsec:.1e} s)")
+    # what the CLI's set-up spends on the pulsars (load_pulsar: .par, .tim,
+    # audit, timing model) through each TIM engine, in turns
+    import functools
+    from enterprise_warp_tpu_torch.io import pulsar as io_pulsar
+    loads = {"auto": [], "python": []}
+    try:
+        for engine in ("auto", "python", "auto", "python"):
+            io_pulsar.parse_tim = functools.partial(parse_tim, engine=engine)
+            t0 = time.perf_counter()
+            for p in psrs:
+                load_pulsar(*(os.path.join(data, f"{p.name}.{ext}")
+                              for ext in ("par", "tim")))
+            loads[engine].append(time.perf_counter() - t0)
+    finally:
+        io_pulsar.parse_tim = parse_tim
+    print(f"config 3 on disk: the {len(psrs)} pulsars loaded (load_pulsar) "
+          f"in {min(loads['auto']):.3f} s through the native TIM engine, "
+          f"{min(loads['python']):.3f} s through the Python engine (the "
+          f"better of two turns each; turns {loads})")
     nm = os.path.join(tmp, "pta45_noise.json")
     with open(nm, "w") as fh:
         json.dump(PTA45_MODEL, fh)
@@ -2024,6 +2433,12 @@ def main():
         return 1
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
+    laps = [t_start]
+
+    def lap(phase):
+        """Print the wall time of the phase that just ended."""
+        laps.append(time.perf_counter())
+        print(f"chip_smoke: phase {phase} took {laps[-1] - laps[-2]:.1f} s")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {card} "
           f"count {torch.cuda.device_count()}")
@@ -2041,14 +2456,27 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
+    # the host IO core (the .tim parser and the chain tables), no kernel
+    from enterprise_warp_tpu_torch import native
+    t0 = time.perf_counter()
+    if native.load() is None:
+        fail(f"the native IO core ({native.SRC}) did not build")
+    print(f"build: {os.path.relpath(native.SRC, HERE)} with g++ into "
+          f"{os.path.relpath(native.SO_PATH, HERE)} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # ---- phase 3: kernels vs plain versions at the main path's shapes ----
+    lap("1-2")
     from enterprise_warp_tpu_torch.ops import cholfuse as cf
     from enterprise_warp_tpu_torch.ops import routes
     from enterprise_warp_tpu_torch.samplers.ptmcmc import sampler_options
     # one entry of the ``kernels`` line per kernel and main path that
     # runs it, at that path's shapes
     results = {}
+    # per likelihood-kernel call held on a sampler's inputs: the largest
+    # ratio of its Gram's error to the float32 rounding bound, over every
+    # walker of the call
+    gram_ratios = {}
 
     def compare(entry, kern, plain, shape):
         """A megakernel against its plain version on the same CUDA inputs:
@@ -2072,13 +2500,22 @@ def main():
         """A megakernel against its plain version on the inputs a
         sampler's last step gave, wherever the chain stood, walker by
         walker. ``exact``: the float64 ``(Z, ld, cond)`` of the same
-        equilibrated systems. A walker whose
+        equilibrated systems, and for the likelihood kernel a fourth
+        item, :func:`own_system` of its inputs. A walker whose
         condition number is at most KAPPA_MAX is held: ``Z`` and ``ld``
-        within ATOL of the plain version's or, where float32 rounding of a
-        large ``Z`` puts the two further apart, the kernel at most twice
-        as far from float64 as the plain version plus ATOL and within
-        ARB_REL of the walker's largest float64 |Z| (and of max(1,
-        |ld|)). A walker above KAPPA_MAX (or whose system is not positive
+        within ATOL of the plain version's or, where float32 rounding
+        puts the two further apart, the kernel at most twice as far from
+        float64 as the plain version plus ATOL and within ARB_REL of the
+        walker's largest float64 |Z| (and of max(1, |ld|)). The
+        likelihood kernel is held there on its own float32 system: its
+        Gram within GRAM_BOUND_FRAC of the worst-case rounding bound of
+        float32 dot products (:func:`own_system`; the largest ratio over
+        every walker of the call is printed), and its solve of that system against the
+        plain version's solve of the same system and the float64 one
+        (two float32 Grams of a system at cond 1e3-1e4 move Z by up to
+        cond u |Z| in random directions, so the end-to-end comparison
+        could not tell a right kernel from a wrong one). A walker above
+        KAPPA_MAX (or whose system is not positive
         definite in float64, where the preconditioning Cholesky has no
         factor to find) is beyond what a float32 solve resolves: it is
         reported, and its outputs must only be finite; a call with no
@@ -2089,11 +2526,14 @@ def main():
         and the kernel's tiers."""
         Zk, ldk, tk = kern()
         Zp, ldp = plain()
-        Za, lda, kappa = exact()
+        Za, lda, kappa, *own = exact()
         torch.cuda.synchronize()
         if not (torch.isfinite(Zk).all() and torch.isfinite(ldk).all()):
             fail(f"{entry}: non-finite kernel output")
-        held, err = [], 0.0
+        held, err, split = [], 0.0, None
+        if own:
+            own = own[0]()
+            ratio = own[1]
         each = Zk.shape[0] <= 16
         for b in range(Zk.shape[0]):
             dz = float((Zk[b] - Zp[b]).abs().max())
@@ -2119,7 +2559,28 @@ def main():
                 print(line)
             if dz <= ATOL and dl <= ATOL:
                 continue
-            lim = (ARB_REL * zmax, ARB_REL * max(1.0, abs(float(lda[b]))))
+            lda_b = float(lda[b])
+            if own:
+                if split is None:
+                    Sn_k, _, (Bs, sj1, sj2, sref) = own
+                    split = (*mk._mega_solve_torch(Sn_k, Bs, sj1, sj2, sref),
+                             *exact_solve(Sn_k, Bs)[:2])
+                Zp2, ldp2, Za2, lda2 = split
+                fk = (float((Zk[b].double() - Za2[b]).abs().max()),
+                      float((ldk[b].double() - lda2[b]).abs()))
+                fp = (float((Zp2[b].double() - Za2[b]).abs().max()),
+                      float((ldp2[b].double() - lda2[b]).abs()))
+                zmax, lda_b = float(Za2[b].abs().max()), float(lda2[b])
+                print(f"{entry}, walker {b}, on the kernel's own float32 "
+                      f"system: its Gram {float(ratio[b]):.3f} of the "
+                      f"float32 rounding bound; from float64 kernel "
+                      f"{fk[0]:.3e} / {fk[1]:.3e}, the plain version's solve "
+                      f"{fp[0]:.3e} / {fp[1]:.3e}")
+                if not float(ratio[b]) <= GRAM_BOUND_FRAC:
+                    fail(f"{entry}, walker {b}: the kernel's Gram lies "
+                         f"beyond {GRAM_BOUND_FRAC:g} of the rounding bound "
+                         "of float32 dot products")
+            lim = (ARB_REL * zmax, ARB_REL * max(1.0, abs(lda_b)))
             if not all(k <= 2.0 * q + ATOL and k <= m
                        for k, q, m in zip(fk, fp, lim)):
                 fail(f"{entry}, walker {b}: kernel and plain version more "
@@ -2128,6 +2589,13 @@ def main():
                      f"atol or {ARB_REL:.3g} of the float64 value")
         if not held:
             fail(f"{entry}: no walker within the condition bound to hold")
+        if own:
+            gram_ratios[entry] = float(ratio[held].max())
+            print(f"{entry}: the kernel's Gram at most "
+                  f"{gram_ratios[entry]:.4f} of the float32 rounding bound "
+                  f"on the {len(held)} held walkers (median "
+                  f"{float(ratio[held].median()):.4f}; "
+                  f"{float(ratio.max()):.4f} over all {ratio.numel()})")
         print(f"{entry}: {len(held)} of {Zk.shape[0]} walkers held (cond "
               f"<= {KAPPA_MAX:g}; median cond "
               f"{float(kappa.median()):.3e}); held walkers' largest "
@@ -2230,7 +2698,8 @@ def main():
                 lambda: mk._mega_like_torch(*args),
                 f"S {tuple(args[0].shape)} w {tuple(args[1].shape)} Bn "
                 f"{tuple(args[4].shape)}",
-                lambda: exact_solve(*like_system(*args[:5])))
+                lambda: exact_solve(*like_system(*args[:5]))
+                + (lambda: own_system(args),))
 
     with tempfile.TemporaryDirectory() as tmp:
         prfile = write_paramfile(tmp, "system_noise.dat", nsamp=NSAMP)
@@ -2310,6 +2779,7 @@ def main():
             + [lj1, lj2, lrefine])
 
         # ---- phase 4: the gradient path and its kernels ------------------
+        lap("3")
         hmc_prfile = write_paramfile(tmp, "hmc_single_psr.dat", **HMC_KEYS)
         hlike = load_likes(hmc_prfile, 0, dev)[1][0]
         horacle = load_likes(hmc_prfile, 0, "cpu", gram_mode="f64")[1][0]
@@ -2513,6 +2983,7 @@ def main():
               + f" [{smi}]")
 
         # ---- phase 5: the main paths through the CLI ----------------------
+        lap("4")
         from enterprise_warp_tpu_torch import cli
         stats = []
         # launches per main-path run; the HMC run (while ``hmc`` is set)
@@ -2618,17 +3089,24 @@ def main():
         # inputs per walker batch, and the ADVI fit's last preconditioner
         # input, are held against the plain versions: each run's row at
         # the walker batch it gave most calls
-        for run, extra in (
-                ("anneal", {"anneal_init": True}),
-                ("hot", {"ntemps": 2, "writeHotChains": True,
-                         "advi_init": True})):
+        # The same for the ensemble families (ind, cg, kde, ns) set in the
+        # paramfile
+        for run, extra in (("anneal", {"anneal_init": True}),
+                           ("hot", {"ntemps": 2, "writeHotChains": True,
+                                    "advi_init": True}),
+                           ("families", FAMILY_KEYS)):
             wpf = write_paramfile(tmp, "system_noise.dat",
                                   dest=f"system_noise_{run}.dat",
                                   extra=extra, nsamp=NSAMP)
             with RecordBatches(mk, "mega_like", 1) as rec, \
-                    Capture(cf, "chol_precond") as cap_w:
+                    Capture(cf, "chol_precond") as cap_w, \
+                    KeepSamplers() as kept:
                 chain, launches[run], wdir = drive(wpf, 1, ["mega_like"])
             pt_report(f"--num 1 with {extra}", chain)
+            if run == "families":
+                family_report(f"--num 1 with {extra}", kept.samplers[-1],
+                              ("scam", "am", "de", "pd", "ind", "cg",
+                               "kde", "ns"))
             if len(rec.sizes) != 1:
                 fail(f"--num 1 with {extra}: the likelihood kernel ran at "
                      f"orders {sorted(rec.sizes)}")
@@ -2738,6 +3216,7 @@ def main():
 
         # ---- phase 6: model selection, the sampled timing model, folded
         # Grams, and the port's results CLI ------------------------------
+        lap("5")
         from enterprise_warp_tpu_torch.samplers import HyperModelLikelihood
 
         run_dirs = []
@@ -2873,6 +3352,7 @@ def main():
                 fail(f"the results CLI wrote no noise file for {d}")
 
         # ---- phase 7: nested sampling ------------------------------------
+        lap("6")
         from enterprise_warp_tpu_torch.samplers import nested as tnested
         nname = "default_model_nested.dat"
         npf = write_paramfile(tmp, nname)
@@ -3081,8 +3561,8 @@ def main():
             fail(f"the results CLI wrote no noise file for {nnd}")
 
         # ---- phase 8: the joint correlated-GWB likelihood ----------------
+        lap("7")
         from enterprise_warp_tpu_torch.parallel import build_pta_likelihood
-        from enterprise_warp_tpu_torch.samplers import run_ptmcmc
 
         # (a) right-hand sides wider than the refine phase's 8-column panel
         per_k = {}
@@ -3129,7 +3609,8 @@ def main():
             lg.addHandler(handler)
         # (b) gwb_array.dat through the CLI
         gname = "gwb_array.dat"
-        gpf = write_paramfile(tmp, gname, nsamp=NSAMP)
+        gfam = {k: v for k, v in FAMILY_KEYS.items() if k != "IndWeight"}
+        gpf = write_paramfile(tmp, gname, nsamp=NSAMP, extra=gfam)
         cli_warnings = []
 
         class Warnings(logging.Handler):
@@ -3138,19 +3619,9 @@ def main():
         wlog = logging.getLogger(f"{PKG}.cli")
         whandler = Warnings(logging.WARNING)
         wlog.addHandler(whandler)
-        import enterprise_warp_tpu_torch.samplers as samplers_pkg
-        gsamplers = []
-        run_pt = samplers_pkg.run_ptmcmc
-
-        def run_and_keep(*a, **k):
-            gsamplers.append(run_pt(*a, **k))
-            return gsamplers[-1]
-        samplers_pkg.run_ptmcmc = run_and_keep
-        try:
-            with Record(mk, "mega_solve_logdet", 0) as rec:
-                chain, launches["gwb"], gdir = drive(gpf, 0, ["mega_solve"])
-        finally:
-            samplers_pkg.run_ptmcmc = run_pt
+        with RecordShapes(mk, "mega_solve_logdet", 0) as rec, \
+                KeepSamplers() as gkept:
+            chain, launches["gwb"], gdir = drive(gpf, 0, ["mega_solve"])
         wlog.removeHandler(whandler)
         pt_report(gname, chain)
         sizes = {n: dict(sorted(c.items())) for n, c in
@@ -3192,23 +3663,53 @@ def main():
             fail(f"{gname}: the CLI's float64 check warned on a chain "
                  "within the class")
         # mask_stats.json: the reference's keys; the cold proposals, all
-        # counted; the maskable ones are the cold prior draws
+        # counted; the maskable ones are the cold prior draws and noise
+        # slides (each inside one block), and the cg and kde subsets whose
+        # dimensions share one block, which must be some of them
         ms = json.load(open(os.path.join(gdir, "mask_stats.json")))
         prop = ms["proposals"]
-        gs = gsamplers[-1]
-        print(f"{gname}: mask_stats.json {ms}; cold prior draws proposed "
-              f"{gs.fam_propose[3]:.0f} of {gs.nchains * NSAMP} cold "
-              "proposals")
+        gs = gkept.samplers[-1]
+        fp = gs.fam_propose
+        family_report(gname, gs, ("scam", "am", "de", "pd", "cg", "kde",
+                                  "ns"))
+        print(f"{gname}: mask_stats.json {ms}; cold proposals {fp[3]:.0f} "
+              f"prior draws, {fp[7]:.0f} noise slides, {fp[5]:.0f} cg and "
+              f"{fp[6]:.0f} kde subsets of {gs.nchains * NSAMP}")
+        maskable = prop["site"] + prop["common"]
         if (sorted(ms), sorted(prop)) != MASK_KEYS or \
                 prop["site"] + prop["common"] + prop["full"] != ms["total"] \
                 or ms["total"] != gs.nchains * NSAMP or \
-                prop["site"] + prop["common"] != gs.fam_propose[3]:
+                not fp[3] + fp[7] < maskable <= fp[3] + fp[5] + fp[6] + fp[7]:
             fail(f"{gname}: mask_stats.json is not the reference's record of "
                  "this run's cold proposals")
+        # the subset classes on the card against the reference's rule
+        # (samplers/ptmcmc.py:_mask_cls_subset) on gwb_array's blocks
+        from enterprise_warp_tpu_torch.samplers import ptmcmc as ptm
+        pbn = np.asarray(gs.like.param_blocks)
+        sub = np.stack([np.random.default_rng(i).permutation(len(pbn))[:3]
+                        for i in range(256)] + [
+            np.flatnonzero(pbn == b)[:3] for b in np.unique(pbn)
+            if (pbn == b).sum() >= 3])
+        pbt = torch.as_tensor(pbn, device=dev)
+        got = ptm.subset_class(pbt, ptm.block_classes(pbt),
+                               torch.as_tensor(sub, device=dev)).cpu()
+        want = [2 if len(set(pbn[t])) > 1 else 0 if pbn[t[0]] >= 0 else
+                1 if pbn[t[0]] == ptm.BLOCK_COMMON else 2 for t in sub]
+        agree = sum(g == w for g, w in zip(got.tolist(), want))
+        print(f"{gname}: subset classes on the card for {len(sub)} subsets "
+              f"against the reference's rule: {agree} equal; classes "
+              f"{dict(collections.Counter(want))}")
+        if got.tolist() != want:
+            fail(f"{gname}: a subset's update_mask class is not the "
+                 "reference's")
         for n, args in sorted(rec.last.items()):
             kern, plain, shape, exact = solve_calls(args)
             hold_last_step(f"mega_solve@gwb n={n}, the run's last step",
                            kern, plain, shape, exact)
+            refine_floor(f"mega_solve@gwb n={n}, every call of the run",
+                         [c for (m, _), cs in rec.calls.items() if m == n
+                          for c in cs])
+        del rec
         with Record(mk, "mega_solve_logdet", 0) as cap:
             glike.loglike_batch(th)
         for n, stage in ((20, "stage1"), (40, "stage3")):
@@ -3290,7 +3791,7 @@ def main():
         from enterprise_warp_tpu_torch.models.assemble import \
             build_terms_for_model
         pf45 = config3_on_disk(tmp)
-        kept, setups, verdicts = [], [], []
+        setups, verdicts = [], []
 
         class SetupLog(logging.Handler):
             def emit(self, record):
@@ -3304,26 +3805,29 @@ def main():
         shandler = SetupLog()
         clog.addHandler(shandler)
 
-        def run_and_keep45(like, outdir, nsamp, **k):
-            kept.append((like, k["params"]))
-            return run_pt(like, outdir, nsamp, **k)
-        samplers_pkg.run_ptmcmc = run_and_keep45
         try:
-            with Record(mk, "mega_solve_logdet", 0) as rec:
+            with Record(mk, "mega_solve_logdet", 0) as rec, \
+                    KeepSamplers() as kept45:
                 chain, launches["pta45"], out45 = drive(pf45, 0,
                                                         ["mega_solve"])
                 paths45 = dict(routes.ROUTES)
         finally:
-            samplers_pkg.run_ptmcmc = run_pt
             clog.removeHandler(shandler)
         for lg in loggers:
             lg.removeHandler(handler)
-        like45, params45 = kept[-1]
+        like45, params45 = kept45.calls[-1]
         psrs45 = params45.psrs
         tls45 = build_terms_for_model(params45.models[min(params45.models)],
                                       psrs45, params45.noise_model_obj)
         st45 = like45._stages
         setup = setups[-1]
+        if setup["tim_engine"] != "native":
+            fail("config 3: the CLI parsed the .tim files with the "
+                 f"{setup['tim_engine']} engine, not the native core")
+        print(f"config 3 set-up through the CLI: {setup['npsr']} pulsars "
+              f"parsed in {setup['pulsars_s']:.3f} s by the "
+              f"{setup['tim_engine']} TIM engine (PR 12's run, Python "
+              "engine: 0.316 s)")
         blocks = [st for st in stats if st["kind"] == "block_stats"]
         print(f"config 3 from disk through the CLI: {len(psrs45)} pulsars x "
               f"{PTA45['ntoa']} TOAs, {like45.ndim} parameters, NW "
@@ -3450,6 +3954,85 @@ def main():
         if torch.isnan(lc).any():
             fail("config 3: NaN at a prior corner")
 
+        # ---- phase 9: the north star's pipeline leg ----------------------
+        lap("8")
+        free = shutil.disk_usage(tmp).free
+        print(f"north star leg: {free / 2**30:.1f} GiB free for its chain "
+              "file")
+        with RecordBatches(mk, "mega_like", 1) as rec:
+            routes.reset_counts()
+            rep, nsam, post, parts = run_north_star(
+                dev, os.path.join(tmp, "out", "north_star"))
+            torch.cuda.synchronize()
+            launches["north_star"] = dict(routes.LAUNCHES)
+        W = nsam.W
+        n_ns = rec.last[W][0].shape[-1]
+        print(f"north star leg: launches {launches['north_star']}, "
+              f"likelihood-kernel calls per order and walker batch "
+              f"{ {n: dict(c) for n, c in rec.sizes.items()} }")
+        anneal_steps = len(NORTH_STAR_ANNEAL["schedule"]) \
+            * NORTH_STAR_ANNEAL["steps_per"]
+        if launches["north_star"]["mega_like"] < rep.steps + anneal_steps \
+                or rec.sizes[n_ns].get(W, 0) < rep.steps + anneal_steps:
+            fail("north star leg: not one likelihood-kernel launch at W "
+                 f"{W} per step")
+        wall = parts["anneal_s"] + rep.wall_s
+        from enterprise_warp_tpu_torch.samplers.ptmcmc import _FAM_NAMES
+        fam = {n: (a / p if p else None) for n, a, p, w in zip(
+            _FAM_NAMES, nsam.fam_accept, nsam.fam_propose,
+            nsam.jump_probs) if w > 0}
+        print(f"north star leg: converged {rep.converged} at {rep.steps} "
+              f"steps x {W} chains (R-hat {rep.rhat_max:.4f}, ESS "
+              f"{rep.ess_min:.1f}); wall {wall:.2f} s (anneal "
+              f"{parts['anneal_s']:.2f} s, sampling {rep.wall_s:.2f} s, "
+              f"steady {rep.steady_wall_s:.2f} s), "
+              f"{1e3 * rep.wall_s / rep.steps:.3f} ms/step, blocks "
+              f"{1e3 * parts['blocks_s'] / rep.steps:.3f} ms/step, ESS/s "
+              f"{rep.ess_min / wall:.2f}; parts {parts}; cold acceptance "
+              f"per family {fam} [{smi}]")
+        if not rep.converged:
+            fail(f"north star leg: not converged within "
+                 f"{NORTH_STAR_MAX_STEPS} steps")
+        if not all(a is not None and np.isfinite(a) and a > 0
+                   for a in fam.values()):
+            fail("north star leg: a family with weight accepted nothing")
+        with open(os.path.join(HERE, "NORTH_STAR.json")) as fh:
+            ns_ref = json.load(fh)
+        leg = {"posterior": post}
+        for other in ("cpu", "device"):
+            m = posterior_match(leg, ns_ref[other])
+            print(f"north star leg against NORTH_STAR.json's {other} leg "
+                  f"({ns_ref[other]['platform']}): {m}")
+            for k, d in post.items():
+                c = ns_ref[other]["posterior"][k]
+                sd = max(d["std"], c["std"])
+                print(f"  {k}: mean {d['mean']:.6g} ({c['mean']:.6g}), std "
+                      f"{d['std']:.6g} ({c['std']:.6g}), shift "
+                      f"{abs(d['mean'] - c['mean']) / sd:.3f} sigma, ratio "
+                      f"{d['std'] / c['std']:.3f}")
+            if other == "cpu" and not m["match"]:
+                fail("north star leg: the posterior does not match the "
+                     "float64 CPU leg of NORTH_STAR.json")
+        prof = profile_block(nsam, rep.steps, 50)
+        per = (f"{1e3 * prof['device_s'] / prof['steps']:.3f} ms/step on "
+               f"the device, busy share {prof['busy_share']:.3f}"
+               if prof["device_s"] is not None else
+               "device time not measured (the profiler recorded none)")
+        print(f"north star leg, one more block of {prof['steps']} steps "
+              f"under torch.profiler: wall {prof['wall_s']:.3f} s "
+              f"({1e3 * prof['wall_s'] / prof['steps']:.3f} ms/step), {per}; "
+              f"kernels by device time (name, calls, ms) {prof['top']} "
+              f"[{smi}]")
+        kern, plain, shape, exact = like_calls(tuple(
+            x.detach() if torch.is_tensor(x) else x for x in rec.last[W]))
+        hold_solve("mega_like@north_star", "north_star", kern, plain,
+                   lambda tiers, a=rec.last[W]: like_cost(a[0], a[4], a[7],
+                                                          tiers),
+                   shape, exact=exact, what="the leg's last step")
+        results["mega_like@north_star"]["batch_sizes"] = \
+            dict(rec.sizes[n_ns])
+        lap("9")
+
     kernels = []
     for entry, r in results.items():
         kname = entry.split("@")[0]
@@ -3467,6 +4050,12 @@ def main():
                     "batch_sizes", "per_k"):
             if key in r:
                 kernels[-1][key] = r[key]
+    if gram_ratios:
+        top = max(gram_ratios, key=gram_ratios.get)
+        print(f"the likelihood kernel's Gram on the held walkers of "
+              f"{len(gram_ratios)} sampler calls: at most "
+              f"{gram_ratios[top]:.4f} of the float32 rounding bound (at "
+              f"{top}; arbitrated walkers are held at {GRAM_BOUND_FRAC:g})")
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -101,12 +101,15 @@ def main(argv=None, device="cuda"):
     t_psr = time.perf_counter()
     likes = init_model_likelihoods(params, gram_mode=opts.gram_mode,
                                    device=device)
+    from .native import load as native_core
     setup = dict(paramfile_s=t_par - t0, pulsars_s=t_psr - t_par,
                  likelihood_s=time.perf_counter() - t_psr,
-                 npsr=len(params.psrs))
-    _log.info("set-up: paramfile %.3f s, %d pulsars parsed in %.3f s, "
-              "likelihood built in %.3f s", setup["paramfile_s"],
-              setup["npsr"], setup["pulsars_s"], setup["likelihood_s"],
+                 npsr=len(params.psrs),
+                 tim_engine="native" if native_core() else "python")
+    _log.info("set-up: paramfile %.3f s, %d pulsars parsed in %.3f s "
+              "(%s TIM engine), likelihood built in %.3f s",
+              setup["paramfile_s"], setup["npsr"], setup["pulsars_s"],
+              setup["tim_engine"], setup["likelihood_s"],
               extra={"setup_stats": setup})
     if params.setupsamp or opts.mpi_regime == 1:
         print("Preparations for the sampling are complete "

@@ -7,7 +7,8 @@ fixtures (``examples/data/*.tim``): one TOA per line,
     <archive-name> <freq MHz> <MJD> <uncertainty us> <site> [-flag value]...
 
 plus ``FORMAT``/``MODE`` headers, ``INCLUDE`` directives, and ``C``/``#``
-comment lines.
+comment lines, with two engines: the native C++ core (``native.py``) by
+default, and this module's Python engine as its fallback and oracle.
 
 Precision note: a TOA written with 17 fractional MJD digits
 carries more precision than one float64 (86400 s x 1e-16 rounds to ~0.5 us at
@@ -20,6 +21,7 @@ far below the ~1 us TOA uncertainties).
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -33,6 +35,14 @@ _DIRECTIVE_HEADS = {"EFAC", "EQUAD", "EMAX", "EMIN", "EFLOOR", "TIME",
                     "SKIP", "NOSKIP", "END", "TRACK", "PHASE", "JUMP",
                     "SIGMA", "FMIN", "FMAX"}
 _WARNED_HEADS: set = set()
+# after a newline, a line the walk skips before reading tokens: blank, a
+# '#', 'C ' or 'CN ' comment, a FORMAT or MODE header (case-folded only
+# where str.upper() agrees, so no line the walk reads is taken for one);
+# and a line that may be an INCLUDE. Each begins with the newline, so the
+# search jumps from line to line
+_SKIPPED_LINE = re.compile(
+    r"\n[^\S\n]*(?:(?=\n)|\Z|#|CN? [^\n]*\S|(?i:format|mode)(?=\s|\Z))")
+_INCLUDE_LINE = re.compile(r"\n[^\S\n]*(?i:include)(?=\s|\Z)")
 
 
 def _is_flag(tok: str) -> bool:
@@ -154,12 +164,71 @@ def _walk_tim(path, depth=0):
             yield path, lineno, toks, s
 
 
-def parse_tim(path: str) -> TimFile:
+def _validate_grammar(path):
+    """The typed-ParseError grammar check, without building arrays, over a
+    file the native core parsed (its reader skips lines it cannot read)."""
+    for p, lineno, toks, s in _walk_tim(path):
+        _check_toa_line(toks, p, lineno, s)
+
+
+def _walk_matches_native(path, n_native):
+    """:func:`_grammar_matches_native` through the line walk, INCLUDEs
+    followed."""
+    n = 0
+    for _, _, toks, _ in _walk_tim(path):
+        if len(toks) < 5:
+            return False
+        n += 1
+    return n == n_native
+
+
+def _grammar_matches_native(path, n_native):
+    """Cheap gate after a native parse: every candidate line TOA-shaped
+    (>= 5 tokens) and as many as the rows the core returned means it
+    skipped nothing, and the per-field typed walk is not needed. A short
+    line or a count mismatch returns False.
+
+    The core reads only candidate lines of five or more tokens, so its
+    rows equal the candidate lines exactly when none was short: the lines
+    of the file less those the walk skips (two regular-expression passes)
+    are counted against them. A file that may hold an ``INCLUDE`` takes
+    the walk, which follows it."""
+    with open(path) as fh:
+        text = "\n" + fh.read()
+    if _INCLUDE_LINE.search(text):
+        return _walk_matches_native(path, n_native)
+    return text.count("\n") - len(_SKIPPED_LINE.findall(text)) == n_native
+
+
+def parse_tim(path: str, engine: str = "auto") -> TimFile:
     """Parse a tempo2 FORMAT-1 .tim file (recursing into INCLUDEs).
 
-    This is the Python engine of the reference package's parser (its
-    behavioural oracle); the optional C++ core is not carried over.
+    ``engine``: 'auto' takes the native C++ core (``native.py``, built on
+    first use) and falls back to this module's Python engine, which stays
+    the behavioural oracle; 'python' forces the Python engine. A native
+    parse error re-parses through the Python engine, so the caller gets
+    its typed ``ParseError`` with file:line provenance.
     """
+    if engine not in ("auto", "python"):
+        raise ValueError(f"unknown engine {engine!r}: use 'auto' "
+                         "(native with Python fallback) or 'python'")
+    if engine == "auto":
+        from ..native import parse_tim_native
+        try:
+            parsed = parse_tim_native(path)
+        except ValueError:
+            parsed = None
+        if parsed is not None:
+            if not _grammar_matches_native(path, len(parsed[0])):
+                _validate_grammar(path)
+            freqs, mjd_i, sec, errs, names, sites, flags = parsed
+            tf = TimFile(
+                names=np.array(names, dtype=object),
+                freqs=freqs, mjd_int=mjd_i, sec=sec, errs=errs,
+                sites=np.array(sites, dtype=object))
+            tf.flags.update(flags)
+            return tf
+
     names, freqs, mjd_i, secs, errs, sites = [], [], [], [], [], []
     flag_rows: list[dict] = []
 

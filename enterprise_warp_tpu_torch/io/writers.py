@@ -21,6 +21,8 @@ import os
 import numpy as np
 
 from .. import constants as const
+# the chain-table writer: the native core's, with np.savetxt's fallback
+from ..native import write_table  # noqa: F401
 from .par import ParFile
 from .pulsar import Pulsar
 from .tim import TimFile
@@ -194,15 +196,6 @@ def resolve_checkpoint(path: str, what: str = "checkpoint"):
                         cand)
         return cand
     return None
-
-
-def write_table(path: str, arr, append: bool = True) -> None:
-    """``%.18e`` table write (chain files): np.savetxt's default row
-    format, the same text the reference package's native writer
-    produces."""
-    arr = np.ascontiguousarray(np.atleast_2d(arr), dtype=np.float64)
-    with open(path, "ab" if append else "wb") as fh:
-        np.savetxt(fh, arr)
 
 
 def atomic_write_json(path: str, obj, indent: int = 1, sort_keys=False,

@@ -123,23 +123,33 @@ __device__ float block_sum(float v, Smem& sm) {
   return r;
 }
 
+__device__ inline float fma_acc(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ inline double fma_acc(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
 // C (M x N, ldc) = C0 + alpha * op(A) op(B)   (C0 may be null: C = alpha AB)
 // op(A)(i, m) = ta ? A[m * lda + i] : A[i * lda + m]
 // op(B)(m, j) = tb ? B[j * ldb + m] : B[m * ldb + j]
-// 64 x 64 output tiles, 4 x 4 outputs per thread, depth steps of 16.
-__device__ void block_gemm(int M, int N, int K, const float* A, int lda,
-                           bool ta, const float* B, int ldb, bool tb,
-                           float* C, int ldc, float alpha, const float* C0,
-                           int ldc0, Smem& sm) {
+// 64 x 64 output tiles, 4 x 4 outputs per thread, depth steps of 16. The
+// products are summed, and C0 added, in Acc (float, or double for the
+// refinement's residual), and C is rounded to float once.
+template <typename Acc>
+__device__ void block_gemm_acc(int M, int N, int K, const float* A, int lda,
+                               bool ta, const float* B, int ldb, bool tb,
+                               float* C, int ldc, float alpha,
+                               const float* C0, int ldc0, Smem& sm) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int tilesM = (M + TILE - 1) / TILE, tilesN = (N + TILE - 1) / TILE;
   for (int tile = 0; tile < tilesM * tilesN; ++tile) {
     const int i0 = (tile / tilesN) * TILE, j0 = (tile % tilesN) * TILE;
-    float acc[4][4];
+    Acc acc[4][4];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+      for (int b = 0; b < 4; ++b) acc[a][b] = 0;
     for (int k0 = 0; k0 < K; k0 += KT) {
 #pragma unroll
       for (int r = 0; r < (TILE * KT) / NT; ++r) {
@@ -170,7 +180,8 @@ __device__ void block_gemm(int M, int N, int K, const float* A, int lda,
 #pragma unroll
         for (int a = 0; a < 4; ++a)
 #pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ar[a], br[b], acc[a][b]);
+          for (int b = 0; b < 4; ++b)
+            acc[a][b] = fma_acc((Acc)ar[a], (Acc)br[b], acc[a][b]);
       }
       __syncthreads();
     }
@@ -182,12 +193,21 @@ __device__ void block_gemm(int M, int N, int K, const float* A, int lda,
       for (int b = 0; b < 4; ++b) {
         const int j = j0 + tx + 16 * b;
         if (j >= N) continue;
-        C[(size_t)i * ldc + j] =
-            C0 ? fmaf(alpha, acc[a][b], C0[(size_t)i * ldc0 + j]) : alpha * acc[a][b];
+        C[(size_t)i * ldc + j] = (float)(
+            C0 ? fma_acc((Acc)alpha, acc[a][b], (Acc)C0[(size_t)i * ldc0 + j])
+               : (Acc)alpha * acc[a][b]);
       }
     }
   }
   __syncthreads();
+}
+
+__device__ void block_gemm(int M, int N, int K, const float* A, int lda,
+                           bool ta, const float* B, int ldb, bool tb,
+                           float* C, int ldc, float alpha, const float* C0,
+                           int ldc0, Smem& sm) {
+  block_gemm_acc<float>(M, N, K, A, lda, ta, B, ldb, tb, C, ldc, alpha, C0,
+                        ldc0, sm);
 }
 
 // The right-hand side is walked in panels of at most KMAX columns, so that
@@ -252,6 +272,39 @@ __device__ void skinny_n(int rows, int K, const float* A, int lda, int k,
 #pragma unroll
       for (int c = 0; c < KMAX; ++c)
         if (c < k) C[r + c] = sub ? sub[r + c] - acc[c] : acc[c];
+    }
+  }
+  __syncthreads();
+}
+
+// The refinement's residual R = sub - A rhs (A n x n, the panel in sm.rhs,
+// kp <= KMAX columns; sub and R of row stride ldc), one warp per row as in
+// skinny_n, but the products summed in double and the difference rounded
+// to float once. A float32 residual leaves the refined Z at float32's
+// floor, cond(Sn) eps |Z|, one pass's value or another's at random; this
+// one takes Z to its float32 rounding (PERF.md, PR 13).
+__device__ void residual_f64(int n, const float* A, int kp, const float* sub,
+                             float* C, int ldc, Smem& sm) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int i = wid; i < n; i += NT / 32) {
+    double acc[KMAX];
+#pragma unroll
+    for (int c = 0; c < KMAX; ++c) acc[c] = 0.0;
+    const float* Ai = A + (size_t)i * n;
+    for (int m = lane; m < n; m += 32) {
+      const double a = Ai[m];
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c)
+        if (c < kp) acc[c] = fma(a, (double)sm.rhs[m * kp + c], acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < KMAX; ++c)
+      for (int o = 16; o > 0; o >>= 1) acc[c] += __shfl_down_sync(0xffffffffu, acc[c], o);
+    if (lane == 0) {
+      const size_t r = (size_t)i * ldc;
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c)
+        if (c < kp) C[r + c] = (float)((double)sub[r + c] - acc[c]);
     }
   }
   __syncthreads();
@@ -1044,7 +1097,8 @@ solve_inverse_block_kernel(float* ws, int n, int k) {
 // refine A/B (the panels in series). Refinement is column by column, so a
 // panel's Z does not depend on the others; the divergence guard is the
 // walker's, over all k columns: both residual norms are summed across the
-// panels before Z or Z0 is chosen for the whole Z.
+// panels before Z or Z0 is chosen for the whole Z. The residual is summed
+// in double (residual_f64).
 __global__ void __launch_bounds__(NT)
 solve_refine_kernel(const float* __restrict__ Sn, const float* __restrict__ Bn,
                     float* Z, float* ws, int n, int k, int refine) {
@@ -1071,7 +1125,7 @@ solve_refine_kernel(const float* __restrict__ Sn, const float* __restrict__ Bn,
     __syncthreads();
     for (int it = 0; it < refine; ++it) {
       load_rhs(Zc, n, k, kp, sm);
-      skinny_n(n, n, S, n, kp, false, Bp, R, k, sm);
+      residual_f64(n, S, kp, Bp, R, k, sm);
       if (it == 0) res_pre += panel_sq(R, n, k, kp, sm);
       psolve(w.V, R, w.Tb, D, n, k, kp, sm);
       for (int e = threadIdx.x; e < n * kp; e += NT) {
@@ -1082,7 +1136,7 @@ solve_refine_kernel(const float* __restrict__ Sn, const float* __restrict__ Bn,
       __syncthreads();
     }
     load_rhs(Zc, n, k, kp, sm);
-    skinny_n(n, n, S, n, kp, false, Bp, R, k, sm);
+    residual_f64(n, S, kp, Bp, R, k, sm);
     res_ref += panel_sq(R, n, k, kp, sm);
   }
   if (refine == 0) res_pre = res_ref;
@@ -1093,11 +1147,11 @@ solve_refine_kernel(const float* __restrict__ Sn, const float* __restrict__ Bn,
 
 // The refine phase for k > KMAX, one block per walker: each product of
 // the chain over all k columns at once on block_gemm's 64 x 64 tiles
-// (T = V^T B, Z0 = V T; R = B - Sn Z, T = V^T R, D = V T per pass), then
-// the walker's guard. The skinny panels do a row's sum a thread, or a
-// warp and a shuffle tree, per 8 columns; the tiles do 4 x 4 outputs a
-// thread, about three times the panels' rate at (360, 100, 100), k 44
-// (PERF.md). Z is refined in place in the output.
+// (T = V^T B, Z0 = V T; R = B - Sn Z summed in double, T = V^T R, D = V T
+// per pass), then the walker's guard. The skinny panels do a row's sum a
+// thread, or a warp and a shuffle tree, per 8 columns; the tiles do 4 x 4
+// outputs a thread, about three times the panels' rate at (360, 100, 100),
+// k 44 (PERF.md). Z is refined in place in the output.
 __global__ void __launch_bounds__(NT)
 solve_refine_tiled_kernel(const float* __restrict__ Sn,
                           const float* __restrict__ Bn, float* Z, float* ws,
@@ -1117,7 +1171,8 @@ solve_refine_tiled_kernel(const float* __restrict__ Sn,
   __syncthreads();
   float res_pre = 0.f;
   for (int it = 0; it < refine; ++it) {
-    block_gemm(n, k, n, S, n, false, Zc, k, false, w.R, k, -1.f, Bw, k, sm);
+    block_gemm_acc<double>(n, k, n, S, n, false, Zc, k, false, w.R, k, -1.f,
+                           Bw, k, sm);
     if (it == 0) res_pre = panel_sq(w.R, n, k, k, sm);
     block_gemm(n, k, n, w.V, n, true, w.R, k, false, w.Tb, k, 1.f, nullptr,
                0, sm);
@@ -1126,7 +1181,8 @@ solve_refine_tiled_kernel(const float* __restrict__ Sn,
     for (int e = threadIdx.x; e < nk; e += NT) Zc[e] += w.D[e];
     __syncthreads();
   }
-  block_gemm(n, k, n, S, n, false, Zc, k, false, w.R, k, -1.f, Bw, k, sm);
+  block_gemm_acc<double>(n, k, n, S, n, false, Zc, k, false, w.R, k, -1.f,
+                         Bw, k, sm);
   const float res_ref = panel_sq(w.R, n, k, k, sm);
   if (refine == 0) res_pre = res_ref;
   if (!(res_ref <= res_pre))   // NaN -> keep the plain solve

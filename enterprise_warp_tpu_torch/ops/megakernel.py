@@ -8,7 +8,7 @@ are hand-written CUDA here (``csrc/megakernel.cu``, built and bound by
 - :func:`mega_solve_logdet` — the solve megakernel: on an equilibrated
   float32 ``Sn`` (B, n, n) and right-hand side ``Bn`` (B, n, k), the
   three-tier jittered Cholesky, the triangular inverse, the
-  preconditioner solves, ``refine`` float32 refinement passes, the
+  preconditioner solves, ``refine`` refinement passes, the
   divergence guard and the trace-corrected logdet, as a pipeline of
   eight phase launches on one workspace (:func:`_mega_solve_phases`): the
   triangular inverse and the four logdet products run on grids over
@@ -26,6 +26,15 @@ are hand-written CUDA here (``csrc/megakernel.cu``, built and bound by
   Unlike the reference, a walker whose Schur complement comes out
   indefinite is rejected there (:func:`schur_reject`), as the classic
   chain rejects it.
+
+One departure of the kernels from the reference (and from their plain
+versions, which keep the reference's arithmetic): the refinement's
+residual ``Bn - Sn Z`` is summed in float64 and rounded to float32 once.
+With a float32 residual the refined ``Z`` stalls at float32's floor,
+cond(Sn) eps |Z|, at one pass's value or another's at random; with this
+one it reaches its float32 rounding (``chip_smoke.py:refine_floor``
+measures both against float64 on every system of a ``gwb_array.dat``
+chain; ``PERF.md``, PR 13).
 
 Each wrapper takes its kernel's plain PyTorch version
 (:func:`_mega_solve_torch`, :func:`_mega_like_torch` — the counterparts

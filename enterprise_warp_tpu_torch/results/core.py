@@ -7,12 +7,13 @@ produce noise files, log Bayes factors from the product-space model
 index, corner and trace plots, and the block-diagonal
 proposal-covariance collection.
 
-Two differences from the JAX package, both about what is installed:
-chain tables are read with ``np.loadtxt`` (the JAX package's path when
-its native table reader is not built), and ``covm_all.csv`` is written
-with the ``csv`` module, the same text ``pandas.DataFrame.to_csv``
-writes, so the covariance collection needs no pandas; ``covm_all.pkl``
-is written only when pandas imports.
+Chain tables are read as the JAX package reads them: through the native
+table reader (``native.read_table_native``), with ``np.loadtxt`` where the
+native core is not built or the file is not a clean numeric table. One
+difference, about what is installed: ``covm_all.csv`` is written with the
+``csv`` module, the same text ``pandas.DataFrame.to_csv`` writes, so the
+covariance collection needs no pandas; ``covm_all.pkl`` is written only
+when pandas imports.
 """
 
 from __future__ import annotations
@@ -95,8 +96,12 @@ def _opt_errorbars_cdf(opts):
 
 
 def _read_table(path):
-    """Numeric table read (``np.loadtxt``)."""
-    return np.loadtxt(path)
+    """Numeric table read: the native reader, or ``np.loadtxt`` where it
+    declines (no native core, a non-numeric token, a ragged row), which
+    then raises as it does for such a file."""
+    from ..native import read_table_native
+    out = read_table_native(str(path))
+    return out if out is not None else np.loadtxt(path)
 
 
 def check_if_psr_dir(folder_name: str) -> bool:

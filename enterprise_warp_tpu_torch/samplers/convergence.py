@@ -1,16 +1,54 @@
-"""Insertion-rank diagnostics of nested sampling (numpy).
+"""Convergence-gated sampling and the insertion-rank diagnostics (numpy).
 
-Counterpart of the insertion-index helpers of
-``enterprise_warp_tpu/samplers/convergence.py`` (Fowlie, Handley & Su
-2020, batched form): when the constrained kernel truly samples the prior
-above L*, each replacement's rank among the surviving live points is
-uniform, and a KS distance against the discrete uniform tells a broken
-kernel from a healthy one.
+Counterpart of ``enterprise_warp_tpu/samplers/convergence.py``:
+
+- :func:`sample_to_convergence` drives a :class:`~.ptmcmc.PTSampler` in
+  blocks until the worst-parameter split-R-hat and multi-chain ESS of the
+  post-burn cold chains pass, with the reference's knobs (``check_every``,
+  ``check_growth``, ``diag_max_kept``, ``block_size``, ``on_check``,
+  ``resume``) and its resume repair of the chain files and checkpoint;
+  :func:`chains_from_file` reads a reference-format chain back as
+  ``(nchains, nsteps, ndim)``;
+- the insertion-rank helpers of nested sampling (Fowlie, Handley & Su
+  2020, batched form): when the constrained kernel truly samples the
+  prior above L*, each replacement's rank among the surviving live
+  points is uniform, and a KS distance against the discrete uniform
+  tells a broken kernel from a healthy one.
+
+Two parts of the reference wait for the port of its device diagnostics
+plane and telemetry (``utils/devicemetrics.py``, ROADMAP Queue 1): the
+streaming gate (the port's sampler keeps no streaming moment ledger, so
+every check folds the in-memory chains exactly, the reference's
+behaviour under ``EWT_STREAMING_DIAG=0``) and the telemetry heartbeats
+of each check.
 """
 
 from __future__ import annotations
 
+import glob
+import os
+import time
+from dataclasses import dataclass
+
 import numpy as np
+
+from ..io.writers import checkpoint_replace, resolve_checkpoint
+from ..utils.diagnostics import summarize_chains
+from ..utils.logging import get_logger
+
+_log = get_logger("ewt.convergence")
+
+
+@dataclass
+class ConvergenceReport:
+    converged: bool
+    steps: int
+    wall_s: float            # total sampling wall-clock
+    steady_wall_s: float     # wall-clock excluding the first call's blocks
+    rhat_max: float
+    ess_min: float
+    summary: dict            # per-parameter diagnostics
+    chains: np.ndarray       # (nchains, nkept, ndim) post-burn cold chains
 
 
 def insertion_rank_ks(ranks, nmax):
@@ -48,3 +86,182 @@ def insertion_rank_neff(n, nlive, kbatch):
     k = max(int(kbatch), 1)
     distinct = m * (1.0 - np.exp(-k / m))
     return max(int(round(n * min(distinct / k, 1.0))), 1)
+
+
+def chains_from_file(chain_path, nchains, ndim, burn_frac=0.25):
+    """Reshape the reference-format interleaved chain file into
+    (nchains, nsteps, ndim), dropping the burn-in fraction and the 4
+    trailing diagnostic columns."""
+    raw = np.loadtxt(chain_path, ndmin=2)
+    nsteps = raw.shape[0] // nchains
+    c = raw[:nsteps * nchains, :ndim].reshape(nsteps, nchains, ndim)
+    c = np.transpose(c, (1, 0, 2))
+    keep = int(nsteps * (1.0 - burn_frac))
+    return c[:, nsteps - keep:]
+
+
+def _robust_loadtxt(path):
+    """Chain-file load tolerating a partial final line (a kill mid-append):
+    rows that fail float parsing, by token count or by a token cut
+    mid-write ('1.2e', '-'), are dropped wherever they sit. Returns
+    ``(array, dropped_any)``. Clean files go through the native reader
+    (``native.read_table_native``)."""
+    from ..native import read_table_native
+    clean = read_table_native(str(path))
+    if clean is not None:
+        return clean, False
+    try:
+        return np.loadtxt(path, ndmin=2), False
+    except ValueError:
+        rows = []
+        with open(path) as fh:
+            for ln in fh:
+                try:
+                    vals = [float(t) for t in ln.split()]
+                except ValueError:
+                    continue
+                if vals:
+                    rows.append(vals)
+        if not rows:
+            return np.empty((0, 0)), True
+        ncol = len(rows[0])
+        return np.array([r for r in rows if len(r) == ncol],
+                        ndmin=2), True
+
+
+def _chains_from_blocks(blocks, burn_frac):
+    """Post-burn (nchains, nkept, ndim) chains from the float32 cold blocks
+    collected by :meth:`PTSampler.sample`."""
+    c = np.concatenate(blocks, axis=0)        # (nsteps, nchains, ndim)
+    nsteps = c.shape[0]
+    keep = int(nsteps * (1.0 - burn_frac))
+    return np.transpose(c[nsteps - keep:], (1, 0, 2))
+
+
+def _resume_blocks(sampler, verbose):
+    """The resume repair of an interrupted run: the chain rows the
+    checkpoint accounts for, as one collected block, with the checkpoint
+    counter rewound where the file holds fewer complete steps, and the
+    chain files (the hot rungs' too) cut back to that step. Returns
+    ``(blocks, steps)``; no blocks where there is nothing to resume."""
+    chain_path = os.path.join(sampler.outdir, "chain_1.txt")
+    ckpt = resolve_checkpoint(sampler._ckpt_path)
+    if ckpt is None or not os.path.exists(chain_path):
+        return [], 0
+    raw, dropped = _robust_loadtxt(chain_path)
+    ckpt_step = int(np.load(ckpt)["step"])
+    nsteps = min(raw.shape[0] // sampler.nchains, ckpt_step)
+    if nsteps <= 0:
+        return [], 0
+    if nsteps < ckpt_step:
+        # dropped or partial lines left fewer complete rows than the
+        # checkpointed step: the walker state is a valid Markov state at
+        # any step label, so relabel it and keep rows == steps * nchains
+        _log.info("resume: chain file holds %d complete steps < checkpoint "
+                  "step %d; rewinding checkpoint counter", nsteps, ckpt_step)
+        z = dict(np.load(ckpt))
+        z["step"] = nsteps
+        tmp = sampler._ckpt_path + ".tmp.npz"
+        np.savez(tmp, **z)
+        checkpoint_replace(tmp, sampler._ckpt_path)
+    truncated = nsteps * sampler.nchains < raw.shape[0]
+    raw = raw[:nsteps * sampler.nchains]
+    # the resumed sampler appends: stale rows past the checkpoint or a
+    # partial line would shift every later block
+    if dropped or truncated:
+        tmp = chain_path + ".tmp"
+        np.savetxt(tmp, raw)
+        os.replace(tmp, chain_path)
+    for hp in glob.glob(os.path.join(sampler.outdir, "chain_*.txt")):
+        if os.path.basename(hp) == "chain_1.txt":
+            continue
+        hraw, hdrop = _robust_loadtxt(hp)
+        keep = nsteps * sampler.nchains
+        if hdrop or hraw.shape[0] != keep:
+            tmp = hp + ".tmp"
+            np.savetxt(tmp, hraw[:keep])
+            os.replace(tmp, hp)
+    if verbose:
+        _log.info("resuming at step %d", nsteps)
+    c = raw[:, :sampler.ndim]
+    return [c.reshape(nsteps, sampler.nchains,
+                      sampler.ndim).astype(np.float32)], nsteps
+
+
+def sample_to_convergence(sampler, target_ess=1000.0, rhat_max=1.01,
+                          check_every=2000, max_steps=200_000,
+                          burn_frac=0.25, verbose=True, block_size=None,
+                          resume=False, on_check=None,
+                          diag_max_kept=2000, check_growth=1.0):
+    """Drive ``sampler`` (a :class:`~.ptmcmc.PTSampler`) until the
+    worst-parameter split-R-hat is at most ``rhat_max`` and the
+    multi-chain ESS at least ``target_ess`` on the cold chains after
+    ``burn_frac``, or ``max_steps`` is reached.
+
+    The cold chains accumulate in memory (float32 blocks through the
+    sampler's ``collect`` hook), and each check runs the diagnostics on
+    them strided down to at most ``diag_max_kept`` steps per chain:
+    split-R-hat is invariant under thinning, and the Geyer ESS of a
+    thinned chain is a lower bound on the total, so the gate can
+    overshoot but never falsely pass. ``check_growth > 1`` spaces the
+    checks geometrically (the next after ``max(check_every, steps *
+    (check_growth - 1))`` more steps, rounded up to whole
+    ``block_size`` blocks). ``on_check(steps, wall_s, steady_wall_s)`` is
+    called after every check.
+
+    With ``resume=True`` an interrupted run continues from the sampler's
+    output directory: the chain rows the checkpoint accounts for are read
+    once into the block list (the checkpoint counter rewound where the
+    file holds fewer, the chain files cut back to it), and sampling picks
+    up from the checkpoint. The driver samples unthinned.
+
+    Every check is exact (see the module docstring: no streaming gate,
+    no heartbeats). Returns a :class:`ConvergenceReport`; both clocks
+    cover this call's sampling loop only, ``steady_wall_s`` without its
+    first call to the sampler."""
+    block_size = block_size or min(check_every, 500)
+    blocks, steps = _resume_blocks(sampler, verbose) if resume else ([], 0)
+
+    def _diag(chains):
+        stride = max(1, -(-chains.shape[1] // diag_max_kept))
+        return summarize_chains(chains[:, ::stride],
+                                sampler.like.param_names)
+
+    def _worst_floats(s):
+        # an R-hat that cannot be computed is +inf, an ESS 0
+        rh, es = s["_worst"]["rhat"], s["_worst"]["ess"]
+        return (np.inf if rh is None else rh,
+                0.0 if es is None else es)
+
+    t_start = time.perf_counter()
+    t_after_first = None
+    while steps < max_steps:
+        todo = max(check_every, int(steps * (check_growth - 1.0)))
+        todo = -(-todo // block_size) * block_size
+        sampler.sample(min(steps + todo, max_steps), resume=steps > 0,
+                       verbose=False, block_size=block_size, collect=blocks)
+        if t_after_first is None:
+            t_after_first = time.perf_counter()
+        steps = min(steps + todo, max_steps)
+        chains = _chains_from_blocks(blocks, burn_frac)
+        s = _diag(chains)
+        rh, es = _worst_floats(s)
+        if verbose:
+            _log.info("step %d: rhat_max=%.4f ess_min=%.0f", steps, rh, es)
+        if on_check is not None:
+            on_check(steps, time.perf_counter() - t_start,
+                     time.perf_counter() - t_after_first)
+        if rh <= rhat_max and es >= target_ess:
+            now = time.perf_counter()
+            return ConvergenceReport(
+                converged=True, steps=steps, wall_s=now - t_start,
+                steady_wall_s=now - t_after_first, rhat_max=rh,
+                ess_min=es, summary=s, chains=chains)
+    chains = _chains_from_blocks(blocks, burn_frac)
+    s = _diag(chains)
+    rh, es = _worst_floats(s)
+    now = time.perf_counter()
+    return ConvergenceReport(
+        converged=False, steps=steps, wall_s=now - t_start,
+        steady_wall_s=now - (t_after_first or t_start), rhat_max=rh,
+        ess_min=es, summary=s, chains=chains)

@@ -2,7 +2,8 @@
 
 Counterpart of ``enterprise_warp_tpu/samplers/ptmcmc.py`` for the paramfile
 path: W = ntemps x nchains walkers advance together, each step evaluating
-the likelihood once for all walkers, with the four classic jump families
+the likelihood once for all walkers, with the reference's jump families
+(``_FAM_NAMES`` order, the order of every per-family counter)
 
 - SCAM: single-component adaptive Metropolis along one eigendirection of
   the adapted covariance,
@@ -10,9 +11,21 @@ the likelihood once for all walkers, with the four classic jump families
 - DE: differential evolution from a history ring of cold walkers,
 - prior draw: one random dimension redrawn from its prior, with the
   Metropolis-Hastings asymmetry correction,
+- ind: independence draws from a Gaussian fitted to the cold walkers
+  (inflated by ``ind_inflate``),
+- cg: conditional Gibbs, a ``cg_k``-subset redrawn from that Gaussian's
+  exact conditional given the other coordinates,
+- kde: a ``cg_k``-subset redrawn from a kernel-density estimate over the
+  block-frozen cold cloud,
+- ns: the noise-budget slide along one backend's (efac, equad)
+  degeneracy curve (where the likelihood has ``noise_pairs``),
 
-parallel-tempering swaps every ``swap_every`` steps with swap-rate ladder
-adaptation, and covariance/eigen adaptation between blocks of
+each written as a plain function of explicit draws (:func:`propose_ind`,
+:func:`propose_cg`, :func:`propose_kde`, :func:`propose_ns`) that returns
+the proposal and its exact MH correction. A family with zero weight draws
+nothing, so the stream of the others is unchanged. Parallel-tempering
+swaps every ``swap_every`` steps with swap-rate ladder adaptation, and
+covariance/eigen adaptation plus the ensemble fits between blocks of
 ``cov_update`` steps. The reference's ``lax.scan`` block is a Python step
 loop here; every per-step quantity stays on the likelihood's device and
 the host reads one snapshot per block.
@@ -32,8 +45,7 @@ bridge 64 -> 2 with multinomial resampling, :meth:`PTSampler.anneal_init`)
 and ``advi_init`` (a variational fit whose draws seed the walkers,
 ``init_x``), both skipped on resume.
 
-Not ported (a paramfile that asks for them gets ``NotImplementedError``):
-the ind/cg/kde/ns/flow proposal families.
+Not ported (``NotImplementedError``): the ``flow`` proposal family.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import glob
 import math
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,9 +71,11 @@ from .evalproto import BLOCK_COMMON
 _log = get_logger("ewt.ptmcmc")
 
 _HISTORY = 1000     # DE history ring length
-_FAM_NAMES = ("scam", "am", "de", "pd")
+#: the proposal-family order of every per-family counter (jump_probs,
+#: fam_accept/fam_propose), the reference's
+_FAM_NAMES = ("scam", "am", "de", "pd", "ind", "cg", "kde", "ns", "flow")
 _NFAM = len(_FAM_NAMES)
-_LATER = "is not ported yet (see ROADMAP.md)"
+_IND, _CG, _KDE, _NS = 4, 5, 6, 7
 
 
 @dataclass
@@ -86,6 +101,134 @@ def _temperature_ladder(ntemps, tmax=None):
     return c ** np.arange(ntemps)
 
 
+def block_classes(param_blocks):
+    """Per-dimension ``update_mask`` class from the likelihood's parameter
+    blocks: 0 one pulsar's block (site), 1 the coupling-only common
+    block, 2 a full recompute."""
+    pb = param_blocks
+    return torch.where(pb >= 0, 0, torch.where(pb == BLOCK_COMMON, 1, 2))
+
+
+def subset_class(param_blocks, blk_cls, S):
+    """Class of each (W, k) subset: maskable only when all its dimensions
+    lie in one block, then that block's class; else a full recompute."""
+    b_s = param_blocks[S]
+    same = torch.all(b_s == b_s[:, :1], dim=1)
+    return torch.where(same, blk_cls[S[:, 0]], 2)
+
+
+# ---------------- the ensemble families, as functions of their draws ---- #
+def draw_subsets(cg_rows, group_frac, u_grp, j, perm_u):
+    """(W, k) coordinate subsets of the cg and kde families: the
+    correlation block ``cg_rows[j]`` where ``u_grp < group_frac``, else a
+    uniform random k-subset (the first k of the argsort of the uniforms
+    ``perm_u``, (W, ndim))."""
+    k = cg_rows.shape[1]
+    rand_s = torch.argsort(perm_u, dim=1)[:, :k]
+    return torch.where((u_grp < group_frac)[:, None], cg_rows[j], rand_s)
+
+
+def propose_ind(mean, L, z):
+    """Independence draw ``mean + L z`` from the ensemble-fitted Gaussian
+    (``L`` the inflated covariance's Cholesky factor, ``z`` (W, ndim))."""
+    return mean[None, :] + z @ L.T
+
+
+def ind_qc(x, prop, mean, iL):
+    """The independence family's MH correction log q(x) - log q(x'): the
+    Gaussian is the same both ways, so its log-determinant cancels."""
+    dx_old = (x - mean[None, :]) @ iL.T
+    dx_new = (prop - mean[None, :]) @ iL.T
+    return 0.5 * (torch.sum(dx_new ** 2, dim=-1)
+                  - torch.sum(dx_old ** 2, dim=-1))
+
+
+def propose_cg(x, mean, lam, S, z):
+    """Conditional Gibbs: redraw the subset ``S`` (W, k) from the fitted
+    Gaussian's exact conditional given the other coordinates,
+    ``x_S | x_rest ~ N(mean_S - Lam_SS^-1 b, Lam_SS^-1)`` with ``b =
+    Lam_{S,rest} (x_rest - mean_rest)``, through the Cholesky factor of
+    ``Lam_SS`` (``Lam`` the precision, ``z`` (W, k) standard normals).
+    Returns ``(prop, qc)``: the conditional's parameters depend only on the
+    unchanged coordinates, so the correction is the two draws' quadratic
+    forms."""
+    d = x - mean[None, :]
+    lam_rows = lam[S]                                      # (W, k, nd)
+    lam_ss = torch.gather(lam_rows, 2, S[:, None, :].expand(-1, S.shape[1],
+                                                           -1))
+    d_s = torch.gather(d, 1, S)
+    b = (lam_rows @ d[:, :, None] - lam_ss @ d_s[:, :, None])[..., 0]
+    Lk = torch.linalg.cholesky_ex(lam_ss)[0]
+    LkT = Lk.transpose(1, 2)
+    u1 = torch.linalg.solve_triangular(Lk, b[:, :, None], upper=False)
+    m = mean[S] - torch.linalg.solve_triangular(LkT, u1, upper=True)[..., 0]
+    xs = m + torch.linalg.solve_triangular(LkT, z[:, :, None],
+                                           upper=True)[..., 0]
+    r_old = (LkT @ (torch.gather(x, 1, S) - m)[:, :, None])[..., 0]
+    qc = 0.5 * (torch.sum(z ** 2, dim=-1) - torch.sum(r_old ** 2, dim=-1))
+    return x.scatter(1, S, xs), qc
+
+
+def kde_logq(v, S, pts, bw):
+    """Log density of the subset values ``v`` (W, k) under the product-
+    Gaussian KDE of the cloud ``pts`` (n, ndim) on the coordinates ``S``
+    (W, k), bandwidths ``bw`` (ndim,)."""
+    p_s = pts.T[S]                                         # (W, k, n)
+    bw_s = bw[S]
+    d = (v[:, :, None] - p_s) / bw_s[:, :, None]
+    return (torch.logsumexp(-0.5 * torch.sum(d * d, dim=1), dim=1)
+            - math.log(pts.shape[0]) - torch.sum(torch.log(bw_s), dim=1))
+
+
+def propose_kde(x, pts, bw, S, m, z):
+    """KDE subset independence: the subset ``S`` takes cloud point
+    ``m``'s values plus ``bw * z`` (``z`` (W, k)); the correction is the
+    mixture density at the old and the new subset values."""
+    xs = pts[m[:, None], S] + bw[S] * z
+    qc = kde_logq(torch.gather(x, 1, S), S, pts, bw) \
+        - kde_logq(xs, S, pts, bw)
+    return x.scatter(1, S, xs), qc
+
+
+def propose_ns(x, pairs, b, u_glob, z, u_f):
+    """The noise-budget slide: redraw the equad share f of backend pair
+    ``b``'s total white variance ``v = efac^2 s2 + 10^(2 equad)`` with v
+    held fixed, globally (equad uniform over its reachable prior range,
+    where ``u_glob < 0.5``, from the uniform ``u_f``) or locally (a
+    logit-normal step of 0.8 ``z``). ``pairs``: the tensors ``(ie, iq,
+    s2, qlo, qhi)`` of the likelihood's ``noise_pairs`` and the equad
+    priors. Returns ``(prop, qc, ie)``; a global move from a state the
+    reverse draw cannot reach is rejected (``qc = -inf``)."""
+    p_ie, p_iq, p_s2, p_qlo, p_qhi = pairs
+    ie, iq, s2 = p_ie[b], p_iq[b], p_s2[b]
+    qlo, qhi = p_qlo[b], p_qhi[b]
+    e = torch.gather(x, 1, ie[:, None])[:, 0]
+    q = torch.gather(x, 1, iq[:, None])[:, 0]
+    Q2 = 10.0 ** (2.0 * q)
+    v = e * e * s2 + Q2
+    f_old = torch.clamp(Q2 / v, 1e-15, 1.0 - 1e-12)
+    upper = torch.minimum(qhi, 0.5 * torch.log10(v) - 1e-6)
+    lo = torch.minimum(qlo, upper - 1e-6)
+    glob_ok = (qlo < upper) & (q >= lo) & (q <= upper)
+    q_glob = lo + (upper - lo) * u_f
+    f_glob = torch.clamp(10.0 ** (2.0 * q_glob) / v, 1e-15, 1.0 - 1e-12)
+    u_loc = torch.logit(f_old) + 0.8 * z
+    f_loc = torch.clamp(torch.sigmoid(u_loc), 1e-15, 1.0 - 1e-12)
+    is_glob = u_glob < 0.5
+    f = torch.where(is_glob, f_glob, f_loc)
+    e_new = torch.sqrt((1.0 - f) * v / s2)
+    q_new = 0.5 * torch.log10(f * v)
+    qc_glob = torch.log(torch.clamp(e, min=1e-30)) \
+        - torch.log(torch.clamp(e_new, min=1e-30))
+    qc_glob = torch.where(glob_ok, qc_glob,
+                          torch.full_like(qc_glob, -math.inf))
+    qc_loc = 0.5 * torch.log1p(-f) - 0.5 * torch.log1p(-f_old)
+    qc = torch.where(is_glob, qc_glob, qc_loc)
+    prop = x.scatter(1, ie[:, None], e_new[:, None]) \
+        .scatter(1, iq[:, None], q_new[:, None])
+    return prop, qc, ie
+
+
 class PTSampler:
     """Adaptive PT-MCMC over a likelihood providing ``loglike_batch``
     ((W, ndim) tensor -> (W,)), ``log_prior``, ``log_prior_dims``,
@@ -97,13 +240,15 @@ class PTSampler:
                  prior_weight=10, cov_update=1000, swap_every=10,
                  tmax=None, init_cov=None, burn=0, adapt_ladder=True,
                  ladder_t0=1000.0, swap_target=0.25,
-                 write_hot_chains=False, ind_weight=0, cg_weight=0,
-                 kde_weight=0, ns_weight=0, init_x=None, device=None):
-        for name, w in (("ind", ind_weight), ("cg", cg_weight),
-                        ("kde", kde_weight), ("ns", ns_weight)):
-            if w:
-                raise NotImplementedError(
-                    f"the {name} proposal family (weight {w}) {_LATER}")
+                 write_hot_chains=False, init_x=None,
+                 ind_weight=0, ind_inflate=1.4,
+                 cg_weight=0, cg_k=3, cg_group_frac=0.5,
+                 kde_weight=0, kde_bw=None, ns_weight=0,
+                 flow=None, flow_weight=0, device=None):
+        if flow is not None or flow_weight:
+            raise NotImplementedError(
+                "the flow proposal family is not ported yet (ROADMAP.md, "
+                "Queue 1: serving and flows)")
         self.like = like
         self.outdir = outdir
         self.ntemps = int(ntemps)
@@ -112,9 +257,27 @@ class PTSampler:
         self.ndim = like.ndim
         self.device = torch.device(device if device is not None else
                                    getattr(like, "device", "cpu"))
+        # the noise-budget slide needs the likelihood's (efac, equad)
+        # pairs, and each pair's equad prior bounds for its global branch
+        self._ns_pairs = list(getattr(like, "noise_pairs", None) or [])
+        if not self._ns_pairs:
+            ns_weight = 0
+        self._ns_qb = []
+        for _, iq, _ in self._ns_pairs:
+            pr = like.params[iq].prior
+            self._ns_qb.append((float(getattr(pr, "lo", -10.0)),
+                                float(getattr(pr, "hi", -5.0))))
         weights = np.array([scam_weight, am_weight, de_weight,
-                            prior_weight], float)
+                            prior_weight, ind_weight, cg_weight,
+                            kde_weight, ns_weight, 0], float)
         self.jump_probs = weights / weights.sum()
+        # a uniform that rounds above the cumulative sum's last entry
+        # selects the last family that has weight
+        self._last_fam = int(np.flatnonzero(self.jump_probs)[-1])
+        self.ind_inflate = float(ind_inflate)
+        self.cg_k = int(min(max(cg_k, 1), self.ndim))
+        self.cg_group_frac = float(cg_group_frac)
+        self.kde_bw = kde_bw        # None: Silverman's factor for cg_k dims
         self.cov_update = cov_update
         self.swap_every = swap_every
         self.burn = burn     # steps before covariance adaptation engages
@@ -141,10 +304,14 @@ class PTSampler:
         # update_mask emission: where the likelihood sorts its parameters
         # into blocks (``like.param_blocks``, samplers/evalproto.py), each
         # cold proposal is counted by the block class it touched [site,
-        # common, full] into mask_stats.json. Of the ported families only
-        # the prior draw (one dimension) can stay inside a block.
+        # common, full] into mask_stats.json. The prior draw (one
+        # dimension), the subsets of cg and kde (maskable when all their
+        # dimensions share one block) and the noise slide (one backend's
+        # pair) can stay inside a block; the dense families touch all.
         self.use_maskstats = getattr(like, "param_blocks", None) is not None
         self.mask_counts = np.zeros(3)
+        # (step, chain file sizes) of this sampler's last committed block
+        self._committed = None
         os.makedirs(outdir, exist_ok=True)
 
     # ---------------- initialization / resume -------------------------- #
@@ -202,16 +369,24 @@ class PTSampler:
     def _ckpt_path(self):
         return os.path.join(self.outdir, "state.npz")
 
-    def _write_ckpt(self, st):
-        """Atomic checkpoint with an integrity sidecar and the previous
-        generation kept (``io.writers.checkpoint_replace``)."""
+    @staticmethod
+    def _ckpt_arrays(st):
+        """A host copy of the state as the checkpoint stores it."""
+        return dict(x=st.x.cpu().numpy(), lnl=st.lnl.cpu().numpy(),
+                    lnp=st.lnp.cpu().numpy(), key=st.key.copy(),
+                    cov=st.cov.copy(), history=st.history.cpu().numpy(),
+                    hist_len=st.hist_len, step=st.step,
+                    accepted=st.accepted.cpu().numpy(),
+                    swaps_accepted=st.swaps_accepted.copy(),
+                    swaps_proposed=st.swaps_proposed.copy(),
+                    ladder=st.ladder.copy())
+
+    def _write_ckpt(self, arrays):
+        """Atomic checkpoint of :meth:`_ckpt_arrays` with an integrity
+        sidecar and the previous generation kept
+        (``io.writers.checkpoint_replace``)."""
         tmp = self._ckpt_path + ".tmp.npz"
-        np.savez(tmp, x=st.x.cpu().numpy(), lnl=st.lnl.cpu().numpy(),
-                 lnp=st.lnp.cpu().numpy(), key=st.key, cov=st.cov,
-                 history=st.history.cpu().numpy(), hist_len=st.hist_len,
-                 step=st.step, accepted=st.accepted.cpu().numpy(),
-                 swaps_accepted=st.swaps_accepted,
-                 swaps_proposed=st.swaps_proposed, ladder=st.ladder)
+        np.savez(tmp, **arrays)
         checkpoint_replace(tmp, self._ckpt_path)
 
     def _load_state(self, path):
@@ -235,14 +410,53 @@ class PTSampler:
 
     # ---------------- one block ---------------------------------------- #
     def _host_prep(self, st):
-        """Eigendecomposition and Cholesky factor of the adapted jump
-        covariance (float64 numpy, once per block)."""
+        """Per-block host math (float64 numpy, the reference's line for
+        line): eigendecomposition and Cholesky factor of the adapted jump
+        covariance, and, where an ensemble family has weight, the fits to
+        the cold walkers' cloud. Returns ``(eigvecs, eigvals, chol,
+        ind_mean, ind_L, ind_iL, lam, cg_rows, kde_pts, kde_bw)``."""
         cov = st.cov + 1e-12 * np.eye(self.ndim)
         eigvals, eigvecs = np.linalg.eigh(cov)
         eigvals = np.maximum(eigvals, 1e-16)
         chol = np.linalg.cholesky(cov)
-        return self._tensor(eigvecs), self._tensor(eigvals), \
-            self._tensor(chol)
+        if self.jump_probs[4:].sum() > 0:
+            # N(mean, inflate^2 cov) refit to the cold cloud; a degenerate
+            # cloud (identical walkers, too few chains) keeps the adapted
+            # covariance
+            cold_x = st.x[:self.nchains].cpu().numpy()
+            ind_mean = cold_x.mean(axis=0)
+            ind_cov = cov
+            if self.nchains > 2 * self.ndim:
+                c = np.cov(cold_x.T) + 1e-12 * np.eye(self.ndim)
+                if np.all(np.isfinite(c)) and \
+                        np.linalg.eigvalsh(c)[0] > 0:
+                    ind_cov = c
+            ind_L = np.linalg.cholesky(self.ind_inflate ** 2 * ind_cov)
+            ind_iL = np.linalg.inv(ind_L)
+            # the uninflated precision for the conditional Gibbs family
+            lam = np.linalg.inv(ind_cov)
+            # correlation blocks: row j is dim j and its (cg_k - 1)
+            # strongest |corr| partners, the dims that must move jointly
+            sd = np.sqrt(np.diag(ind_cov))
+            corr = np.abs(ind_cov / np.outer(sd, sd))
+            cg_rows = np.argsort(-corr, axis=1)[:, :self.cg_k]
+            # the block-frozen cloud, per-dim Silverman bandwidths
+            kde_pts = cold_x.copy()
+            if self.kde_bw is not None:
+                bw_fac = float(self.kde_bw)
+            else:
+                k, n = self.cg_k, max(len(kde_pts), 2)
+                bw_fac = (4.0 / (k + 2)) ** (1.0 / (k + 4)) \
+                    * n ** (-1.0 / (k + 4))
+            kde_bw = np.maximum(bw_fac * cold_x.std(axis=0), 1e-12)
+        else:
+            ind_mean = np.zeros(self.ndim)
+            ind_L = ind_iL = lam = np.eye(self.ndim)
+            cg_rows = np.tile(np.arange(self.cg_k), (self.ndim, 1))
+            kde_pts = np.zeros((1, self.ndim))
+            kde_bw = np.ones(self.ndim)
+        return (eigvecs, eigvals, chol, ind_mean, ind_L, ind_iL, lam,
+                cg_rows, kde_pts, kde_bw)
 
     def _run_block(self, st, todo, temps=None):
         """Advance ``st`` by ``todo`` steps at the ladder's temperatures
@@ -253,7 +467,21 @@ class PTSampler:
         W, nd = self.W, self.ndim
         ntemps, nchains = self.ntemps, self.nchains
         nrec = W if self.write_hot else nchains
-        eigvecs, eigvals, chol = self._host_prep(st)
+        prep = self._host_prep(st)
+        eigvecs, eigvals, chol, ind_mean, ind_L, ind_iL, lam = (
+            self._tensor(a) for a in prep[:7])
+        cg_rows = torch.as_tensor(prep[7], dtype=torch.long, device=dev)
+        kde_pts, kde_bw = self._tensor(prep[8]), self._tensor(prep[9])
+        use_ind, use_cg, use_kde, use_ns = (
+            bool(self.jump_probs[f] > 0) for f in (_IND, _CG, _KDE, _NS))
+        if use_ns:
+            ns_pairs = (
+                torch.as_tensor([p[0] for p in self._ns_pairs], device=dev),
+                torch.as_tensor([p[1] for p in self._ns_pairs], device=dev),
+                self._tensor([p[2] for p in self._ns_pairs]),
+                self._tensor([b[0] for b in self._ns_qb]),
+                self._tensor([b[1] for b in self._ns_qb]))
+        group_frac, kdims = self.cg_group_frac, self.cg_k
         temps = self._tensor(np.repeat(st.ladder, nchains) if temps is None
                              else temps)
         cum_p = self._tensor(np.cumsum(self.jump_probs))
@@ -269,10 +497,7 @@ class PTSampler:
         mask_counts = torch.zeros(3, dtype=F64, device=dev)
         if self.use_maskstats:
             pb = torch.as_tensor(like.param_blocks, device=dev)
-            # block id -> class: 0 one pulsar's block, 1 the coupling-only
-            # common block, 2 a full recompute
-            blk_cls = torch.where(pb >= 0, 0, torch.where(pb == BLOCK_COMMON,
-                                                          1, 2))
+            blk_cls = block_classes(pb)
         n_swaps = 0
         am_scale = 2.38 / math.sqrt(nd)
         gamma_de = 2.38 / math.sqrt(2 * nd)
@@ -287,7 +512,7 @@ class PTSampler:
             return torch.randint(0, hi, (n,), generator=gen, device=dev)
 
         for step_idx in range(todo):
-            # --- proposals (all four families, selected per walker) ---
+            # --- proposals: the classic four families, selected per walker
             z = randn(W, nd)
             am = x + (z @ chol.T) * am_scale
             j = randint(nd, W)
@@ -299,10 +524,33 @@ class PTSampler:
             onehot = torch.nn.functional.one_hot(jp, nd).to(F64)
             draws = like.from_unit(rand(W, nd))
             pd = x * (1.0 - onehot) + draws * onehot
-            choice = torch.searchsorted(cum_p, rand(W)).clamp(max=_NFAM - 1)
+            choice = torch.searchsorted(cum_p, rand(W)).clamp(
+                max=self._last_fam)
             c = choice[:, None]
             prop = torch.where(c == 0, scam, torch.where(
                 c == 1, am, torch.where(c == 2, de, pd)))
+            # the ensemble families draw only where they have weight
+            if use_ind:
+                prop = torch.where(c == _IND, propose_ind(
+                    ind_mean, ind_L, randn(W, nd)), prop)
+            if use_cg:
+                cg_S = draw_subsets(cg_rows, group_frac, rand(W),
+                                    randint(nd, W), rand(W, nd))
+                cg_prop, cg_qc = propose_cg(x, ind_mean, lam, cg_S,
+                                            randn(W, kdims))
+                prop = torch.where(c == _CG, cg_prop, prop)
+            if use_kde:
+                kde_S = draw_subsets(cg_rows, group_frac, rand(W),
+                                     randint(nd, W), rand(W, nd))
+                kde_prop, kde_qc = propose_kde(
+                    x, kde_pts, kde_bw, kde_S, randint(kde_pts.shape[0], W),
+                    randn(W, kdims))
+                prop = torch.where(c == _KDE, kde_prop, prop)
+            if use_ns:
+                ns_prop, ns_qc, ns_ie = propose_ns(
+                    x, ns_pairs, randint(len(self._ns_pairs), W), rand(W),
+                    randn(W), rand(W))
+                prop = torch.where(c == _NS, ns_prop, prop)
 
             lnp_new = like.log_prior(prop)
             lnl_new = like.loglike_batch(prop)
@@ -315,6 +563,15 @@ class PTSampler:
             lpd_new = torch.sum(like.log_prior_dims(prop) * onehot, dim=-1)
             qcorr = torch.where(choice == 3, lpd_old - lpd_new,
                                 torch.zeros_like(lpd_old))
+            if use_ind:
+                qcorr = torch.where(choice == _IND,
+                                    ind_qc(x, prop, ind_mean, ind_iL), qcorr)
+            if use_cg:
+                qcorr = torch.where(choice == _CG, cg_qc, qcorr)
+            if use_kde:
+                qcorr = torch.where(choice == _KDE, kde_qc, qcorr)
+            if use_ns:
+                qcorr = torch.where(choice == _NS, ns_qc, qcorr)
             log_ratio = (lnp_new - lnp) + (lnl_new - lnl) / temps + qcorr
             accept = torch.log(rand(W)) < log_ratio
             x = torch.where(accept[:, None], prop, x)
@@ -327,6 +584,16 @@ class PTSampler:
                                       .to(F64), minlength=_NFAM)
             if self.use_maskstats:
                 cls = torch.where(choice == 3, blk_cls[jp], 2)
+                if use_cg:
+                    cls = torch.where(choice == _CG,
+                                      subset_class(pb, blk_cls, cg_S), cls)
+                if use_kde:
+                    cls = torch.where(choice == _KDE,
+                                      subset_class(pb, blk_cls, kde_S), cls)
+                if use_ns:
+                    # a slide pair is one backend's two white parameters:
+                    # its efac dimension's block
+                    cls = torch.where(choice == _NS, blk_cls[ns_ie], cls)
                 mask_counts += torch.bincount(cls[:nchains], minlength=3)
 
             # --- parallel-tempering swaps every swap_every steps ------
@@ -433,7 +700,13 @@ class PTSampler:
         """Resume repair: cut every chain file (``chain_1.txt`` and the
         hot rungs' ``chain_<T>.txt``) back to the rows the checkpointed
         ``step`` accounts for (each committed block of ``b`` steps
-        appended ``ceil(b / thin) * nchains`` rows to each file)."""
+        appended ``ceil(b / thin) * nchains`` rows to each file). Files
+        this sampler wrote up to that very checkpoint, unchanged since,
+        are left as they are: a driver that continues a run in the same
+        process (:func:`~.convergence.sample_to_convergence`) does not
+        re-read the chain at every call."""
+        if self._committed == (int(step), self._chain_sizes()):
+            return
         B = max(int(block_size), 1)
         n_full, r = divmod(int(step), B)
         want = self.nchains * (n_full * (-(-B // thin)) + (-(-r // thin)))
@@ -449,13 +722,18 @@ class PTSampler:
             with open(path, "w") as fh:
                 fh.write("".join(ln + "\n" for ln in lines[:want]))
 
-    def _write_hot(self, st, full_x, full_l, full_p, accepted):
-        """One ``chain_<T>.txt`` per tempered rung, the cold file's
-        columns taken rung-locally: the tempered lnpost (lnprior +
-        lnlike / T), lnlike, the rung's acceptance rate, and the swap
-        rate of the edge to the colder rung. A rung at T <= 1 (a
+    def _chain_sizes(self):
+        return {p: os.path.getsize(p) for p in
+                glob.glob(os.path.join(self.outdir, "chain_*.txt"))}
+
+    def _hot_tables(self, st, full_x, full_l, full_p, accepted):
+        """``(path, rows)`` of one ``chain_<T>.txt`` per tempered rung,
+        the cold file's columns taken rung-locally: the tempered lnpost
+        (lnprior + lnlike / T), lnlike, the rung's acceptance rate, and
+        the swap rate of the edge to the colder rung. A rung at T <= 1 (a
         degenerate ladder) is statistically the cold chain, and its file
         would collide with ``chain_1.txt``: it is skipped."""
+        tables = []
         for k in range(1, self.ntemps):
             T_k = float(st.ladder[k])
             if T_k <= 1.0:
@@ -470,14 +748,34 @@ class PTSampler:
                 (full_p[:, sl] + full_l[:, sl] / T_k).reshape(-1, 1),
                 full_l[:, sl].reshape(-1, 1), np.full((nrow, 1), acc_k),
                 np.full((nrow, 1), swap_k)], axis=1)
-            write_table(os.path.join(self.outdir, f"chain_{T_k:.6g}.txt"),
-                        rows, append=True)
+            tables.append((os.path.join(self.outdir,
+                                        f"chain_{T_k:.6g}.txt"), rows))
+        return tables
+
+    def _commit(self, tables, cov, mask_stats, ckpt):
+        """Write one block's outputs in the order a resume relies on:
+        the chain rows, then ``cov.npy`` and ``mask_stats.json``, then
+        the checkpoint that accounts for the rows."""
+        for path, rows in tables:
+            write_table(path, rows, append=True)
+        np.save(os.path.join(self.outdir, "cov.npy"), cov)
+        if mask_stats is not None:
+            atomic_write_json(os.path.join(self.outdir, "mask_stats.json"),
+                              mask_stats)
+        self._write_ckpt(ckpt)
+        self._committed = (ckpt["step"], self._chain_sizes())
 
     # ---------------- public API --------------------------------------- #
     def sample(self, nsamp, resume=True, verbose=True, thin=1,
-               block_size=None):
+               block_size=None, collect=None):
         """Run ``nsamp`` total steps, appending the cold chain to
-        ``chain_1.txt`` after every block."""
+        ``chain_1.txt`` after every block. A block's files are written on
+        a worker thread while the next block runs (the native writer
+        releases the GIL), one block at a time and all of them before
+        this returns. If ``collect`` is a list, each
+        block's post-thin cold positions are also appended to it as
+        float32 ``(steps // thin, nchains, ndim)`` arrays, so a
+        convergence driver need not re-parse the chain file."""
         block_size = block_size or self.cov_update
         ckpt = resolve_checkpoint(self._ckpt_path) if resume else None
         if ckpt is not None:
@@ -497,75 +795,87 @@ class PTSampler:
         np.savetxt(os.path.join(self.outdir, "pars.txt"),
                    self.like.param_names, fmt="%s")
 
-        while st.step < nsamp:
-            todo = int(min(block_size, nsamp - st.step))
-            sacc_before = st.swaps_accepted.copy()
-            sprop_before = st.swaps_proposed.copy()
-            t0 = time.perf_counter()
-            cold, cold_lnl, cold_lnp = self._run_block(st, todo)
-            block_s = time.perf_counter() - t0
+        writer = ThreadPoolExecutor(max_workers=1)
+        pending = None
+        try:
+            while st.step < nsamp:
+                todo = int(min(block_size, nsamp - st.step))
+                sacc_before = st.swaps_accepted.copy()
+                sprop_before = st.swaps_proposed.copy()
+                t0 = time.perf_counter()
+                cold, cold_lnl, cold_lnp = self._run_block(st, todo)
+                block_s = time.perf_counter() - t0
 
-            # --- swap-rate-targeted ladder adaptation -----------------
-            if self.adapt_ladder and self.ntemps > 1:
-                dprop = st.swaps_proposed - sprop_before
-                dacc = st.swaps_accepted - sacc_before
-                if np.all(dprop > 0):
-                    rate = dacc / dprop
-                    kappa = self.ladder_t0 / (st.step + self.ladder_t0)
-                    log_gap = np.log(np.diff(st.ladder))
-                    log_gap += kappa * (rate - self.swap_target)
-                    st.ladder = np.concatenate(
-                        [[1.0], 1.0 + np.cumsum(np.exp(log_gap))])
+                # --- swap-rate-targeted ladder adaptation -----------------
+                if self.adapt_ladder and self.ntemps > 1:
+                    dprop = st.swaps_proposed - sprop_before
+                    dacc = st.swaps_accepted - sacc_before
+                    if np.all(dprop > 0):
+                        rate = dacc / dprop
+                        kappa = self.ladder_t0 / (st.step + self.ladder_t0)
+                        log_gap = np.log(np.diff(st.ladder))
+                        log_gap += kappa * (rate - self.swap_target)
+                        st.ladder = np.concatenate(
+                            [[1.0], 1.0 + np.cumsum(np.exp(log_gap))])
 
-            full_x = cold[::thin]
-            full_l = cold_lnl[::thin]
-            full_p = cold_lnp[::thin]
-            cs = full_x[:, :self.nchains]
-            cl = full_l[:, :self.nchains]
-            cp = full_p[:, :self.nchains]
-            # --- adapt covariance from recent cold samples ------------
-            flat = cs.reshape(-1, self.ndim)
-            if flat.shape[0] > 10 and st.step > self.burn:
-                new_cov = np.cov(flat.T)
-                if self.ndim == 1:
-                    new_cov = new_cov.reshape(1, 1)
-                w = min(0.5, flat.shape[0] / max(st.step, 1))
-                st.cov = (1 - w) * st.cov + w * new_cov
+                full_x = cold[::thin]
+                full_l = cold_lnl[::thin]
+                full_p = cold_lnp[::thin]
+                cs = full_x[:, :self.nchains]
+                cl = full_l[:, :self.nchains]
+                cp = full_p[:, :self.nchains]
+                # --- adapt covariance from recent cold samples ------------
+                flat = cs.reshape(-1, self.ndim)
+                if flat.shape[0] > 10 and st.step > self.burn:
+                    new_cov = np.cov(flat.T)
+                    if self.ndim == 1:
+                        new_cov = new_cov.reshape(1, 1)
+                    w = min(0.5, flat.shape[0] / max(st.step, 1))
+                    st.cov = (1 - w) * st.cov + w * new_cov
 
-            accepted = st.accepted.cpu().numpy()
-            acc_rate = float(np.mean(accepted[:self.nchains])
-                             / max(st.step, 1))
-            tot_prop = float(np.sum(st.swaps_proposed))
-            swap_rate = (float(np.sum(st.swaps_accepted)) / tot_prop
-                         if tot_prop else 0.0)
-            nrow = cs.shape[0] * self.nchains
-            rows = np.concatenate([
-                cs.reshape(-1, self.ndim), (cp + cl).reshape(-1, 1),
-                cl.reshape(-1, 1), np.full((nrow, 1), acc_rate),
-                np.full((nrow, 1), swap_rate)], axis=1)
-            write_table(chain_path, rows, append=True)
-            if self.write_hot:
-                self._write_hot(st, full_x, full_l, full_p, accepted)
-            np.save(os.path.join(self.outdir, "cov.npy"), st.cov)
-            if self.use_maskstats:
-                atomic_write_json(os.path.join(self.outdir,
-                                               "mask_stats.json"),
-                                  cache_hit_summary(*self.mask_counts))
-            self._write_ckpt(st)
-            stats = {"step": st.step, "steps": todo, "walkers": self.W,
-                     "block_s": block_s,
-                     "ms_per_step": 1e3 * block_s / todo,
-                     "walker_evals_per_s": self.W * todo / block_s,
-                     "accept": acc_rate, "swap": swap_rate}
-            if verbose:
-                fam = " ".join(f"{n}={a / max(p, 1.0):.2f}" for n, a, p in
-                               zip(_FAM_NAMES, self.fam_accept,
-                                   self.fam_propose))
-                _log.info("step %d/%d acc=%.3f swap=%.3f [%s] maxlnl=%.2f "
-                          "ms/step=%.3f", st.step, nsamp, acc_rate,
-                          swap_rate, fam, float(np.max(cold_lnl)),
-                          stats["ms_per_step"],
-                          extra={"block_stats": stats})
+                accepted = st.accepted.cpu().numpy()
+                acc_rate = float(np.mean(accepted[:self.nchains])
+                                 / max(st.step, 1))
+                tot_prop = float(np.sum(st.swaps_proposed))
+                swap_rate = (float(np.sum(st.swaps_accepted)) / tot_prop
+                             if tot_prop else 0.0)
+                nrow = cs.shape[0] * self.nchains
+                rows = np.concatenate([
+                    cs.reshape(-1, self.ndim), (cp + cl).reshape(-1, 1),
+                    cl.reshape(-1, 1), np.full((nrow, 1), acc_rate),
+                    np.full((nrow, 1), swap_rate)], axis=1)
+                tables = [(chain_path, rows)]
+                if self.write_hot:
+                    tables += self._hot_tables(st, full_x, full_l, full_p,
+                                               accepted)
+                if collect is not None:
+                    collect.append(cs.astype(np.float32))
+                mask_stats = (cache_hit_summary(*self.mask_counts)
+                              if self.use_maskstats else None)
+                ckpt = self._ckpt_arrays(st)
+                if pending is not None:
+                    pending.result()
+                pending = writer.submit(self._commit, tables, ckpt["cov"],
+                                        mask_stats, ckpt)
+                stats = {"step": st.step, "steps": todo, "walkers": self.W,
+                         "block_s": block_s,
+                         "ms_per_step": 1e3 * block_s / todo,
+                         "walker_evals_per_s": self.W * todo / block_s,
+                         "accept": acc_rate, "swap": swap_rate}
+                if verbose:
+                    fam = " ".join(f"{n}={a / max(p, 1.0):.2f}" for n, a, p, w
+                                   in zip(_FAM_NAMES, self.fam_accept,
+                                          self.fam_propose, self.jump_probs)
+                                   if w > 0)
+                    _log.info("step %d/%d acc=%.3f swap=%.3f [%s] maxlnl=%.2f "
+                              "ms/step=%.3f", st.step, nsamp, acc_rate,
+                              swap_rate, fam, float(np.max(cold_lnl)),
+                              stats["ms_per_step"],
+                              extra={"block_stats": stats})
+            if pending is not None:
+                pending.result()
+        finally:
+            writer.shutdown(wait=True)
         return st
 
 

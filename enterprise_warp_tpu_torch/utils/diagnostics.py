@@ -50,13 +50,14 @@ def gelman_rubin(chains):
 
 
 def _autocovariance(x):
-    """FFT autocovariance of a 1-D sequence (biased normalization)."""
+    """FFT autocovariance of each sequence along the last axis (biased
+    normalization), all rows in one transform."""
     x = np.asarray(x, dtype=np.float64)
-    n = len(x)
-    x = x - x.mean()
+    n = x.shape[-1]
+    x = x - x.mean(axis=-1, keepdims=True)
     nfft = int(2 ** np.ceil(np.log2(2 * n)))
-    f = np.fft.rfft(x, nfft)
-    acov = np.fft.irfft(f * np.conj(f), nfft)[:n].real
+    f = np.fft.rfft(x, nfft, axis=-1)
+    acov = np.fft.irfft(f * np.conj(f), nfft, axis=-1)[..., :n].real
     return acov / n
 
 
@@ -73,7 +74,7 @@ def effective_sample_size(chains):
     m, n = c.shape
     if n < 4:
         return 0.0
-    acov = np.stack([_autocovariance(c[i]) for i in range(m)])
+    acov = _autocovariance(c)
     chain_var = acov[:, 0] * n / (n - 1.0)
     mean_var = np.mean(chain_var)
     var_plus = mean_var * (n - 1.0) / n

@@ -303,3 +303,5 @@ def test_no_source_names_jax_or_the_reference():
                 if top in ("jax", "jaxlib", "optax", "enterprise_warp_tpu"):
                     bad.append(f"{path}:{node.lineno}: {n}")
     assert len(files) > 30 and not bad, bad
+    assert {os.path.join(PKG, "native.py"),
+            os.path.join(PKG, "samplers", "convergence.py")} <= set(files)

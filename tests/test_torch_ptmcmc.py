@@ -66,8 +66,12 @@ def test_gaussian_posterior_recovery(tmp_path):
     assert st.swaps_proposed.sum() == 6000 // 10 * 8
     assert 0 < st.swaps_accepted.sum() < st.swaps_proposed.sum()
     assert st.ladder[0] == 1.0 and st.ladder[1] != 1.7
-    # every jump family was proposed and accepted on the cold rung
-    assert (s.fam_propose > 0).all() and (s.fam_accept > 0).all()
+    # every jump family with weight was proposed and accepted on the cold
+    # rung, and no other
+    w = s.jump_probs > 0
+    assert list(w) == [True] * 4 + [False] * 5
+    assert (s.fam_propose[w] > 0).all() and (s.fam_accept[w] > 0).all()
+    assert (s.fam_propose[~w] == 0).all()
 
 
 def test_chain_contract(tmp_path):
@@ -118,11 +122,43 @@ def test_resume_continues_the_same_chain(tmp_path):
     assert np.loadtxt(tmp_path / "b" / "chain_1.txt").shape == a.shape
 
 
-def test_unported_families_raise(tmp_path):
+def test_failed_block_write_keeps_the_last_checkpoint(tmp_path,
+                                                      monkeypatch):
+    """A block's files are written while the next block runs: a failed
+    chain write surfaces from ``sample``, and the checkpoint stays the
+    last block's whose rows reached the file, so a resume continues the
+    uninterrupted chain."""
+    from enterprise_warp_tpu_torch.samplers import ptmcmc
+    like = GaussianLike([1.0, -1.0], [0.5, 0.5])
+    kw = dict(ntemps=1, nchains=4, seed=5, cov_update=100)
+    PTSampler(like, str(tmp_path / "a"), **kw).sample(
+        500, resume=False, verbose=False)
+    real, calls = ptmcmc.write_table, []
+
+    def fail_third(path, rows, append=True):
+        calls.append(len(rows))
+        if len(calls) == 3:
+            raise OSError("disk full")
+        real(path, rows, append=append)
+    monkeypatch.setattr(ptmcmc, "write_table", fail_third)
+    with pytest.raises(OSError, match="disk full"):
+        PTSampler(like, str(tmp_path / "b"), **kw).sample(
+            500, resume=False, verbose=False)
+    monkeypatch.setattr(ptmcmc, "write_table", real)
+    assert int(np.load(tmp_path / "b" / "state.npz")["step"]) == 200
+    st = PTSampler(like, str(tmp_path / "b"), **kw).sample(
+        500, resume=True, verbose=False)
+    assert st.step == 500
+    np.testing.assert_array_equal(np.loadtxt(tmp_path / "a" / "chain_1.txt"),
+                                  np.loadtxt(tmp_path / "b" / "chain_1.txt"))
+
+
+def test_flow_family_raises(tmp_path):
+    """The flow family waits for the port of ``flows/``: a weight or a
+    flow object stops the sampler before it runs."""
     like = GaussianLike([0.0], [1.0])
-    for kw in (dict(ind_weight=5), dict(kde_weight=1), dict(cg_weight=2),
-               dict(ns_weight=1)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(flow_weight=5), dict(flow=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             PTSampler(like, str(tmp_path), **kw)
 
 
