@@ -73,7 +73,8 @@ Phases (any failure exits non-zero before the result line):
    ``--num 1``: the CLI with ``anneal_init`` (the tempered bridge 64 -> 2,
    600 steps more through the likelihood kernel), and with two rungs,
    ``writeHotChains`` and ``advi_init`` (the ADVI fit's gradients also
-   run the preconditioner kernel): launches counted as on the plain run,
+   run the preconditioner kernel):
+   launches counted as on the plain run,
    chains finite with a plausible acceptance, the hot rung's
    ``chain_<T>.txt`` in the cold file's form with the tempered lnpost;
    each run's last likelihood-kernel inputs (per walker batch: the ADVI
@@ -92,7 +93,7 @@ Phases (any failure exits non-zero before the result line):
    from step to step; the per-call batch sizes and the share of samples
    in each ``nmodel`` bin are printed) and ``fixed_white_noise.dat --num
    0`` (Grams folded at build time: the solve kernel at (8, 250, 250),
-   no likelihood kernel), each with ``nsamp: 1200`` and its launch
+   no likelihood kernel), each with ``nsamp: 600`` and its launch
    counts zeroed just before and read just after. Each kernel is held
    against its plain version on the inputs of the run's last step, where
    the chain stood then, walker by walker: a walker whose equilibrated
@@ -137,7 +138,7 @@ Phases (any failure exits non-zero before the result line):
    keeps or reverts a walker's whole Z), and the likelihood kernel at
    k = 33 (J1234-5678's basis S (334, 60) with a seeded 32-column timing
    model), each against its plain version within 5e-4. Then the CLI runs
-   ``gwb_array.dat --num 0`` (two pulsars, Hellings-Downs ``gwb``; 1200
+   ``gwb_array.dat --num 0`` (two pulsars, Hellings-Downs ``gwb``; 600
    steps; ``CGWeight``, ``KDEWeight`` and ``NSWeight`` set, every family
    proposed and accepted): two solve-kernel launches per likelihood call
    (stage 1 at
@@ -175,7 +176,7 @@ Phases (any failure exits non-zero before the result line):
    ``.tim`` parsed by the native core equal to the Python engine's
    (integer MJDs, names, sites and flags exactly, seconds within 1e-9 s;
    both engines timed) (:func:`config3_on_disk`), then a paramfile and
-   noise-model JSON with the same terms through the CLI (8 walkers, 1200
+   noise-model JSON with the same terms through the CLI (8 walkers, 600
    steps; its set-up wall time printed apart from the sampling, its TIM
    engine the native core, and the verdict of its float64 check of the
    chain): one solve-kernel launch per call (stage 1 at
@@ -216,7 +217,36 @@ Phases (any failure exits non-zero before the result line):
    ratio also against the TPU leg, and one more block of 50 steps under
    ``torch.profiler`` (:func:`profile_block`: the device's busy share,
    the kernels by device time);
-10. the ``kernels`` JSON line, one entry per kernel and main path that
+10. the run plane (:func:`phase_run_plane`). Every CLI run of phases 5 to
+   9 has already had its ``events.jsonl`` checked through the port's copy
+   of ``tools/report.py --check``'s rules (:func:`stream_check`): clean,
+   one heartbeat per block, no demotion, retry, anomaly or health event.
+   Then: (10.1) ``system_noise.dat --num 0`` with
+   ``EWT_KERNEL_HEALTH=1`` and ``EWT_FLIGHTREC=1`` (1200 steps): only
+   kernel 3 runs, at (8, 250, 250) on its global design; its last input
+   held against the plain version (walkers above condition 1e4 reported),
+   timed (median of 50) as row ``chol_precond@health``; the chain's last
+   rows against the float64 oracle; the health counters and ms/step
+   over the run (the default route's: phase 5's ``--num 0`` line);
+   (10.2) after one counted run not compared, ``--num 0`` and ``--num
+   1``, 400 steps each in blocks of 200, ``EWT_TELEMETRY`` off, on, on,
+   off (four runs a pulsar): the host synchronisations of the second
+   block (``torch.cuda.set_sync_debug_mode``, on for that block only;
+   each by its thread and calling line) equal, the chains bit for bit
+   equal (the plane's cost in time:
+   ``enterprise_warp_tpu_torch/bench/ab.py``); (10.3) fault plans on
+   ``--num 1`` (300 steps): a ``pt.dispatch`` error retried to the clean
+   chain bit for bit, a ``pt.ckpt`` kill in a subprocess resumed to it,
+   a watchdog hang demoting ``mega -> classic`` in process onto the
+   classic chain with kernel 3 (no kernel switched to its plain version)
+   and completing, retries exhausted at the bottom exiting 75 and a
+   resume on the kernels completing, a planted ``pt.nonfinite`` dumping
+   ``anomaly/anomaly.json`` beside a ``torch.profiler`` trace; (10.4)
+   SIGTERM on a CLI run: ``run_end(reason="preempted")`` and a resume
+   that completes; (10.5) nested (``default_model_nested.dat``, walk
+   kernel, 16 iterations) with ``block_iters`` 0 (one iteration a block)
+   bit for bit the blocked walk at 8, both timed;
+11. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``, after the smoke's wall time.
@@ -225,6 +255,7 @@ Phases (any failure exits non-zero before the result line):
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import logging
 import os
@@ -262,13 +293,20 @@ ARB_REL = KAPPA_MAX * 2.0 ** -23
 # arbitrated walkers of the H100 80GB HBM3, so a Gram some 4x worse than
 # the kernel's own fails
 GRAM_BOUND_FRAC = 0.25
-# sampler steps per main-path run: past covUpdate = 1000, so the
-# covariance adaptation fires (blocks of 1000 and 200 steps). The
-# earlier paths are cut to this depth so that the script, the north
-# star leg at its full targets included, ends well inside its 1200 s
-# limit on a card whose host is slower: at 2000 steps, 1000 optimal-
-# statistic draws and 200 HMC steps it ran past the limit (PERF.md)
+# sampler steps of the system_noise.dat main paths (and phase 10's health
+# and plane-cost runs): past the paramfile's covUpdate = 1000, so the
+# covariance adaptation fires (blocks of 1000 and 200 steps)
 NSAMP = 1200
+# the other PT paths through the CLI (the warm starts, the families, phase
+# 6, the joint paths): past covUpdate = SHORT_COV_UPDATE, blocks of 500
+# and 100 steps, so the adaptation still fires and each run's launch
+# counts hold. They are cut to this depth so that the script, the north
+# star leg at its full targets and phase 10 included, ends well inside
+# its 1200 s limit on a card whose host is slower: at 2000 steps, 1000
+# optimal-statistic draws and 200 HMC steps it ran past the limit, and
+# with every PT path at 1200 steps and phase 10 it took 859.9 s on the
+# NVIDIA H100 80GB HBM3 (PERF.md)
+SHORT_NSAMP, SHORT_COV_UPDATE = 600, 500
 # the reference's interpret-vs-XLA limits on the preconditioner trio
 # (tests/test_cholfuse.py): U, V, E
 CHOL_ATOL = (2e-5, 2e-4, 2e-5)
@@ -295,6 +333,9 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
          "hyper": "default_hypermodel.dat --num 0: PT-MCMC over the "
                   "product-space hypermodel, 8 walkers",
          "fixed": "fixed_white_noise.dat --num 0: PT-MCMC, 8 walkers",
+         "health0": "system_noise.dat --num 0 with EWT_KERNEL_HEALTH=1: "
+                    "PT-MCMC on the classic chain (the health plane's pin), "
+                    "8 walkers",
          "nested": "default_model_nested.dat --num 0: nested sampling, "
                    "800 live points, 160 walkers a call",
          "nested_live": "default_model_nested.dat --num 0: nested "
@@ -354,8 +395,8 @@ REDO_BATCHES = 4
 # systems per batched eigenvalue call of refine_floor
 EIG_BATCH = 4096
 # the optimal statistic at config 3: the draws held against the CPU in
-# float64 (the results CLI's default is 1000; cut as NSAMP is, since the
-# CPU's float64 side takes some 50 s per 1000 draws), and its
+# float64 (the results CLI's default is 1000; cut as SHORT_NSAMP is,
+# since the CPU's float64 side takes some 60 s per 1000 draws), and its
 # card-against-CPU limit on sig and on rho relative to sig
 OS_DRAWS = 250
 OS_RTOL = 1e-6
@@ -485,12 +526,16 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def write_paramfile(tmp, name, dest=None, extra=None, **keys):
+def write_paramfile(tmp, name, dest=None, extra=None, cov_update=None,
+                    **keys):
     """A copy of ``examples/example_params/<name>``, written as
     ``tmp/<dest>`` (default ``name``), with absolute input paths, the
     output under ``tmp/out/<dest>``, the sampler ``keys`` set (every key
-    must already be in the file) and the ``extra`` keys added before the
-    model section."""
+    must already be in the file) and the ``extra`` keys (and
+    ``covUpdate: cov_update``, if given) added before the model
+    section."""
+    if cov_update is not None:
+        extra = dict(extra or {}, covUpdate=cov_update)
     ex = os.path.join(HERE, "examples")
     dest = dest or name
     with open(os.path.join(ex, "example_params", name)) as fh:
@@ -1720,7 +1765,7 @@ def config3_on_disk(tmp):
     :func:`config3_array`, residuals and all, through ``save_pulsar_pair``
     into ``tmp/pta45_data``, a noise-model JSON with the same terms
     (``PTA45_MODEL``) and a paramfile (``array_analysis``,
-    ``ptmcmcsampler``, ``NSAMP`` steps, 8 chains). Every pulsar read back
+    ``ptmcmcsampler``, ``SHORT_NSAMP`` steps, 8 chains). Every pulsar read back
     must carry the in-memory residuals, compared after projecting out the
     quadratic spin-down both design matrices span, within the larger of
     ``ROUNDTRIP_ATOL`` and twice the loader's float64 pulse-phase
@@ -1813,7 +1858,8 @@ def config3_on_disk(tmp):
         fh.write("\n".join([
             f"datadir: {data}", f"out: {os.path.join(tmp, 'out', 'pta45.dat')}",
             "overwrite: True", "array_analysis: True",
-            "sampler: ptmcmcsampler", f"nsamp: {NSAMP}", "{0}",
+            "sampler: ptmcmcsampler", f"nsamp: {SHORT_NSAMP}",
+            f"covUpdate: {SHORT_COV_UPDATE}", "{0}",
             f"noise_model_file: {nm}"]) + "\n")
     return path
 
@@ -2416,6 +2462,563 @@ def recon_check(prfile, chain, names, smi):
     if not (all(np.isfinite(v).all() for v in out.values())
             and worst <= RECON_TOL):
         fail("realizations_batch on the card disagrees with the CPU")
+
+
+# ---- phase 10: the run plane --------------------------------------------
+# the events that mean a rung fired or a fault surfaced: none may appear in
+# a run that planted no fault
+RUNG_EVENTS = ("demotion", "retry", "anomaly", "kernel_health",
+               "psr_quarantined")
+# phase 10's fault-plan runs: system_noise.dat --num 1 (kernel 2), 300
+# steps in blocks of 100
+PLAN_NSAMP, PLAN_BLOCK = 300, 100
+# phase 10's telemetry off/on runs: two blocks of 200 steps, the host
+# syncs counted in the second (the plane's cost in time is measured by
+# enterprise_warp_tpu_torch/bench/ab.py, alternated runs in one call)
+PLANE_NSAMP, PLANE_BLOCK = 400, 200
+# the hang's watchdog: well above a 100-step block of --num 1 (< 1 s)
+HANG_WATCHDOG_S = 2
+# the health path's condition proxy: the reference's threshold (log10 14)
+# trips on every run whose walkers visit the red-noise prior corners
+# (both packages; ROADMAP Queue 3), so the health phase holds the jitter
+# and divergence rungs only
+HEALTH_ENV = dict(EWT_KERNEL_HEALTH="1", EWT_FLIGHTREC="1",
+                  EWT_HEALTH_LOGCOND_MAX="1000")
+NESTED_ITERS = 16
+
+
+def last_session(path):
+    """The events of the last session (from its ``run_start``) of an
+    ``events.jsonl``."""
+    with open(path) as fh:
+        events = [json.loads(ln) for ln in fh]
+    starts = [i for i, e in enumerate(events) if e["type"] == "run_start"]
+    return events[starts[-1]:] if starts else events
+
+
+def stream_check(outdir, label, allow=(), blocks=None):
+    """A run's ``events.jsonl`` through the port's own copy of the stream
+    vocabulary (``utils/telemetry.py:check_stream``, the rules of
+    ``tools/report.py --check``): no problem, a ``run_start`` and a
+    ``run_end`` per session, one heartbeat per checkpoint (a block each)
+    or ``blocks`` heartbeats, and no rung event (:data:`RUNG_EVENTS`)
+    beyond ``allow``. Returns the last session's events."""
+    from enterprise_warp_tpu_torch.utils import telemetry
+    path = os.path.join(outdir, "events.jsonl")
+    if not os.path.exists(path):
+        fail(f"{label}: no events.jsonl in {outdir}")
+    problems, msgs = telemetry.check_stream(path)
+    if problems:
+        fail(f"{label}: events.jsonl has {problems} problem(s): {msgs}")
+    events = last_session(path)
+    types = collections.Counter(e["type"] for e in events)
+    rungs = {t: types[t] for t in RUNG_EVENTS if types[t] and t not in allow}
+    hb = types["heartbeat"]
+    want = blocks if blocks is not None else types["checkpoint"]
+    print(f"{label}: events.jsonl clean, last session {dict(types)}")
+    if types["run_start"] != 1 or types["run_end"] != 1 or not hb:
+        fail(f"{label}: the stream's last session is not one run_start, "
+             "heartbeats and one run_end")
+    if hb != want:
+        fail(f"{label}: {hb} heartbeats for {want} blocks")
+    if rungs:
+        fail(f"{label}: {rungs} in a run that planted no fault")
+    return events
+
+
+@contextlib.contextmanager
+def run_env(plan=None, **env):
+    """Set ``env`` (None deletes) and install the fault ``plan`` for one
+    run; afterwards restore the environment, disarm the plan, clear a
+    pending preemption and start a fresh flight recorder."""
+    from enterprise_warp_tpu_torch.resilience import faults, supervisor
+    from enterprise_warp_tpu_torch.utils import flightrec, telemetry
+    keys = set(env) | {"EWT_PALLAS", "EWT_PALLAS_MEGA"}
+    saved = {k: os.environ.get(k) for k in keys}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    faults.install_plan(plan)
+    flightrec._RECORDER = None
+    telemetry.set_flight_hook(None)
+    try:
+        yield
+    finally:
+        faults.install_plan(None)
+        supervisor.clear_preemption()
+        flightrec._RECORDER = None
+        telemetry.set_flight_hook(None)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_run_plane(tmp, dev, smi, results):
+    """Phase 10: the run plane on the card (module docstring); the
+    ``chol_precond@health`` row goes into ``results``."""
+    import gc
+    import signal
+    import threading
+    import traceback
+    import warnings
+
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch import cli
+    from enterprise_warp_tpu_torch.ops import cholfuse as cf
+    from enterprise_warp_tpu_torch.ops import routes
+    from enterprise_warp_tpu_torch.resilience import supervisor
+    from enterprise_warp_tpu_torch.samplers import run_nested
+
+    blocks = []
+    # sync counting, for the second block only: set-sync-debug mode and
+    # recording every warning cost host time at each synchronising call,
+    # so both start at the first block's end (ms/step comes from the
+    # first block) and stop at the second's. Each synchronising call is
+    # recorded by its thread and the innermost frame outside torch
+    counting = {"on": False, "cm": None, "n": None, "sites": None}
+
+    def caller(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = f"{os.path.relpath(filename, HERE)}:{lineno}"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if f"{os.sep}torch{os.sep}" not in fr.filename and \
+                    not fr.filename.endswith("warnings.py"):
+                site = f"{os.path.relpath(fr.filename, HERE)}:{fr.lineno}"
+                break
+        counting["sites"][
+            f"{threading.current_thread().name} {site}"] += 1
+
+    class Blocks(logging.Handler):
+        def emit(self, record):
+            st = getattr(record, "block_stats", None)
+            if st is None:
+                return
+            blocks.append(st)
+            if counting["on"] and len(blocks) == 1:
+                counting["cm"] = warnings.catch_warnings()
+                counting["cm"].__enter__()
+                warnings.simplefilter("always")
+                warnings.showwarning = caller
+                torch.cuda.set_sync_debug_mode("warn")
+            elif counting["cm"] is not None and len(blocks) == 2:
+                stop_counting()
+
+    def stop_counting():
+        torch.cuda.set_sync_debug_mode("default")
+        if counting["cm"] is not None:
+            counting["n"] = sum(counting["sites"].values())
+            counting["cm"].__exit__(None, None, None)
+            counting["cm"] = None
+
+    handler = Blocks()
+    logging.getLogger("ewt.ptmcmc").setLevel(logging.INFO)
+    logging.getLogger("ewt.ptmcmc").addHandler(handler)
+
+    def run(pf, num, label, expect_rc=0, sync_count=False):
+        """``cli.main`` on the card; returns (the run's directory, its
+        launches, routes, designs, the ms/step of the first block and of
+        all blocks, the host synchronisations of the second block,
+        counted by ``torch.cuda.set_sync_debug_mode``, and the number of
+        blocks)."""
+        del blocks[:]
+        routes.reset_counts()
+        nsync = None
+        t0 = time.perf_counter()
+        if sync_count:
+            # the handler starts and stops the count around block 2;
+            # finalizers of earlier runs' objects and the device's queue
+            # settle first, outside the count
+            gc.collect()
+            torch.cuda.synchronize()
+            counting.update(on=True, cm=None, n=None,
+                            sites=collections.Counter())
+            try:
+                rc = cli.main(["--prfile", pf, "--num", str(num)],
+                              device=dev)
+            finally:
+                stop_counting()
+                counting["on"] = False
+            nsync = counting["n"]
+        else:
+            rc = cli.main(["--prfile", pf, "--num", str(num)], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != expect_rc:
+            fail(f"{label}: cli.main exited {rc}, not {expect_rc}")
+        out = [r for r, _, fs in os.walk(os.path.join(
+            tmp, "out", os.path.basename(pf))) if "state.npz" in fs]
+        steps = sum(b["steps"] for b in blocks)
+        ms = (1e3 * blocks[0]["block_s"] / blocks[0]["steps"] if blocks
+              else 0.0)
+        ms_all = (1e3 * sum(b["block_s"] for b in blocks) / steps if blocks
+                  else 0.0)
+        print(f"{label}: rc {rc} wall {wall:.1f} s, {steps} steps in "
+              f"{len(blocks)} blocks, {ms:.3f} ms/step in the first, "
+              f"{ms_all:.3f} over all, launches "
+              f"{dict(routes.LAUNCHES)} routes "
+              f"{ {f'{k}/{p}': v for (k, p), v in routes.ROUTES.items()} } "
+              f"designs { {f'{k}/{d}': v for (k, d), v in routes.DESIGNS.items()} }"
+              + (f", host syncs in the second block {nsync}"
+                 if nsync is not None else "") + f" [{smi}]")
+        return (out[0], dict(routes.LAUNCHES), dict(routes.ROUTES),
+                dict(routes.DESIGNS), (ms, ms_all), nsync, len(blocks))
+
+    def chain_bytes(outdir):
+        with open(os.path.join(outdir, "chain_1.txt"), "rb") as fh:
+            return fh.read()
+
+    def step_of(outdir):
+        return int(np.load(os.path.join(outdir, "state.npz"))["step"])
+
+    try:
+        # ---- 10.1: the health plane on the card ------------------------
+        pf = write_paramfile(tmp, "system_noise.dat",
+                             dest="system_noise_health.dat", nsamp=NSAMP)
+        with run_env(**HEALTH_ENV), Record(cf, "chol_precond_health", 0) \
+                as rec:
+            hdir, hl, hr, hd, health_ms, _, nblk = run(
+                pf, 0, "10.1 system_noise.dat --num 0, EWT_KERNEL_HEALTH=1")
+        # with the flight recorder on, a non-finite evaluation at a prior
+        # corner is an anomaly dump, as the reference's (the classic
+        # chain's failed factor of the timing-model block); nothing else
+        events = stream_check(hdir, "10.1 health", allow=("anomaly",),
+                              blocks=nblk)
+        reasons = {e["reason"] for e in events if e["type"] == "anomaly"}
+        if reasons - {"nonfinite_eval"}:
+            fail(f"10.1: anomaly dumps {reasons}")
+        end = [e for e in events if e["type"] == "run_end"][0]
+        print("10.1 counters: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(end["metrics"]["counters"].items())
+            if k.startswith(("nonfinite_eval", "schur_rejected",
+                             "jitter_engaged", "refine_diverged"))))
+        hb = [e for e in events if e["type"] == "heartbeat"][-1]
+        print(f"10.1 kernel health: jitter_engaged {hb['jitter_engaged']}, "
+              f"refine_diverged {hb['refine_diverged']}, kernel_cond "
+              f"{hb['kernel_cond']} (run-cumulative, {hl['chol_precond']} "
+              "launches)")
+        n_pc = sorted(rec.sizes)
+        if hl["mega_solve"] or hl["mega_like"] or not hl["chol_precond"] \
+                or n_pc != [250] or dict(rec.sizes[250]) != {8: hl[
+                    "chol_precond"]} \
+                or hd.get(("chol_precond", "global")) != hl["chol_precond"]:
+            fail(f"10.1: the health path did not run kernel 3 alone at (8, "
+                 f"250, 250) on its global design: launches {hl}, orders "
+                 f"{ {n: dict(c) for n, c in rec.sizes.items()} }, designs "
+                 f"{hd}")
+        S_, a, b = (x.detach() if torch.is_tensor(x) else x
+                    for x in rec.last[250])
+        S_ = S_.contiguous()
+        *trio_k, tk = cf._chol_precond_cuda(S_, a, b)
+        tiers = tk.tolist()
+        # walkers above an equilibrated condition of KAPPA_MAX are
+        # reported, not held
+        ev = torch.linalg.eigvalsh(S_.double())
+        cond = (ev.abs().amax(dim=-1) / ev.amin(dim=-1).clamp(min=1e-300))
+        cond = torch.where(ev.amin(dim=-1) > 0, cond,
+                           torch.full_like(cond, float("inf"))).cpu()
+        held = [i for i in range(S_.shape[0]) if cond[i] <= KAPPA_MAX]
+        print(f"10.1 chol_precond@health inputs: condition per walker "
+              f"{[float(f'{c:.3g}') for c in cond.tolist()]}; held "
+              f"{len(held)} of {S_.shape[0]}")
+        err = 0.0
+        if held:
+            idx = torch.as_tensor(held, device=dev)
+            err = hold_precond(torch, cf, "chol_precond@health", S_[idx], a,
+                               b, [t[idx] for t in trio_k],
+                               [tiers[i] for i in held])
+        if len(held) < S_.shape[0]:
+            out = [i for i in range(S_.shape[0]) if i not in held]
+            idx = torch.as_tensor(out, device=dev)
+            trio_p = cf._fused_torch(S_[idx], a, b)
+            print("10.1 chol_precond@health, walkers above the bound "
+                  f"(reported): |k-p| of U, V, E "
+                  f"{[float((k[idx] - p).abs().max()) for k, p in zip(trio_k, trio_p)]}")
+        ms = time_cuda(lambda: cf._chol_precond_cuda(S_, a, b))
+        plain_ms = time_cuda(lambda: cf._fused_torch(S_, a, b))
+        flops, nbytes = chol_cost(S_.shape[0], 250, tiers)
+        bms, bby = bound(flops, nbytes)
+        print(f"chol_precond@health at {tuple(S_.shape)} (global design): "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+              f"{bms:.4f} ms ({bby}; {flops / 1e9:.4f} GFLOP, "
+              f"{nbytes / 1e6:.3f} MB) median of 50 [{smi}]")
+        results["chol_precond@health"] = dict(
+            run="health0", shape=f"Sn {tuple(S_.shape)}", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+            launches=hl["chol_precond"])
+        chain = np.loadtxt(os.path.join(hdir, "chain_1.txt"))
+        if not np.isfinite(chain).all():
+            fail("10.1: non-finite chain rows")
+        oracle = load_likes(pf, 0, "cpu", gram_mode="f64")[1][0]
+        last = chain[-8:]
+        ref = oracle.loglike_batch(last[:, :oracle.ndim]).numpy()
+        gap = np.abs(last[:, -3] - ref)
+        print(f"10.1 the chain's last 8 rows against the float64 oracle on "
+              f"the CPU: max|dlnL| {gap.max():.3e}")
+        if not np.all(gap <= LNL_ATOL + LNL_RTOL * np.abs(ref)):
+            fail("10.1: the health path's chain disagrees with the float64 "
+                 "oracle")
+
+        print(f"10.1 health path {health_ms[1]:.3f} ms/step over its "
+              f"{NSAMP} steps (the default route: phase 5's main path "
+              f"--num 0 line) [{smi}]")
+
+        # ---- 10.2: host syncs with the plane off and on ----------------
+        # a first counted run, not compared: a synchronising call made
+        # once a process (torch.cuda.synchronize, not by the sampler)
+        # landed in the first count of two card runs
+        pf = write_paramfile(tmp, "system_noise.dat",
+                             dest="system_noise_plane_warm.dat",
+                             nsamp=PLANE_NSAMP, cov_update=PLANE_BLOCK)
+        with run_env(EWT_TELEMETRY="1"):
+            run(pf, 0, "10.2 warm-up --num 0 (not compared)",
+                sync_count=True)
+        print(f"10.2 warm-up: host syncs by site {dict(counting['sites'])}")
+        cost, sites, chains = {}, {}, {}
+        for num, flags in ((0, ("0", "1", "1", "0")),
+                           (1, ("1", "0", "0", "1"))):
+            for i, flag in enumerate(flags):
+                pf = write_paramfile(tmp, "system_noise.dat",
+                                     dest=f"system_noise_plane{num}_{i}.dat",
+                                     nsamp=PLANE_NSAMP,
+                                     cov_update=PLANE_BLOCK)
+                with run_env(EWT_TELEMETRY=flag):
+                    d, _, _, _, ms, ns, nb = run(
+                        pf, num, f"10.2 --num {num} EWT_TELEMETRY={flag}",
+                        sync_count=True)
+                cost.setdefault((num, flag), []).append((ms[0], ns))
+                sites.setdefault((num, flag), []).append(counting["sites"])
+                chains.setdefault(num, set()).add(chain_bytes(d))
+                has = os.path.exists(os.path.join(d, "events.jsonl"))
+                if has != (flag == "1"):
+                    fail(f"10.2: EWT_TELEMETRY={flag} and the stream "
+                         f"{'exists' if has else 'is missing'}")
+                if flag == "1":
+                    stream_check(d, f"10.2 --num {num}", blocks=nb)
+        for num in (0, 1):
+            off, on = cost[(num, "0")], cost[(num, "1")]
+            print(f"10.2 --num {num}: ms/step (first block) telemetry off "
+                  f"{[round(m, 3) for m, _ in off]} on "
+                  f"{[round(m, 3) for m, _ in on]}; host syncs in the "
+                  f"second block off {[s for _, s in off]} on "
+                  f"{[s for _, s in on]}; the four chains "
+                  f"{'bit for bit equal' if len(chains[num]) == 1 else 'differ'}"
+                  f" [{smi}]")
+            if len({s for _, s in off + on}) != 1 or not off[0][1]:
+                runs = sites[(num, "0")] + sites[(num, "1")]
+                every = set().union(*runs)
+                print(f"10.2 --num {num}: host syncs by site, off then on: "
+                      + "; ".join(f"{k} {[c[k] for c in runs]}"
+                                  for k in sorted(every)
+                                  if len({c[k] for c in runs}) > 1))
+                fail(f"10.2 --num {num}: host syncs per block differ with "
+                     "telemetry on and off")
+
+        # ---- 10.3: fault plans on --num 1 (kernel 2) -------------------
+        def plan_pf(dest):
+            return write_paramfile(tmp, "system_noise.dat", dest=dest,
+                                   extra={"covUpdate": PLAN_BLOCK},
+                                   nsamp=PLAN_NSAMP)
+
+        pf = plan_pf("plan_clean.dat")
+        with run_env():
+            cdir, *_ = run(pf, 1, "10.3 clean")
+        stream_check(cdir, "10.3 clean")
+        clean = chain_bytes(cdir)
+
+        pf = plan_pf("plan_error.dat")
+        with run_env(plan={"faults": [{"site": "pt.dispatch",
+                                       "kind": "error", "at": 2}]}):
+            edir, *_ = run(pf, 1, "10.3 pt.dispatch error at 2")
+        ev = stream_check(edir, "10.3 error", allow=("retry",))
+        if [e["type"] for e in ev].count("retry") != 1 or \
+                chain_bytes(edir) != clean:
+            fail("10.3: the injected dispatch error was not retried once "
+                 "to the clean run's chain")
+        print("10.3 pt.dispatch error at 2: one retry, the chain bit for "
+              "bit the clean run's")
+
+        pf = plan_pf("plan_kill.dat")
+        env = dict(os.environ, EWT_FAULT_PLAN=json.dumps(
+            {"faults": [{"site": "pt.ckpt", "kind": "kill", "at": 2}]}))
+        code = (f"import sys; sys.path.insert(0, {HERE!r}); "
+                "from enterprise_warp_tpu_torch import cli; "
+                f"sys.exit(cli.main(['--prfile', {pf!r}, '--num', '1'], "
+                f"device={str(dev)!r}))")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code], env=env,
+                           capture_output=True, timeout=300)
+        if r.returncode != -signal.SIGKILL:
+            fail(f"10.3: the pt.ckpt kill did not kill the run (exit "
+                 f"{r.returncode}): {r.stderr.decode()[-2000:]}")
+        kdir = [rr for rr, _, fs in os.walk(os.path.join(tmp, "out",
+                                                         "plan_kill.dat"))
+                if "state.npz" in fs][0]
+        killed_at = step_of(kdir)
+        with run_env():
+            run(pf, 1, "10.3 resume after the pt.ckpt kill")
+        ev = stream_check(kdir, "10.3 resume")
+        lin = [e["reason"] for e in ev if e["type"] == "run_lineage"]
+        if chain_bytes(kdir) != clean or lin != ["resume"]:
+            fail(f"10.3: the resumed run (killed at step {killed_at}, "
+                 f"lineage {lin}) is not the uninterrupted chain")
+        print(f"10.3 pt.ckpt kill at 2 (a subprocess, killed at step "
+              f"{killed_at}, {time.perf_counter() - t0:.1f} s with the "
+              "resume): the resumed chain bit for bit the clean run's")
+
+        pf = plan_pf("plan_hang.dat")
+        with run_env(plan={"faults": [{"site": "pt.dispatch", "kind": "hang",
+                                       "at": 2, "hang_s": 60}]},
+                     EWT_WATCHDOG_S=str(HANG_WATCHDOG_S)):
+            t0 = time.perf_counter()
+            hgdir, hgl, hgr, hgd, *_ = run(
+                pf, 1, "10.3 pt.dispatch hang at 2, EWT_WATCHDOG_S="
+                f"{HANG_WATCHDOG_S}")
+            switches = (os.environ.get("EWT_PALLAS"),
+                        os.environ.get("EWT_PALLAS_MEGA"))
+        # the in-process re-entry joins the CLI's run scope: one session.
+        # The classic rung pins the classic chain (EWT_PALLAS_MEGA=0) and
+        # keeps the preconditioner kernel: no kernel runs its plain
+        # version. With no megakernel route possible, the re-entered
+        # sampler arms the health plane by default, as the reference's
+        # does: its observe/reeval events may follow
+        ev = stream_check(hgdir, "10.3 hang",
+                          allow=("demotion", "kernel_health"))
+        acts = {e["action"] for e in ev if e["type"] == "kernel_health"}
+        if acts - {"observe", "reeval"}:
+            fail(f"10.3 hang: health actions {acts} after the demotion")
+        dem = [e for e in ev if e["type"] == "demotion"]
+        lin = [e["reason"] for e in ev if e["type"] == "run_lineage"]
+        if len(dem) != 1 or (dem[0]["from"], dem[0]["to"]) != \
+                ("mega", "classic") or switches != (None, "0") or \
+                hgr.get(("chol_precond", "disabled")) or \
+                not hgl["chol_precond"] or \
+                hgr.get(("chol_precond", "kernel")) != hgl["chol_precond"] \
+                or hgl["mega_like"] != PLAN_BLOCK + 1 or \
+                step_of(hgdir) != PLAN_NSAMP or lin != ["fresh"]:
+            fail(f"10.3: the hang did not demote mega -> classic onto the "
+                 f"preconditioner kernel and complete: demotions {dem}, "
+                 f"EWT_PALLAS/EWT_PALLAS_MEGA {switches}, launches {hgl}, "
+                 f"routes {hgr}, lineage {lin}")
+        print(f"10.3 hang: demotion {dem[0]['from']} -> {dem[0]['to']} "
+              f"(device_ok {dem[0]['device_ok']}), then the classic chain "
+              f"on kernel 3 ({hgl['chol_precond']} launches, designs "
+              f"{ {f'{k}/{d}': v for (k, d), v in hgd.items()} }), run "
+              f"complete in {time.perf_counter() - t0:.1f} s")
+
+        pf = plan_pf("plan_bottom.dat")
+        with run_env(plan={"faults": [{"site": "pt.dispatch",
+                                       "kind": "error", "at": 2}]},
+                     EWT_PALLAS_MEGA="0", EWT_DISPATCH_RETRIES="0"):
+            bdir, *_ = run(pf, 1, "10.3 retries exhausted at the bottom",
+                           expect_rc=supervisor.EXIT_DEMOTED)
+        at = step_of(bdir)
+        with run_env():
+            run(pf, 1, "10.3 resume after exit 75")
+        if step_of(bdir) != PLAN_NSAMP:
+            fail("10.3: the resume after exit 75 did not complete")
+        print(f"10.3 bottom of the ladder: exit 75 at step {at}, no "
+              "re-execution; the resume on the card completed")
+
+        pf = plan_pf("plan_nonfinite.dat")
+        cap = os.path.join(tmp, "capture")
+        with run_env(plan={"faults": [{"site": "pt.nonfinite",
+                                       "kind": "nonfinite", "at": 2}]},
+                     EWT_FLIGHTREC="1", EWT_PROFILE_CAPTURE=cap,
+                     EWT_PROFILE_BLOCKS="1"):
+            ndir, *_ = run(pf, 1, "10.3 pt.nonfinite at 2, "
+                           "EWT_PROFILE_CAPTURE")
+        stream_check(ndir, "10.3 nonfinite", allow=("anomaly",))
+        apath = os.path.join(ndir, "anomaly", "anomaly.json")
+        traces = sorted(os.listdir(cap)) if os.path.isdir(cap) else []
+        if not os.path.exists(apath) or not traces:
+            fail(f"10.3: no anomaly dump ({os.path.exists(apath)}) or no "
+                 f"trace file ({traces})")
+        with open(apath) as fh:
+            doc = json.load(fh)
+        if doc["reason"] != "nonfinite_eval":
+            fail(f"10.3: the anomaly dump's reason is {doc['reason']}")
+        print(f"10.3 pt.nonfinite: anomaly dump {doc['reason']} (launches "
+              f"in force {doc['kernels']['launches']}), profiler traces "
+              f"{traces} ({sum(os.path.getsize(os.path.join(cap, t)) for t in traces) / 1e6:.1f} MB)")
+
+        # ---- 10.4: SIGTERM on a CLI PT run -----------------------------
+        pf = write_paramfile(tmp, "system_noise.dat", dest="sigterm.dat",
+                             extra={"covUpdate": PLAN_BLOCK},
+                             nsamp=2 * PLAN_NSAMP)
+        sdir_root = os.path.join(tmp, "out", "sigterm.dat")
+
+        def send_term():
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                hits = [os.path.join(rr, "chain_1.txt")
+                        for rr, _, fs in os.walk(sdir_root)
+                        if "chain_1.txt" in fs]
+                if hits and os.path.getsize(hits[0]) > 0:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    return
+                time.sleep(0.05)
+
+        with run_env(EWT_FLIGHTREC="1"):
+            killer = threading.Thread(target=send_term, daemon=True)
+            killer.start()
+            sdir, *_ = run(pf, 1, "10.4 SIGTERM")
+            killer.join(timeout=5)
+        ev = last_session(os.path.join(sdir, "events.jsonl"))
+        end = [e for e in ev if e["type"] == "run_end"]
+        at = step_of(sdir)
+        if len(end) != 1 or end[0].get("reason") != "preempted" or \
+                not 0 < at < 2 * PLAN_NSAMP:
+            fail(f"10.4: SIGTERM did not preempt cleanly (run_end {end}, "
+                 f"checkpoint at step {at})")
+        with run_env():
+            run(pf, 1, "10.4 resume after SIGTERM")
+        ev = stream_check(sdir, "10.4 resume")
+        lin = [e["reason"] for e in ev if e["type"] == "run_lineage"]
+        if step_of(sdir) != 2 * PLAN_NSAMP or lin != ["preempt-restart"]:
+            fail(f"10.4: the resume did not complete ({step_of(sdir)}, "
+                 f"lineage {lin})")
+        print(f"10.4 SIGTERM: run_end(reason=preempted) at step {at}, the "
+              "resume completed (lineage preempt-restart)")
+
+        # ---- 10.5: the per-iteration nested switch ----------------------
+        # (HMC's device_state switch keeps the one device-resident path:
+        # tests/test_torch_hmc.py holds its chain on the CPU)
+        npf = write_paramfile(tmp, "default_model_nested.dat",
+                              dest="nested_periter.dat")
+        nparams, nls = load_likes(npf, 0, dev)
+        kw = nparams.sampler_kwargs
+        nkw = dict(nlive=int(kw.get("nlive", 500)), dlogz=1e-12,
+                   max_iter=NESTED_ITERS, seed=0, verbose=False,
+                   kernel="walk", label="r")
+        for key in ("kbatch", "nsteps"):
+            if int(kw.get(key, 0) or 0) > 0:
+                nkw[key] = int(kw[key])
+        nres = {}
+        for bi in (0, 8):
+            t0 = time.perf_counter()
+            d = os.path.join(tmp, "out", f"nested_bi{bi}")
+            nres[bi] = run_nested(nls[0], outdir=d, block_iters=bi, **nkw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            print(f"10.5 nested block_iters={bi}: {NESTED_ITERS} iterations "
+                  f"in {dt:.2f} s, {1e3 * dt / NESTED_ITERS:.2f} ms per "
+                  f"iteration, lnZ {nres[bi]['log_evidence']:.6f} [{smi}]")
+            # block_iters 0 runs the blocked walk one iteration a block
+            stream_check(d, f"10.5 nested block_iters={bi}",
+                         blocks=-(-NESTED_ITERS // max(bi, 1)) + 1)
+        if nres[0]["log_evidence"] != nres[8]["log_evidence"] or \
+                not np.array_equal(nres[0]["samples"], nres[8]["samples"]):
+            fail("10.5: block_iters 0 is not bit for bit the blocked walk")
+        print("10.5 block_iters 0 (one iteration a block) bit for bit the "
+              "blocked walk at 8")
+    finally:
+        logging.getLogger("ewt.ptmcmc").removeHandler(handler)
 
 
 def main():
@@ -3037,6 +3640,7 @@ def main():
             chain = np.loadtxt(os.path.join(outdir[0], "chain_1.txt"))
             if not np.isfinite(chain).all():
                 fail(f"{name} --num {num}: non-finite chain rows")
+            stream_check(outdir[0], f"{name} --num {num}")
             return chain, counts, outdir[0]
 
         def pt_report(label, chain):
@@ -3097,7 +3701,8 @@ def main():
                            ("families", FAMILY_KEYS)):
             wpf = write_paramfile(tmp, "system_noise.dat",
                                   dest=f"system_noise_{run}.dat",
-                                  extra=extra, nsamp=NSAMP)
+                                  extra=extra, nsamp=SHORT_NSAMP,
+                                  cov_update=SHORT_COV_UPDATE)
             with RecordBatches(mk, "mega_like", 1) as rec, \
                     Capture(cf, "chol_precond") as cap_w, \
                     KeepSamplers() as kept:
@@ -3141,10 +3746,10 @@ def main():
                             tk.tolist(), err)
             W = 8 * int(extra.get("ntemps", 1))
             advi = [st for st in stats if st["kind"] == "advi_stats"]
-            want = NSAMP + 1 + (600 if run == "anneal" else
+            want = SHORT_NSAMP + 1 + (600 if run == "anneal" else
                                 advi[0]["steps"] if advi else 0)
             print(f"--num 1 with {extra}: likelihood-kernel launches "
-                  f"{launches[run]['mega_like']} (the sampler's {NSAMP} "
+                  f"{launches[run]['mega_like']} (the sampler's {SHORT_NSAMP} "
                   f"steps, its first evaluation and the warm start's: "
                   f"{want}), preconditioner launches "
                   f"{launches[run]['chol_precond']}; walkers {W}")
@@ -3229,7 +3834,8 @@ def main():
                  1),
                 ("fixed", "fixed_white_noise.dat", "mega_solve",
                  "mega_solve_logdet", 0)):
-            pf = write_paramfile(tmp, name, nsamp=NSAMP)
+            pf = write_paramfile(tmp, name, nsamp=SHORT_NSAMP,
+                                 cov_update=SHORT_COV_UPDATE)
             schur.run = run if kname == "mega_like" else None
             with Record(mk, wrapper, batch_arg) as rec:
                 chain, launches[run], run_dir = drive(pf, 0, [kname])
@@ -3389,6 +3995,9 @@ def main():
                if d.startswith("0_")][0]
         label = [f[:-len("_result.json")] for f in os.listdir(nnd)
                  if f.endswith("_result.json")][0]
+        # a heartbeat per block and the closing one
+        stream_check(nnd, f"{nname} --num 0",
+                     blocks=len(nested_log["nested_stats"]) + 1)
         with open(os.path.join(nnd, f"{label}_result.json")) as fh:
             nres = json.load(fh)
         sizes = dict(recn.sizes[60])
@@ -3610,7 +4219,8 @@ def main():
         # (b) gwb_array.dat through the CLI
         gname = "gwb_array.dat"
         gfam = {k: v for k, v in FAMILY_KEYS.items() if k != "IndWeight"}
-        gpf = write_paramfile(tmp, gname, nsamp=NSAMP, extra=gfam)
+        gpf = write_paramfile(tmp, gname, nsamp=SHORT_NSAMP, extra=gfam,
+                              cov_update=SHORT_COV_UPDATE)
         cli_warnings = []
 
         class Warnings(logging.Handler):
@@ -3674,11 +4284,11 @@ def main():
                                   "ns"))
         print(f"{gname}: mask_stats.json {ms}; cold proposals {fp[3]:.0f} "
               f"prior draws, {fp[7]:.0f} noise slides, {fp[5]:.0f} cg and "
-              f"{fp[6]:.0f} kde subsets of {gs.nchains * NSAMP}")
+              f"{fp[6]:.0f} kde subsets of {gs.nchains * SHORT_NSAMP}")
         maskable = prop["site"] + prop["common"]
         if (sorted(ms), sorted(prop)) != MASK_KEYS or \
                 prop["site"] + prop["common"] + prop["full"] != ms["total"] \
-                or ms["total"] != gs.nchains * NSAMP or \
+                or ms["total"] != gs.nchains * SHORT_NSAMP or \
                 not fp[3] + fp[7] < maskable <= fp[3] + fp[5] + fp[6] + fp[7]:
             fail(f"{gname}: mask_stats.json is not the reference's record of "
                  "this run's cold proposals")
@@ -3856,7 +4466,7 @@ def main():
         # redrawn at a smaller batch)
         if set(sizes) != {100} or \
                 any(b % len(psrs45) for b in sizes[100]) or \
-                sizes[100].get(len(psrs45) * walkers, 0) < NSAMP or \
+                sizes[100].get(len(psrs45) * walkers, 0) < SHORT_NSAMP or \
                 launches["pta45"]["mega_solve"] != ncall or \
                 paths45.get(("mega_solve", "over-cap")) != ncall or \
                 paths45.get(("chol_precond", "over-cap")) != ncall:
@@ -3967,6 +4577,11 @@ def main():
             launches["north_star"] = dict(routes.LAUNCHES)
         W = nsam.W
         n_ns = rec.last[W][0].shape[-1]
+        # a heartbeat per block and one per convergence check
+        ns_dir = os.path.join(tmp, "out", "north_star")
+        ns_ck = sum(e["type"] == "checkpoint" for e in last_session(
+            os.path.join(ns_dir, "events.jsonl")))
+        stream_check(ns_dir, "north star leg", blocks=ns_ck + parts["checks"])
         print(f"north star leg: launches {launches['north_star']}, "
               f"likelihood-kernel calls per order and walker batch "
               f"{ {n: dict(c) for n, c in rec.sizes.items()} }")
@@ -4032,6 +4647,10 @@ def main():
         results["mega_like@north_star"]["batch_sizes"] = \
             dict(rec.sizes[n_ns])
         lap("9")
+
+        # ---- phase 10: the run plane -------------------------------------
+        phase_run_plane(tmp, dev, smi, results)
+        lap("10")
 
     kernels = []
     for entry, r in results.items():

@@ -12,6 +12,16 @@ models when the paramfile has two or more) and for ``emcee``/``ptemcee``
 ``nestle``, ``pymultinest``, ``pypolychord``, ``ultranest``), on the first
 model. Each writes the reference's output-directory contract, so
 ``python -m enterprise_warp_tpu_torch.results`` post-processes the run.
+
+The run plane: the samplers run inside one ``run_scope`` on the output
+directory keyed by the paramfile's hash (``events.jsonl``; the lineage of
+a re-entry comes from ``EWT_PARENT_RUN_ID``/``EWT_LINEAGE_REASON`` or the
+stream's tail), a SIGTERM stops the run cleanly at a block boundary, a
+pulsar quarantined by the health ladder exits 76 with
+``quarantined.json``, and a demotion past the last in-process rung prints
+it and exits 75 with the checkpoint on disk. The reference's bottom rung
+re-executes the CLI on the CPU; the port never moves a card run to the
+host, so it always takes the reference's ``EWT_DEMOTION_EXEC=0`` branch.
 The ``serve`` subcommand and the ``psr_shard``/``chain_shard`` knobs are
 later slices of the port and raise ``NotImplementedError``.
 """
@@ -74,8 +84,6 @@ def main(argv=None, device="cuda"):
     from .io.errors import ParseError
     from .models.assemble import init_model_likelihoods
     from .resilience.integrity import EXIT_QUARANTINED, DataQuarantine
-    from .samplers import (HyperModelLikelihood, run_hmc, run_nested,
-                           run_ptmcmc)
 
     device = resolve_device(device)
     custom = None
@@ -115,9 +123,61 @@ def main(argv=None, device="cuda"):
         print("Preparations for the sampling are complete "
               "(setup-only mode)")
         return 0
+    import hashlib
+
+    from .resilience.integrity import PulsarQuarantine
+    from .resilience.supervisor import (EXIT_DEMOTED, PlatformDemotion,
+                                        install_graceful_sigterm)
+    from .utils import telemetry
+    with open(opts.prfile, "rb") as fh:
+        config_hash = hashlib.sha256(fh.read()).hexdigest()[:16]
+    install_graceful_sigterm()
+    try:
+        with telemetry.run_scope(params.output_dir, sampler=params.sampler,
+                                 config_hash=config_hash,
+                                 prfile=os.path.abspath(opts.prfile),
+                                 label=getattr(params, "label", None)):
+            _run_samplers(params, likes, not bool(opts.wipe_old_output),
+                          device)
+    except PulsarQuarantine as q:
+        # the health ladder's last rung: this pulsar is out (76: do not
+        # restart it); the record merges with earlier quarantines
+        print(f"pulsar quarantine: {q}", file=sys.stderr)
+        _record_quarantine(params.output_dir, q)
+        return EXIT_QUARANTINED
+    except PlatformDemotion as d:
+        # every in-process rung is applied by the samplers; past them the
+        # run restarts from its checkpoint in a fresh process (75)
+        print(f"platform demotion: {d}", file=sys.stderr)
+        return EXIT_DEMOTED
+    return 0
+
+
+def _record_quarantine(output_dir, q):
+    """Merge a sampler-time quarantine into ``quarantined.json``."""
+    import json
+
+    from .io.writers import atomic_write_json
+    qpath = os.path.join(output_dir, "quarantined.json")
+    record = {"quarantined_pulsars": [q.psr],
+              "reports": {q.psr: {"cause": q.cause, "stats": q.stats}}}
+    try:
+        with open(qpath) as fh:
+            prev = json.load(fh)
+        record["reports"] = {**prev.get("reports", {}), **record["reports"]}
+        record["quarantined_pulsars"] = sorted(
+            set(prev.get("quarantined_pulsars", [])) | {q.psr})
+    except (OSError, ValueError):
+        pass
+    atomic_write_json(qpath, record)
+
+
+def _run_samplers(params, likes, resume, device):
+    """Dispatch on the paramfile's sampler (module docstring)."""
+    from .samplers import (HyperModelLikelihood, run_hmc, run_nested,
+                           run_ptmcmc)
     first_id = min(likes)
     like = likes[first_id]
-    resume = not bool(opts.wipe_old_output)
     kw = params.sampler_kwargs
     if params.sampler == "ptmcmcsampler":
         if len(likes) >= 2:
@@ -150,7 +210,6 @@ def main(argv=None, device="cuda"):
                    nlive=int(kw.get("nlive", 500)),
                    dlogz=float(kw.get("dlogz", 0.1)), resume=resume,
                    **nested_knobs(kw))
-    return 0
 
 
 def check_joint_chain(params, like, device):
@@ -197,7 +256,8 @@ def nested_knobs(kw):
     """The paramfile's nested-sampler knobs to forward, as the reference's
     CLI forwards them: ``kbatch`` and ``nsteps`` when positive (0 =
     auto), ``block_iters`` when not negative (-1, the default, keeps the
-    sampler's block length; 0 asks for the per-iteration path), and
+    sampler's block length; 0 asks for the per-iteration path, which
+    the port runs as the blocked walk one iteration a block), and
     ``kernel`` only when it is not the default ``slice``."""
     nkw = {}
     for key in ("kbatch", "nsteps"):

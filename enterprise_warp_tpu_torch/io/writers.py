@@ -179,19 +179,44 @@ def resolve_checkpoint(path: str, what: str = "checkpoint"):
     tries ``path`` then :func:`prev_generation`; a candidate is
     accepted when its sidecar digest matches (or when it has none — a
     legacy or mid-rotation generation). A mismatch is logged under
-    ``what`` and falls through to the previous generation. Returns the
-    usable path, or None when no restorable generation exists."""
+    ``what``, recorded as a ``ckpt_corrupt`` event and
+    ``ckpt_verify{outcome=corrupt}``, and falls through to the previous
+    generation. Returns the usable path, or None when no restorable
+    generation exists. Fault site ``ckpt.verify``: kind ``torn``
+    truncates ``path`` on disk before verification."""
+    from ..resilience import faults
+    from ..utils import telemetry
     from ..utils.logging import get_logger
+    spec = faults.fire("ckpt.verify", write=True, path=path)
+    if spec is not None and spec.kind == "torn" and os.path.exists(path):
+        with open(path, "rb") as fh:
+            data = fh.read()
+        with open(path, "wb") as fh:
+            fh.write(faults.torn_bytes(spec, data))
     log = get_logger("ewt.ckpt")
+    reg = telemetry.registry()
     for generation, cand in enumerate((path, prev_generation(path))):
         if not os.path.exists(cand):
             continue
-        if verify_checkpoint(cand) is False:
+        verdict = verify_checkpoint(cand)
+        if verdict is False:
+            reg.counter("ckpt_verify", outcome="corrupt").inc()
             log.error("%s %s failed digest verification%s", what, cand,
                       " — falling back one generation" if generation == 0
                       else "")
+            from ..utils.flightrec import flight_recorder
+            flight_recorder().record("ckpt_corrupt", path=cand,
+                                     generation=generation, what=what)
+            rec = telemetry.active_recorder()
+            if rec is not None:
+                rec.event("ckpt_corrupt", path=cand, generation=generation,
+                          what=what)
+                rec.flush()
             continue
+        reg.counter("ckpt_verify",
+                    outcome="ok" if verdict else "unverified").inc()
         if generation:
+            reg.counter("ckpt_verify", outcome="fallback").inc()
             log.warning("%s restored from previous generation %s", what,
                         cand)
         return cand
@@ -216,11 +241,19 @@ def atomic_write_json(path: str, obj, indent: int = 1, sort_keys=False,
 
     ``default`` falls back to ``float`` coercion for numpy scalars (the
     dominant non-JSON type in run artifacts) when not given.
+
+    Fault site ``io.atomic_json``: ``torn`` writes a truncated payload
+    through the rename; ``kill`` writes the truncated tmp and dies before
+    the rename, so the destination keeps its previous content.
     """
     if default is None:
         default = float
+    from ..resilience import faults
+    spec = faults.fire("io.atomic_json", write=True, path=path)
     data = json.dumps(obj, indent=indent, sort_keys=sort_keys,
                       default=default)
+    if spec is not None and spec.kind in ("torn", "kill"):
+        data = faults.torn_bytes(spec, data)
     tmp = path + ".tmp"
     try:
         with open(tmp, "w") as fh:
@@ -231,6 +264,8 @@ def atomic_write_json(path: str, obj, indent: int = 1, sort_keys=False,
             except OSError:
                 pass    # platform-tolerant: durability degrades,
                 #         atomicity does not
+        if spec is not None and spec.kind == "kill":
+            faults.kill_now(spec)
         durable_replace(tmp, path)
     except BaseException:
         # a failed dump must not leave a stray tmp next to the artifact

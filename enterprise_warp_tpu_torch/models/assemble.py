@@ -78,6 +78,10 @@ def build_terms_for_model(params_model, psrs, noise_model_obj,
     noisemodel = getattr(params_model, "noisemodel", {}) or {}
     universal = getattr(params_model, "universal", {}) or {}
     for psr in psrs:
+        # fault site cli.per_pulsar: the CLI's per-pulsar model build, a
+        # startup crash with nothing sampled yet
+        from ..resilience import faults
+        faults.fire("cli.per_pulsar", psr=str(psr.name))
         model = noise_model_obj(psr=psr, params=params_model)
         terms = TermList(psr)
         for term_name, option in common_signals.items():

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import F64, resolve_device
-from ..ops import quantization_matrix
+from ..ops import megakernel, quantization_matrix
 from ..ops.kernel import (build_pair_program, gram_blocks,
                           marginalized_loglike, whiten_inputs)
 from ..ops.spectra import (broken_powerlaw_psd, df_from_freqs,
@@ -430,33 +430,58 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
     def stacked(theta, refs):
         return torch.stack([param_value(theta, rf) for rf in refs], dim=-1)
 
-    def evaluate(theta):
+    def evaluate_core(theta, with_health=False, gm=None):
+        """lnL (W,) at ``theta``; ``with_health`` also returns the (W, 3)
+        health words (classic chain pinned); ``gm="f64"`` is the float64
+        twin (no folded Grams, no pair program)."""
+        gm = gm or gram_mode
+        fold = gm == gram_mode
+        megakernel.LAST_REJECT[0] = None
         nw = eval_nw(theta, wb_static, ntoa, sigma2)
         phi = eval_phi(theta, bb_static, cs2)
         r_eff = r_w_t
         if det_refs is not None:
             r_eff = r_eff - stacked(theta, det_refs) @ D_w_t.T
         if tm_refs is None:
-            lnl = marginalized_loglike(
-                nw, phi, r_eff, M_w_t, T_w_t, gram_mode=gram_mode,
-                pair_program=None if grams_cached is not None
-                else pair_prog, refine=n_refine, grams=grams_cached)
+            out = marginalized_loglike(
+                nw, phi, r_eff, M_w_t, T_w_t, gram_mode=gm,
+                pair_program=None if grams_cached is not None or not fold
+                else pair_prog, refine=n_refine,
+                grams=grams_cached if fold else None,
+                with_health=with_health)
         else:
             r_eff = r_eff - stacked(theta, tm_refs) @ M_w_t.T
-            lnl = marginalized_loglike(nw, phi, r_eff, None, T_w_t,
-                                       gram_mode=gram_mode, refine=n_refine)
+            out = marginalized_loglike(nw, phi, r_eff, None, T_w_t,
+                                       gram_mode=gm, refine=n_refine,
+                                       with_health=with_health)
+        lnl, hw = out if with_health else (out, None)
+        # the kernel route's rejections of this call (None off that route)
+        like.last_reject = megakernel.LAST_REJECT[0]
         # a numerically non-PD Sigma (extreme prior corners) yields NaN;
         # the reference maps Cholesky failure to -inf likewise
-        return torch.where(torch.isnan(lnl), torch.full_like(lnl, -math.inf),
-                           lnl)
+        lnl = torch.where(torch.isnan(lnl), torch.full_like(lnl, -math.inf),
+                          lnl)
+        return (lnl, hw) if with_health else lnl
+
+    def evaluate(theta):
+        return evaluate_core(theta)
 
     like = PulsarLikelihood(psr, sampled, evaluate, gram_mode, device)
+    like.last_reject = None
     like.noise_pairs = _noise_slide_pairs(psr, like.param_names)
     like.const_grams = bool(const_grams)
     like.pair_program = pair_prog is not None
     like.static = dict(r_w=r_w_t, M_w=M_w_t, T_w=T_w_t, cs2=cs2,
                        sigma2=sigma2, wb=wb_static, bb=bb_static,
                        D_w=D_w_t, det_refs=det_refs, tm_refs=tm_refs)
+    # the health plane's twins (resilience/integrity.py): the same lnL on
+    # the classic chain plus the (W, 3) health words, and the float64
+    # re-evaluation of the ladder's reeval rung
+    like._eval_health_batch = lambda theta: evaluate_core(
+        like.as_theta(theta), with_health=True)
+    like._eval_f64_batch = lambda theta: evaluate_core(
+        like.as_theta(theta), gm="f64")
+    like.health_psr_names = [psr.name]
     like.eval_nw = lambda theta: eval_nw(like.as_theta(theta), wb_static,
                                          ntoa, sigma2)
     like.eval_phi = lambda theta: eval_phi(like.as_theta(theta), bb_static,

@@ -23,6 +23,9 @@ only for CPU tensors, the explicit opt-outs (``EWT_PALLAS=0``,
 ``EWT_PALLAS_CHOL=0``) and orders over the kernel's cap — the routes the
 reference takes to its XLA twin.
 
+The health plane calls :func:`chol_precond_health`, which passes the
+kernel's per-walker tier on as the health word's jitter bit.
+
 Autograd: :class:`_CholPrecond` mirrors the reference's ``custom_vjp``.
 Its forward is the kernel (or the plain version); its backward recomputes
 the trio through the AD-safe twin :func:`_fused_torch_ad` on the saved
@@ -61,12 +64,13 @@ def _trio(Sn_b, L, eye):
     return _t(L), _t(Linv), E
 
 
-def _fused_torch(Sn_b, j1, j2):
+def _fused_torch(Sn_b, j1, j2, tiers=False):
     """Batched three-tier factorization: ``(U, V, E)`` with ``U = L^T``
     the upper Cholesky factor of the jittered cast, ``V = U^-1`` and
     ``E = Linv (Sn - L L^T) Linv^T`` (counterpart of ``_fused_xla``).
     Tier 2 runs only when some walker needs it, as the reference's
-    batch-level ``lax.cond``."""
+    batch-level ``lax.cond``. ``tiers=True`` also returns each walker's
+    tier (B,) int32, 1, 2 or 3, as the kernel reports it."""
     from .kernel import _all_finite, cholesky_nan
     n = Sn_b.shape[-1]
     eye = torch.eye(n, dtype=Sn_b.dtype, device=Sn_b.device)
@@ -77,7 +81,10 @@ def _fused_torch(Sn_b, j1, j2):
         L2 = cholesky_nan(Sn_b + jm[:, None, None] * eye)
         L = torch.where(bad1[:, None, None], L2, L)
     bad2 = ~_all_finite(L)
-    return _trio(Sn_b, torch.where(bad2[:, None, None], eye, L), eye)
+    trio = _trio(Sn_b, torch.where(bad2[:, None, None], eye, L), eye)
+    if tiers:
+        return trio + ((1 + bad1.int() + bad2.int()).to(torch.int32),)
+    return trio
 
 
 def _fused_torch_ad(Sn_b, j1, j2):
@@ -161,6 +168,33 @@ class _CholPrecond(torch.autograd.Function):
             out = _fused_torch_ad(s, *ctx.jitters)
             gS, = torch.autograd.grad(out, s, (gU, gV, gE))
         return gS, None, None
+
+
+def jitter_bit_plain(Sn32, U, j1):
+    """The reference's health rule on the fused branch
+    (``enterprise_warp_tpu/ops/kernel.py``): a walker engaged a jittered
+    tier when tier 1's factor of ``Sn32 + j1 I`` fails, or when ``U`` is
+    the identity (tier 3). (B,) bool."""
+    from .kernel import _all_finite, cholesky_nan
+    eye = torch.eye(Sn32.shape[-1], dtype=Sn32.dtype, device=Sn32.device)
+    bad1 = ~_all_finite(cholesky_nan(Sn32 + float(j1) * eye))
+    return bad1 | torch.all(torch.all(U == eye, dim=-1), dim=-1)
+
+
+def chol_precond_health(Sn32, j1, j2):
+    """:func:`chol_precond` for the health plane (no autograd):
+    ``(U, V, E, jitter_bit)``, ``jitter_bit`` (B,) bool set where a walker
+    needed a jittered tier. On the kernel route the bit is the kernel's
+    own tier (2 or 3); on the plain version it is
+    :func:`jitter_bit_plain`, the reference's rule (the two agree: tier 2
+    or 3 is exactly a failed tier-1 factor)."""
+    path = route("chol_precond", Sn32.shape[-1] <= _PALLAS_MAX_N,
+                 Sn32.device)
+    if path == "kernel":
+        U, V, E, tier = _chol_precond_cuda(Sn32.contiguous(), j1, j2)
+        return U, V, E, tier >= 2
+    U, V, E = _fused_torch(Sn32, j1, j2)
+    return U, V, E, jitter_bit_plain(Sn32, U, j1)
 
 
 def chol_precond(Sn32, j1, j2):

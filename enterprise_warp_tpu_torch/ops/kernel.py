@@ -50,6 +50,24 @@ _CHUNK = 256  # TOA-axis chunk length for f64 accumulation of f32 partials
 # evaluations carry no jitter bias).
 CHOL_JITTER = {"split": 3.0e-6, "f32": 1.0e-5, "f64": 0.0}
 
+# the health word (resilience/integrity.py): a float64 (..., 3) side
+# output of the classic chain. [HW_JITTER] a jittered retry or the
+# identity factor was substituted; [HW_DIVERGE] refinement diverged and
+# the preconditioner solution was kept; [HW_LOGCOND] log10 of the
+# equilibration diagonal's dynamic range, a condition proxy.
+HW_JITTER, HW_DIVERGE, HW_LOGCOND = 0, 1, 2
+HW_WIDTH = 3
+
+
+def _health_word(jitter_bit, diverge_bit, d):
+    """Pack ``(..., 3)`` health words from the two event bits (boolean or
+    float tensors of the batch shape) and the equilibration diagonal ``d``
+    (``(..., n)``)."""
+    logcond = torch.log10(d.amax(dim=-1)
+                          / torch.clamp(d.amin(dim=-1), min=1e-300))
+    return torch.stack([jitter_bit.to(d.dtype), diverge_bit.to(d.dtype),
+                        logcond], dim=-1)
+
 
 def whiten_inputs(residuals, toaerrs, M, T):
     """Host-side whitening/normalization (float64 numpy).
@@ -252,27 +270,34 @@ def gram_blocks(nw, r_w, M_w, T_w, mask=None, gram_mode="split",
 # factorizations and the mixed solve
 # --------------------------------------------------------------------
 
-def equilibrated_cholesky(S, jitter):
+def equilibrated_cholesky(S, jitter, with_health=False):
     """Cholesky of symmetric PD ``S`` (batched) via unit-diagonal
     equilibration, with an on-failure jitter fallback. Returns
     ``(L, s, logdet)``: ``L`` factors ``D^-1/2 S D^-1/2``, ``s =
     D^-1/2`` and ``logdet = log|S|``. A failed factorization without
-    jitter leaves NaN (the caller maps it to -inf)."""
+    jitter leaves NaN (the caller maps it to -inf). ``with_health=True``
+    appends the health word, its jitter bit set where the jittered factor
+    was substituted."""
     d = torch.clamp(_diag(S), min=1e-30)
     s = 1.0 / torch.sqrt(d)
     Sn = S * s[..., :, None] * s[..., None, :]
     L = cholesky_nan(Sn)
+    engaged = torch.zeros(S.shape[:-2], dtype=torch.bool, device=S.device)
     if jitter:
         bad = ~_all_finite(L)
         Lj = cholesky_nan(Sn + jitter * _eye(S.shape[-1], S))
         L = torch.where(bad[..., None, None], Lj, L)
+        engaged = bad
     logdet = 2.0 * torch.sum(torch.log(_diag(L)), dim=-1) \
         + torch.sum(torch.log(d), dim=-1)
+    if with_health:
+        return L, s, logdet, _health_word(engaged, torch.zeros_like(engaged),
+                                          d)
     return L, s, logdet
 
 
 def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
-                            delta_mode="tree", mega=None):
+                            delta_mode="tree", mega=None, with_health=False):
     """Solve ``S Z = B`` and compute ``log|S|`` for a batch of symmetric
     PD float64 matrices ``S`` (W, n, n) in mixed precision.
 
@@ -296,10 +321,31 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
       card) instead of factoring, inverting and forming ``E`` step by
       step; same tiers, same precision class.
 
+    ``with_health=True`` appends the health word ``(W, 3)`` and returns
+    ``(Z, logdet, hw)``. It pins the classic chain (the solve megakernel
+    carries no word; asking for both raises), and leaves ``Z`` and the
+    logdet of that chain unchanged. The jitter bit follows the
+    reference: on the unfused branch, tier 2 or the identity factor was
+    substituted; on the fused branch, the kernel's own per-walker tier is
+    2 or 3 (CUDA), or tier 1's factor of the cast fails or ``U`` is the
+    identity (the plain version's rule).
+
     Returns ``(Z, logdet)`` with ``Z`` (W, n, k) float64.
     """
     f64 = S.dtype
     n = S.shape[-1]
+    if with_health:
+        if mega:
+            raise ValueError("with_health=True cannot ride the mega route "
+                             "(the solve kernel carries no health word); "
+                             "pass mega=False or None")
+        if mega is None and delta_mode == "split":
+            # the route is still decided, so a decline (the CPU's plain
+            # version, an opt-out, over-cap) is counted in ROUTES; the
+            # health word pins the classic chain either way
+            from .megakernel import mega_solve_route
+            mega_solve_route(n, S.device)
+        mega = False
     if jitter2 is None:
         jitter2 = 30.0 * jitter
     diag = _diag(S)
@@ -329,8 +375,12 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
     Sn32 = Sn.to(torch.float32)
     eye = _eye(n, Sn32)
     if fused:
-        from .cholfuse import chol_precond
-        U, Vu, E32f = chol_precond(Sn32, jitter, jitter2)
+        from .cholfuse import chol_precond, chol_precond_health
+        if with_health:
+            U, Vu, E32f, engaged = chol_precond_health(Sn32, jitter,
+                                                       jitter2)
+        else:
+            U, Vu, E32f = chol_precond(Sn32, jitter, jitter2)
         diagL = _diag(U)
 
         def psolve(R):
@@ -341,6 +391,9 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
         bad = ~_all_finite(L)
         L = torch.where(bad[..., None, None],
                         cholesky_nan(Sn32 + float(jitter2) * eye), L)
+        # health: tier 2 or the identity substituted (tier 1's jitter is
+        # the designed preconditioner and does not count)
+        engaged = bad | ~_all_finite(L)
         # last-resort identity preconditioner: never NaN
         L = torch.where(_all_finite(L)[..., None, None], L, eye)
         Linv = torch.linalg.solve_triangular(L, eye.expand_as(L),
@@ -392,6 +445,8 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
                        torch.zeros_like(corr))
     logdet = (2.0 * torch.sum(torch.log(diagL.to(f64)), dim=-1)
               + corr + torch.sum(torch.log(d), dim=-1))
+    if with_health:
+        return s[..., None] * Z, logdet, _health_word(engaged, diverged, d)
     return s[..., None] * Z, logdet
 
 
@@ -401,7 +456,7 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
 
 def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
                          pair_program=None, refine=3, grams=None,
-                         mega=None):
+                         mega=None, with_health=False):
     """Marginalized GP log-likelihood for one pulsar at W parameter points.
 
     Parameters
@@ -428,10 +483,21 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
         forces the megakernel tolerance class (on CPU tensors through
         the kernel's plain torch version).
 
+    with_health : return ``(lnL, hw)`` with ``hw`` (W, 3) the health word
+        joined over the Sigma solve and the timing-model Schur factor. It
+        pins the classic chain end to end (an explicit ``mega=True``
+        raises).
+
     Returns lnL (W,) up to a theta-independent constant.
     """
     f64 = r_w.dtype
     solve_mega = False if mega is False else None
+    if with_health:
+        if mega:
+            raise ValueError("with_health=True pins the classic chain; an "
+                             "explicit mega route cannot carry the health "
+                             "word")
+        mega = False
     if mega is None:
         if gram_mode in ("split", "f32") and grams is None \
                 and M_w is not None:
@@ -460,43 +526,60 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
     b = b.to(f64)
     Sigma = G.to(f64) + torch.diag_embed(1.0 / b)
 
+    def chol(A, jit):
+        """Equilibrated factor, its health word joined into ``hw``."""
+        nonlocal hw
+        if not with_health:
+            return equilibrated_cholesky(A, jit)
+        L, sA, ld, hw_a = equilibrated_cholesky(A, jit, with_health=True)
+        hw = hw_a if hw is None else torch.maximum(hw, hw_a)
+        return L, sA, ld
+
+    def solve(A, R):
+        """Mixed solve, its health word joined into ``hw``."""
+        nonlocal hw
+        out = _mixed_psd_solve_logdet(A, R, CHOL_JITTER[gram_mode],
+                                      refine=refine, delta_mode="split",
+                                      mega=solve_mega,
+                                      with_health=with_health)
+        if with_health:
+            hw = out[2] if hw is None else torch.maximum(hw, out[2])
+        return out[0], out[1]
+
+    hw = None
     logdet_a = 0.0
     if M_w is None:
         # no-TM path: C_n-only quadratic form and determinant
         if gram_mode == "f64":
-            L, sS, logdet_sigma = equilibrated_cholesky(Sigma, 0.0)
+            L, sS, logdet_sigma = chol(Sigma, 0.0)
             u = torch.linalg.solve_triangular(L, (sS * X)[..., None],
                                               upper=False)[..., 0]
             quad = rwr - torch.sum(u * u, dim=-1)
         else:
-            zx, logdet_sigma = _mixed_psd_solve_logdet(
-                Sigma, X[..., None], CHOL_JITTER[gram_mode], refine=refine,
-                delta_mode="split", mega=solve_mega)
+            zx, logdet_sigma = solve(Sigma, X[..., None])
             quad = rwr - torch.sum(X * zx[..., 0], dim=-1)
     elif gram_mode == "f64":
-        L, sS, logdet_sigma = equilibrated_cholesky(Sigma, 0.0)
+        L, sS, logdet_sigma = chol(Sigma, 0.0)
         u = torch.linalg.solve_triangular(L, (sS * X)[..., None],
                                           upper=False)[..., 0]
         V = torch.linalg.solve_triangular(L, sS[..., None] * H,
                                           upper=False)
         A = P - _t(V) @ V
         y = q - (_t(V) @ u[..., None])[..., 0]
-        LA, sA, logdet_a = equilibrated_cholesky(A, 0.0)
+        LA, sA, logdet_a = chol(A, 0.0)
         z = torch.linalg.solve_triangular(LA, (sA * y)[..., None],
                                           upper=False)[..., 0]
         quad = rwr - torch.sum(u * u, dim=-1) - torch.sum(z * z, dim=-1)
     else:
-        jitter = CHOL_JITTER[gram_mode]
-        ZXH, logdet_sigma = _mixed_psd_solve_logdet(
-            Sigma, torch.cat([X[..., None], H], dim=-1), jitter,
-            refine=refine, delta_mode="split", mega=solve_mega)
+        ZXH, logdet_sigma = solve(Sigma, torch.cat([X[..., None], H],
+                                                   dim=-1))
         zx, ZH = ZXH[..., 0], ZXH[..., 1:]
         A = P - _t(H) @ ZH
         y = q - (_t(ZH) @ X[..., None])[..., 0]
         # split mode's float64 sides leave A accurate (no jitter); f32
         # mode's Gram noise can make A indefinite, so it keeps a retry
         jitter_a = CHOL_JITTER["f32"] if gram_mode == "f32" else 0.0
-        LA, sA, logdet_a = equilibrated_cholesky(A, jitter_a)
+        LA, sA, logdet_a = chol(A, jitter_a)
         z = torch.linalg.solve_triangular(LA, (sA * y)[..., None],
                                           upper=False)[..., 0]
         quad = rwr - torch.sum(X * zx, dim=-1) - torch.sum(z * z, dim=-1)
@@ -504,4 +587,5 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
     logn = torch.log(nw) if mask is None else torch.log(nw) * mask
     logdet_n = torch.sum(logn, dim=-1)
     logdet_b = torch.sum(torch.log(b), dim=-1)
-    return -0.5 * (quad + logdet_n + logdet_b + logdet_sigma + logdet_a)
+    lnl = -0.5 * (quad + logdet_n + logdet_b + logdet_sigma + logdet_a)
+    return (lnl, hw) if with_health else lnl

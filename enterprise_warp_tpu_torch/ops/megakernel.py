@@ -422,8 +422,16 @@ def _mega_lnl_impl(nw, b, r_w, M_w, T_w, mask, refine):
               + torch.sum(torch.log(b), dim=-1)
               + torch.sum(torch.log(evA_cl), dim=-1))
     lnl = -0.5 * (quad + ld_all + ld_eq.to(f64))
-    return torch.where(schur_reject(evA, quad),
-                       torch.full_like(lnl, float("nan")), lnl)
+    rej = schur_reject(evA, quad)
+    LAST_REJECT[0] = rej
+    return torch.where(rej, torch.full_like(lnl, float("nan")), lnl)
+
+
+#: the rejection mask (W,) of the latest kernel-route evaluation, a
+#: device tensor: the likelihood constructors hand it on to the samplers
+#: (``last_reject``), which count those chosen NaNs apart from genuine
+#: non-finite evaluations
+LAST_REJECT = [None]
 
 
 # A walker whose Schur complement has an eigenvalue below -SCHUR_REJECT_C

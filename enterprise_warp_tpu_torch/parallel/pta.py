@@ -42,11 +42,13 @@ per walker in float64: the oracle. Parameter evaluation (white-noise
 selections, PSD priors) is compiled at build time into flat
 gather/scatter programs. The Schur path carries the reference's
 evaluation cache (``samplers/evalproto.py``): ``param_blocks`` and
-``_cache_init``/``_cache_site``/``_cache_common``.
+``_cache_init``/``_cache_site``/``_cache_common``, and the health
+plane's twin ``_eval_health_batch`` (the lnL and each pulsar's stage-1
+health word, ``health_psr_names``).
 
 Out of this module, as later slices of the port (``ROADMAP.md``): the
-pulsar-axis mesh, the health words and a sampled chromatic index (which
-raises ``NotImplementedError``).
+pulsar-axis mesh and a sampled chromatic index (which raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -635,7 +637,7 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
             Ss=r["Dgg"] - _bmm64(Cng, ZC) - _bmm64(Cmt, WC),
             ev_ratio=evA[:, 0] / emax[:, 0])
 
-    def _pairs12(G, X, invphi_N, psr, corner_c):
+    def _pairs12(G, X, invphi_N, psr, corner_c, with_health=False):
         """Stages 1 and 2 of a flat batch of (walker, pulsar) pairs:
         ``G`` (B, nb_tot, nb_tot), ``X`` (B, nb_tot), ``invphi_N`` (B,
         NW), ``psr`` (B,) each pair's pulsar. One mixed-precision solve of
@@ -643,12 +645,16 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
         then stage 2; a pair whose timing-model complement came out with
         ``ev_ratio`` below ``corner_c`` (or not finite) has its stage-1
         solve done again in float64 (:func:`_solve_f64`) and its stage 2
-        from that. Every other pair keeps its values bit for bit."""
+        from that. Every other pair keeps its values bit for bit.
+        ``with_health=True`` pins the classic chain for the stage-1 solve
+        and adds each pair's health word ``hw`` (B, 3) of that solve."""
         tm_pad = tm_pad_t[psr]
         r = _split(G, X, invphi_N, tm_pad)
-        Z, ld_nn = _mixed_psd_solve_logdet(r["Gnn"], r["RHS"], jitter,
-                                           refine=3, delta_mode=stage1_delta,
-                                           mega=mega)
+        out = _mixed_psd_solve_logdet(r["Gnn"], r["RHS"], jitter, refine=3,
+                                      delta_mode=stage1_delta,
+                                      mega=False if with_health else mega,
+                                      with_health=with_health)
+        Z, ld_nn = out[:2]
         st = _stage2(r, Z, ld_nn)
         if corner_c is not None and gram_mode != "f64":
             flag = ~(st["ev_ratio"] >= corner_c)
@@ -658,9 +664,11 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
                 fix = _stage2(ri, *_solve_f64(ri["Gnn"], ri["RHS"],
                                               jitter))
                 st = {k: v.index_put((idx,), fix[k]) for k, v in st.items()}
+        if with_health:
+            st["hw"] = out[2]
         return st
 
-    def _stage12(G, X, invphi_N, corner_c=CORNER_C):
+    def _stage12(G, X, invphi_N, corner_c=CORNER_C, with_health=False):
         """Stages 1 and 2 for every (walker, pulsar) pair at once, as one
         flat batch of W·npsr systems (:func:`_pairs12`), and each pulsar's
         contribution to the GW Schur system: ``q1``, ``ld_nn``, ``ld_tm``,
@@ -673,7 +681,7 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
         st = _pairs12(G.reshape(B, nb_tot, nb_tot), X.reshape(B, nb_tot),
                       invphi_N.reshape(B, NW),
                       torch.arange(npsr, device=G.device).repeat(W),
-                      corner_c)
+                      corner_c, with_health)
         return {k: v.reshape(W, npsr, *v.shape[1:]) for k, v in st.items()}
 
     def _stage3(theta, st, rwr_p, logdet_n, logphi):
@@ -710,6 +718,17 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
         G, X, rwr_p, logdet_n, logphi, invphi_N = _common(theta)
         return _stage3(theta, _stage12(G, X, invphi_N), rwr_p, logdet_n,
                        logphi)
+
+    def loglike_health(theta):
+        """The Schur path's lnL (W,) and the per-pulsar stage-1 health
+        words (W, npsr, 3), the ladder's per-pulsar attribution (stage 3
+        has no single owner and is not instrumented)."""
+        G, X, rwr_p, logdet_n, logphi, invphi_N = _common(theta)
+        st = _stage12(G, X, invphi_N, with_health=True)
+        hw = st.pop("hw")
+        lnl = _stage3(theta, st, rwr_p, logdet_n, logphi)
+        return torch.where(torch.isnan(lnl), torch.full_like(lnl, -math.inf),
+                           lnl), hw
 
     # ---- the update_mask contract (samplers/evalproto.py): one
     # parameter vector (ndim,), the cache a dict of (1, ...) tensors -----
@@ -790,6 +809,11 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
                                                 "1") != "0":
         install_masked_protocol(like, _cache_init, _cache_site,
                                 _cache_common, param_blocks)
+    if joint_mode == "schur":
+        # the health plane's twin and its pulsar-axis attribution
+        like._eval_health_batch = lambda theta: loglike_health(
+            like.as_theta(theta))
+        like.health_psr_names = [p.name for p in psrs]
     like._stages = dict(common=_common, stage12=_stage12, stage3=_stage3,
                         NW=NW, MW=MW, n_g=n_g, npsr=npsr, nb_tot=nb_tot)
     return like

@@ -1,29 +1,54 @@
-"""Ingestion audit: the data-quality quarantine gate of the
-numerical-integrity plane (``io.pulsar.load_pulsar`` calls it).
+"""The numerical-integrity plane: the ingestion audit, the kernel health
+word and the per-pulsar escalation ladder.
 
-:func:`audit_tim` runs a typed data-quality audit over a parsed ``.tim``
-(non-finite TOAs/uncertainties, zero/negative/absurd uncertainties,
-duplicate epochs, non-monotonic epochs, empty backend labels) and
-produces a per-pulsar :class:`DataQualityReport`. Hard findings raise a
-typed :class:`DataQuarantine` under the default ``repair="none"``
-policy, or become drop-row repairs with provenance under
-``repair="drop"``; soft findings are logged either way.
+Counterpart of ``enterprise_warp_tpu/resilience/integrity.py``:
 
-A copy of the audit subset of the reference package's
-``resilience/integrity.py``; the kernel health words and escalation
-ladder are not ported.
+- **ingestion gate** — :func:`audit_tim` runs a typed data-quality audit
+  over a parsed ``.tim`` (non-finite TOAs/uncertainties, zero/negative/
+  absurd uncertainties, duplicate epochs, non-monotonic epochs, empty
+  backend labels) and produces a per-pulsar :class:`DataQualityReport`;
+  ``io.pulsar.load_pulsar`` calls it. Hard findings raise
+  :class:`DataQuarantine` under the default ``repair="none"`` policy, or
+  become drop-row repairs with provenance under ``repair="drop"``; every
+  finding becomes a ``data_quality`` event and a warning. Fault site
+  ``data.audit`` (kind ``nonfinite``) plants a hard finding.
+- **health words** — the mixed solve chain (``ops/kernel.py``) returns,
+  with ``with_health=True``, a float64 ``(3,)`` word per walker:
+  ``[HW_JITTER]`` a jittered or identity factor was substituted,
+  ``[HW_DIVERGE]`` refinement diverged and the preconditioner solution
+  was kept, ``[HW_LOGCOND]`` log10 of the equilibration diagonal's
+  dynamic range. Words join by :func:`health_join` (elementwise max).
+- **escalation ladder** — :class:`HealthLedger` folds each block's
+  health counts (accumulated on the device inside the PT block and read
+  in the block's snapshot) into a monotone ladder (:data:`LADDER`):
+  ``observe`` (a ``kernel_health`` event) -> ``reeval`` (a float64
+  re-evaluation of committed walkers) -> ``classic`` (the classic chain
+  with its preconditioner kernel for every evaluation,
+  ``EWT_PALLAS_MEGA=0``; the reference's ``EWT_PALLAS=0`` would put a
+  card run on plain versions) -> ``quarantine``
+  (:class:`PulsarQuarantine`: the pulsar leaves the array alone). Healthy
+  blocks walk it back down. Fault sites ``kernel.health`` and
+  ``psr.quarantine`` drive the rungs.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
 
+# the health word's layout is the solve chain's
+from ..ops.kernel import HW_DIVERGE, HW_JITTER, HW_LOGCOND
+from ..ops.kernel import HW_WIDTH as HEALTH_WIDTH
+
 
 __all__ = ["Finding", "DataQualityReport", "DataQuarantine",
-           "audit_tim", "emit_report", "emit_psr_quarantined",
-           "parse_error_report", "REPAIR_POLICIES", "EXIT_QUARANTINED"]
+           "PulsarQuarantine", "audit_tim", "emit_report",
+           "emit_psr_quarantined", "parse_error_report", "REPAIR_POLICIES",
+           "EXIT_QUARANTINED", "HW_JITTER", "HW_DIVERGE", "HW_LOGCOND",
+           "HEALTH_WIDTH", "health_zero", "health_join", "LADDER",
+           "HealthLedger"]
 
 #: CLI exit status for a quarantined pulsar (data or kernel health):
 #: distinct from EXIT_DEMOTED (75, "restart me") — 76 means "this
@@ -229,10 +254,21 @@ def audit_tim(tim, psr_name: str, source: str = "",
          "TOA(s) with an empty backend label — backend selections "
          "will fall through to the observatory code")
 
+    # fault site data.audit: a planted hard finding
+    from . import faults
+    spec = faults.fire("data.audit", psr=str(psr_name), source=str(source))
+    if spec is not None and spec.kind == "nonfinite":
+        rep.findings.append(Finding(
+            code="injected_audit_fault", severity="hard", count=1,
+            detail="fault plan planted a hard audit failure at site "
+                   "data.audit"))
+
     if repair == "drop":
         if drop.any():
-            # drop-row repair with provenance
-            dropped_codes = sorted(f.code for f in rep.hard)
+            # drop-row repair with provenance; an injected audit fault is
+            # not row-addressable and stays unrepaired (quarantine)
+            dropped_codes = sorted(f.code for f in rep.hard
+                                   if f.code != "injected_audit_fault")
             tim = _drop_rows(tim, drop)
             rep.ntoa_kept = len(tim)
             rep.repairs.append({
@@ -241,7 +277,7 @@ def audit_tim(tim, psr_name: str, source: str = "",
                 "rows": [int(r) for r in np.nonzero(drop)[0]],
                 "dropped": int(drop.sum())})
             for f in rep.hard:
-                if rep.ntoa_kept > 0:
+                if rep.ntoa_kept > 0 and f.code != "injected_audit_fault":
                     f.repaired = True
         # sort repair for out-of-order epochs (post-drop view)
         mjd2 = np.asarray(tim.mjd_int, dtype=np.float64) \
@@ -287,27 +323,155 @@ def parse_error_report(psr: str, source: str, exc) -> DataQualityReport:
 
 
 def emit_report(rep: DataQualityReport):
-    """One warning log line per audit finding (the reference package
-    also emits counters and typed events; the port has no telemetry
-    plane yet). A clean report logs nothing."""
+    """Telemetry for one audit report: ``data_quality{code=}`` counters, a
+    ``data_quality`` event per finding (inside a run scope) and a warning
+    per finding. A clean report emits nothing."""
     if not rep.findings:
         return
+    from ..utils import telemetry
     from ..utils.logging import get_logger
-
     log = get_logger("ewt.integrity")
+    reg = telemetry.registry()
+    rec = telemetry.active_recorder()
     for f in rep.findings:
+        reg.counter("data_quality", code=f.code).inc(f.count)
         log.warning("data quality [%s] %s: %s x%d (%s)%s", rep.psr,
                     f.severity, f.code, f.count, f.detail,
                     " — repaired" if f.repaired else "")
+        if rec is not None:
+            rec.event("data_quality", psr=rep.psr, code=f.code,
+                      severity=f.severity, count=int(f.count),
+                      repaired=bool(f.repaired), source=rep.source,
+                      detail=f.detail)
+    if rec is not None and rep.repairs:
+        rec.flush()
 
 
 def emit_psr_quarantined(psr: str, cause: str, where: str,
                          stats: dict | None = None):
-    """Log one pulsar leaving the array, alone. ``where`` names the
-    layer that pulled the trigger (``ingestion`` / ``campaign``)."""
-    del stats
+    """The ``psr_quarantined`` event, counter and flight-recorder record:
+    one pulsar leaving the array, alone. ``where`` names the layer that
+    pulled the trigger (``ingestion`` / ``sampler`` / ``campaign``)."""
+    from ..utils import telemetry
+    from ..utils.flightrec import flight_recorder
     from ..utils.logging import get_logger
-
+    telemetry.registry().counter("psr_quarantined", where=where).inc()
+    flight_recorder().record("psr_quarantined", psr=psr, cause=cause,
+                             where=where)
     get_logger("ewt.integrity").error(
         "pulsar %s QUARANTINED at %s (%s) — survivors continue",
         psr, where, cause)
+    rec = telemetry.active_recorder()
+    if rec is not None:
+        clean = {k: v for k, v in (stats or {}).items()
+                 if isinstance(v, (str, int, float, bool))
+                 and k not in ("psr", "cause", "where")}
+        rec.event("psr_quarantined", psr=psr, cause=cause, where=where,
+                  **clean)
+        rec.flush()
+
+
+class PulsarQuarantine(RuntimeError):
+    """The health ladder's terminal rung: this pulsar's likelihood is
+    numerically untrustworthy and it leaves the array alone."""
+
+    def __init__(self, psr: str, cause: str, stats: dict | None = None):
+        self.psr = psr
+        self.cause = cause
+        self.stats = dict(stats or {})
+        super().__init__(
+            f"pulsar {psr!r} quarantined ({cause}): kernel health ladder "
+            f"exhausted — stats {self.stats}")
+
+
+# ------------------------------------------------------------------ #
+#  health words                                                       #
+# ------------------------------------------------------------------ #
+
+def health_zero(batch=(), device="cpu"):
+    """A clean health word (float64 zeros of shape ``batch + (3,)``)."""
+    import torch
+    return torch.zeros(tuple(batch) + (HEALTH_WIDTH,), dtype=torch.float64,
+                       device=device)
+
+
+def health_join(a, b):
+    """Join two health words: elementwise max (bits OR, the condition
+    proxy takes the worst)."""
+    import torch
+    return torch.maximum(a, b)
+
+
+def _env_float(name, default):
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return float(default)
+
+
+#: the escalation rungs in order; strikes index into this ladder
+LADDER = ("observe", "reeval", "classic", "quarantine")
+
+
+class HealthLedger:
+    """Host-side fold of one pulsar's block health counts and the
+    escalation ladder (the reference's class).
+
+    :meth:`update` takes a block's ``(n_evals, n_jitter, n_diverge,
+    max_logcond)``, judges it against ``EWT_HEALTH_JITTER_FRAC`` (default
+    0.25 of the block's evaluations engaging a jittered factor),
+    ``EWT_HEALTH_LOGCOND_MAX`` (default 14.0) and any refinement
+    divergence, walks the strike ladder (healthy blocks walk it down) and
+    returns the action to take now: None or one of :data:`LADDER`. The
+    ledger decides; the sampler acts."""
+
+    def __init__(self, psr: str = "?", jitter_frac=None, logcond_max=None):
+        self.psr = psr
+        self.jitter_frac = (_env_float("EWT_HEALTH_JITTER_FRAC", 0.25)
+                            if jitter_frac is None else float(jitter_frac))
+        self.logcond_max = (_env_float("EWT_HEALTH_LOGCOND_MAX", 14.0)
+                            if logcond_max is None else float(logcond_max))
+        self.strikes = 0
+        self.blocks = 0
+        self.tripped_blocks = 0
+        self.n_evals = 0
+        self.n_jitter = 0
+        self.n_diverge = 0
+        self.max_logcond = 0.0
+        self.reeval_verdicts: list = []
+
+    def tripped(self, n_evals, n_jitter, n_diverge, max_logcond):
+        if n_evals <= 0:
+            return False
+        return (n_jitter / n_evals >= self.jitter_frac
+                or n_diverge > 0
+                or max_logcond >= self.logcond_max)
+
+    def update(self, n_evals, n_jitter, n_diverge, max_logcond):
+        """Fold one block; returns the escalation action or None."""
+        n_evals = int(n_evals)
+        self.blocks += 1
+        self.n_evals += n_evals
+        self.n_jitter += int(n_jitter)
+        self.n_diverge += int(n_diverge)
+        self.max_logcond = max(self.max_logcond, float(max_logcond))
+        if not self.tripped(n_evals, n_jitter, n_diverge, max_logcond):
+            self.strikes = max(self.strikes - 1, 0)
+            return None
+        self.tripped_blocks += 1
+        self.strikes += 1
+        return LADDER[min(self.strikes, len(LADDER)) - 1]
+
+    def note_reeval(self, agreed: bool, max_abs_diff: float):
+        """Record the float64 re-evaluation verdict of the ``reeval``
+        rung (the ladder keeps walking either way)."""
+        self.reeval_verdicts.append({"agreed": bool(agreed),
+                                     "max_abs_diff": float(max_abs_diff)})
+
+    def stats(self):
+        return {"psr": self.psr, "blocks": self.blocks,
+                "tripped_blocks": self.tripped_blocks,
+                "strikes": self.strikes, "n_evals": int(self.n_evals),
+                "n_jitter": int(self.n_jitter),
+                "n_diverge": int(self.n_diverge),
+                "max_logcond": round(float(self.max_logcond), 3)}

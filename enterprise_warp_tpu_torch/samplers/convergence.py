@@ -15,12 +15,13 @@ Counterpart of ``enterprise_warp_tpu/samplers/convergence.py``:
   points is uniform, and a KS distance against the discrete uniform
   tells a broken kernel from a healthy one.
 
-Two parts of the reference wait for the port of its device diagnostics
-plane and telemetry (``utils/devicemetrics.py``, ROADMAP Queue 1): the
-streaming gate (the port's sampler keeps no streaming moment ledger, so
-every check folds the in-memory chains exactly, the reference's
-behaviour under ``EWT_STREAMING_DIAG=0``) and the telemetry heartbeats
-of each check.
+:func:`sample_to_convergence` opens the run's event stream
+(``utils/telemetry.py``): the sampler's block heartbeats join it, and each
+check adds a ``phase="convergence_check"`` heartbeat. The streaming gate
+waits for the port of the device diagnostics plane
+(``utils/devicemetrics.py``, ROADMAP Queue 1): the port's sampler keeps
+no streaming moment ledger, so every check folds the in-memory chains
+exactly, the reference's behaviour under ``EWT_STREAMING_DIAG=0``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..io.writers import checkpoint_replace, resolve_checkpoint
+from ..utils import telemetry
 from ..utils.diagnostics import summarize_chains
 from ..utils.logging import get_logger
 
@@ -215,10 +217,24 @@ def sample_to_convergence(sampler, target_ess=1000.0, rhat_max=1.01,
     file holds fewer, the chain files cut back to it), and sampling picks
     up from the checkpoint. The driver samples unthinned.
 
-    Every check is exact (see the module docstring: no streaming gate,
-    no heartbeats). Returns a :class:`ConvergenceReport`; both clocks
-    cover this call's sampling loop only, ``steady_wall_s`` without its
-    first call to the sampler."""
+    Every check is exact (see the module docstring: no streaming gate)
+    and emits a ``convergence_check`` heartbeat. Returns a
+    :class:`ConvergenceReport`; both clocks cover this call's sampling
+    loop only, ``steady_wall_s`` without its first call to the
+    sampler."""
+    with telemetry.run_scope(
+            sampler.outdir, sampler="convergence",
+            target_ess=float(target_ess), rhat_max=float(rhat_max),
+            max_steps=int(max_steps)) as rec:
+        return _drive(sampler, target_ess, rhat_max, check_every,
+                      max_steps, burn_frac, verbose, block_size, resume,
+                      on_check, diag_max_kept, check_growth, rec)
+
+
+def _drive(sampler, target_ess, rhat_max, check_every, max_steps,
+           burn_frac, verbose, block_size, resume, on_check, diag_max_kept,
+           check_growth, rec):
+    """:func:`sample_to_convergence` inside its run scope."""
     block_size = block_size or min(check_every, 500)
     blocks, steps = _resume_blocks(sampler, verbose) if resume else ([], 0)
 
@@ -246,6 +262,15 @@ def sample_to_convergence(sampler, target_ess=1000.0, rhat_max=1.01,
         chains = _chains_from_blocks(blocks, burn_frac)
         s = _diag(chains)
         rh, es = _worst_floats(s)
+        rec.heartbeat(phase="convergence_check", step=int(steps),
+                      diag_mode="exact", rhat=s["_worst"]["rhat"],
+                      ess=s["_worst"]["ess"],
+                      wall_s=round(time.perf_counter() - t_start, 2),
+                      bubble_s=round(getattr(sampler, "bubble_total_s",
+                                             0.0), 3),
+                      host_sync_s=round(getattr(sampler,
+                                                "host_sync_total_s", 0.0),
+                                        3))
         if verbose:
             _log.info("step %d: rhat_max=%.4f ess_min=%.0f", steps, rh, es)
         if on_check is not None:

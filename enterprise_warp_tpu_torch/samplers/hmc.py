@@ -25,9 +25,21 @@ On-disk contract (the reference's): ``chain_1.txt`` rows are
 ``[theta..., lnprior + lnlike, lnlike, accept_rate, 0.0]``, plus
 ``pars.txt`` and a ``state.npz`` checkpoint for resume.
 
-Not ported (see ``ROADMAP.md``): the device-state/donation switch, the
-supervisor and its demotion ladder, the flight recorder, the device
-diagnostics plane, telemetry heartbeats and the sharded (mesh) leg.
+The chains' state stays on the device between blocks. The reference's
+``device_state`` switch (``EWT_DEVICE_STATE``) is accepted; off, its seed
+path's host round trip after every block gives the same chain bit for
+bit, so the port keeps the state on the device either way.
+
+The run plane, as the reference's: :meth:`HMCSampler.sample` runs in a
+``run_scope`` (one ``heartbeat`` and one ``checkpoint`` per block), each
+block goes through ``BlockSupervisor("hmc.dispatch")`` (demotions applied
+in process by :func:`run_hmc`), the fault sites ``hmc.dispatch``,
+``hmc.ckpt`` and ``hmc.nonfinite``, the flight recorder (divergences,
+the position, a non-finite committed lnL), and a SIGTERM stops the run at
+a block boundary.
+
+Not ported (see ``ROADMAP.md``): the device diagnostics plane and the
+sharded (mesh) leg (``chain_shard``/``psr_shard`` raise).
 """
 
 from __future__ import annotations
@@ -43,11 +55,19 @@ import torch
 from .. import F64
 from ..io.writers import (checkpoint_replace, resolve_checkpoint,
                           write_table)
-from ..utils.logging import get_logger
+from ..resilience import faults
+from ..resilience.supervisor import (BlockSupervisor, PlatformDemotion,
+                                     apply_demotion, preemption_requested)
+from ..utils import profiling, telemetry
+from ..utils.diagnostics import throttled_block_worst
+from ..utils.flightrec import flight_recorder
+from ..utils.logging import EvalRateMeter, get_logger
 from .transform import make_logp_z, value_and_grad
 
 _log = get_logger("ewt.hmc")
 _LATER = "is not ported yet (see ROADMAP.md)"
+# set once a device_state-off request has been logged (once a process)
+_STATE_NOTED = []
 
 # dual-averaging constants (Hoffman & Gelman 2014, as in the reference)
 _GAMMA, _T0, _KAPPA = 0.05, 10.0, 0.75
@@ -96,7 +116,8 @@ class HMCSampler:
 
     def __init__(self, like, outdir, nchains=64, seed=0, n_leapfrog=16,
                  target_accept=0.8, warmup=1000, init_eps=0.1,
-                 eps_jitter=0.1, jitter_L=True, mass0=None, z0=None):
+                 eps_jitter=0.1, jitter_L=True, mass0=None, z0=None,
+                 device_state=None):
         self.like = like
         self.outdir = outdir
         self.W = int(nchains)
@@ -114,6 +135,16 @@ class HMCSampler:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
         self._logp = make_logp_z(like)
+        if device_state is None:
+            device_state = os.environ.get("EWT_DEVICE_STATE", "1") != "0"
+        if not device_state and not _STATE_NOTED:
+            _STATE_NOTED.append(True)
+            _log.info("device_state off: the chains' state stays on the "
+                      "device all the same (the same chain)")
+        self._supervisor = BlockSupervisor("hmc.dispatch")
+        self._last_sync_s = self._last_bubble_s = 0.0
+        self._g_sync = telemetry.registry().gauge("host_sync_wall_s")
+        self._g_bubble = telemetry.registry().gauge("block_bubble_s")
         os.makedirs(outdir, exist_ok=True)
 
     def _tensor(self, a):
@@ -178,6 +209,7 @@ class HMCSampler:
                  divergences=st.divergences, mu=st.mu, da_iter=st.da_iter,
                  ngrad=st.ngrad)
         checkpoint_replace(tmp, self._ckpt_path)
+        faults.fire("hmc.ckpt", path=self._ckpt_path, step=int(st.step))
 
     def _load_state(self, path):
         z = np.load(path)
@@ -277,21 +309,37 @@ class HMCSampler:
             zs[i] = z
             lnls[i] = lnl
             p_sum = p_sum + p_acc.mean()
+        t_sync = time.perf_counter()
+        log_eps, log_eps_bar = float(log_eps), float(log_eps_bar)
+        h_bar, ndiv, mean_acc = float(h_bar), int(ndiv), float(p_sum) / todo
+        self._last_sync_s = time.perf_counter() - t_sync
+        self._g_sync.set(self._last_sync_s)
         st.z, st.accepted = z, acc
-        st.log_eps, st.log_eps_bar = float(log_eps), float(log_eps_bar)
-        st.h_bar = float(h_bar)
-        st.divergences += int(ndiv)
+        st.log_eps, st.log_eps_bar = log_eps, log_eps_bar
+        st.h_bar = h_bar
+        st.divergences += ndiv
         st.ngrad += ngrad
         st.step += todo
         if adapt:
             st.da_iter += todo
         st.key = gen.get_state().numpy()
-        return zs, lnls, float(p_sum) / todo
+        return zs, lnls, mean_acc
 
     # ---------------- public API --------------------------------------- #
     def sample(self, nsamp, resume=True, verbose=True, block_size=100):
         """Run ``nsamp`` total steps, appending every step's W chains to
-        ``chain_1.txt`` after each block; returns the final state."""
+        ``chain_1.txt`` after each block; returns the final state. The run
+        is a ``run_scope`` on the output directory, with one ``heartbeat``
+        (step, eps, acceptance, divergences, gradient evaluations per
+        second, worst R-hat/ESS) and one ``checkpoint`` per block."""
+        with telemetry.run_scope(
+                self.outdir, sampler="hmc", ndim=self.ndim, nchains=self.W,
+                nsamp=int(nsamp), warmup=self.warmup,
+                param_names=list(self.like.param_names)) as rec:
+            return self._sample_impl(nsamp, resume, verbose, block_size,
+                                     rec)
+
+    def _sample_impl(self, nsamp, resume, verbose, block_size, rec):
         chain_path = os.path.join(self.outdir, "chain_1.txt")
         ckpt = resolve_checkpoint(self._ckpt_path) if resume else None
         if ckpt is not None:
@@ -304,10 +352,20 @@ class HMCSampler:
             open(chain_path, "w").close()
         np.savetxt(os.path.join(self.outdir, "pars.txt"),
                    self.like.param_names, fmt="%s")
+        meter = EvalRateMeter(initial_total=self.W * int(st.ngrad))
+        diag_t = [0.0]
+        ndiv_seen = int(st.divergences)
+        t_ready = None
 
         warm_z = []
         mass_at = 3 * self.warmup // 4    # set the mass here; eps re-adapts
         while st.step < nsamp:
+            if preemption_requested():
+                # the previous block's state is on disk; run_scope emits
+                # run_end(reason="preempted")
+                _log.warning("preemption requested: stopping at step %d "
+                             "(checkpoint on disk)", st.step)
+                break
             todo = int(min(block_size, nsamp - st.step))
             # never straddle the warmup or mass boundaries in one block
             for edge in (mass_at, self.warmup):
@@ -316,9 +374,27 @@ class HMCSampler:
             adapt = st.step < self.warmup
             ngrad0 = st.ngrad
             t0 = time.perf_counter()
-            zs, lnls, mean_acc = self._run_block(st, todo, adapt)
-            zs_np = zs.cpu().numpy()
-            block_s = time.perf_counter() - t0
+            if t_ready is not None:
+                self._last_bubble_s = t0 - t_ready
+                self._g_bubble.set(self._last_bubble_s)
+            with profiling.span("hmc.dispatch", steps=todo, adapt=adapt):
+                zs, lnls, mean_acc = self._supervisor.call(
+                    lambda: self._run_block(st, todo, adapt), gen=self.gen,
+                    step=int(st.step), block_steps=int(todo))
+                zs_np = zs.cpu().numpy()
+            t_ready = time.perf_counter()
+            block_s = t_ready - t0
+            profiling.capture_tick()
+            if st.divergences > ndiv_seen:
+                flight_recorder().record(
+                    "divergence", step=int(st.step),
+                    new=int(st.divergences - ndiv_seen),
+                    total=int(st.divergences))
+            ndiv_seen = st.divergences
+            flight_recorder().note_state(
+                sampler="hmc", outdir=self.outdir, step=int(st.step),
+                divergences=int(st.divergences),
+                eps=float(math.exp(st.log_eps)))
 
             if mass_at >= st.step > self.warmup // 4:
                 # warmup positions for the diagonal mass
@@ -344,6 +420,7 @@ class HMCSampler:
                 lnpri = self.like.log_prior(thetas).cpu().numpy()
             thetas = thetas.cpu().numpy()
             lnl_np = lnls.reshape(-1).cpu().numpy()
+            self._escalate_nonfinite(st, thetas, lnl_np)
             acc_rate = float(st.accepted.mean()) / max(st.step, 1)
             rows = np.concatenate([
                 thetas, (lnpri + lnl_np)[:, None], lnl_np[:, None],
@@ -351,7 +428,32 @@ class HMCSampler:
                 np.zeros((len(thetas), 1))], axis=1)
             write_table(chain_path, rows, append=True)
             self._save_state(st)
+            rec.checkpoint(step=int(st.step))
             grads = st.ngrad - ngrad0
+            if rec.enabled:
+                meter.add(self.W * grads)
+                hb = dict(step=int(st.step), nsamp=int(nsamp),
+                          accept=round(mean_acc, 4),
+                          eps=round(float(math.exp(st.log_eps)), 6),
+                          divergences=int(st.divergences),
+                          evals_per_s=round(meter.window_rate(), 1),
+                          evals_total=int(meter.total), cache_hit_rate=0.0,
+                          host_sync_wall_s=round(self._last_sync_s, 4),
+                          block_bubble_s=round(self._last_bubble_s, 4),
+                          warmup=bool(adapt))
+                mem = profiling.memory_watermark(self.device)
+                if mem is not None:
+                    hb.update(mem)
+                rss = profiling.host_rss_bytes()
+                if rss is not None:
+                    hb["rss_bytes"] = rss
+                worst = throttled_block_worst(
+                    thetas.reshape(todo, self.W, self.ndim),
+                    self.like.param_names, diag_t)
+                if worst is not None:
+                    hb["rhat"] = worst["rhat"]
+                    hb["ess"] = worst["ess"]
+                rec.heartbeat(**hb)
             stats = {"step": st.step, "steps": todo, "chains": self.W,
                      "grads": grads, "block_s": block_s,
                      "ms_per_step": 1e3 * block_s / todo,
@@ -365,12 +467,34 @@ class HMCSampler:
                           stats["ms_per_grad"], extra={"hmc_stats": stats})
         return st
 
+    def _escalate_nonfinite(self, st, thetas, lnl_np):
+        """A committed non-finite lnL is an anomaly (HMC accepts only
+        finite end points, so the chain state itself went bad): count,
+        record and dump once. Fault site ``hmc.nonfinite`` plants one (on
+        the escalation's copy; the chain rows are left as they are)."""
+        if faults.fire("hmc.nonfinite", step=int(st.step)) is not None:
+            lnl_np = lnl_np.copy()
+            lnl_np[0] = np.nan
+        bad = ~np.isfinite(lnl_np)
+        nbad = int(bad.sum())
+        if not nbad:
+            return
+        telemetry.registry().counter("nonfinite_eval",
+                                     where="hmc_block").inc(nbad)
+        fr = flight_recorder()
+        fr.record("nonfinite_eval", where="hmc_block", count=nbad,
+                  step=int(st.step))
+        fr.anomaly("nonfinite_eval", run_dir=self.outdir,
+                   once_key=f"nonfinite_eval:{self.outdir}",
+                   step=int(st.step), n_bad=nbad, bad_theta=thetas[bad][:8],
+                   bad_lnl=lnl_np[bad][:8])
+
 
 def run_hmc(like, outdir, nsamp, params=None, resume=True, seed=0,
             verbose=True, advi_init=True, **kw):
     """Convenience entry honouring the paramfile's sampler settings
     (``nchains``, ``n_leapfrog``, ``warmup``, ``target_accept``,
-    ``advi_init``, ``jitter_L``); returns the sampler.
+    ``advi_init``, ``jitter_L``, ``device_state``); returns the sampler.
 
     ``advi_init`` (default on): fit a mean-field ADVI posterior first
     (1500 steps of 16 draws) and warm-start HMC from it — positions are
@@ -380,9 +504,11 @@ def run_hmc(like, outdir, nsamp, params=None, resume=True, seed=0,
     checkpoint."""
     opts = dict(seed=seed)
     skw = getattr(params, "sampler_kwargs", {}) if params is not None else {}
-    for knob in ("device_state", "chain_shard", "psr_shard"):
+    for knob in ("chain_shard", "psr_shard"):
         if skw.get(knob) or kw.get(knob):
             raise NotImplementedError(f"{knob} for HMC {_LATER}")
+    if "device_state" in skw:
+        opts["device_state"] = bool(int(skw["device_state"]))
     if params is not None:
         opts.update(
             nchains=int(skw.get("nchains", 64)),
@@ -410,6 +536,17 @@ def run_hmc(like, outdir, nsamp, params=None, resume=True, seed=0,
         # settles the step size — unless the caller chose a warmup
         if "warmup" not in kw and "warmup" not in skw:
             opts["warmup"] = max(200, min(400, nsamp // 10))
-    sampler = HMCSampler(like, outdir, **opts)
-    sampler.sample(nsamp, resume=resume, verbose=verbose)
-    return sampler
+    # demotion re-entry: an in-process rung (mega -> classic) is applied
+    # and the run resumes from its checkpoint; the bottom propagates
+    while True:
+        sampler = HMCSampler(like, outdir, **opts)
+        try:
+            sampler.sample(nsamp, resume=resume, verbose=verbose)
+        except PlatformDemotion as d:
+            if not apply_demotion(d):
+                raise
+            _log.warning("re-entering the HMC run on the %s path (resume "
+                         "from checkpoint)", d.to_level)
+            resume = True
+            continue
+        return sampler

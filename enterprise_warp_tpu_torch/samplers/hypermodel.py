@@ -80,6 +80,9 @@ class HyperModelLikelihood(PriorMixin):
         k = torch.clamp(torch.round(theta[:, -1]), 0,
                         self.nmodels - 1).to(torch.long)
         out = torch.zeros(theta.shape[0], dtype=F64, device=self.device)
+        # the members' kernel-route rejections, walker by walker
+        rej = torch.zeros(theta.shape[0], dtype=torch.bool,
+                          device=self.device)
         for m, (like, idx) in enumerate(zip(self.likes.values(),
                                             self._index)):
             rows = torch.nonzero(k == m).flatten()
@@ -87,4 +90,7 @@ class HyperModelLikelihood(PriorMixin):
                 continue
             sub = theta.index_select(0, rows).index_select(1, idx)
             out = out.index_copy(0, rows, like.loglike_batch(sub))
+            if getattr(like, "last_reject", None) is not None:
+                rej = rej.index_copy(0, rows, like.last_reject)
+        self.last_reject = rej
         return out

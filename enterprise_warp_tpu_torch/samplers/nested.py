@@ -37,11 +37,23 @@ Evidence bookkeeping treats a batch of K deletions as K sequential ones
 ``<label>_result.json`` (read by ``results.BilbyWarpResult``) plus
 ``<label>_nested.npz``.
 
-Not ported yet (ROADMAP.md): the per-iteration path (``block_iters: 0``
-or ``EWT_NESTED_BLOCK=0``), the supervisor and its demotion ladder, fault
-injection, telemetry, heartbeats, the flight recorder, profiling spans
-and the device diagnostics plane; a log line per block stands in for the
-heartbeat.
+The reference's per-iteration path (``block_iters: 0`` or
+``EWT_NESTED_BLOCK=0``: one walk-kernel iteration per call and one host
+read per iteration) gives the blocked walk's dead-point ledger bit for
+bit, so the port accepts those switches and runs the blocked walk one
+iteration a block.
+
+The run plane, as the reference's: each run is a ``run_scope`` on the
+output directory (a ``heartbeat`` per block, a ``checkpoint`` per
+checkpoint write, a closing heartbeat), each dispatch goes through
+``BlockSupervisor("nested.iteration")`` (its breaker writes the last
+committed block's checkpoint first; :func:`run_nested` applies in-process
+demotions and resumes), the fault sites ``nested.iteration``,
+``nested.ckpt`` and ``nested.nonfinite``, the flight recorder (a
+non-finite dead point is an anomaly) and a SIGTERM stops the run at a
+block boundary with its checkpoint written.
+
+Not ported yet (ROADMAP.md): the device diagnostics plane.
 """
 
 from __future__ import annotations
@@ -57,6 +69,11 @@ from .. import F64
 from ..io.writers import (atomic_write_json, checkpoint_replace,
                           remove_checkpoint, resolve_checkpoint)
 from ..models.build import params_fingerprint
+from ..resilience import faults
+from ..resilience.supervisor import (BlockSupervisor, PlatformDemotion,
+                                     apply_demotion, preemption_requested)
+from ..utils import profiling, telemetry
+from ..utils.flightrec import flight_recorder
 from ..utils.logging import EvalRateMeter, get_logger
 from .convergence import (insertion_rank_ks, insertion_rank_neff,
                           insertion_rank_pass)
@@ -67,11 +84,13 @@ _log = get_logger("ewt.nested")
 #: NS iterations per block: one host sync per block
 DEFAULT_BLOCK_ITERS = 16
 
+# set once the per-iteration switch has been logged (once a process)
+_PERITER_NOTED = []
+
 #: eval rounds per slice update (the shrink budget): rounds group into
 #: complete, reversible slice transitions — see ``slice_kernel``
 _SLICE_SHRINK_BUDGET = 4
 
-_LATER = "is a later slice of the port (see ROADMAP.md, Queue 1)"
 
 
 def _device(like):
@@ -356,18 +375,15 @@ def _make_block(like, nlive, kbatch, nsteps, slide_moves=None,
     return block
 
 
-def run_nested(like, outdir=None, nlive=500, dlogz=0.1, nsteps=None,
-               kbatch=None, seed=0, max_iter=100000, verbose=True,
-               label="result", resume=True, checkpoint_every=50,
-               slide_moves=None, block_iters=None, kernel=None):
+def run_nested(like, outdir=None, **kw):
     """Nested sampling over a walker-batched likelihood (``loglike_batch``
     on ``(W, ndim)`` float64 tensors, ``from_unit``, ``params``,
-    ``ndim``, ``device``).
+    ``ndim``, ``device``); keyword arguments as :func:`_run_nested_impl`.
 
     Returns a dict with ``log_evidence``, ``log_evidence_err``,
     ``posterior_samples`` (equal-weight), ``samples``/``log_weights``
-    (the dead points), ``insertion_rank`` (the pooled KS verdict),
-    ``dispatch_stats`` (blocks and host syncs per iteration) and
+    (the dead points), ``insertion_rank`` (the pooled KS verdict, blocked
+    path), ``dispatch_stats`` (blocks and host syncs per iteration) and
     ``dispatch_timing``, and writes ``<label>_result.json`` and
     ``<label>_nested.npz`` into ``outdir``.
 
@@ -380,13 +396,37 @@ def run_nested(like, outdir=None, nlive=500, dlogz=0.1, nsteps=None,
     ``block_iters``, ``kernel``, the model) starts fresh. It is removed
     when the run converges.
 
-    The reference's ``run_nested``/``_run_nested_impl`` pair is one
-    function here: its supervisor loop is not ported."""
+    A circuit-breaker :class:`PlatformDemotion` is re-entered here in
+    process for the ``mega -> classic`` rung (resuming from the
+    checkpoint) and propagated at the bottom."""
+    while True:
+        try:
+            return _run_nested_impl(like, outdir=outdir, **kw)
+        except PlatformDemotion as d:
+            if not apply_demotion(d):
+                raise
+            _log.warning("re-entering the nested run on the %s path "
+                         "(resume from checkpoint)", d.to_level)
+            kw["resume"] = True
+
+
+def _run_nested_impl(like, outdir=None, nlive=500, dlogz=0.1, nsteps=None,
+                     kbatch=None, seed=0, max_iter=100000, verbose=True,
+                     label="result", resume=True, checkpoint_every=50,
+                     slide_moves=None, block_iters=None, kernel=None):
+    """One attempt of :func:`run_nested`: ``block_iters`` (or
+    ``EWT_NESTED_BLOCK``) 0, the reference's per-iteration path, runs the
+    blocked walk one iteration a block (module docstring)."""
     block_iters = _resolve_block_iters(block_iters)
     if block_iters <= 0:
-        raise NotImplementedError(
-            "the per-iteration nested path (block_iters 0, "
-            f"EWT_NESTED_BLOCK=0) {_LATER}")
+        if not _PERITER_NOTED:
+            _PERITER_NOTED.append(True)
+            _log.info("block_iters 0 (the per-iteration path): the blocked "
+                      "walk one iteration a block, the same dead points")
+        if kernel not in (None, "walk"):
+            _log.warning("kernel=%r ignored: the per-iteration path always "
+                         "runs the walk kernel", kernel)
+        block_iters, kernel = 1, "walk"
     kernel = kernel or "slice"
     if kernel not in ("slice", "walk"):
         raise ValueError(f"unknown nested kernel {kernel!r} "
@@ -521,95 +561,180 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
             dead_dlnx=cat(dead_dlnx, np.zeros(0)),
             ranks=cat(ranks_all, np.zeros(0, dtype=np.int64)), **want)
         checkpoint_replace(tmp, ckpt_path)
+        # kill-after-durable-checkpoint injection boundary
+        faults.fire("nested.ckpt", path=ckpt_path, iteration=int(it_now))
 
     pipe = HostPipeline()
+    # the breaker's resume point: the last committed block, written after
+    # the pending host work drains
+    last_commit = {}
+
+    def _breaker_checkpoint():
+        pipe.flush()
+        if last_commit:
+            _write_ckpt(**last_commit)
+
+    supervisor = BlockSupervisor("nested.iteration",
+                                 on_checkpoint=_breaker_checkpoint)
+    g_sync = telemetry.registry().gauge("host_sync_wall_s")
+    g_bubble = telemetry.registry().gauge("block_bubble_s")
     last_ckpt_it = it
     converged = False
     nmax = nlive - kbatch           # insertion-rank support: {0..nmax}
-    meter = EvalRateMeter(initial_total=it * kbatch * nsteps)
     t_loop = time.perf_counter()
     sync_total_s = 0.0
-    try:
-        while it < max_iter and not converged:
-            # blocks align to the absolute iteration grid, so a resume
-            # from a mid-grid checkpoint first runs a partial block
-            todo = min(block_iters - (it % block_iters), max_iter - it)
-            t0 = time.perf_counter()
-            (u, lnl, scale_d, lnz_d, lnx_d), ys = block(
-                u, lnl, gen, scale_d, lnz_d, lnx_d, todo)
-            rng_state = gen.get_state().numpy()
-            n_dispatch += 1
-            # the card is busy with this block: the previous block's host
-            # work runs in the gap
-            pipe.run_pending()
-            # ---- commit: the one host sync per block ----------------- #
-            t1 = time.perf_counter()
-            snap = host_snapshot(dict(u=u, lnl=lnl, scale=scale_d,
-                                      lnz=lnz_d, ln_x=lnx_d, **ys))
-            n_sync += 1
-            t2 = time.perf_counter()
-            sync_total_s += t2 - t1
-            du = snap["dead_u"].reshape(-1, nd)
-            dl = snap["dead_lnl"].reshape(-1)
-            rk = snap["ranks"].reshape(-1)
-            dead_u.append(du)
-            dead_lnl.append(dl)
-            dead_lnx.append(
-                (snap["lnx0"][:, None] - lnx_offsets[None, :]).reshape(-1))
-            dead_dlnx.append(np.tile(dlnx_per, todo))
-            ranks_all.append(rk)
-            _escalate_nonfinite_dead(du, dl, it)
-            lnz, ln_x = float(snap["lnz"]), float(snap["ln_x"])
-            scale = float(snap["scale"])
-            it += todo
-            meter.add(todo * kbatch * nsteps)
-            # termination at the block boundary: the run would have
-            # stopped at the first crossing; the extra iterations of the
-            # block are valid ones that only tighten the estimate
-            deltas, accs = snap["delta"], snap["acc"]
-            converged = bool(np.any(deltas < dlogz))
-            ks = insertion_rank_ks(rk, nmax)
-            if ks is not None:
-                ks_blocks.append(ks)
-            due_ckpt = (it - last_ckpt_it >= checkpoint_every
-                        or it >= max_iter or converged)
-            if due_ckpt:
-                last_ckpt_it = it
-            stats = dict(iteration=it, iters=todo, block_s=t2 - t0,
-                         sync_s=t2 - t1, evals=todo * kbatch * nsteps,
-                         walkers=kbatch, lnz=lnz,
-                         dlogz=float(deltas[-1]), accept=float(accs[-1]),
-                         scale=scale, ks=ks)
-            state = dict(u=snap["u"], lnl=snap["lnl"], rng_state=rng_state,
-                         scale=snap["scale"], ln_x=snap["ln_x"],
-                         lnz=snap["lnz"])
-
-            def _host_work(state=state, n_led=len(dead_u),
-                           n_ks=len(ks_blocks), due_ckpt=due_ckpt,
-                           nd_now=n_dispatch, ns_now=n_sync, stats=stats):
+    t_ready = None
+    with telemetry.run_scope(outdir, sampler="nested", label=label,
+                             nlive=int(nlive), kbatch=int(kbatch),
+                             nsteps=int(nsteps), ndim=int(nd),
+                             dlogz=float(dlogz),
+                             block_iters=int(block_iters),
+                             kernel=str(kernel),
+                             param_names=list(like.param_names)) as rec:
+        meter = EvalRateMeter(initial_total=it * kbatch * nsteps)
+        try:
+            while it < max_iter and not converged:
+                if preemption_requested():
+                    _log.warning("preemption requested: stopping at "
+                                 "iteration %d", it)
+                    break
+                # blocks align to the absolute iteration grid, so a resume
+                # from a mid-grid checkpoint first runs a partial block
+                todo = min(block_iters - (it % block_iters), max_iter - it)
+                t0 = time.perf_counter()
+                last_bubble_s = 0.0
+                if t_ready is not None:
+                    last_bubble_s = t0 - t_ready
+                    g_bubble.set(last_bubble_s)
+                with profiling.span("ns.dispatch", it=it, iters=todo):
+                    (u, lnl, scale_d, lnz_d, lnx_d), ys = supervisor.call(
+                        lambda: block(u, lnl, gen, scale_d, lnz_d, lnx_d,
+                                      todo),
+                        gen=gen, iteration_idx=int(it),
+                        block_iters=int(todo))
+                rng_state = gen.get_state().numpy()
+                n_dispatch += 1
+                # the card is busy with this block: the previous block's
+                # host work runs in the gap
+                pipe.run_pending()
+                # ---- commit: the one host sync per block ------------- #
+                t1 = time.perf_counter()
+                leaves = dict(u=u, lnl=lnl, scale=scale_d, lnz=lnz_d,
+                              ln_x=lnx_d, **ys)
+                with profiling.span("ns.commit", it=it, iters=todo):
+                    snap = supervisor.call(lambda: host_snapshot(leaves),
+                                           retryable=False,
+                                           site="nested.commit",
+                                           iteration=int(it))
+                n_sync += 1
+                t2 = t_ready = time.perf_counter()
+                sync_total_s += t2 - t1
+                g_sync.set(t2 - t1)
+                du = snap["dead_u"].reshape(-1, nd)
+                dl = snap["dead_lnl"].reshape(-1)
+                rk = snap["ranks"].reshape(-1)
+                dead_u.append(du)
+                dead_lnl.append(dl)
+                dead_lnx.append((snap["lnx0"][:, None]
+                                 - lnx_offsets[None, :]).reshape(-1))
+                dead_dlnx.append(np.tile(dlnx_per, todo))
+                ranks_all.append(rk)
+                _escalate_nonfinite_dead(du, dl, outdir, it)
+                lnz, ln_x = float(snap["lnz"]), float(snap["ln_x"])
+                scale = float(snap["scale"])
+                it += todo
+                meter.add(todo * kbatch * nsteps)
+                # termination at the block boundary: the run would have
+                # stopped at the first crossing; the extra iterations of
+                # the block are valid ones that only tighten the estimate
+                deltas, accs = snap["delta"], snap["acc"]
+                converged = bool(np.any(deltas < dlogz))
+                profiling.capture_tick()
+                flight_recorder().note_state(
+                    sampler="nested", outdir=outdir, iteration=it, lnz=lnz,
+                    scale=scale, block_iters=int(block_iters))
+                ks = insertion_rank_ks(rk, nmax)
+                if ks is not None:
+                    ks_blocks.append(ks)
+                due_ckpt = (it - last_ckpt_it >= checkpoint_every
+                            or it >= max_iter or converged)
                 if due_ckpt:
-                    _write_ckpt(state, n_led, stats["iteration"], nd_now,
-                                ns_now, n_ks)
-                if verbose:
-                    _log.info(
-                        "NS it=%d lnZ=%.3f dlogz=%.4f acc=%.2f scale=%.3f "
-                        "ks=%.3f evals/s=%.1f", stats["iteration"],
-                        stats["lnz"], stats["dlogz"], stats["accept"],
-                        stats["scale"], stats["ks"] if stats["ks"]
-                        is not None else float("nan"),
-                        stats["evals"] / stats["block_s"],
-                        extra={"nested_stats": stats})
-            pipe.defer(_host_work)
-    finally:
-        # the last block's checkpoint and log line land before the caller
-        # reads the directory
-        pipe.flush()
+                    last_ckpt_it = it
+                stats = dict(iteration=it, iters=todo, block_s=t2 - t0,
+                             sync_s=t2 - t1, evals=todo * kbatch * nsteps,
+                             walkers=kbatch, lnz=lnz,
+                             dlogz=float(deltas[-1]),
+                             accept=float(accs[-1]), scale=scale, ks=ks)
+                state = dict(u=snap["u"], lnl=snap["lnl"],
+                             rng_state=rng_state, scale=snap["scale"],
+                             ln_x=snap["ln_x"], lnz=snap["lnz"])
+                last_commit.clear()
+                last_commit.update(state=state, n_led=len(dead_u),
+                                   it_now=it, nd_now=n_dispatch,
+                                   ns_now=n_sync, n_ks=len(ks_blocks))
+                hb = None
+                if rec.enabled:
+                    hb = dict(iteration=it, lnz=round(lnz, 3),
+                              dlogz=round(stats["dlogz"], 4),
+                              accept=round(stats["accept"], 3),
+                              scale=round(scale, 4),
+                              evals_per_s=round(meter.window_rate(), 1),
+                              evals_total=int(meter.total),
+                              host_sync_wall_s=round(t2 - t1, 4),
+                              block_bubble_s=round(last_bubble_s, 4))
+                    if ks is not None:
+                        hb["insertion_ks"] = round(ks, 4)
+                        telemetry.registry().gauge("insertion_ks").set(
+                            float(ks))
+                    mem = profiling.memory_watermark(dev)
+                    if mem is not None:
+                        hb.update(mem)
+                    rss = profiling.host_rss_bytes()
+                    if rss is not None:
+                        hb["rss_bytes"] = rss
+                    routes = telemetry.route_summary()
+                    if routes:
+                        hb["pallas_path"] = routes
+
+                def _host_work(commit=dict(last_commit), due_ckpt=due_ckpt,
+                               stats=stats, hb=hb):
+                    with profiling.span("ns.host_work",
+                                        it=commit["it_now"]):
+                        _host_files(commit, due_ckpt)
+                    if hb is not None:
+                        rec.heartbeat(**hb)
+                    if verbose:
+                        _log.info(
+                            "NS it=%d lnZ=%.3f dlogz=%.4f acc=%.2f "
+                            "scale=%.3f ks=%.3f evals/s=%.1f",
+                            stats["iteration"], stats["lnz"],
+                            stats["dlogz"], stats["accept"], stats["scale"],
+                            stats["ks"] if stats["ks"] is not None
+                            else float("nan"),
+                            stats["evals"] / stats["block_s"],
+                            extra={"nested_stats": stats})
+
+                def _host_files(commit, due_ckpt):
+                    if due_ckpt:
+                        _write_ckpt(**commit)
+                        rec.checkpoint(iteration=commit["it_now"])
+                pipe.defer(_host_work)
+        finally:
+            # the last block's checkpoint and log line land before the
+            # caller reads the directory
+            pipe.flush()
+        rec.heartbeat(iteration=it, lnz=round(lnz, 3),
+                      converged=bool(converged),
+                      evals_per_s=round(meter.rate(), 1),
+                      evals_total=int(meter.total))
     loop_s = time.perf_counter() - t_loop
 
-    # the last block's checkpoint is always due (converged or at
-    # max_iter); a converged run's checkpoint is removed
+    # a converged run's checkpoint is removed; one stopped early (a
+    # preemption) keeps its last block resumable
     if converged and ckpt_path is not None:
         remove_checkpoint(ckpt_path)
+    elif not converged and it > last_ckpt_it and last_commit:
+        _write_ckpt(**last_commit)
 
     rk_pooled = (np.concatenate(ranks_all) if ranks_all
                  else np.zeros(0, dtype=np.int64))
@@ -653,17 +778,29 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
     return result
 
 
-def _escalate_nonfinite_dead(du, dl, it):
+def _escalate_nonfinite_dead(du, dl, outdir, it):
     """Non-finite dead points (the likelihoods map NaN to -inf, so the test
-    is ~isfinite): live points are redrawn or walked to finite lnL, so
-    any such point means a bad evaluation leaked into the evidence. The
-    reference also counts it in telemetry and dumps an anomaly record
-    (ROADMAP.md Queue 1 item 12); here it is logged."""
+    is ~isfinite): live points are redrawn or walked to finite lnL, so any
+    such point means a bad evaluation leaked into the evidence. Counted
+    (``nonfinite_eval{where=nested}``), recorded and dumped once. Fault
+    site ``nested.nonfinite`` plants one (on this check's copy; the ledger
+    is left as it is)."""
+    spec = faults.fire("nested.nonfinite", iteration=int(it))
+    if spec is not None and spec.kind == "nonfinite":
+        dl = dl.copy()
+        dl[0] = np.nan
     bad = ~np.isfinite(dl)
-    if bad.any():
-        _log.warning("NS iteration block at %d: %d non-finite dead "
-                     "points, first at u=%s", it, int(bad.sum()),
-                     du[bad][0].tolist())
+    nbad = int(bad.sum())
+    if not nbad:
+        return
+    _log.warning("NS iteration block at %d: %d non-finite dead points, "
+                 "first at u=%s", it, nbad, du[bad][0].tolist())
+    telemetry.registry().counter("nonfinite_eval", where="nested").inc(nbad)
+    fr = flight_recorder()
+    fr.record("nonfinite_eval", where="nested", count=nbad, iteration=it)
+    fr.anomaly("nonfinite_eval", run_dir=outdir,
+               once_key=f"nonfinite_eval:{outdir}", iteration=it,
+               n_bad=nbad, bad_u=du[bad][:8], bad_lnl=dl[bad][:8])
 
 
 def _finalize(like, outdir, label, seed, nlive, kbatch, nsteps, it,

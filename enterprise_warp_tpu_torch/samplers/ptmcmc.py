@@ -45,6 +45,25 @@ bridge 64 -> 2 with multinomial resampling, :meth:`PTSampler.anneal_init`)
 and ``advi_init`` (a variational fit whose draws seed the walkers,
 ``init_x``), both skipped on resume.
 
+The run plane, as the reference's (``utils/telemetry.py``,
+``resilience/``): :meth:`PTSampler.sample` runs in a ``run_scope`` on the
+output directory (``events.jsonl``: ``run_start``, one ``heartbeat`` and
+one ``checkpoint`` per block, ``run_end``); each block goes through
+``BlockSupervisor("pt.dispatch")`` (watchdog, retry, demotion, applied in
+process by :func:`run_ptmcmc`); the fault sites ``pt.dispatch``,
+``pt.ckpt``, ``pt.chain``, ``pt.nonfinite``, ``kernel.health`` and
+``psr.quarantine``; a SIGTERM stops the run at a block boundary. Every
+per-step count the reference accumulates inside its scan (non-finite
+evaluations, the health words' jitter/divergence counts and condition
+proxy) accumulates on the device here and is read in the block's one
+snapshot. A walker that the likelihood kernel's route rejects
+(``ops/megakernel.py:schur_reject``, a chosen NaN of the port) is counted
+apart, as ``schur_rejected``, and never as a non-finite evaluation. The
+health plane (``EWT_KERNEL_HEALTH``) is armed by default only where no
+megakernel route is possible (on the card it needs an explicit
+``EWT_KERNEL_HEALTH=1`` and pins the classic chain and its preconditioner
+kernel), and walks ``observe -> reeval -> classic -> quarantine``.
+
 Not ported (``NotImplementedError``): the ``flow`` proposal family.
 """
 
@@ -64,8 +83,15 @@ from .. import F64
 from ..io.writers import (atomic_write_json, checkpoint_exists,
                           checkpoint_replace, resolve_checkpoint,
                           write_table)
-from ..utils.diagnostics import cache_hit_summary
-from ..utils.logging import get_logger
+from ..resilience import faults
+from ..resilience.supervisor import (BlockSupervisor, PlatformDemotion,
+                                     apply_demotion, pin_classic,
+                                     preemption_requested)
+from ..utils import profiling, telemetry
+from ..utils.diagnostics import cache_hit_summary, throttled_block_worst
+from ..utils.flightrec import flight_recorder
+from ..utils.logging import EvalRateMeter, get_logger
+from .devicestate import host_snapshot
 from .evalproto import BLOCK_COMMON
 
 _log = get_logger("ewt.ptmcmc")
@@ -312,6 +338,30 @@ class PTSampler:
         self.mask_counts = np.zeros(3)
         # (step, chain file sizes) of this sampler's last committed block
         self._committed = None
+        # the run plane: supervised dispatch (its breaker drains the
+        # pending block write first), the block-boundary gauges, and the
+        # kernel-health ledgers, one per pulsar
+        self._pending = None
+        self._supervisor = BlockSupervisor("pt.dispatch",
+                                           on_checkpoint=self._drain)
+        self._last_sync_s = self._last_bubble_s = 0.0
+        self.host_sync_total_s = self.bubble_total_s = 0.0
+        self._t_ready = None
+        self._g_sync = telemetry.registry().gauge("host_sync_wall_s")
+        self._g_bubble = telemetry.registry().gauge("block_bubble_s")
+        self.health = None
+        health_env = os.environ.get("EWT_KERNEL_HEALTH")
+        if health_env is None:
+            from ..ops.routes import _mega_enabled
+            arm = not (self.device.type == "cuda" and _mega_enabled())
+        else:
+            arm = health_env != "0"
+        if telemetry.enabled() and arm \
+                and hasattr(like, "_eval_health_batch"):
+            from ..resilience.integrity import HealthLedger
+            names = list(getattr(like, "health_psr_names", None) or ["?"])
+            self._health_psrs = names
+            self.health = [HealthLedger(psr=n) for n in names]
         os.makedirs(outdir, exist_ok=True)
 
     # ---------------- initialization / resume -------------------------- #
@@ -328,18 +378,29 @@ class PTSampler:
         if self.init_x is not None:
             reps = int(np.ceil(self.W / len(self.init_x)))
             x0 = np.tile(self.init_x, (reps, 1))[:self.W]
-        lnl = self.like.loglike_batch(self._tensor(x0)).cpu().numpy()
-        # re-draw walkers that landed on a non-finite corner
+        lnl = self._loglike(self._tensor(x0)).cpu().numpy()
+        # re-draw walkers that landed on a non-finite corner: each one is
+        # a counted nonfinite_eval, and exhausting the redraws is an
+        # anomaly dump
+        fr = flight_recorder()
         for _ in range(20):
             bad = ~np.isfinite(lnl)
             if not bad.any():
                 break
+            telemetry.registry().counter(
+                "nonfinite_eval", where="init").inc(int(bad.sum()))
+            fr.record("nonfinite_eval", where="init", count=int(bad.sum()))
             x0[bad] = self.like.sample_prior(rng, int(bad.sum()))
-            lnl = self.like.loglike_batch(self._tensor(x0)).cpu().numpy()
+            lnl = self._loglike(self._tensor(x0)).cpu().numpy()
         else:
-            if (~np.isfinite(lnl)).any():
+            bad = ~np.isfinite(lnl)
+            if bad.any():
                 _log.warning("%d walkers start at non-finite lnl after 20 "
-                             "prior redraws", int((~np.isfinite(lnl)).sum()))
+                             "prior redraws", int(bad.sum()))
+                fr.anomaly("nonfinite_init", run_dir=self.outdir,
+                           once_key=f"nonfinite_init:{self.outdir}",
+                           n_bad=int(bad.sum()), bad_theta=x0[bad][:8],
+                           bad_lnl=lnl[bad][:8])
         x = self._tensor(x0)
         lnp = self.like.log_prior(x)
         cov = self.init_cov if self.init_cov is not None else \
@@ -354,6 +415,14 @@ class PTSampler:
                        swaps_accepted=np.zeros(self.ntemps - 1),
                        swaps_proposed=np.zeros(self.ntemps - 1),
                        ladder=self.init_ladder.copy())
+
+    def _loglike(self, x):
+        """lnL at ``x`` outside the block: through the health twin when
+        the plane is armed, so that every evaluation of the run takes the
+        classic chain it pins."""
+        if self.health is not None:
+            return self.like._eval_health_batch(x)[0]
+        return self.like.loglike_batch(x)
 
     def _prior_scales(self):
         scales = np.ones(self.ndim)
@@ -370,13 +439,13 @@ class PTSampler:
         return os.path.join(self.outdir, "state.npz")
 
     @staticmethod
-    def _ckpt_arrays(st):
-        """A host copy of the state as the checkpoint stores it."""
-        return dict(x=st.x.cpu().numpy(), lnl=st.lnl.cpu().numpy(),
-                    lnp=st.lnp.cpu().numpy(), key=st.key.copy(),
-                    cov=st.cov.copy(), history=st.history.cpu().numpy(),
-                    hist_len=st.hist_len, step=st.step,
-                    accepted=st.accepted.cpu().numpy(),
+    def _ckpt_arrays(st, snap):
+        """The checkpoint's arrays: the state's tensors from the block's
+        host snapshot ``snap``, the host-side rest from ``st``."""
+        return dict(x=snap["x"], lnl=snap["lnl"], lnp=snap["lnp"],
+                    key=st.key.copy(), cov=st.cov.copy(),
+                    history=snap["history"], hist_len=st.hist_len,
+                    step=st.step, accepted=snap["accepted"],
                     swaps_accepted=st.swaps_accepted.copy(),
                     swaps_proposed=st.swaps_proposed.copy(),
                     ladder=st.ladder.copy())
@@ -384,10 +453,14 @@ class PTSampler:
     def _write_ckpt(self, arrays):
         """Atomic checkpoint of :meth:`_ckpt_arrays` with an integrity
         sidecar and the previous generation kept
-        (``io.writers.checkpoint_replace``)."""
+        (``io.writers.checkpoint_replace``). Fault site ``pt.ckpt`` fires
+        after the replace: a kill there is the clean boundary crash that
+        resume is held against."""
         tmp = self._ckpt_path + ".tmp.npz"
         np.savez(tmp, **arrays)
         checkpoint_replace(tmp, self._ckpt_path)
+        faults.fire("pt.ckpt", path=self._ckpt_path,
+                    step=int(arrays["step"]))
 
     def _load_state(self, path):
         z = np.load(path)
@@ -460,9 +533,33 @@ class PTSampler:
 
     def _run_block(self, st, todo, temps=None):
         """Advance ``st`` by ``todo`` steps at the ladder's temperatures
-        (or at ``temps``, one per walker); returns the block's emissions
-        ``(x (todo, n, nd), lnl, lnp)`` as numpy, ``n`` the cold rung's
-        ``nchains`` walkers, or all ``W`` with ``writeHotChains``."""
+        (or at ``temps``, one per walker) through the supervisor, then
+        escalate the block's non-finite and health counts; returns the
+        block's emissions ``(x (todo, n, nd), lnl, lnp)`` as numpy, ``n``
+        the cold rung's ``nchains`` walkers, or all ``W`` with
+        ``writeHotChains``. The block's whole host snapshot stays in
+        ``self._snap``."""
+        snap = self._supervisor.call(
+            lambda: self._advance(st, todo, temps), gen=self.gen,
+            step=int(st.step), block_steps=int(todo))
+        self._snap = snap
+        spec = faults.fire("pt.nonfinite", step=int(st.step))
+        if spec is not None and spec.kind == "nonfinite":
+            # a planted bad evaluation: the escalation below sees one more
+            # non-finite count (the chain itself is not touched)
+            snap["nf"] = snap.get("nf", np.zeros(todo)).copy()
+            snap["nf"][0] += 1
+        if "nf" in snap:
+            self._escalate_nonfinite(snap, st, todo)
+        if self.health is not None and "h_n" in snap:
+            self._fold_health(snap, st)
+        return snap["out_x"], snap["out_l"], snap["out_p"]
+
+    def _advance(self, st, todo, temps=None):
+        """The block itself (:meth:`_run_block`'s supervised thunk):
+        ``todo`` steps on the device, then one host snapshot of
+        everything the host reads this block. Mutates ``st`` only after
+        the snapshot, so a retried block starts from the same state."""
         like, gen, dev = self.like, self.gen, self.device
         W, nd = self.W, self.ndim
         ntemps, nchains = self.ntemps, self.nchains
@@ -501,6 +598,19 @@ class PTSampler:
         n_swaps = 0
         am_scale = 2.38 / math.sqrt(nd)
         gamma_de = 2.38 / math.sqrt(2 * nd)
+        # the reference's in-scan accumulators: non-finite evaluations per
+        # step (telemetry on) and the health counts (health armed)
+        emit_nf = telemetry.enabled()
+        # per step: the proposals' lnL and lnprior and the kernel route's
+        # chosen rejections (None off that route), kept by reference (no
+        # launch a step) and folded into counts at the block's end
+        nf_l, nf_p, nf_r = [], [], []
+        emit_health = self.health is not None
+        if emit_health:
+            n_hpsr = len(self._health_psrs)
+            h_jit = torch.zeros(n_hpsr, dtype=F64, device=dev)
+            h_div = torch.zeros(n_hpsr, dtype=F64, device=dev)
+            h_cond = torch.zeros(n_hpsr, dtype=F64, device=dev)
 
         def rand(*shape):
             return torch.rand(shape, generator=gen, dtype=F64, device=dev)
@@ -553,9 +663,22 @@ class PTSampler:
                 prop = torch.where(c == _NS, ns_prop, prop)
 
             lnp_new = like.log_prior(prop)
-            lnl_new = like.loglike_batch(prop)
-            lnl_new = torch.where(torch.isneginf(lnp_new),
-                                  torch.full_like(lnl_new, -math.inf),
+            if emit_health:
+                lnl_new, hw = like._eval_health_batch(prop)
+                hwv = hw if hw.ndim == 3 else hw[:, None, :]
+                h_jit = h_jit + torch.sum(hwv[:, :, 0] > 0.5, dim=0)
+                h_div = h_div + torch.sum(hwv[:, :, 1] > 0.5, dim=0)
+                h_cond = torch.maximum(h_cond,
+                                       torch.amax(hwv[:, :, 2], dim=0))
+            else:
+                lnl_new = like.loglike_batch(prop)
+            if emit_nf:
+                nf_l.append(lnl_new)
+                nf_p.append(lnp_new)
+                rej = getattr(like, "last_reject", None)
+                nf_r.append(rej if rej is not None and rej.shape == (W,)
+                            else None)
+            lnl_new = torch.where(torch.isneginf(lnp_new), -math.inf,
                                   lnl_new)
             # prior-draw asymmetry: q(x'|x) is the redrawn dimension's
             # prior density
@@ -629,18 +752,152 @@ class PTSampler:
             out_l[step_idx] = lnl[:nrec]
             out_p[step_idx] = lnp[:nrec]
 
+        # the block's one host sync: emissions, final state, counters
+        leaves = dict(out_x=out_x, out_l=out_l, out_p=out_p, x=x, lnl=lnl,
+                      lnp=lnp, history=hist, accepted=acc, sacc=sacc,
+                      fam_acc=fam_acc, fam_prop=fam_prop,
+                      mask_counts=mask_counts)
+        if emit_nf:
+            # a non-finite lnL at a finite-prior point, or a NaN prior (lnL
+            # + NaN is NaN); the kernel route's rejections counted apart
+            lnp_s = torch.stack(nf_p)
+            bad = ~torch.isfinite(torch.stack(nf_l) + lnp_s) \
+                & ~torch.isneginf(lnp_s)
+            no_rej = torch.zeros(W, dtype=torch.bool, device=dev)
+            rej_s = torch.stack([no_rej if r is None else r for r in nf_r])
+            leaves.update(nf=torch.sum(bad & ~rej_s, dim=1),
+                          rej=torch.sum(bad & rej_s, dim=1))
+        if emit_health:
+            leaves.update(h_jit=h_jit, h_div=h_div, h_cond=h_cond)
+        t_sync = time.perf_counter()
+        snap = host_snapshot(leaves)
+        self._last_sync_s = time.perf_counter() - t_sync
+        self.host_sync_total_s += self._last_sync_s
+        self._g_sync.set(self._last_sync_s)
+        if emit_health:
+            snap["h_n"] = float(W * todo)
         st.x, st.lnl, st.lnp, st.history = x, lnl, lnp, hist
         st.accepted = acc
         st.hist_len = int(min(st.hist_len + todo, _HISTORY))
         st.step += todo
         st.key = gen.get_state().numpy()
         if ntemps > 1:
-            st.swaps_accepted = st.swaps_accepted + sacc.cpu().numpy()
+            st.swaps_accepted = st.swaps_accepted + snap["sacc"]
             st.swaps_proposed = st.swaps_proposed + n_swaps * nchains
-        self.fam_accept += fam_acc.cpu().numpy()
-        self.fam_propose += fam_prop.cpu().numpy()
-        self.mask_counts += mask_counts.cpu().numpy()
-        return out_x.cpu().numpy(), out_l.cpu().numpy(), out_p.cpu().numpy()
+        self.fam_accept += snap["fam_acc"]
+        self.fam_propose += snap["fam_prop"]
+        self.mask_counts += snap["mask_counts"]
+        return snap
+
+    def _escalate_nonfinite(self, snap, st, todo):
+        """Count the block's non-finite evaluations (and, apart, the
+        kernel route's rejections); on the first with non-finite ones,
+        dump the scene once: the walkers whose state went non-finite, the
+        per-step counts, the generator state and the position."""
+        rej = int(snap["rej"].sum()) if "rej" in snap else 0
+        if rej:
+            telemetry.registry().counter("schur_rejected",
+                                         where="block").inc(rej)
+        total = int(snap["nf"].sum())
+        if total == 0:
+            return
+        telemetry.registry().counter("nonfinite_eval",
+                                     where="block").inc(total)
+        fr = flight_recorder()
+        fr.record("nonfinite_eval", where="block", count=total,
+                  step=int(st.step))
+        x, lnl, lnp = snap["x"], snap["lnl"], snap["lnp"]
+        bad = ~np.isfinite(lnl) | ~np.isfinite(lnp)
+        fr.anomaly("nonfinite_eval", run_dir=self.outdir,
+                   once_key=f"nonfinite_eval:{self.outdir}",
+                   step=int(st.step), block_steps=int(todo),
+                   n_bad_evals=total, nf_per_step=snap["nf"][:256],
+                   rng_key=np.asarray(st.key),
+                   bad_walker_idx=np.nonzero(bad)[0][:8],
+                   bad_theta=x[bad][:8], bad_lnl=lnl[bad][:8],
+                   bad_lnp=lnp[bad][:8])
+
+    def _fold_health(self, snap, st):
+        """Fold one block's health counts into each pulsar's ledger and
+        act on the most escalated verdict: ``observe`` a
+        ``kernel_health`` event; ``reeval`` also a float64 re-evaluation
+        of up to 8 committed cold walkers, its verdict recorded;
+        ``classic`` also pins the classic chain with its preconditioner
+        kernel for every evaluation (``EWT_PALLAS_MEGA=0``, never a plain
+        version); ``quarantine`` raises
+        :class:`~..resilience.integrity.PulsarQuarantine` for that pulsar
+        alone. Fault site ``kernel.health`` (kind ``nonfinite``) plants a
+        near-singular pulsar 0: every evaluation jittered at log10
+        condition 99."""
+        from ..resilience.integrity import (LADDER, PulsarQuarantine,
+                                            emit_psr_quarantined)
+        n = float(snap["h_n"])
+        jit_c = np.atleast_1d(snap["h_jit"]).astype(float)
+        div_c = np.atleast_1d(snap["h_div"]).astype(float)
+        cond = np.atleast_1d(snap["h_cond"]).astype(float)
+        spec = faults.fire("kernel.health", step=int(st.step),
+                           psr=self._health_psrs[0])
+        if spec is not None and spec.kind == "nonfinite":
+            jit_c = jit_c.copy()
+            jit_c[0] = n
+            cond = cond.copy()
+            cond[0] = 99.0
+        reg = telemetry.registry()
+        if int(jit_c.sum()):
+            reg.counter("jitter_engaged", where="pt.block").inc(
+                int(jit_c.sum()))
+        if int(div_c.sum()):
+            reg.counter("refine_diverged", where="pt.block").inc(
+                int(div_c.sum()))
+        # every pulsar walks its own ladder; the most escalated one acts
+        worst, action = None, None
+        for i, led in enumerate(self.health):
+            act = led.update(n, jit_c[i], div_c[i], cond[i])
+            if act is not None and (action is None or LADDER.index(act)
+                                    > LADDER.index(action)):
+                worst, action = i, act
+        if action is None:
+            return
+        led = self.health[worst]
+        psr = self._health_psrs[worst]
+        stats = dict(led.stats(), psr=psr,
+                     block_jitter_frac=round(jit_c[worst] / max(n, 1.0), 4),
+                     block_logcond=round(float(cond[worst]), 2))
+        reeval = None
+        if action == "reeval":
+            fn = getattr(self.like, "_eval_f64_batch", None)
+            if fn is not None:
+                sub = snap["x"][:min(self.nchains, 8)]
+                ref = fn(sub).cpu().numpy()
+                got = snap["lnl"][:len(sub)]
+                finite = np.isfinite(ref) & np.isfinite(got)
+                diff = (float(np.max(np.abs(ref - got)[finite]))
+                        if finite.any() else float("inf"))
+                led.note_reeval(diff < 0.1, diff)
+                reeval = {"agreed": diff < 0.1,
+                          "max_abs_diff": round(diff, 6)}
+        if action == "classic":
+            pin_classic()
+        _log.warning("kernel health tripped at step %d: action=%s psr=%s "
+                     "%s", int(st.step), action, psr, stats)
+        flight_recorder().record("kernel_health", action=action, psr=psr,
+                                 **{k: v for k, v in stats.items()
+                                    if k != "psr"})
+        rec = telemetry.active_recorder()
+        if rec is not None:
+            ev = dict(stats)
+            if reeval is not None:
+                ev["reeval_agreed"] = reeval["agreed"]
+                ev["reeval_max_abs_diff"] = reeval["max_abs_diff"]
+            rec.event("kernel_health", action=action, step=int(st.step),
+                      **ev)
+            rec.flush()
+        if action == "quarantine":
+            faults.fire("psr.quarantine", psr=psr)
+            self.like.quarantined = True
+            emit_psr_quarantined(psr, cause="kernel_health",
+                                 where="sampler", stats=stats)
+            raise PulsarQuarantine(psr, "kernel_health", stats)
 
     def anneal_init(self, schedule=None, steps_per=100, resample=True,
                     ess_frac=0.5, verbose=True):
@@ -752,18 +1009,34 @@ class PTSampler:
                                         f"chain_{T_k:.6g}.txt"), rows))
         return tables
 
-    def _commit(self, tables, cov, mask_stats, ckpt):
-        """Write one block's outputs in the order a resume relies on:
-        the chain rows, then ``cov.npy`` and ``mask_stats.json``, then
-        the checkpoint that accounts for the rows."""
+    def _commit(self, tables, cov, mask_stats, ckpt, rec, heartbeat):
+        """Write one block's outputs in the order a resume relies on: the
+        chain rows (fault site ``pt.chain`` after them), then ``cov.npy``
+        and ``mask_stats.json``, then the checkpoint that accounts for the
+        rows, and the block's ``checkpoint`` and ``heartbeat`` events."""
+        with profiling.span("pt.host_work", step=int(ckpt["step"])):
+            self._commit_files(tables, cov, mask_stats, ckpt)
+        rec.checkpoint(step=int(ckpt["step"]))
+        if heartbeat is not None:
+            rec.heartbeat(**heartbeat)
+
+    def _commit_files(self, tables, cov, mask_stats, ckpt):
         for path, rows in tables:
             write_table(path, rows, append=True)
+        faults.fire("pt.chain", path=tables[0][0], step=int(ckpt["step"]))
         np.save(os.path.join(self.outdir, "cov.npy"), cov)
         if mask_stats is not None:
             atomic_write_json(os.path.join(self.outdir, "mask_stats.json"),
                               mask_stats)
         self._write_ckpt(ckpt)
         self._committed = (ckpt["step"], self._chain_sizes())
+
+    def _drain(self):
+        """Wait for the block write in flight (the breaker calls this
+        before it demotes, so the last committed block is on disk)."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
 
     # ---------------- public API --------------------------------------- #
     def sample(self, nsamp, resume=True, verbose=True, thin=1,
@@ -774,9 +1047,23 @@ class PTSampler:
         releases the GIL), one block at a time and all of them before
         this returns. If ``collect`` is a list, each
         block's post-thin cold positions are also appended to it as
-        float32 ``(steps // thin, nchains, ndim)`` arrays, so a
-        convergence driver need not re-parse the chain file."""
+        float32 ``(steps // thin, nchains, ndim)`` arrays, so
+        :func:`~.convergence.sample_to_convergence` need not re-parse the
+        chain file.
+
+        Telemetry: the run is a ``run_scope`` on the output directory
+        (joined when a caller already opened one), with one ``heartbeat``
+        and one ``checkpoint`` per block."""
         block_size = block_size or self.cov_update
+        with telemetry.run_scope(
+                self.outdir, sampler="ptmcmc", ndim=self.ndim,
+                ntemps=self.ntemps, nchains=self.nchains, nsamp=int(nsamp),
+                param_names=list(self.like.param_names)) as rec:
+            return self._sample_impl(nsamp, resume, verbose, thin,
+                                     block_size, collect, rec)
+
+    def _sample_impl(self, nsamp, resume, verbose, thin, block_size,
+                     collect, rec):
         ckpt = resolve_checkpoint(self._ckpt_path) if resume else None
         if ckpt is not None:
             st = self._load_state(ckpt)
@@ -794,17 +1081,42 @@ class PTSampler:
         chain_path = os.path.join(self.outdir, "chain_1.txt")
         np.savetxt(os.path.join(self.outdir, "pars.txt"),
                    self.like.param_names, fmt="%s")
+        # evals_total stays cumulative across resumes; rates are this
+        # session's
+        meter = EvalRateMeter(initial_total=self.W * int(st.step))
+        diag_t = [0.0]
 
         writer = ThreadPoolExecutor(max_workers=1)
-        pending = None
+        self._pending = None
+        self._t_ready = None
         try:
             while st.step < nsamp:
+                if preemption_requested():
+                    # the last block is committed (its write drains
+                    # below); run_scope emits run_end(reason="preempted")
+                    _log.warning("preemption requested: stopping at step "
+                                 "%d after a final checkpoint", st.step)
+                    break
                 todo = int(min(block_size, nsamp - st.step))
                 sacc_before = st.swaps_accepted.copy()
                 sprop_before = st.swaps_proposed.copy()
                 t0 = time.perf_counter()
-                cold, cold_lnl, cold_lnp = self._run_block(st, todo)
-                block_s = time.perf_counter() - t0
+                if self._t_ready is not None:
+                    # host time between the last block's results landing
+                    # and this block's first launch
+                    self._last_bubble_s = t0 - self._t_ready
+                    self.bubble_total_s += self._last_bubble_s
+                    self._g_bubble.set(self._last_bubble_s)
+                with profiling.span("pt.dispatch", step=int(st.step),
+                                    steps=todo):
+                    cold, cold_lnl, cold_lnp = self._run_block(st, todo)
+                snap = self._snap
+                self._t_ready = time.perf_counter()
+                block_s = self._t_ready - t0
+                profiling.capture_tick()
+                flight_recorder().note_state(
+                    sampler="ptmcmc", outdir=self.outdir, step=int(st.step),
+                    block_steps=int(todo), rng_key=st.key.tolist())
 
                 # --- swap-rate-targeted ladder adaptation -----------------
                 if self.adapt_ladder and self.ntemps > 1:
@@ -833,7 +1145,7 @@ class PTSampler:
                     w = min(0.5, flat.shape[0] / max(st.step, 1))
                     st.cov = (1 - w) * st.cov + w * new_cov
 
-                accepted = st.accepted.cpu().numpy()
+                accepted = snap["accepted"]
                 acc_rate = float(np.mean(accepted[:self.nchains])
                                  / max(st.step, 1))
                 tot_prop = float(np.sum(st.swaps_proposed))
@@ -852,11 +1164,17 @@ class PTSampler:
                     collect.append(cs.astype(np.float32))
                 mask_stats = (cache_hit_summary(*self.mask_counts)
                               if self.use_maskstats else None)
-                ckpt = self._ckpt_arrays(st)
-                if pending is not None:
-                    pending.result()
-                pending = writer.submit(self._commit, tables, ckpt["cov"],
-                                        mask_stats, ckpt)
+                heartbeat = None
+                if rec.enabled:
+                    meter.add(self.W * todo)
+                    heartbeat = self._heartbeat(
+                        st, nsamp, snap, cs, acc_rate, swap_rate, meter,
+                        diag_t)
+                ckpt = self._ckpt_arrays(st, snap)
+                self._drain()
+                self._pending = writer.submit(
+                    self._commit, tables, ckpt["cov"], mask_stats, ckpt,
+                    rec, heartbeat)
                 stats = {"step": st.step, "steps": todo, "walkers": self.W,
                          "block_s": block_s,
                          "ms_per_step": 1e3 * block_s / todo,
@@ -872,11 +1190,56 @@ class PTSampler:
                               swap_rate, fam, float(np.max(cold_lnl)),
                               stats["ms_per_step"],
                               extra={"block_stats": stats})
-            if pending is not None:
-                pending.result()
+            self._drain()
         finally:
             writer.shutdown(wait=True)
         return st
+
+    def _heartbeat(self, st, nsamp, snap, cs, acc_rate, swap_rate, meter,
+                   diag_t):
+        """One block's heartbeat fields (the reference's, from the block's
+        host snapshot: no device read)."""
+        accepted = snap["accepted"]
+        sacc, sprop = st.swaps_accepted, st.swaps_proposed
+        hb = dict(
+            step=int(st.step), nsamp=int(nsamp), accept=round(acc_rate, 4),
+            swap=round(swap_rate, 4),
+            accept_rung=[round(float(a), 4) for a in
+                         accepted.reshape(self.ntemps, self.nchains)
+                         .mean(axis=1) / max(st.step, 1)],
+            swap_rung=[round(float(r), 4) for r in
+                       sacc / np.maximum(sprop, 1.0)],
+            fam_accept={n: round(float(a / max(p, 1.0)), 4) for n, a, p in
+                        zip(_FAM_NAMES, self.fam_accept, self.fam_propose)},
+            ladder=[round(float(T), 4) for T in st.ladder],
+            evals_per_s=round(meter.window_rate(), 1),
+            evals_total=int(meter.total),
+            cache_hit_rate=(cache_hit_summary(*self.mask_counts)
+                            ["cache_hit_rate"] if self.use_maskstats
+                            else 0.0),
+            host_sync_wall_s=round(self._last_sync_s, 4),
+            block_bubble_s=round(self._last_bubble_s, 4),
+            max_lnl=round(float(np.max(snap["lnl"])), 3))
+        if self.health is not None:
+            hb["jitter_engaged"] = sum(led.n_jitter for led in self.health)
+            hb["refine_diverged"] = sum(led.n_diverge
+                                        for led in self.health)
+            hb["kernel_cond"] = round(max(led.max_logcond
+                                          for led in self.health), 3)
+        mem = profiling.memory_watermark(self.device)
+        if mem is not None:
+            hb.update(mem)
+        rss = profiling.host_rss_bytes()
+        if rss is not None:
+            hb["rss_bytes"] = rss
+        routes = telemetry.route_summary()
+        if routes:
+            hb["pallas_path"] = routes
+        worst = throttled_block_worst(cs, self.like.param_names, diag_t)
+        if worst is not None:
+            hb["rhat"] = worst["rhat"]
+            hb["ess"] = worst["ess"]
+        return hb
 
 
 def sampler_options(params):
@@ -938,13 +1301,24 @@ def run_ptmcmc(like, outdir, nsamp, params=None, resume=True, seed=0,
                            mc=8, seed=seed)
             opts["init_x"] = fit["samples"]
     opts.update(kw)
-    sampler = PTSampler(like, outdir, **opts)
-    if params is not None and _knob(params, "anneal_init"):
-        if verbose:
-            _log.info("anneal_init: tempered warm start")
-        sampler.anneal_init(verbose=verbose)
-    sampler.sample(nsamp, resume=resume, verbose=verbose, thin=thin)
-    return sampler
+    # demotion re-entry: an in-process rung (mega -> classic) is applied
+    # and the run resumes from its checkpoint; the bottom propagates
+    while True:
+        sampler = PTSampler(like, outdir, **opts)
+        if params is not None and _knob(params, "anneal_init"):
+            if verbose:
+                _log.info("anneal_init: tempered warm start")
+            sampler.anneal_init(verbose=verbose)
+        try:
+            sampler.sample(nsamp, resume=resume, verbose=verbose, thin=thin)
+        except PlatformDemotion as d:
+            if not apply_demotion(d):
+                raise
+            _log.warning("re-entering the PT run on the %s path (resume "
+                         "from checkpoint)", d.to_level)
+            resume = True
+            continue
+        return sampler
 
 
 def _covm_from_csv(covm_df, param_names):

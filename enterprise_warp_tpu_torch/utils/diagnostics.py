@@ -6,9 +6,9 @@ workflow publishes no convergence criteria (runs are judged by eye or by
 fixed ``nsamp`` budgets, e.g. ``nsamp: 100000`` in
 ``examples/example_params/default_hypermodel.dat``), so R-hat and ESS
 are first-class here; the results layer's ``--diagnostics`` reads them.
-``cache_hit_summary`` is the PT sampler's ``mask_stats.json``; the
-heartbeat helper ``throttled_block_worst`` comes with the heartbeat
-layer that calls it.
+``cache_hit_summary`` is the PT sampler's ``mask_stats.json``;
+``throttled_block_worst`` gives the samplers' heartbeats their worst
+R-hat/ESS.
 
 Pure numpy (host-side post-processing, like the results layer). Formulas
 follow Gelman et al. (BDA3) / Vehtari et al. 2021 rank-normalized
@@ -157,3 +157,29 @@ def cache_hit_summary(site, common, full):
         "total": total,
         "cache_hit_rate": round(rate, 4),
     }
+
+
+def throttled_block_worst(block, param_names, last_t, max_kept=256):
+    """Worst R-hat/ESS of one sampler block's emissions, throttled: the
+    heartbeat diagnostics of the PT and HMC samplers.
+
+    ``block`` — (steps, nchains, ndim) host emissions; ``last_t`` — a
+    one-item list holding the ``time.perf_counter`` of the last
+    computation (0.0 forces one). Returns the ``_worst`` dict, or None
+    inside the throttle window. Strided to at most ``max_kept`` steps per
+    chain; recomputed at most every ``EWT_TELEMETRY_DIAG_S`` seconds
+    (default 20, the first heartbeat always computes)."""
+    import os
+    import time
+
+    now = time.perf_counter()
+    try:
+        interval = float(os.environ.get("EWT_TELEMETRY_DIAG_S", "20"))
+    except ValueError:
+        interval = 20.0
+    if last_t[0] and now - last_t[0] < interval:
+        return None
+    last_t[0] = now
+    c = np.transpose(np.asarray(block, dtype=np.float64), (1, 0, 2))
+    stride = max(1, -(-c.shape[1] // max_kept))
+    return summarize_chains(c[:, ::stride], param_names)["_worst"]

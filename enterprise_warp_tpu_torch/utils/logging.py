@@ -1,10 +1,19 @@
-"""Process-wide stdlib logging with one uniform format; the level comes
-from the ``EWT_LOG`` environment variable (default INFO). The
-``get_logger`` and ``EvalRateMeter`` of the reference package, without
-its phase timers and profiler hooks."""
+"""Structured logging, phase timing and profiler capture.
+
+Counterpart of ``enterprise_warp_tpu/utils/logging.py``:
+
+- ``get_logger`` — stdlib logging with one uniform format, the level from
+  the ``EWT_LOG`` environment variable (default INFO);
+- ``PhaseTimer`` / ``log_phase`` — named wall-clock phases reported on
+  exit;
+- ``EvalRateMeter`` — the likelihood-evaluations-per-second counter;
+- ``profiler_trace`` — a ``torch.profiler`` capture of the enclosed block
+  written as a Chrome trace into a directory (a no-op without one).
+"""
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import sys
@@ -70,3 +79,60 @@ class EvalRateMeter:
         out = self._win_n / dt if dt > 0 else 0.0
         self._win_t, self._win_n = now, 0
         return out
+
+
+class PhaseTimer:
+    """Accumulates named wall-clock phases (``with timer.phase(name):``);
+    ``report()`` returns the totals, and each phase is logged on exit
+    when a logger is given."""
+
+    def __init__(self, logger: logging.Logger | None = None):
+        self.durations: dict = {}
+        self.counts: dict = {}
+        self._log = logger
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield self
+        finally:
+            dt = time.perf_counter() - t0
+            self.durations[name] = self.durations.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+            if self._log is not None:
+                self._log.info("phase %s: %.3fs (total %.3fs over %d)",
+                               name, dt, self.durations[name],
+                               self.counts[name])
+
+    def report(self) -> dict:
+        return dict(self.durations)
+
+
+@contextlib.contextmanager
+def log_phase(name: str, logger: logging.Logger | None = None):
+    """One named phase, logged on exit."""
+    log = logger or get_logger()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        log.info("phase %s: %.3fs", name, time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def profiler_trace(trace_dir: str | None):
+    """Capture the enclosed block with ``torch.profiler`` (CPU and, where
+    a card is present, CUDA activity) into ``<trace_dir>/trace.json``; a
+    no-op when ``trace_dir`` is None."""
+    if not trace_dir:
+        yield None
+        return
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

@@ -21,6 +21,7 @@
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -139,10 +140,19 @@ def test_cli_runs_hmc_on_cpu(tmp_path, monkeypatch):
 def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError):
         cli.main(["serve"], device="cpu")
-    # the nested sampler's per-iteration path (block_iters: 0)
-    prfile = _nested_paramfile(tmp_path, block_iters=0)
+    # the chain-axis mesh waits for the multi-GPU slice
+    prfile = _nested_paramfile(tmp_path, chain_shard=2)
     with pytest.raises(NotImplementedError):
         cli.main(["--prfile", prfile, "--num", "0"], device="cpu")
+    # the nested sampler's per-iteration switch (block_iters: 0) is
+    # accepted: the blocked walk, one iteration a block
+    prfile = _nested_paramfile(tmp_path, block_iters=0)
+    assert cli.main(["--prfile", prfile, "--num", "0"], device="cpu") == 0
+    res = [os.path.join(r, f) for r, _, fs in os.walk(tmp_path / "out")
+           for f in fs if f.endswith("_result.json")]
+    with open(res[0]) as fh:
+        doc = json.load(fh)
+    assert (doc["block_iters"], doc["kernel"]) == (1, "walk")
 
 
 def _nested_paramfile(tmp_path, **keys):

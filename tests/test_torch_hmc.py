@@ -346,3 +346,36 @@ def test_pulsar_sampling_and_resume(tmp_path):
     np.testing.assert_array_equal(chain2[:60 * 8], chain1)
     assert st.step == 90 and st.ngrad > 90
     assert 0.4 < chain2[-1, -2] <= 1.0
+
+
+@pytest.mark.parametrize("switch", ["argument", "env", "paramfile"])
+def test_device_state_off_matches_default(tmp_path, monkeypatch, switch):
+    """``device_state`` off (the argument, ``EWT_DEVICE_STATE=0`` or the
+    paramfile key through ``run_hmc``) is accepted, and the chain is bit
+    for bit the default (device-resident) one's, resume included."""
+    from enterprise_warp_tpu_torch.samplers.hmc import run_hmc
+    kw = dict(nchains=8, seed=0, warmup=20, n_leapfrog=4)
+    like = GaussianLike([0.5, -0.5], [0.4, 0.8])
+    HMCSampler(like, str(tmp_path / "dev"), **kw).sample(
+        60, resume=False, verbose=False, block_size=20)
+    out = tmp_path / "host"
+    if switch == "paramfile":
+        params = types.SimpleNamespace(sampler_kwargs=dict(
+            nchains=8, n_leapfrog=4, warmup=20, device_state=0,
+            advi_init=0))
+        run_hmc(like, str(out), 40, params=params, resume=False, seed=0,
+                verbose=False)
+        run_hmc(like, str(out), 60, params=params, resume=True, seed=0,
+                verbose=False)
+    else:
+        if switch == "env":
+            monkeypatch.setenv("EWT_DEVICE_STATE", "0")
+            extra = {}
+        else:
+            extra = dict(device_state=False)
+        HMCSampler(like, str(out), **kw, **extra).sample(
+            40, resume=False, verbose=False, block_size=20)
+        HMCSampler(like, str(out), **kw, **extra).sample(
+            60, resume=True, verbose=False, block_size=20)
+    assert (out / "chain_1.txt").read_bytes() == \
+        (tmp_path / "dev" / "chain_1.txt").read_bytes()

@@ -18,7 +18,7 @@
   bit, result file included; a changed ``block_iters`` or ``kernel``
   starts fresh;
 - (vi) at the default ``block_iters`` at most 0.1 host syncs per
-  iteration;
+  iteration (the per-iteration switch, one iteration a block: one);
 - (vii) ``slide_effective`` agrees for both packages' J1234-5678
   likelihoods of ``default_model_nested.dat``;
 - the checkpoint helpers the sampler uses (``checkpoint_exists``,
@@ -217,8 +217,12 @@ def test_host_syncs_amortized():
     ds = r["dispatch_stats"]
     assert ds["block_iters"] == tnested.DEFAULT_BLOCK_ITERS >= 10
     assert ds["host_syncs_per_iteration"] <= 0.1
-    with pytest.raises(NotImplementedError):
-        tnested.run_nested(tl, max_iter=2, block_iters=0, verbose=False)
+    # the per-iteration switch (one iteration a block) reads the host once
+    # per iteration
+    r0 = tnested.run_nested(tl, max_iter=4, nlive=120, kbatch=24,
+                            nsteps=10, dlogz=1e-12, seed=3, verbose=False,
+                            block_iters=0)
+    assert r0["dispatch_stats"]["host_syncs_per_iteration"] == 1.0
 
 
 def test_slide_effective_matches_reference():
@@ -268,3 +272,67 @@ def test_checkpoint_helpers_match_reference(tmp_path):
     tw.remove_checkpoint(path)
     assert not os.listdir(tmp_path)
     assert not jw.checkpoint_exists(path)
+
+
+# fixed work: dlogz pinned tiny so every run does exactly max_iter
+# iterations and the ledgers compare array for array
+FIXED = dict(nlive=120, kbatch=24, nsteps=10, dlogz=1e-12, seed=3,
+             verbose=False)
+
+
+def test_periter_bit_equal_to_blocked_walk():
+    """The per-iteration switch (``block_iters`` 0) is accepted and runs
+    the blocked walk one iteration a block: the same dead-point ledger,
+    evidence and weights as the walk at four iterations a block, bit for
+    bit."""
+    tl = _narrow()
+    r_it = tnested.run_nested(tl, max_iter=12, block_iters=0, **FIXED)
+    r_blk = tnested.run_nested(tl, max_iter=12, block_iters=4,
+                               kernel="walk", **FIXED)
+    assert r_it["block_iters"] == 1 and r_it["kernel"] == "walk"
+    assert r_it["log_evidence"] == r_blk["log_evidence"]
+    assert np.array_equal(r_it["samples"], r_blk["samples"])
+    assert np.array_equal(r_it["log_weights"], r_blk["log_weights"])
+
+
+def test_env_selects_periter(monkeypatch):
+    tl = _narrow()
+    monkeypatch.setenv("EWT_NESTED_BLOCK", "0")
+    r_env = tnested.run_nested(tl, max_iter=8, **FIXED)
+    monkeypatch.delenv("EWT_NESTED_BLOCK")
+    r_it = tnested.run_nested(tl, max_iter=8, block_iters=0, **FIXED)
+    assert r_env["log_evidence"] == r_it["log_evidence"]
+    assert np.array_equal(r_env["samples"], r_it["samples"])
+    assert r_env["dispatch_stats"]["dispatches_per_iteration"] == 1.0
+    assert r_env["block_iters"] == 1
+
+
+def test_blocked_ckpt_refused_by_periter(tmp_path):
+    """The geometry is a two-way identity: a checkpoint at four
+    iterations a block is not resumed under the per-iteration switch (one
+    a block), nor the reverse."""
+    tl = _narrow()
+    kw = dict(nlive=80, kbatch=16, nsteps=6, dlogz=1e-12, seed=1,
+              verbose=False, checkpoint_every=4)
+    tnested.run_nested(tl, outdir=str(tmp_path), max_iter=4, block_iters=4,
+                       **kw)
+    assert os.path.exists(tmp_path / "result_nested_ckpt.npz")
+    res = tnested.run_nested(tl, outdir=str(tmp_path), max_iter=2,
+                             block_iters=0, resume=True, **kw)
+    assert res["num_iterations"] == 2       # fresh, not resumed at 4
+    res = tnested.run_nested(tl, outdir=str(tmp_path), max_iter=3,
+                             block_iters=3, resume=True, **kw)
+    assert res["num_iterations"] == 3       # fresh again
+
+
+def test_periter_resume_reproduces_uninterrupted_run(tmp_path):
+    tl = _narrow()
+    kw = dict(nlive=80, kbatch=16, nsteps=6, dlogz=0.5, seed=1,
+              verbose=False, checkpoint_every=5, block_iters=0)
+    full = tnested.run_nested(tl, outdir=str(tmp_path / "full"), **kw)
+    tnested.run_nested(tl, outdir=str(tmp_path / "res"), max_iter=7, **kw)
+    res = tnested.run_nested(tl, outdir=str(tmp_path / "res"), resume=True,
+                             **kw)
+    assert res["num_iterations"] == full["num_iterations"]
+    assert (tmp_path / "full" / "result_result.json").read_bytes() \
+        == (tmp_path / "res" / "result_result.json").read_bytes()

@@ -250,7 +250,8 @@ def test_hot_chain_files(tmp_path):
     st = s.sample(100, resume=False, verbose=False, thin=5)
     assert not s.adapt_ladder and list(st.ladder) == [1.0, 3.0]
     assert sorted(os.listdir(tmp_path)) == sorted(
-        ["chain_1.txt", "chain_3.txt", "cov.npy", "pars.txt", "state.npz",
+        ["chain_1.txt", "chain_3.txt", "cov.npy", "events.jsonl",
+         "pars.txt", "state.npz",
          "state.npz.sha256"] + (["state.prev.npz", "state.prev.npz.sha256"]
                                 if os.path.exists(tmp_path / "state.prev.npz")
                                 else []))
