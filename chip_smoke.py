@@ -57,8 +57,8 @@ Phases (any failure exits non-zero before the result line):
    of ``system_noise.dat`` (temporary copies of the paramfile with
    ``nsamp: 1200``, so that the ``covUpdate``=1000 adaptation fires),
    then the HMC path (``hmc_single_psr.dat --num 0`` at its full width,
-   64 chains and 16 leapfrog steps, with the ADVI warm start, 100 steps
-   of which 50 warmup), with the launch counters zeroed just before
+   64 chains and 16 leapfrog steps, with the ADVI warm start, 60 steps
+   of which 30 warmup), with the launch counters zeroed just before
    each run and read just after (the HMC run also where the ADVI warm
    start ends); the expected kernels must have launched in each run and
    phase, and the chain must be finite with a plausible acceptance rate.
@@ -222,15 +222,15 @@ Phases (any failure exits non-zero before the result line):
    of ``tools/report.py --check``'s rules (:func:`stream_check`): clean,
    one heartbeat per block, no demotion, retry, anomaly or health event.
    Then: (10.1) ``system_noise.dat --num 0`` with
-   ``EWT_KERNEL_HEALTH=1`` and ``EWT_FLIGHTREC=1`` (1200 steps): only
+   ``EWT_KERNEL_HEALTH=1`` and ``EWT_FLIGHTREC=1`` (600 steps): only
    kernel 3 runs, at (8, 250, 250) on its global design; its last input
    held against the plain version (walkers above condition 1e4 reported),
    timed (median of 50) as row ``chol_precond@health``; the chain's last
    rows against the float64 oracle; the health counters and ms/step
    over the run (the default route's: phase 5's ``--num 0`` line);
    (10.2) after one counted run not compared, ``--num 0`` and ``--num
-   1``, 400 steps each in blocks of 200, ``EWT_TELEMETRY`` off, on, on,
-   off (four runs a pulsar): the host synchronisations of the second
+   1``, 400 steps each in blocks of 200, ``EWT_TELEMETRY`` off and on
+   (two runs a pulsar): the host synchronisations of the second
    block (``torch.cuda.set_sync_debug_mode``, on for that block only;
    each by its thread and calling line) equal, the chains bit for bit
    equal (the plane's cost in time:
@@ -246,7 +246,34 @@ Phases (any failure exits non-zero before the result line):
    that completes; (10.5) nested (``default_model_nested.dat``, walk
    kernel, 16 iterations) with ``block_iters`` 0 (one iteration a block)
    bit for bit the blocked walk at 8, both timed;
-11. the ``kernels`` JSON line, one entry per kernel and main path that
+11. the sampled chromatic index and the device diagnostics plane
+   (:func:`phase_chromatic`, :func:`phase_plane`): (11.1) J1234-5678 with
+   white noise by backend, spin and DM noise and ``chromred:
+   vary_30_nfreqs`` (nb 180, the index sampled) through the CLI, PT at
+   the paramfile's defaults, 1200 steps: the likelihood kernel declines
+   every call (route ``per-walker-basis``, 0 launches) and the solve
+   kernel takes the Sigma solve (row ``mega_solve@chrom``, also held on
+   the run's last step); ms/step and walker-evals/s; the chain's last
+   rows and its largest lnL against the float64 oracle on the CPU; the
+   index's posterior finite and inside its prior [0, 6]; (11.2)
+   ``gwb_array.dat``'s model with J1234-5678's entry adding ``chromred:
+   vary_10_nfreqs`` (fake_psr_0, one band, keeps the universal model),
+   600 steps: the last rows against the dense float64 oracle, no
+   evaluation cache, the stage-1 and stage-3 solve launches (rows
+   ``mega_solve@chrom_gwb_stage1``/``_stage3``); (11.3) the plane, on by
+   default on every path: after one counted run not compared,
+   ``system_noise.dat --num 1`` (the likelihood kernel), 200 steps in
+   blocks of 100, ``EWT_DEVICE_DIAG`` on, off, off, on: the chains bit
+   for bit equal and the host synchronisations of the second block
+   equal; every CLI run's stream carries one
+   ``mixing`` event a PT block and ``mixing_stats.json`` (in
+   :func:`stream_check`); the north star leg (phase 9) runs with the
+   streaming gate at its default, its streaming R-hat and ESS held
+   against the exact estimators on its kept steps at the reference's
+   gates (for the parameters the streaming figures rank worst), and its
+   count of exact folds printed; (11.4) the OpenMetrics
+   textfile and one request to ``/metrics`` on 127.0.0.1, the same text;
+12. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``, after the smoke's wall time.
@@ -265,6 +292,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "enterprise_warp_tpu_torch"
@@ -317,9 +345,13 @@ CHOL_ATOL = (2e-5, 2e-4, 2e-5)
 # in float32, as chol_precond_kernel sums it, is about 2e-2 there
 E_OWN_RTOL, E_OWN_ATOL = 1e-4, 1e-12
 # the HMC path: the paramfile's full width (64 chains, 16 leapfrog
-# steps), 100 steps of which 50 warmup (explicit, so run_hmc keeps it)
-# after the ADVI warm start (1500 steps of 16 draws); cut as NSAMP is
-HMC_KEYS = dict(nsamp=100, warmup=50, nchains=64, n_leapfrog=16)
+# steps), 60 steps of which 30 warmup (explicit, so run_hmc keeps it)
+# after the ADVI warm start (1500 steps of 16 draws); cut as NSAMP is,
+# and from 100/50 for the smoke's time on slower hosts
+HMC_KEYS = dict(nsamp=60, warmup=30, nchains=64, n_leapfrog=16)
+# the PT warm start's ADVI fit on --num 1's hot run: 300 steps (the
+# paramfile default is 800; cut for the smoke's time)
+HOT_ADVI_STEPS = 300
 # the main-path runs, each with its own launch counts
 PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
          "pt1": "system_noise.dat --num 1: PT-MCMC, 8 walkers",
@@ -361,7 +393,13 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
                        "to ESS >= 1000 and R-hat <= 1.01",
          "wide_k": "seeded fixtures: right-hand sides wider than the refine "
                    "phase's 8-column panel (no main-path launches: the "
-                   "paths' own rows carry those)"}
+                   "paths' own rows carry those)",
+         "chrom": "system_noise.dat --num 0 with a sampled chromatic "
+                  "index (chromred: vary_30_nfreqs, nb 180): PT-MCMC on "
+                  "the classic chain, 8 walkers",
+         "chrom_gwb": "gwb_array.dat --num 0 with J1234-5678's sampled "
+                      "chromatic index (chromred: vary_10_nfreqs): PT-MCMC "
+                      "over the joint likelihood, 8 walkers"}
 # the joint paths: right-hand-side widths past the refine phase's 8-column
 # panel, BASELINE config 3's size, and the agreement of lnL differences
 # with the dense float64 oracle there (tests/test_parallel.py:612)
@@ -396,9 +434,10 @@ REDO_BATCHES = 4
 EIG_BATCH = 4096
 # the optimal statistic at config 3: the draws held against the CPU in
 # float64 (the results CLI's default is 1000; cut as SHORT_NSAMP is,
-# since the CPU's float64 side takes some 60 s per 1000 draws), and its
-# card-against-CPU limit on sig and on rho relative to sig
-OS_DRAWS = 250
+# since the CPU's float64 side takes some 60 s per 1000 draws, and from
+# 250 for the smoke's time), and its card-against-CPU limit on sig and on
+# rho relative to sig
+OS_DRAWS = 100
 OS_RTOL = 1e-6
 # the optimal statistic's factor (the reference's algebra) against a
 # long-double witness at the chain's draws, and the limit a repair must
@@ -2502,8 +2541,12 @@ def stream_check(outdir, label, allow=(), blocks=None):
     ``tools/report.py --check``): no problem, a ``run_start`` and a
     ``run_end`` per session, one heartbeat per checkpoint (a block each)
     or ``blocks`` heartbeats, and no rung event (:data:`RUNG_EVENTS`)
-    beyond ``allow``. Returns the last session's events."""
-    from enterprise_warp_tpu_torch.utils import telemetry
+    beyond ``allow``. A PT session (a ``ptmcmcsampler`` CLI run or a
+    ``sample_to_convergence`` run) with the device diagnostics plane on (the
+    environment at the call) carries one ``mixing`` event per checkpoint
+    and ``mixing_stats.json``; with it off, neither. Returns the last
+    session's events."""
+    from enterprise_warp_tpu_torch.utils import devicemetrics, telemetry
     path = os.path.join(outdir, "events.jsonl")
     if not os.path.exists(path):
         fail(f"{label}: no events.jsonl in {outdir}")
@@ -2523,6 +2566,15 @@ def stream_check(outdir, label, allow=(), blocks=None):
         fail(f"{label}: {hb} heartbeats for {want} blocks")
     if rungs:
         fail(f"{label}: {rungs} in a run that planted no fault")
+    if events[0].get("sampler") in ("ptmcmcsampler", "convergence"):
+        plane = devicemetrics.enabled()
+        want = types["checkpoint"] if plane else 0
+        stats = os.path.exists(os.path.join(outdir, "mixing_stats.json"))
+        if types["mixing"] != want or stats != plane:
+            fail(f"{label}: {types['mixing']} mixing events for "
+                 f"{types['checkpoint']} blocks, mixing_stats.json "
+                 f"{'present' if stats else 'absent'}, with the plane "
+                 f"{'on' if plane else 'off'}")
     return events
 
 
@@ -2557,32 +2609,41 @@ def run_env(plan=None, **env):
                 os.environ[k] = v
 
 
-def phase_run_plane(tmp, dev, smi, results):
-    """Phase 10: the run plane on the card (module docstring); the
-    ``chol_precond@health`` row goes into ``results``."""
-    import gc
-    import signal
-    import threading
-    import traceback
-    import warnings
+class CliRuns:
+    """``cli.main`` runs on the card, with each run's block statistics
+    (from the PT sampler's log records) and, on request, the host
+    synchronisations of its second block counted by
+    ``torch.cuda.set_sync_debug_mode`` (:meth:`run`). Sync counting covers
+    the second block only: the debug mode and the recording of every
+    warning cost host time at each synchronising call, so both start at
+    the first block's end (ms/step comes from the first block) and stop at
+    the second's. Each synchronising call is recorded by its thread and
+    the innermost frame outside torch (``counting["sites"]``). ``close``
+    removes the log handler."""
 
-    import numpy as np
-    import torch
-    from enterprise_warp_tpu_torch import cli
-    from enterprise_warp_tpu_torch.ops import cholfuse as cf
-    from enterprise_warp_tpu_torch.ops import routes
-    from enterprise_warp_tpu_torch.resilience import supervisor
-    from enterprise_warp_tpu_torch.samplers import run_nested
+    def __init__(self, tmp, dev, smi):
+        self.tmp, self.dev, self.smi = tmp, dev, smi
+        self.blocks = []
+        self.counting = {"on": False, "cm": None, "n": None, "sites": None}
+        runs = self
 
-    blocks = []
-    # sync counting, for the second block only: set-sync-debug mode and
-    # recording every warning cost host time at each synchronising call,
-    # so both start at the first block's end (ms/step comes from the
-    # first block) and stop at the second's. Each synchronising call is
-    # recorded by its thread and the innermost frame outside torch
-    counting = {"on": False, "cm": None, "n": None, "sites": None}
+        class Blocks(logging.Handler):
+            def emit(self, record):
+                st = getattr(record, "block_stats", None)
+                if st is not None:
+                    runs._block(st)
 
-    def caller(message, category, filename, lineno, file=None, line=None):
+        self.handler = Blocks()
+        logging.getLogger("ewt.ptmcmc").setLevel(logging.INFO)
+        logging.getLogger("ewt.ptmcmc").addHandler(self.handler)
+
+    def close(self):
+        logging.getLogger("ewt.ptmcmc").removeHandler(self.handler)
+
+    def _caller(self, message, category, filename, lineno, file=None,
+                line=None):
+        import threading
+        import traceback
         if "synchroniz" not in str(message):
             return
         site = f"{os.path.relpath(filename, HERE)}:{lineno}"
@@ -2591,41 +2652,43 @@ def phase_run_plane(tmp, dev, smi, results):
                     not fr.filename.endswith("warnings.py"):
                 site = f"{os.path.relpath(fr.filename, HERE)}:{fr.lineno}"
                 break
-        counting["sites"][
+        self.counting["sites"][
             f"{threading.current_thread().name} {site}"] += 1
 
-    class Blocks(logging.Handler):
-        def emit(self, record):
-            st = getattr(record, "block_stats", None)
-            if st is None:
-                return
-            blocks.append(st)
-            if counting["on"] and len(blocks) == 1:
-                counting["cm"] = warnings.catch_warnings()
-                counting["cm"].__enter__()
-                warnings.simplefilter("always")
-                warnings.showwarning = caller
-                torch.cuda.set_sync_debug_mode("warn")
-            elif counting["cm"] is not None and len(blocks) == 2:
-                stop_counting()
+    def _block(self, st):
+        import warnings
+        import torch
+        counting = self.counting
+        self.blocks.append(st)
+        if counting["on"] and len(self.blocks) == 1:
+            counting["cm"] = warnings.catch_warnings()
+            counting["cm"].__enter__()
+            warnings.simplefilter("always")
+            warnings.showwarning = self._caller
+            torch.cuda.set_sync_debug_mode("warn")
+        elif counting["cm"] is not None and len(self.blocks) == 2:
+            self._stop_counting()
 
-    def stop_counting():
+    def _stop_counting(self):
+        import torch
+        counting = self.counting
         torch.cuda.set_sync_debug_mode("default")
         if counting["cm"] is not None:
             counting["n"] = sum(counting["sites"].values())
             counting["cm"].__exit__(None, None, None)
             counting["cm"] = None
 
-    handler = Blocks()
-    logging.getLogger("ewt.ptmcmc").setLevel(logging.INFO)
-    logging.getLogger("ewt.ptmcmc").addHandler(handler)
-
-    def run(pf, num, label, expect_rc=0, sync_count=False):
+    def run(self, pf, num, label, expect_rc=0, sync_count=False):
         """``cli.main`` on the card; returns (the run's directory, its
         launches, routes, designs, the ms/step of the first block and of
         all blocks, the host synchronisations of the second block,
         counted by ``torch.cuda.set_sync_debug_mode``, and the number of
         blocks)."""
+        import gc
+        import torch
+        from enterprise_warp_tpu_torch import cli
+        from enterprise_warp_tpu_torch.ops import routes
+        blocks, counting = self.blocks, self.counting
         del blocks[:]
         routes.reset_counts()
         nsync = None
@@ -2640,19 +2703,20 @@ def phase_run_plane(tmp, dev, smi, results):
                             sites=collections.Counter())
             try:
                 rc = cli.main(["--prfile", pf, "--num", str(num)],
-                              device=dev)
+                              device=self.dev)
             finally:
-                stop_counting()
+                self._stop_counting()
                 counting["on"] = False
             nsync = counting["n"]
         else:
-            rc = cli.main(["--prfile", pf, "--num", str(num)], device=dev)
+            rc = cli.main(["--prfile", pf, "--num", str(num)],
+                          device=self.dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if rc != expect_rc:
             fail(f"{label}: cli.main exited {rc}, not {expect_rc}")
         out = [r for r, _, fs in os.walk(os.path.join(
-            tmp, "out", os.path.basename(pf))) if "state.npz" in fs]
+            self.tmp, "out", os.path.basename(pf))) if "state.npz" in fs]
         steps = sum(b["steps"] for b in blocks)
         ms = (1e3 * blocks[0]["block_s"] / blocks[0]["steps"] if blocks
               else 0.0)
@@ -2665,21 +2729,43 @@ def phase_run_plane(tmp, dev, smi, results):
               f"{ {f'{k}/{p}': v for (k, p), v in routes.ROUTES.items()} } "
               f"designs { {f'{k}/{d}': v for (k, d), v in routes.DESIGNS.items()} }"
               + (f", host syncs in the second block {nsync}"
-                 if nsync is not None else "") + f" [{smi}]")
+                 if nsync is not None else "") + f" [{self.smi}]")
         return (out[0], dict(routes.LAUNCHES), dict(routes.ROUTES),
                 dict(routes.DESIGNS), (ms, ms_all), nsync, len(blocks))
 
+    @staticmethod
     def chain_bytes(outdir):
         with open(os.path.join(outdir, "chain_1.txt"), "rb") as fh:
             return fh.read()
 
+    @staticmethod
     def step_of(outdir):
+        import numpy as np
         return int(np.load(os.path.join(outdir, "state.npz"))["step"])
+
+
+def phase_run_plane(tmp, dev, smi, results):
+    """Phase 10: the run plane on the card (module docstring); the
+    ``chol_precond@health`` row goes into ``results``."""
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch.ops import cholfuse as cf
+    from enterprise_warp_tpu_torch.ops import routes
+    from enterprise_warp_tpu_torch.resilience import supervisor
+    from enterprise_warp_tpu_torch.samplers import run_nested
+
+    runs = CliRuns(tmp, dev, smi)
+    run, counting = runs.run, runs.counting
+    chain_bytes, step_of = runs.chain_bytes, runs.step_of
 
     try:
         # ---- 10.1: the health plane on the card ------------------------
         pf = write_paramfile(tmp, "system_noise.dat",
-                             dest="system_noise_health.dat", nsamp=NSAMP)
+                             dest="system_noise_health.dat",
+                             nsamp=SHORT_NSAMP, cov_update=SHORT_COV_UPDATE)
         with run_env(**HEALTH_ENV), Record(cf, "chol_precond_health", 0) \
                 as rec:
             hdir, hl, hr, hd, health_ms, _, nblk = run(
@@ -2765,7 +2851,7 @@ def phase_run_plane(tmp, dev, smi, results):
                  "oracle")
 
         print(f"10.1 health path {health_ms[1]:.3f} ms/step over its "
-              f"{NSAMP} steps (the default route: phase 5's main path "
+              f"{SHORT_NSAMP} steps (the default route: phase 5's main path "
               f"--num 0 line) [{smi}]")
 
         # ---- 10.2: host syncs with the plane off and on ----------------
@@ -2780,8 +2866,7 @@ def phase_run_plane(tmp, dev, smi, results):
                 sync_count=True)
         print(f"10.2 warm-up: host syncs by site {dict(counting['sites'])}")
         cost, sites, chains = {}, {}, {}
-        for num, flags in ((0, ("0", "1", "1", "0")),
-                           (1, ("1", "0", "0", "1"))):
+        for num, flags in ((0, ("0", "1")), (1, ("1", "0"))):
             for i, flag in enumerate(flags):
                 pf = write_paramfile(tmp, "system_noise.dat",
                                      dest=f"system_noise_plane{num}_{i}.dat",
@@ -2806,7 +2891,7 @@ def phase_run_plane(tmp, dev, smi, results):
                   f"{[round(m, 3) for m, _ in off]} on "
                   f"{[round(m, 3) for m, _ in on]}; host syncs in the "
                   f"second block off {[s for _, s in off]} on "
-                  f"{[s for _, s in on]}; the four chains "
+                  f"{[s for _, s in on]}; the two chains "
                   f"{'bit for bit equal' if len(chains[num]) == 1 else 'differ'}"
                   f" [{smi}]")
             if len({s for _, s in off + on}) != 1 or not off[0][1]:
@@ -3018,7 +3103,261 @@ def phase_run_plane(tmp, dev, smi, results):
         print("10.5 block_iters 0 (one iteration a block) bit for bit the "
               "blocked walk at 8")
     finally:
-        logging.getLogger("ewt.ptmcmc").removeHandler(handler)
+        runs.close()
+
+
+# ---- phase 11: the sampled chromatic index and the diagnostics plane ----
+# the chromatic pulsar's model: J1234-5678's four bands (600-3100 MHz)
+# constrain the index
+CHROM_MODEL = {"model_name": "chrom",
+               "universal": {"white_noise": "by_backend",
+                             "spin_noise": "powerlaw_30_nfreqs",
+                             "dm_noise": "powerlaw_30_nfreqs",
+                             "chromred": "vary_30_nfreqs"}}
+CHROM_IDX = "J1234-5678_chromatic_gp_idx"
+CHROM_IDX_PRIOR = (0.0, 6.0)
+# the array's entry for J1234-5678 (fake_psr_0 has one band, where the
+# index is a flat direction: it keeps the universal model)
+CHROM_ARRAY_TERM = {"chromred": "vary_10_nfreqs"}
+# the plane's off/on runs: system_noise.dat --num 1, two blocks of 100
+PLANE_AB_NSAMP, PLANE_AB_BLOCK = 200, 100
+# the streaming estimators against the exact ones on the same kept steps:
+# the reference's gates (tests/test_devicemetrics.py:225-268)
+STREAM_RHAT_ATOL, STREAM_ESS_RATIO = 0.1, 3.0
+# the north star leg in an earlier card run with every check exact (run
+# "14g" of PERF.md), printed beside this run's
+EXACT_NORTH_STAR = {"steps": 22200, "sampling_s": 214.38}
+
+
+def phase_chromatic(tmp, dev, smi, results, launches, walkers, h):
+    """Phase 11.1 and 11.2 (module docstring): the sampled chromatic index
+    through the CLI, one pulsar and the joint array. ``h`` holds main's
+    helpers (``drive``, ``pt_report``, ``hold_solve``, ``hold_last_step``,
+    ``solve_calls``); the rows go into ``results``, each run's launches
+    into ``launches``."""
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch.ops import megakernel as mk
+    from enterprise_warp_tpu_torch.ops import routes
+
+    # ---- 11.1: the chromatic pulsar ------------------------------------
+    nm = os.path.join(tmp, "chromatic_noise.json")
+    with open(nm, "w") as fh:
+        json.dump(CHROM_MODEL, fh)
+    cpf = write_paramfile(tmp, "system_noise.dat", dest="chromatic.dat",
+                          nsamp=NSAMP, noise_model_file=nm)
+    with Record(mk, "mega_solve_logdet", 0) as rec:
+        chain, launches["chrom"], cdir = h.drive(cpf, 0, ["mega_solve"])
+    declined = routes.ROUTES.get(("mega_like", "per-walker-basis"), 0)
+    other = {p: v for (k, p), v in routes.ROUTES.items()
+             if k == "mega_like" and p != "per-walker-basis"}
+    h.pt_report("11.1 chromatic J1234-5678", chain)
+    names = open(os.path.join(cdir, "pars.txt")).read().split()
+    sizes = {n: dict(c) for n, c in rec.sizes.items()}
+    print(f"11.1 chromatic J1234-5678: {len(names)} parameters (the index "
+          f"{CHROM_IDX} at {names.index(CHROM_IDX)}); the likelihood "
+          f"kernel declined {declined} calls as per-walker-basis (other "
+          f"routes {other}), launched {launches['chrom']['mega_like']} "
+          f"times; solve-kernel calls per order and walker batch {sizes}")
+    if launches["chrom"]["mega_like"] or other or not declined:
+        fail("11.1: the likelihood kernel did not decline the per-walker "
+             "basis on every call")
+    if launches["chrom"]["chol_precond"] or sorted(sizes) != [180] or \
+            sum(sizes[180].values()) != launches["chrom"]["mega_solve"]:
+        fail("11.1: the Sigma solve did not run the solve kernel at n = 180 "
+             "on every call")
+    oracle = load_likes(cpf, 0, "cpu", gram_mode="f64")[1][0]
+    if oracle.param_names != names:
+        fail("11.1: the oracle's parameters are not the run's")
+    top = int(np.argmax(chain[:, -3]))
+    rows = np.concatenate([chain[-8:], chain[top:top + 1]])
+    ref = oracle.loglike_batch(rows[:, :oracle.ndim]).numpy()
+    gap = np.abs(rows[:, -3] - ref)
+    print(f"11.1: the chain's last 8 rows and its largest lnL "
+          f"{chain[top, -3]:.6g} against the float64 oracle on the CPU: "
+          f"max|dlnL| {gap.max():.3e}")
+    if not np.all(gap <= LNL_ATOL + LNL_RTOL * np.abs(ref)):
+        fail("11.1: the chromatic chain disagrees with the float64 oracle")
+    col = chain[len(chain) // 4:, names.index(CHROM_IDX)]
+    lo, hi = CHROM_IDX_PRIOR
+    print(f"11.1: the index's posterior (last 3/4 of the chain) mean "
+          f"{col.mean():.4f} std {col.std():.4f}, range [{col.min():.4f}, "
+          f"{col.max():.4f}], prior [{lo:g}, {hi:g}]")
+    if not (np.isfinite(col).all() and col.min() >= lo and col.max() <= hi):
+        fail("11.1: the index's posterior is not finite inside its prior")
+    kern, plain, shape, exact = h.solve_calls(rec.last[180])
+    h.hold_last_step("mega_solve@chrom n=180, the run's last step", kern,
+                     plain, shape, exact)
+    like = load_likes(cpf, 0, dev)[1][0]
+    th = near_middle(like, walkers, 21)
+    with Record(mk, "mega_solve_logdet", 0) as cap:
+        if not torch.isfinite(like.loglike_batch(th)).all():
+            fail("11.1: non-finite lnL near typical values")
+    # near typical values the chromatic block leaves some walkers' Sigma
+    # at cond 1e3-1e4, where float32 rounding alone puts the two versions
+    # more than ATOL apart: held walker by walker with the float64 arbiter
+    # (hold_last_step's rule), as the last step is
+    a = cap.last[180]
+    kern, plain, shape, exact = h.solve_calls(a)
+    h.hold_solve("mega_solve@chrom", "chrom", kern, plain,
+                 lambda tiers: solve_cost(*a[1].shape, a[4], tiers), shape,
+                 exact=exact, what="points near typical values")
+    results["mega_solve@chrom"].update(batch_sizes=sizes[180])
+
+    # ---- 11.2: the chromatic array ---------------------------------------
+    with open(os.path.join(HERE, "examples", "example_noisemodels",
+                           "gwb_noise.json")) as fh:
+        anm = json.load(fh)
+    anm["J1234-5678"] = dict(anm["universal"], **CHROM_ARRAY_TERM)
+    apath = os.path.join(tmp, "chromatic_array_noise.json")
+    with open(apath, "w") as fh:
+        json.dump(anm, fh)
+    apf = write_paramfile(tmp, "gwb_array.dat", dest="chromatic_array.dat",
+                          nsamp=SHORT_NSAMP, cov_update=SHORT_COV_UPDATE,
+                          noise_model_file=apath)
+    glike = load_likes(apf, 0, dev)[1][0]
+    st = glike._stages
+    n1, n3 = st["NW"], st["npsr"] * st["n_g"]
+    with RecordBatches(mk, "mega_solve_logdet", 0) as rec:
+        chain, launches["chrom_gwb"], adir = h.drive(apf, 0, ["mega_solve"])
+    h.pt_report("11.2 chromatic array", chain)
+    W = walkers
+    b1, b3 = W * st["npsr"], W
+    calls = {n: dict(c) for n, c in rec.sizes.items()}
+    print(f"11.2 chromatic array: stage 1 at order {n1} (batch {b1}), "
+          f"stage 3 at order {n3} (batch {b3}); solve-kernel calls per "
+          f"order and batch {calls}; launches {launches['chrom_gwb']}")
+    c1 = calls.get(n1, {}).get(b1, 0)
+    c3 = calls.get(n3, {}).get(b3, 0)
+    if not c1 or c1 != c3 or launches["chrom_gwb"]["mega_solve"] \
+            != c1 + c3 or launches["chrom_gwb"]["mega_like"] \
+            or launches["chrom_gwb"]["chol_precond"]:
+        fail("11.2: not one stage-1 and one stage-3 solve launch per "
+             "likelihood call")
+    if getattr(glike, "param_blocks", None) is not None or \
+            os.path.exists(os.path.join(adir, "mask_stats.json")):
+        fail("11.2: an evaluation cache was installed on a walker-dependent "
+             "basis")
+    names = open(os.path.join(adir, "pars.txt")).read().split()
+    if CHROM_IDX not in names:
+        fail("11.2: the array has no chromatic index")
+    goracle = load_likes(apf, 0, "cpu", gram_mode="f64")[1][0]
+    top = int(np.argmax(chain[:, -3]))
+    rows = np.concatenate([chain[-8:], chain[top:top + 1]])
+    ref = goracle.loglike_batch(rows[:, :goracle.ndim]).numpy()
+    gap = np.abs(rows[:, -3] - ref)
+    print(f"11.2: the chain's last 8 rows and its largest lnL "
+          f"{chain[top, -3]:.6g} against the dense float64 oracle on the "
+          f"CPU: max|dlnL| {gap.max():.3e}; no evaluation cache")
+    if not np.all(gap <= JOINT_ATOL + JOINT_RTOL * np.abs(ref)):
+        fail("11.2: the chromatic array's chain lies outside the class of "
+             "the dense float64 oracle")
+    for b, stage in ((b1, "stage1"), (b3, "stage3")):
+        kern, plain, shape, exact = h.solve_calls(rec.last[b])
+        h.hold_last_step(f"mega_solve@chrom_gwb_{stage}, the run's last "
+                         "step", kern, plain, shape, exact)
+    th = near_typical(glike, W, 31)
+    with RecordBatches(mk, "mega_solve_logdet", 0) as cap:
+        glike.loglike_batch(th)
+    for b, stage, c in ((b1, "stage1", c1), (b3, "stage3", c3)):
+        a = cap.last[b]
+        kern, plain, shape, exact = h.solve_calls(a)
+        entry = f"mega_solve@chrom_gwb_{stage}"
+        h.hold_solve(entry, "chrom_gwb", kern, plain,
+                     lambda tiers, a=a: solve_cost(*a[1].shape, a[4], tiers),
+                     shape, exact=exact, what="points near typical values")
+        results[entry].update(launches=c)
+
+
+def phase_plane(tmp, dev, smi):
+    """Phase 11.3's off/on runs and 11.4 (module docstring)."""
+    import urllib.request
+
+    from enterprise_warp_tpu_torch.utils import metricsexport
+
+    runs = CliRuns(tmp, dev, smi)
+    try:
+        cost, chains, sites = {}, set(), {}
+        # a first counted run, not compared (as 10.2's): the first count of
+        # a process can hold a synchronising call the sampler did not make
+        for i, flag in enumerate(("1", "1", "0", "0", "1")):
+            pf = write_paramfile(tmp, "system_noise.dat",
+                                 dest=f"system_noise_diag{i}.dat",
+                                 nsamp=PLANE_AB_NSAMP,
+                                 cov_update=PLANE_AB_BLOCK)
+            with run_env(EWT_TELEMETRY="1", EWT_DEVICE_DIAG=flag):
+                d, _, _, _, ms, ns, nb = runs.run(
+                    pf, 1, f"11.3 --num 1 EWT_DEVICE_DIAG={flag}"
+                    + (" (warm-up, not compared)" if i == 0 else ""),
+                    sync_count=True)
+                stream_check(d, f"11.3 --num 1 EWT_DEVICE_DIAG={flag}",
+                             blocks=nb)
+            if i == 0:
+                continue
+            cost.setdefault(flag, []).append((ms[0], ns))
+            sites.setdefault(flag, []).append(runs.counting["sites"])
+            chains.add(runs.chain_bytes(d))
+            has = os.path.exists(os.path.join(d, "mixing_stats.json"))
+            if has != (flag == "1"):
+                fail(f"11.3: EWT_DEVICE_DIAG={flag} and mixing_stats.json "
+                     f"{'exists' if has else 'is missing'}")
+            if flag == "1":
+                ms_json = json.load(open(os.path.join(d,
+                                                      "mixing_stats.json")))
+                folded = ms_json["steps_folded"]
+                hist = sum(sum(v["hist"]) for v in
+                           ms_json["params"].values())
+                if folded != PLANE_AB_NSAMP or \
+                        hist != PLANE_AB_NSAMP * 8 * len(ms_json["params"]):
+                    fail(f"11.3: mixing_stats.json folded {folded} steps "
+                         f"and {hist} histogram counts")
+        off, on = cost["0"], cost["1"]
+        print(f"11.3 --num 1: ms/step (first block) plane on "
+              f"{[round(m, 3) for m, _ in on]} off "
+              f"{[round(m, 3) for m, _ in off]}; host syncs in the second "
+              f"block on {[s for _, s in on]} off {[s for _, s in off]}; "
+              f"the four chains "
+              f"{'bit for bit equal' if len(chains) == 1 else 'differ'} "
+              f"[{smi}]")
+        if len(chains) != 1:
+            fail("11.3: the chains differ with the plane on and off")
+        if len({s for _, s in off + on}) != 1:
+            counts = sites["0"] + sites["1"]
+            every = set().union(*counts)
+            print("11.3 host syncs by site, off then on: " + "; ".join(
+                f"{k} {[c[k] for c in counts]}" for k in sorted(every)
+                if len({c[k] for c in counts}) > 1))
+            fail("11.3: host syncs per block differ with the plane on and "
+                 "off")
+
+        # ---- 11.4: the exporter ----------------------------------------
+        prom = os.path.join(tmp, "ewt_metrics.prom")
+        pf = write_paramfile(tmp, "system_noise.dat",
+                             dest="system_noise_export.dat",
+                             nsamp=PLANE_AB_NSAMP, cov_update=PLANE_AB_BLOCK)
+        with run_env(EWT_TELEMETRY="1", EWT_METRICS_TEXTFILE=prom,
+                     EWT_METRICS_PORT="0", EWT_METRICS_ADDR="127.0.0.1"):
+            d, *_ = runs.run(pf, 1, "11.4 --num 1 with the exporters armed")
+        ev = last_session(os.path.join(d, "events.jsonl"))
+        exp = {e["mode"]: e for e in ev if e["type"] == "metrics_export"}
+        if sorted(exp) != ["http", "textfile"]:
+            fail(f"11.4: metrics_export events {sorted(exp)}")
+        text = open(prom).read()
+        url = f"http://127.0.0.1:{exp['http']['port']}/metrics"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            body = r.read().decode()
+        metricsexport.stop_http_server()
+        fams = sum(ln.startswith("# TYPE") for ln in text.splitlines())
+        print(f"11.4: the textfile {len(text)} bytes, {fams} metric "
+              f"families (stream_rhat in it: "
+              f"{'ewt_stream_rhat ' in text}); GET {url}: {len(body)} "
+              f"bytes, {'the same text' if body == text else 'differs'}")
+        if body != text or not text.endswith("# EOF\n") or \
+                "ewt_stream_rhat " not in text:
+            fail("11.4: the exporters' texts differ or lack the plane's "
+                 "gauges")
+    finally:
+        runs.close()
 
 
 def main():
@@ -3697,7 +4036,8 @@ def main():
         # paramfile
         for run, extra in (("anneal", {"anneal_init": True}),
                            ("hot", {"ntemps": 2, "writeHotChains": True,
-                                    "advi_init": True}),
+                                    "advi_init": True,
+                                    "advi_steps": HOT_ADVI_STEPS}),
                            ("families", FAMILY_KEYS)):
             wpf = write_paramfile(tmp, "system_noise.dat",
                                   dest=f"system_noise_{run}.dat",
@@ -4628,6 +4968,53 @@ def main():
             if other == "cpu" and not m["match"]:
                 fail("north star leg: the posterior does not match the "
                      "float64 CPU leg of NORTH_STAR.json")
+        # 11.3: the streaming gate at its default (on): the checks it
+        # decided from the ledger, and the exact folds it ran
+        modes = collections.Counter(
+            e.get("diag_mode") for e in last_session(
+                os.path.join(ns_dir, "events.jsonl"))
+            if e.get("phase") == "convergence_check")
+        print(f"11.3 north star leg, the streaming gate at its default: "
+              f"{rep.steps} steps, sampling {rep.wall_s:.2f} s, time in "
+              f"the exact checks {parts.get('checks_s', 0.0):.2f} s, "
+              f"{modes['exact']} exact folds and {modes['stream']} checks "
+              f"decided by the streaming ledger (run 14g of PERF.md, every "
+              f"check exact: {EXACT_NORTH_STAR['steps']} steps, sampling "
+              f"{EXACT_NORTH_STAR['sampling_s']:.2f} s) [{smi}]")
+        if not modes["exact"]:
+            fail("north star leg: converged with no exact check")
+        # the ledger's streaming figures against the exact estimators on
+        # the same kept steps (its window within one block of theirs), for
+        # the parameters the streaming figures rank worst (the ones that
+        # decide the gate), each at the reference's gates
+        from enterprise_warp_tpu_torch.utils.diagnostics import \
+            summarize_chains
+        led = nsam.diag_ledger
+        rh_s, es_s = led.split_rhat(0.25), led.moment_ess(0.25)
+        names = nsam.like.param_names
+        pick = sorted({int(np.argmax(rh_s)), int(np.argmin(es_s))})
+        t0 = time.perf_counter()
+        ex = summarize_chains(rep.chains[:, :, pick].astype(np.float64),
+                              [names[i] for i in pick])
+        ex_s = time.perf_counter() - t0
+        agree = led.total_steps == rep.steps
+        for i in pick:
+            e = ex[names[i]]
+            ratio = es_s[i] / e["ess"] if e["ess"] else None
+            print(f"11.3 north star leg, {names[i]}: streaming R-hat "
+                  f"{rh_s[i]:.5f} ESS {es_s[i]:.1f}; exact R-hat "
+                  f"{e['rhat']:.5f} ESS {e['ess']:.1f} on the same "
+                  f"{rep.chains.shape[1]} kept steps of {rep.chains.shape[0]}"
+                  f" chains; ESS ratio {ratio}")
+            agree = agree and e["rhat"] is not None and ratio is not None \
+                and abs(rh_s[i] - e["rhat"]) < STREAM_RHAT_ATOL \
+                and 1.0 / STREAM_ESS_RATIO < ratio < STREAM_ESS_RATIO
+        print(f"11.3 north star leg: the exact fold of those parameters "
+              f"took {ex_s:.2f} s; the ledger's worst figures "
+              f"{led.worst(0.25)}")
+        if not agree:
+            fail("north star leg: the streaming R-hat/ESS disagree with the "
+                 "exact estimators beyond the reference's gates")
         prof = profile_block(nsam, rep.steps, 50)
         per = (f"{1e3 * prof['device_s'] / prof['steps']:.3f} ms/step on "
                f"the device, busy share {prof['busy_share']:.3f}"
@@ -4651,6 +5038,22 @@ def main():
         # ---- phase 10: the run plane -------------------------------------
         phase_run_plane(tmp, dev, smi, results)
         lap("10")
+
+        # ---- phase 11: the sampled chromatic index and the plane ---------
+        for lg in loggers:
+            lg.addHandler(handler)
+        try:
+            phase_chromatic(tmp, dev, smi, results, launches, walkers,
+                            types.SimpleNamespace(
+                                drive=drive, pt_report=pt_report,
+                                hold_solve=hold_solve,
+                                hold_last_step=hold_last_step,
+                                solve_calls=solve_calls))
+        finally:
+            for lg in loggers:
+                lg.removeHandler(handler)
+        phase_plane(tmp, dev, smi)
+        lap("11")
 
     kernels = []
     for entry, r in results.items():

@@ -1,14 +1,18 @@
 """Parent-against-change A/B of the port's PT paths on the card.
 
     python -m enterprise_warp_tpu_torch.bench.ab --parent DIR \\
-        [--rounds 10] [--steps 1000] [--ns-steps 1000] [--out FILE]
+        [--arms parent,change,change_off] [--rounds 10] [--steps 1000] \\
+        [--ns-steps 1000] [--out FILE]
 
 ``DIR`` is a checkout of the parent commit (``git archive`` unpacked in a
-directory that ``.gitignore`` lists); the change is the checkout this
-module lives in. Three arms: ``parent``, ``change`` and ``change_off``
-(the change with ``EWT_TELEMETRY=0``). Each runs in a child interpreter
-of its own; a round runs every arm once, the order rotated from round to
-round, ``--rounds`` rounds. A child imports the package and
+directory that ``.gitignore`` lists; needed only with the ``parent``
+arm); the change is the checkout this module lives in. The arms
+(``--arms``, default the first three): ``parent``, ``change``,
+``change_off`` (the change with ``EWT_TELEMETRY=0``) and
+``change_noplane`` (the change with ``EWT_DEVICE_DIAG=0``: the device
+diagnostics plane off, the rest of telemetry on). Each runs in a child
+interpreter of its own; a round runs every arm once, the order rotated
+from round to round, ``--rounds`` rounds. A child imports the package and
 ``chip_smoke.py`` of its own tree and runs, on the card:
 
 - ``system_noise.dat --num 0`` and ``--num 1`` through the CLI,
@@ -23,10 +27,21 @@ round, ``--rounds`` rounds. A child imports the package and
   ``chip_smoke.run_north_star`` times them).
 
 Every child prints one JSON line (also appended to ``--out``); the last
-line is the summary: per path, each arm's median and, for each arm of
-the change, the median of its differences from the parent round by
-round and in how many rounds it was the slower. The card's name and
+line is the summary: per path, each arm's median and, for each arm
+after the first, the median of its differences from the first arm round
+by round and in how many rounds it was the slower. The card's name and
 power limit (``nvidia-smi``) head the output.
+
+    python -m enterprise_warp_tpu_torch.bench.ab --fold [--steps 1000]
+
+times instead, in fresh child interpreters, the PT block's two folds
+(``PTSampler._fam_fold``, the family counts every block runs, and
+``devicemetrics.block_moments``, the diagnostics plane's moments) at one
+block's shapes on ``system_noise.dat --num 0``: four calls each, the
+first of the process against the later ones, once with CUDA's default
+lazy module loading, once with ``CUDA_MODULE_LOADING=EAGER``, and once
+with the first calls under ``torch.profiler`` (its operator table
+printed).
 """
 
 from __future__ import annotations
@@ -44,7 +59,8 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 PATHS = ("pt0", "pt1", "north_star", "north_star_blocks")
-ARMS = {"parent": {}, "change": {}, "change_off": {"EWT_TELEMETRY": "0"}}
+ARMS = {"parent": {}, "change": {}, "change_off": {"EWT_TELEMETRY": "0"},
+        "change_noplane": {"EWT_DEVICE_DIAG": "0"}}
 
 
 def _child(tree, steps, ns_steps, dev):
@@ -103,6 +119,58 @@ def _child(tree, steps, ns_steps, dev):
     print(json.dumps(out), flush=True)
 
 
+def _fold_child(steps, dev, trace):
+    """The ``--fold`` measurement (module docstring) in this process."""
+    sys.path.insert(0, HERE)
+    import torch
+    import chip_smoke as cs
+    from enterprise_warp_tpu_torch.samplers import PTSampler
+    from enterprise_warp_tpu_torch.samplers.ptmcmc import sampler_options
+    from enterprise_warp_tpu_torch.utils import devicemetrics
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        pf = cs.write_paramfile(tmp, "system_noise.dat", nsamp=steps)
+        params, likes = cs.load_likes(pf, 0, torch.device(dev))
+        s = PTSampler(likes[0], os.path.join(tmp, "fold"),
+                      **sampler_options(params)[0])
+    g = torch.Generator(dev).manual_seed(0)
+    cold = torch.randn((steps, s.nchains, s.ndim), dtype=torch.float64,
+                       device=dev, generator=g)
+    choices = [torch.randint(0, 4, (s.W,), device=dev, generator=g)
+               for _ in range(steps)]
+    accepts = [torch.rand(s.W, device=dev, generator=g) < 0.5
+               for _ in range(steps)]
+    folds = {"fam_fold": lambda: s._fam_fold(choices, accepts),
+             "block_moments": lambda: devicemetrics.block_moments(
+                 cold, *s._hist_grid)}
+    out = {"loading": os.environ.get("CUDA_MODULE_LOADING", "default"),
+           "shape": [steps, s.nchains, s.ndim]}
+    prof = None
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev == "cuda" else [])
+        prof = profile(activities=acts)
+    for i in range(4):
+        for name, fn in folds.items():
+            sync()
+            if prof is not None and i == 0:
+                prof.start()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.setdefault(f"{name}_ms", []).append(
+                1e3 * (time.perf_counter() - t0))
+            if prof is not None and i == 0:
+                prof.stop()
+                print(f"torch.profiler, {name} call 0:")
+                print(prof.key_averages().table(sort_by="cpu_time_total",
+                                                row_limit=12), flush=True)
+                prof = profile(activities=acts)
+    print(json.dumps(out), flush=True)
+
+
 def _smi():
     try:
         r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -116,26 +184,52 @@ def _smi():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="a checkout of the parent commit")
+    ap.add_argument("--arms", default="parent,change,change_off",
+                    help=f"comma-separated, of {', '.join(ARMS)}")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--ns-steps", type=int, default=1000)
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cpu only to rehearse the script")
+    ap.add_argument("--fold", action="store_true",
+                    help="time the PT block's folds (module docstring)")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--child-fold", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.child:
         _child(a.child, a.steps, a.ns_steps, a.device)
         return 0
-    if not a.parent:
-        ap.error("--parent is required")
+    if a.child_fold:
+        _fold_child(a.steps, a.device, a.child_fold == "trace")
+        return 0
+    if a.fold:
+        print(_smi(), flush=True)
+        for mode, env in (("time", {}),
+                          ("time", {"CUDA_MODULE_LOADING": "EAGER"}),
+                          ("trace", {})):
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--child-fold",
+                 mode, "--steps", str(a.steps), "--device", a.device],
+                capture_output=True, text=True, cwd=HERE,
+                env=dict(os.environ, **env))
+            print(r.stdout, r.stderr[-4000:], flush=True)
+            if r.returncode != 0:
+                raise SystemExit(f"--fold {mode} {env}: exit {r.returncode}")
+        return 0
+    names = a.arms.split(",")
+    if set(names) - set(ARMS):
+        ap.error(f"unknown arms {sorted(set(names) - set(ARMS))}")
+    if "parent" in names and not a.parent:
+        ap.error("--parent is required with the parent arm")
     print(_smi(), flush=True)
-    trees = {"parent": os.path.abspath(a.parent), "change": HERE,
-             "change_off": HERE}
-    names = list(ARMS)
+    trees = {arm: HERE for arm in names}
+    if "parent" in names:
+        trees["parent"] = os.path.abspath(a.parent)
     runs = {arm: [] for arm in names}
+    k = len(names)
     for i in range(a.rounds):
-        for arm in names[i % 3:] + names[:i % 3]:
+        for arm in names[i % k:] + names[:i % k]:
             r = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--child",
                  trees[arm], "--steps", str(a.steps), "--ns-steps",
@@ -159,7 +253,7 @@ def main(argv=None):
         summary[p] = {f"{arm}_median": statistics.median(v)
                       for arm, v in per.items()}
         for arm in names[1:]:
-            diff = [c - q for c, q in zip(per[arm], per["parent"])]
+            diff = [c - q for c, q in zip(per[arm], per[names[0]])]
             summary[p][f"{arm}_diff_median"] = statistics.median(diff)
             summary[p][f"{arm}_slower"] = sum(d > 0 for d in diff)
         summary[p].update(rounds=a.rounds, **per)

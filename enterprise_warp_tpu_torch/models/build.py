@@ -8,8 +8,11 @@ white-noise (``eval_nw``) and PSD (``eval_phi``) programs, and
 points at once through ``ops.kernel.marginalized_loglike``. A sampled
 timing model (``tm="sampled"``) and sampled-coefficient deterministic
 terms subtract their delays from the whitened residuals per walker. A
-sampled chromatic index and TOA-axis meshes are later slices of the port
-(``ROADMAP.md``) and raise ``NotImplementedError``.
+sampled chromatic index (``chromred("vary...")``) scales its block's
+basis columns per walker (:func:`eval_T`), so the classic chain gets a
+per-walker basis ``(W, ntoa, nb)``; the likelihood kernel declines such a
+basis and the Sigma solve makes its own kernel decision. TOA-axis meshes
+are a later slice of the port (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ _PSD_FNS = {
     "free_spectrum": free_spectrum_psd,
 }
 
-_LATER = "a later slice of the port (see ROADMAP.md)"
 # prior half-width of each sampled timing-model offset, in units of the
 # whitened, unit-normalized design columns (the reference's default)
 TM_RANGE = 10.0
@@ -297,7 +299,11 @@ def basis_static(basis_blocks, mapping, device):
                                                       device=device)
     return [dict(psd=bb.psd, freqs=dev(bb.freqs), df=dev(bb.df),
                  idx_map=[mapping[p.name] for p in bb.params],
-                 fixed_phi=dev(bb.fixed_phi), ncols=bb.ncols)
+                 fixed_phi=dev(bb.fixed_phi), ncols=bb.ncols,
+                 col_slice=bb.col_slice,
+                 dyn=None if bb.dynamic_idx is None
+                 else mapping[bb.dynamic_idx.name],
+                 lognu=dev(bb.log_nu_ratio))
             for bb in basis_blocks]
 
 
@@ -341,6 +347,23 @@ def eval_phi(theta, bb_static, cs2):
                      dim=-1) * cs2
 
 
+def eval_T(theta, bb_static, T_w):
+    """The basis at ``theta``: ``T_w`` (ntoa, nb) itself where no block has
+    a sampled chromatic index, else the per-walker basis (W, ntoa, nb)
+    with each such block's columns scaled by ``exp(idx * log_nu_ratio)``
+    per TOA (the reference's ``eval_phi_T``)."""
+    dyn = [bb for bb in bb_static if bb["dyn"] is not None]
+    if not dyn:
+        return T_w
+    T = T_w.expand((theta.shape[0],) + tuple(T_w.shape)).clone()
+    for bb in dyn:
+        idx = param_value(theta, bb["dyn"])
+        scale = torch.exp(idx[:, None] * bb["lognu"][None, :])
+        sl = bb["col_slice"]
+        T[:, :, sl] = T_w[:, sl] * scale[:, :, None]
+    return T
+
+
 def build_pulsar_likelihood(psr, terms, fixed_values=None,
                             gram_mode="split", ecorr_dt=10.0,
                             tm="marginalized", const_grams=None, device="cuda"):
@@ -373,8 +396,6 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
     white_blocks, basis_blocks, T_all = lower_terms(psr, terms,
                                                     ecorr_dt=ecorr_dt,
                                                     det_out=det_terms)
-    if any(bb.dynamic_idx is not None for bb in basis_blocks):
-        raise NotImplementedError("a sampled chromatic index is " + _LATER)
     r_w, M_w, T_w, col_scale2, _ = whiten_inputs(psr.residuals, sigma,
                                                  psr.Mmat, T_all)
     sampled, mapping = _resolve_params(
@@ -401,9 +422,11 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
     bb_static = basis_static(basis_blocks, mapping, device)
 
     D_w_t = None if D_w is None else dev(D_w)
-    # the pair program and the folded Grams need residuals that no walker
-    # changes: no sampled timing model, no sampled deterministic delays
-    static_resid = tm_refs is None and det_refs is None
+    # the pair program and the folded Grams need residuals and a basis
+    # that no walker changes: no sampled timing model, no sampled
+    # deterministic delays, no sampled chromatic index
+    static_basis = all(bb["dyn"] is None for bb in bb_static)
+    static_resid = tm_refs is None and det_refs is None and static_basis
     pair_prog = None
     if gram_mode == "split" and static_resid \
             and os.environ.get("EWT_PAIR_PROGRAM", "1") != "0":
@@ -416,8 +439,9 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
     elif const_grams and not (wn_fixed and static_resid):
         raise ValueError(
             "const_grams=True requires a fixed-white-noise model with no "
-            "sampled timing model or deterministic delays "
-            f"(white noise fixed: {wn_fixed})")
+            "sampled timing model, deterministic delays, sampled "
+            f"chromatic index, or TOA-axis mesh (white noise fixed: "
+            f"{wn_fixed})")
     grams_cached = None
     if const_grams:
         nw0 = eval_nw(torch.zeros((1, max(len(sampled), 1)), dtype=F64,
@@ -439,19 +463,20 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
         megakernel.LAST_REJECT[0] = None
         nw = eval_nw(theta, wb_static, ntoa, sigma2)
         phi = eval_phi(theta, bb_static, cs2)
+        T_eff = eval_T(theta, bb_static, T_w_t)
         r_eff = r_w_t
         if det_refs is not None:
             r_eff = r_eff - stacked(theta, det_refs) @ D_w_t.T
         if tm_refs is None:
             out = marginalized_loglike(
-                nw, phi, r_eff, M_w_t, T_w_t, gram_mode=gm,
+                nw, phi, r_eff, M_w_t, T_eff, gram_mode=gm,
                 pair_program=None if grams_cached is not None or not fold
                 else pair_prog, refine=n_refine,
                 grams=grams_cached if fold else None,
                 with_health=with_health)
         else:
             r_eff = r_eff - stacked(theta, tm_refs) @ M_w_t.T
-            out = marginalized_loglike(nw, phi, r_eff, None, T_w_t,
+            out = marginalized_loglike(nw, phi, r_eff, None, T_eff,
                                        gram_mode=gm, refine=n_refine,
                                        with_health=with_health)
         lnl, hw = out if with_health else (out, None)

@@ -465,7 +465,10 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
     b : (W, nbasis) prior variance per (scale-folded) basis column.
     r_w, M_w, T_w : whitened residuals / TM matrix / noise basis
         (static, float64). ``r_w`` may also be (W, ntoa), one row per
-        walker (sampled deterministic delays subtracted). ``M_w=None``
+        walker (sampled deterministic delays subtracted), and ``T_w``
+        (W, ntoa, nbasis), one basis per walker (a sampled chromatic
+        index): the likelihood megakernel, which takes one basis for the
+        batch, declines it (route ``per-walker-basis``). ``M_w=None``
         is the sampled-timing-model likelihood: no timing-model Schur
         stage, ``quad = rwr - X^T Sigma^-1 X``, and the likelihood
         megakernel declines (the Sigma solve still makes its own
@@ -502,7 +505,8 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
         if gram_mode in ("split", "f32") and grams is None \
                 and M_w is not None:
             from .megakernel import mega_like_route
-            mega = mega_like_route(T_w.shape[0], T_w.shape[1], T_w.device)
+            mega = mega_like_route(T_w.shape[-2], T_w.shape[-1], T_w.device,
+                                   T_w.dim() == 3)
         else:
             mega = False
     if mega:

@@ -78,10 +78,17 @@ def mega_solve_fits(n):
     return n <= _MEGA_MAX_N
 
 
-def mega_like_route(ntoa, nb, device):
+def mega_like_route(ntoa, nb, device, per_walker=False):
     """Whether ``marginalized_loglike`` sends a whole evaluation through
     the likelihood megakernel: CUDA tensors, kernels enabled, shape
-    within the caps. A decline keeps the classic chain."""
+    within the caps, one basis shared by the batch. A decline keeps the
+    classic chain; a per-walker basis (``per_walker``, a sampled
+    chromatic index) is declined as ``per-walker-basis``, where the
+    reference's kernel route raises (its ``vmap`` rule takes a static
+    basis only)."""
+    if per_walker:
+        return route("mega_like", False, device,
+                     why="per-walker-basis") == "kernel"
     return route("mega_like", mega_like_fits(ntoa, nb), device) == "kernel"
 
 

@@ -3,7 +3,9 @@
 Every routing decision of the three kernels (``mega_solve``,
 ``mega_like``, ``chol_precond``) goes through :func:`route` and records
 the path it took in ``ROUTES`` under ``(kernel, path)``, path one of
-``kernel`` (CUDA launch), ``plain-cpu``, ``over-cap`` and ``disabled`` —
+``kernel`` (CUDA launch), ``plain-cpu``, ``over-cap``, ``disabled`` and,
+for the likelihood kernel, ``per-walker-basis`` (a sampled chromatic
+index gives each walker its own basis, which the kernel does not take) —
 the counterpart of the reference's ``pallas_path{kernel,path}`` counter.
 A launch adds one to ``LAUNCHES[kernel]`` and to the ``kernel`` route at
 the launch site (:func:`record_launch`) and nowhere else; a kernel with
@@ -65,10 +67,11 @@ _ENABLED = {"mega_solve": _mega_enabled, "mega_like": _mega_enabled,
             "chol_precond": _chol_enabled}
 
 
-def route(kernel, fits, device):
+def route(kernel, fits, device, why="over-cap"):
     """The one routing decision for a call of ``kernel`` on ``device``:
     ``kernel`` (a CUDA launch, recorded at the launch site), or a decline
-    — ``disabled``, ``over-cap`` or ``plain-cpu`` — recorded here. Raises
+    — ``disabled``, ``why`` (where the call does not ``fit`` the kernel:
+    ``over-cap`` by default) or ``plain-cpu`` — recorded here. Raises
     for a device the port does not run on."""
     dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
@@ -76,7 +79,7 @@ def route(kernel, fits, device):
     if not _ENABLED[kernel]():
         path = "disabled"
     elif not fits:
-        path = "over-cap"
+        path = why
     elif dev.type == "cpu":
         path = "plain-cpu"
     else:

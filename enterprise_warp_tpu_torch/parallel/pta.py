@@ -46,9 +46,11 @@ evaluation cache (``samplers/evalproto.py``): ``param_blocks`` and
 plane's twin ``_eval_health_batch`` (the lnL and each pulsar's stage-1
 health word, ``health_psr_names``).
 
-Out of this module, as later slices of the port (``ROADMAP.md``): the
-pulsar-axis mesh and a sampled chromatic index (which raises
-``NotImplementedError``).
+A sampled chromatic index (``chromred("vary...")`` in a pulsar's model)
+rescales that pulsar's region-N columns per walker before the Grams
+(``dyn_blocks``, the reference's); the basis is then walker-dependent, so
+no evaluation cache is installed, as in the reference. The pulsar-axis
+mesh is a later slice of the port (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ import torch
 from .. import F64, resolve_device
 from ..models.build import (PulsarLikelihood, _noise_slide_pairs,
                             _resolve_params, collect_params, eval_block_phi,
-                            lower_terms)
+                            lower_terms, param_value)
 from ..models.prior_mixin import PriorMixin
 from ..ops.kernel import (CHOL_JITTER, _gram_pair, _mixed_psd_solve_logdet,
                           _t, equilibrated_cholesky, whiten_inputs)
@@ -386,10 +388,6 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
     t1 = max(p.toas.max() for p in psrs)
     lowered = [lower_terms(p, tl, ecorr_dt=ecorr_dt, common_grid=(t0, t1 - t0))
                for p, tl in zip(psrs, termlists)]
-    if any(b.dynamic_idx is not None for _, bb, _ in lowered for b in bb):
-        raise NotImplementedError(
-            "a sampled chromatic index is a later slice of the port "
-            "(see ROADMAP.md)")
 
     # ---- global parameter resolution (shared GW names dedup) -----------
     all_params = []
@@ -441,6 +439,7 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
     s_gw = np.zeros((npsr, n_g))        # sqrt(cs2) on GW columns
     ntm_real_total = 0
     noise_specs = []                    # phi program inputs (region N)
+    dyn_blocks = []                     # sampled chromatic-index rescales
     for a, ((_, bb, _), st, psr) in enumerate(zip(lowered, statics, psrs)):
         n_a = len(psr)
         R[a, :n_a] = st["r_w"]
@@ -467,6 +466,11 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
                 refs=[mapping[p.name] for p in blk.params],
                 flat_idx=a * NW + new_off + np.arange(blk.ncols),
                 fixed=blk.fixed_phi, ncols=blk.ncols))
+            if blk.dynamic_idx is not None:
+                dyn_blocks.append(dict(
+                    psr=a, cols=slice(new_off, new_off + blk.ncols),
+                    ref=mapping[blk.dynamic_idx.name],
+                    lognu=np.pad(blk.log_nu_ratio, (0, ntoa_max - n_a))))
             new_off += blk.ncols
 
     def dev(a):
@@ -514,6 +518,8 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
     for spec in noise_specs:
         for ref in spec["refs"]:
             mark(ref, spec["psr"])
+    for db in dyn_blocks:
+        mark(db["ref"], db["psr"])
     for cb in cb_static:
         for ref in cb["idx_map"]:
             mark(ref, BLOCK_COMMON)
@@ -542,6 +548,24 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
     # stage-1 delta mode: the float64 oracle keeps the tree-exact logdet;
     # reduced-precision Gram modes take the split (fused) route
     stage1_delta = "tree" if gram_mode == "f64" else "split"
+
+    for db in dyn_blocks:
+        db["lognu"] = dev(db["lognu"])
+
+    def _basis(theta):
+        """The stacked basis ``T_t`` (npsr, ntoa_max, nb_tot), or with a
+        sampled chromatic index the per-walker basis (W, npsr, ntoa_max,
+        nb_tot): each such block's region-N columns scaled by
+        ``exp(idx * log_nu_ratio)`` per TOA (padded TOAs: ratio 0)."""
+        if not dyn_blocks:
+            return T_t
+        T = T_t.expand((theta.shape[0],) + tuple(T_t.shape)).clone()
+        for db in dyn_blocks:
+            idx = param_value(theta, db["ref"])
+            scale = torch.exp(idx[:, None] * db["lognu"][None, :])
+            a, sl = db["psr"], db["cols"]
+            T[:, a, :, sl] = T_t[a, :, sl] * scale[:, :, None]
+        return T
 
     def _coupling_blocks(theta):
         """Per-term inverse coupling blocks (list of (W, ncols, npsr,
@@ -584,7 +608,7 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
         phi_N = eval_phi(theta) * cs2_N_t               # (W, npsr, NW)
         logphi = torch.sum(torch.log(phi_N), dim=(1, 2))
         sqw = torch.sqrt(mask_t / nw)
-        Ts = T_t * sqw[..., None]
+        Ts = _basis(theta) * sqw[..., None]
         rs = R_t * sqw
         # the large Gram: a plain product outside any kernel, batched over
         # walkers and pulsars
@@ -804,9 +828,10 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
     like = PTALikelihood(psrs, sampled, evaluate, gram_mode, device)
     like.joint_mode = joint_mode
     # the update_mask contract, under the reference's conditions (the
-    # Schur path, no mesh, a static basis) unless EWT_UPDATE_MASK=0
-    if joint_mode == "schur" and os.environ.get("EWT_UPDATE_MASK",
-                                                "1") != "0":
+    # Schur path, no mesh, a static basis: a sampled chromatic index makes
+    # the basis walker-dependent) unless EWT_UPDATE_MASK=0
+    if joint_mode == "schur" and not dyn_blocks \
+            and os.environ.get("EWT_UPDATE_MASK", "1") != "0":
         install_masked_protocol(like, _cache_init, _cache_site,
                                 _cache_common, param_blocks)
     if joint_mode == "schur":

@@ -12,7 +12,8 @@ the likelihood's own design matrices:
 
 with the timing model among ``T``'s columns at prior variance
 ``_TM_PHI``; each process's realization is its block of columns times its
-block of ``a_hat``. ``Sigma`` is factored equilibrated to a unit diagonal
+block of ``a_hat`` (a sampled chromatic index scales its block's columns
+per draw, ``models/build.py:eval_T``). ``Sigma`` is factored equilibrated to a unit diagonal
 (``equilibrated_cholesky``), then solved with the scales, as the
 reference does. Float64 torch, on the card unless the caller asks for
 the CPU; the reference ``vmap``s over draws, here the draws are one
@@ -26,8 +27,8 @@ import torch
 
 from .. import F64, constants as const, resolve_device
 from ..models.build import (_resolve_params, basis_static, collect_params,
-                            eval_nw, eval_phi, lower_det_terms, lower_terms,
-                            param_value, white_static)
+                            eval_T, eval_nw, eval_phi, lower_det_terms,
+                            lower_terms, param_value, white_static)
 from ..ops.kernel import equilibrated_cholesky, whiten_inputs
 from ..parallel.pta import _TM_PHI
 
@@ -56,10 +57,6 @@ class NoiseReconstructor:
         det_terms = []
         white_blocks, basis_blocks, T_all = lower_terms(
             psr, terms, ecorr_dt=ecorr_dt, det_out=det_terms)
-        if any(bb.dynamic_idx is not None for bb in basis_blocks):
-            raise NotImplementedError(
-                "a sampled chromatic index is a later slice of the port "
-                "(see ROADMAP.md)")
         r_w, M_w, T_w, cs2, _ = whiten_inputs(psr.residuals, sigma,
                                               psr.Mmat, T_all)
         self.params, mapping = _resolve_params(
@@ -86,7 +83,6 @@ class NoiseReconstructor:
         bb = basis_static(basis_blocks, mapping, dev)
         sigma_t, sigma2 = put(sigma), put(sigma ** 2)
         r_w_t, M_w_t, T_w_t, cs2_t = put(r_w), put(M_w), put(T_w), put(cs2)
-        T_full = torch.cat([T_w_t, M_w_t], dim=1)
         ntm, nb = M_w.shape[1], T_w.shape[1]
         D_w_t = None if D_w is None else put(D_w)
         D_phys = None if D_w is None else put(np.concatenate(
@@ -96,6 +92,11 @@ class NoiseReconstructor:
             """(D, ndim) draws -> {name: (D, ntoa)}."""
             nw = eval_nw(theta, wb, ntoa, sigma2)
             phi = eval_phi(theta, bb, cs2_t)
+            # the basis at each draw: (D, ntoa, nb) where a sampled
+            # chromatic index scales its block, else the static one
+            T_mat = eval_T(theta, bb, T_w_t)
+            T_full = torch.cat([T_mat, M_w_t.expand(T_mat.shape[:-1]
+                                                    + (ntm,))], dim=-1)
             r_eff = r_w_t.expand(theta.shape[0], ntoa)
             c = None
             if det_refs is not None:
@@ -115,7 +116,8 @@ class NoiseReconstructor:
                                                       upper=True)[..., 0]
             out = {}
             for name, sl in zip(self.block_names, self._slices):
-                out[name] = sigma_t * (a_hat[:, sl] @ T_w_t[:, sl].T)
+                out[name] = sigma_t * (T_mat[..., sl]
+                                       @ a_hat[:, sl, None])[..., 0]
             out["tm"] = sigma_t * (a_hat[:, nb:] @ M_w_t.T)
             for name, sl in zip(det_names, det_slices):
                 out[name] = c[:, sl] @ D_phys[:, sl].T

@@ -17,11 +17,12 @@ Counterpart of ``enterprise_warp_tpu/samplers/convergence.py``:
 
 :func:`sample_to_convergence` opens the run's event stream
 (``utils/telemetry.py``): the sampler's block heartbeats join it, and each
-check adds a ``phase="convergence_check"`` heartbeat. The streaming gate
-waits for the port of the device diagnostics plane
-(``utils/devicemetrics.py``, ROADMAP Queue 1): the port's sampler keeps
-no streaming moment ledger, so every check folds the in-memory chains
-exactly, the reference's behaviour under ``EWT_STREAMING_DIAG=0``.
+check adds a ``phase="convergence_check"`` heartbeat whose ``diag_mode``
+says how it was decided. The streaming gate is the reference's
+(``EWT_STREAMING_DIAG``, on by default): a check reads the sampler's
+streaming ledger (``utils/devicemetrics.py``) first and skips the exact
+fold of the chains where that already fails; every streaming pass is
+confirmed by the exact estimators.
 """
 
 from __future__ import annotations
@@ -140,6 +141,28 @@ def _chains_from_blocks(blocks, burn_frac):
     return np.transpose(c[nsteps - keep:], (1, 0, 2))
 
 
+def _rewind_diag(z, nsteps):
+    """The streaming ledger's checkpoint keys (``diag_*``) rewound with
+    the step counter to ``nsteps``: its per-block entries cut back where
+    ``nsteps`` falls on a block boundary, else the ledger dropped (the
+    gate then checks exactly); the run-cumulative histogram and family
+    matrices have no per-block entries and are always dropped. Left as
+    they were, the re-sampled steps would fold twice and the ledger would
+    never again cover exactly the sampled steps."""
+    if "diag_counts" not in z:
+        return z
+    cum = np.cumsum(np.asarray(z["diag_counts"]))
+    keep = int(np.searchsorted(cum, nsteps, side="left")) + 1
+    aligned = keep <= len(cum) and cum[keep - 1] == nsteps
+    for k in [k for k in z if k.startswith("diag_")]:
+        if aligned and k in ("diag_counts", "diag_mean", "diag_m2",
+                             "diag_min", "diag_max"):
+            z[k] = z[k][:keep]
+        else:
+            del z[k]
+    return z
+
+
 def _resume_blocks(sampler, verbose):
     """The resume repair of an interrupted run: the chain rows the
     checkpoint accounts for, as one collected block, with the checkpoint
@@ -161,7 +184,7 @@ def _resume_blocks(sampler, verbose):
         # any step label, so relabel it and keep rows == steps * nchains
         _log.info("resume: chain file holds %d complete steps < checkpoint "
                   "step %d; rewinding checkpoint counter", nsteps, ckpt_step)
-        z = dict(np.load(ckpt))
+        z = _rewind_diag(dict(np.load(ckpt)), nsteps)
         z["step"] = nsteps
         tmp = sampler._ckpt_path + ".tmp.npz"
         np.savez(tmp, **z)
@@ -217,8 +240,15 @@ def sample_to_convergence(sampler, target_ess=1000.0, rhat_max=1.01,
     file holds fewer, the chain files cut back to it), and sampling picks
     up from the checkpoint. The driver samples unthinned.
 
-    Every check is exact (see the module docstring: no streaming gate)
-    and emits a ``convergence_check`` heartbeat. Returns a
+    The streaming gate (``EWT_STREAMING_DIAG``, on by default): where the
+    sampler's ``diag_ledger`` covers exactly the sampled steps, a check
+    reads its streaming split-R-hat and moment ESS and, where both are
+    present and either fails, records a ``diag_mode="stream"`` check and
+    skips the exact fold of the chains; anything else falls through to
+    the exact estimators (``diag_mode="exact"``), so a streaming pass is
+    always confirmed exactly before the function returns converged.
+    ``EWT_STREAMING_DIAG=0`` checks exactly everywhere. Each check emits
+    a ``convergence_check`` heartbeat. Returns a
     :class:`ConvergenceReport`; both clocks cover this call's sampling
     loop only, ``steady_wall_s`` without its first call to the
     sampler."""
@@ -249,6 +279,17 @@ def _drive(sampler, target_ess, rhat_max, check_every, max_steps,
         return (np.inf if rh is None else rh,
                 0.0 if es is None else es)
 
+    def _beat(mode, rhat, ess):
+        rec.heartbeat(phase="convergence_check", step=int(steps),
+                      diag_mode=mode, rhat=rhat, ess=ess,
+                      wall_s=round(time.perf_counter() - t_start, 2),
+                      bubble_s=round(getattr(sampler, "bubble_total_s",
+                                             0.0), 3),
+                      host_sync_s=round(getattr(sampler,
+                                                "host_sync_total_s", 0.0),
+                                        3))
+
+    use_stream = os.environ.get("EWT_STREAMING_DIAG", "1") != "0"
     t_start = time.perf_counter()
     t_after_first = None
     while steps < max_steps:
@@ -259,18 +300,26 @@ def _drive(sampler, target_ess, rhat_max, check_every, max_steps,
         if t_after_first is None:
             t_after_first = time.perf_counter()
         steps = min(steps + todo, max_steps)
+        led = getattr(sampler, "diag_ledger", None) if use_stream else None
+        stream = (led.worst(burn_frac) if led is not None and len(led)
+                  and led.total_steps == steps else None)
+        if stream is not None and stream["rhat"] is not None \
+                and stream["ess"] is not None \
+                and (stream["rhat"] > rhat_max
+                     or stream["ess"] < target_ess):
+            # a definite streaming failure: no exact fold this check
+            _beat("stream", stream["rhat"], stream["ess"])
+            if verbose:
+                _log.info("step %d: rhat_max=%.4f ess_min=%.0f (streaming)",
+                          steps, stream["rhat"], stream["ess"])
+            if on_check is not None:
+                on_check(steps, time.perf_counter() - t_start,
+                         time.perf_counter() - t_after_first)
+            continue
         chains = _chains_from_blocks(blocks, burn_frac)
         s = _diag(chains)
         rh, es = _worst_floats(s)
-        rec.heartbeat(phase="convergence_check", step=int(steps),
-                      diag_mode="exact", rhat=s["_worst"]["rhat"],
-                      ess=s["_worst"]["ess"],
-                      wall_s=round(time.perf_counter() - t_start, 2),
-                      bubble_s=round(getattr(sampler, "bubble_total_s",
-                                             0.0), 3),
-                      host_sync_s=round(getattr(sampler,
-                                                "host_sync_total_s", 0.0),
-                                        3))
+        _beat("exact", s["_worst"]["rhat"], s["_worst"]["ess"])
         if verbose:
             _log.info("step %d: rhat_max=%.4f ess_min=%.0f", steps, rh, es)
         if on_check is not None:

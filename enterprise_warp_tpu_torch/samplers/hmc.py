@@ -38,8 +38,18 @@ in process by :func:`run_hmc`), the fault sites ``hmc.dispatch``,
 the position, a non-finite committed lnL), and a SIGTERM stops the run at
 a block boundary.
 
-Not ported (see ``ROADMAP.md``): the device diagnostics plane and the
-sharded (mesh) leg (``chain_shard``/``psr_shard`` raise).
+The device diagnostics plane, as the reference's
+(``utils/devicemetrics.py``; off with ``EWT_DEVICE_DIAG=0`` or
+``EWT_TELEMETRY=0``): the leapfrog energy error of every trajectory with
+a finite Metropolis log-ratio and the block's step-size extrema, folded
+after the step loop from per-step values kept by reference and read in
+the block's one host read (the ``energy_err_*`` and ``eps_min``/
+``eps_max`` heartbeat keys), and the streaming ``MomentLedger`` over the
+theta chains, fed from the rows the chain file gets anyway
+(``rhat_stream``/``ess_stream``, the ``diag_*`` checkpoint keys).
+
+Not ported (see ``ROADMAP.md``): the sharded (mesh) leg
+(``chain_shard``/``psr_shard`` raise).
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ from ..io.writers import (checkpoint_replace, resolve_checkpoint,
 from ..resilience import faults
 from ..resilience.supervisor import (BlockSupervisor, PlatformDemotion,
                                      apply_demotion, preemption_requested)
-from ..utils import profiling, telemetry
+from ..utils import devicemetrics, profiling, telemetry
 from ..utils.diagnostics import throttled_block_worst
 from ..utils.flightrec import flight_recorder
 from ..utils.logging import EvalRateMeter, get_logger
@@ -145,6 +155,10 @@ class HMCSampler:
         self._last_sync_s = self._last_bubble_s = 0.0
         self._g_sync = telemetry.registry().gauge("host_sync_wall_s")
         self._g_bubble = telemetry.registry().gauge("block_bubble_s")
+        # the diagnostics plane's streaming ledger over the theta chains
+        self.diag_ledger = (devicemetrics.MomentLedger(self.W, self.ndim)
+                            if devicemetrics.enabled() else None)
+        self._diag_hb = {}
         os.makedirs(outdir, exist_ok=True)
 
     def _tensor(self, a):
@@ -203,11 +217,16 @@ class HMCSampler:
 
     def _save_state(self, st):
         tmp = self._ckpt_path + ".tmp.npz"
+        # the streaming ledger rides the checkpoint (``diag_*`` keys)
+        diag = {}
+        if self.diag_ledger is not None and len(self.diag_ledger):
+            diag = {f"diag_{k}": v for k, v in
+                    self.diag_ledger.state_dict().items()}
         np.savez(tmp, z=st.z.cpu().numpy(), key=st.key, log_eps=st.log_eps,
                  log_eps_bar=st.log_eps_bar, h_bar=st.h_bar, mass=st.mass,
                  step=st.step, accepted=st.accepted.cpu().numpy(),
                  divergences=st.divergences, mu=st.mu, da_iter=st.da_iter,
-                 ngrad=st.ngrad)
+                 ngrad=st.ngrad, **diag)
         checkpoint_replace(tmp, self._ckpt_path)
         faults.fire("hmc.ckpt", path=self._ckpt_path, step=int(st.step))
 
@@ -215,6 +234,11 @@ class HMCSampler:
         z = np.load(path)
         key = np.asarray(z["key"], dtype=np.uint8)
         self.gen.set_state(torch.from_numpy(key.copy()))
+        if self.diag_ledger is not None and "diag_counts" in z.files:
+            self.diag_ledger = devicemetrics.MomentLedger.from_state(
+                self.W, self.ndim,
+                {k: z[f"diag_{k}"] for k in
+                 ("counts", "mean", "m2", "min", "max")})
         return HMCState(z=self._tensor(z["z"]), key=key,
                         log_eps=float(z["log_eps"]),
                         log_eps_bar=float(z["log_eps_bar"]),
@@ -269,6 +293,10 @@ class HMCSampler:
         zs = torch.empty((todo, W, nd), dtype=F64, device=dev)
         lnls = torch.empty((todo, W), dtype=F64, device=dev)
         p_sum = torch.zeros((), dtype=F64, device=dev)
+        # the diagnostics plane: each step's log-ratio and step size, kept
+        # by reference and folded after the loop
+        emit_diag = devicemetrics.enabled()
+        d_ratio, d_logeps = [], []
         for i, n_steps in enumerate(lengths):
             eps = torch.exp(log_eps)
             p0 = torch.randn((W, nd), generator=gen, dtype=F64,
@@ -306,12 +334,29 @@ class HMCSampler:
                 log_eps = mu - math.sqrt(t) / _GAMMA * h_bar
                 w = t ** (-_KAPPA)
                 log_eps_bar = w * log_eps + (1.0 - w) * log_eps_bar
+            if emit_diag:
+                d_ratio.append(log_ratio)
+                d_logeps.append(log_eps)
             zs[i] = z
             lnls[i] = lnl
             p_sum = p_sum + p_acc.mean()
+        reads = [log_eps, log_eps_bar, h_bar, ndiv, p_sum]
+        if emit_diag:
+            # the energy error over trajectories with a finite log-ratio
+            # (an -inf end point is a prior-corner rejection, not an
+            # integrator error) and the step size's extrema
+            lr = torch.stack(d_ratio)
+            fin = torch.isfinite(lr)
+            dh = torch.where(fin, -lr, torch.zeros_like(lr))
+            le = torch.stack(d_logeps)
+            reads += [fin.sum().to(F64), dh.sum(), (dh * dh).sum(),
+                      dh.abs().amax(), le.amin(), le.amax()]
         t_sync = time.perf_counter()
-        log_eps, log_eps_bar = float(log_eps), float(log_eps_bar)
-        h_bar, ndiv, mean_acc = float(h_bar), int(ndiv), float(p_sum) / todo
+        # the block's one host read
+        vals = torch.stack(reads).cpu().tolist()
+        log_eps, log_eps_bar, h_bar = vals[:3]
+        ndiv, mean_acc = int(vals[3]), vals[4] / todo
+        self._diag_hb = _energy_heartbeat(vals[5:]) if emit_diag else {}
         self._last_sync_s = time.perf_counter() - t_sync
         self._g_sync.set(self._last_sync_s)
         st.z, st.accepted = z, acc
@@ -349,6 +394,10 @@ class HMCSampler:
             self._truncate_chain_to(st.step)
         else:
             st = self._fresh_state()
+            # no earlier sample() call's statistics on a reused sampler
+            if self.diag_ledger is not None:
+                self.diag_ledger = devicemetrics.MomentLedger(self.W,
+                                                              self.ndim)
             open(chain_path, "w").close()
         np.savetxt(os.path.join(self.outdir, "pars.txt"),
                    self.like.param_names, fmt="%s")
@@ -427,6 +476,9 @@ class HMCSampler:
                 np.full((len(thetas), 1), acc_rate),
                 np.zeros((len(thetas), 1))], axis=1)
             write_table(chain_path, rows, append=True)
+            if self.diag_ledger is not None:
+                self.diag_ledger.append_samples(
+                    thetas.reshape(todo, self.W, self.ndim))
             self._save_state(st)
             rec.checkpoint(step=int(st.step))
             grads = st.ngrad - ngrad0
@@ -441,6 +493,13 @@ class HMCSampler:
                           host_sync_wall_s=round(self._last_sync_s, 4),
                           block_bubble_s=round(self._last_bubble_s, 4),
                           warmup=bool(adapt))
+                hb.update(self._diag_hb)
+                worst_stream = (self.diag_ledger.worst()
+                                if self.diag_ledger is not None else None)
+                if worst_stream is not None:
+                    hb["rhat_stream"] = worst_stream["rhat"]
+                    hb["ess_stream"] = worst_stream["ess"]
+                    devicemetrics.set_stream_gauges(worst_stream)
                 mem = profiling.memory_watermark(self.device)
                 if mem is not None:
                     hb.update(mem)
@@ -488,6 +547,23 @@ class HMCSampler:
                    once_key=f"nonfinite_eval:{self.outdir}",
                    step=int(st.step), n_bad=nbad, bad_theta=thetas[bad][:8],
                    bad_lnl=lnl_np[bad][:8])
+
+
+def _energy_heartbeat(vals):
+    """The plane's heartbeat keys from the block's folded values ``(n,
+    sum, sum of squares, max |dH|, min and max log step size)``."""
+    e_n, e_sum, e_sq, e_max, le_min, le_max = vals
+    hb = {}
+    if e_n > 0:
+        e_mean = e_sum / e_n
+        hb["energy_err_mean"] = round(e_mean, 6)
+        hb["energy_err_std"] = round(
+            math.sqrt(max(e_sq / e_n - e_mean ** 2, 0.0)), 6)
+        hb["energy_err_max"] = round(e_max, 4)
+    if math.isfinite(le_min):
+        hb["eps_min"] = round(math.exp(le_min), 6)
+        hb["eps_max"] = round(math.exp(le_max), 6)
+    return hb
 
 
 def run_hmc(like, outdir, nsamp, params=None, resume=True, seed=0,

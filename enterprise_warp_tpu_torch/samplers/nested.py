@@ -53,7 +53,13 @@ demotions and resumes), the fault sites ``nested.iteration``,
 non-finite dead point is an anomaly) and a SIGTERM stops the run at a
 block boundary with its checkpoint written.
 
-Not ported yet (ROADMAP.md): the device diagnostics plane.
+The device diagnostics plane, as the reference's
+(``utils/devicemetrics.py``; off with ``EWT_DEVICE_DIAG=0`` or
+``EWT_TELEMETRY=0``, and, as in the reference, not on the per-iteration
+path): each block also stacks the walk-scale and first-draw acceptance
+traces, read in the block's one snapshot, for the ``scale_min``,
+``scale_max``, ``budget_exhaust_frac`` and ``first_accept_frac`` heartbeat
+keys and the ``walk_scale``/``budget_exhaust_frac`` gauges.
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ from ..models.build import params_fingerprint
 from ..resilience import faults
 from ..resilience.supervisor import (BlockSupervisor, PlatformDemotion,
                                      apply_demotion, preemption_requested)
-from ..utils import profiling, telemetry
+from ..utils import devicemetrics, profiling, telemetry
 from ..utils.flightrec import flight_recorder
 from ..utils.logging import EvalRateMeter, get_logger
 from .convergence import (insertion_rank_ks, insertion_rank_neff,
@@ -352,27 +358,50 @@ def _make_iteration(like, nlive, kbatch, nsteps, slide_moves=None,
 
 
 def _make_block(like, nlive, kbatch, nsteps, slide_moves=None,
-                kernel="slice"):
+                kernel="slice", diag=False):
     """``block(u, lnl, gen, scale, lnz, ln_x, todo)``: ``todo`` iterations
     on the device; returns the carried state ``(u, lnl, scale, lnz,
     ln_x)`` and the stacked per-iteration outputs (the dead-point ring
     ``dead_u`` (todo, kbatch, ndim), ``dead_lnl``, and the ``acc``,
-    ``delta``, ``ranks``, ``lnx0`` traces)."""
+    ``delta``, ``ranks``, ``lnx0`` traces). ``diag`` (the device
+    diagnostics plane) also stacks the walk-scale and first-draw
+    acceptance traces ``scale_tr``/``first_tr``, values each iteration
+    already returns."""
     it_fn = _make_iteration(like, nlive, kbatch, nsteps,
                             slide_moves=slide_moves, kernel=kernel)
+    names = ("dead_u", "dead_lnl", "acc", "delta", "ranks", "lnx0")
+    if diag:
+        names += ("scale_tr", "first_tr")
 
     def block(u, lnl, gen, scale, lnz, ln_x, todo):
         ys = []
         for _ in range(todo):
             (u, lnl, scale, lnz, ln_x, du, dl, acc, delta, ranks, lnx0,
-             _first) = it_fn(u, lnl, gen, scale, lnz, ln_x)
-            ys.append((du, dl, acc, delta, ranks, lnx0))
+             first) = it_fn(u, lnl, gen, scale, lnz, ln_x)
+            ys.append((du, dl, acc, delta, ranks, lnx0)
+                      + ((scale, first) if diag else ()))
         cols = [torch.stack(c) for c in zip(*ys)]
-        return (u, lnl, scale, lnz, ln_x), dict(
-            zip(("dead_u", "dead_lnl", "acc", "delta", "ranks", "lnx0"),
-                cols))
+        return (u, lnl, scale, lnz, ln_x), dict(zip(names, cols))
 
     return block
+
+
+def _diag_heartbeat(snap, accs, kernel):
+    """The plane's heartbeat keys from one block's traces (host math on
+    the snapshot), the gauges set: the walk scale's range, and for the
+    slice kernel the shrink-budget exhaustion fraction (``1 - acc``, its
+    completed-update rate) and the first-draw acceptance."""
+    sc, fi = snap["scale_tr"], snap["first_tr"]
+    hb = dict(scale_min=round(float(sc.min()), 4),
+              scale_max=round(float(sc.max()), 4))
+    if kernel == "slice":
+        hb["budget_exhaust_frac"] = round(float(np.mean(1.0 - accs)), 4)
+        hb["first_accept_frac"] = round(float(fi.mean()), 4)
+    reg = telemetry.registry()
+    reg.gauge("walk_scale").set(float(sc[-1]))
+    if kernel == "slice":
+        reg.gauge("budget_exhaust_frac").set(hb["budget_exhaust_frac"])
+    return hb
 
 
 def run_nested(like, outdir=None, **kw):
@@ -418,6 +447,7 @@ def _run_nested_impl(like, outdir=None, nlive=500, dlogz=0.1, nsteps=None,
     ``EWT_NESTED_BLOCK``) 0, the reference's per-iteration path, runs the
     blocked walk one iteration a block (module docstring)."""
     block_iters = _resolve_block_iters(block_iters)
+    diag = devicemetrics.enabled() and block_iters > 0
     if block_iters <= 0:
         if not _PERITER_NOTED:
             _PERITER_NOTED.append(True)
@@ -441,7 +471,8 @@ def _run_nested_impl(like, outdir=None, nlive=500, dlogz=0.1, nsteps=None,
         like, outdir=outdir, nlive=nlive, dlogz=dlogz, nsteps=nsteps,
         kbatch=kbatch, seed=seed, max_iter=max_iter, verbose=verbose,
         label=label, resume=resume, checkpoint_every=checkpoint_every,
-        slide_moves=slide_moves, block_iters=block_iters, kernel=kernel)
+        slide_moves=slide_moves, block_iters=block_iters, kernel=kernel,
+        diag=diag)
 
 
 def _ckpt_load_compatible(ckpt_path, want):
@@ -480,8 +511,9 @@ def _fresh_live(like, nlive, gen):
 
 def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
                         max_iter, verbose, label, resume, checkpoint_every,
-                        slide_moves, block_iters, kernel):
-    """The blocked, device-resident hot loop (module docstring)."""
+                        slide_moves, block_iters, kernel, diag=False):
+    """The blocked, device-resident hot loop (module docstring); ``diag``
+    arms the diagnostics plane's traces."""
     nd = like.ndim
     kbatch = kbatch or max(1, nlive // 5)
     dev = _device(like)
@@ -538,7 +570,7 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
     scale_d, lnz_d, lnx_d = (torch.tensor(v, dtype=F64, device=dev)
                              for v in (scale, lnz, ln_x))
     block = _make_block(like, nlive, kbatch, nsteps,
-                        slide_moves=slide_moves, kernel=kernel)
+                        slide_moves=slide_moves, kernel=kernel, diag=diag)
 
     def _write_ckpt(state, n_led, it_now, nd_now, ns_now, n_ks):
         """One block-boundary checkpoint (host snapshot arrays and the
@@ -695,6 +727,8 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
                     routes = telemetry.route_summary()
                     if routes:
                         hb["pallas_path"] = routes
+                    if diag:
+                        hb.update(_diag_heartbeat(snap, accs, kernel))
 
                 def _host_work(commit=dict(last_commit), due_ckpt=due_ckpt,
                                stats=stats, hb=hb):

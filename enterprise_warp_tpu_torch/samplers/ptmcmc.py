@@ -64,6 +64,19 @@ megakernel route is possible (on the card it needs an explicit
 ``EWT_KERNEL_HEALTH=1`` and pins the classic chain and its preconditioner
 kernel), and walks ``observe -> reeval -> classic -> quarantine``.
 
+The device diagnostics plane, as the reference's
+(``utils/devicemetrics.py``; on by default, off with ``EWT_DEVICE_DIAG=0``
+or ``EWT_TELEMETRY=0``): each block folds its cold rows, already on the
+device, into per-chain moments, extrema and fixed-bin histograms, and
+counts each rung's proposals and acceptances by family, all after the
+step loop and inside the block's one snapshot (no launch inside a step,
+no added host synchronisation; the chain is the same bit for bit with the
+plane off). The host keeps the streaming ``MomentLedger`` (split-R-hat
+and batch-means ESS at block cadence, the ``diag_*`` keys of
+``state.npz``), and each block adds the ``rhat_stream``/``ess_stream``
+heartbeat keys, the per-rung gauges, a ``mixing`` event and
+``mixing_stats.json``.
+
 Not ported (``NotImplementedError``): the ``flow`` proposal family.
 """
 
@@ -87,7 +100,7 @@ from ..resilience import faults
 from ..resilience.supervisor import (BlockSupervisor, PlatformDemotion,
                                      apply_demotion, pin_classic,
                                      preemption_requested)
-from ..utils import profiling, telemetry
+from ..utils import devicemetrics, profiling, telemetry
 from ..utils.diagnostics import cache_hit_summary, throttled_block_worst
 from ..utils.flightrec import flight_recorder
 from ..utils.logging import EvalRateMeter, get_logger
@@ -349,6 +362,21 @@ class PTSampler:
         self._t_ready = None
         self._g_sync = telemetry.registry().gauge("host_sync_wall_s")
         self._g_bubble = telemetry.registry().gauge("block_bubble_s")
+        # the device diagnostics plane: the streaming ledger of the cold
+        # chains, the run-cumulative histograms and the per-rung family
+        # attribution, folded from each block's snapshot
+        self.diag_ledger = (devicemetrics.MomentLedger(self.nchains,
+                                                       self.ndim)
+                            if devicemetrics.enabled() else None)
+        self._hist_lo, self._hist_span = devicemetrics.hist_bounds(
+            like.params)
+        # the grid on the device once, here: a copy to the device inside
+        # a block would be a host synchronisation the plane does not add
+        self._hist_grid = (self._tensor(self._hist_lo),
+                           self._tensor(self._hist_span))
+        self.diag_hist = np.zeros((self.ndim, devicemetrics.DEFAULT_NBINS))
+        self.fam_rung_accept = np.zeros((self.ntemps, _NFAM))
+        self.fam_rung_propose = np.zeros((self.ntemps, _NFAM))
         self.health = None
         health_env = os.environ.get("EWT_KERNEL_HEALTH")
         if health_env is None:
@@ -473,6 +501,23 @@ class PTSampler:
                   else self.init_ladder.copy())
         key = np.asarray(z["key"], dtype=np.uint8)
         self.gen.set_state(torch.from_numpy(key.copy()))
+        # the plane continues from the checkpointed statistics; the
+        # cumulative histogram and family counts only where their shapes
+        # match (a rewound checkpoint has none: convergence.py)
+        if self.diag_ledger is not None and "diag_counts" in z.files:
+            self.diag_ledger = devicemetrics.MomentLedger.from_state(
+                self.nchains, self.ndim,
+                {k: z[f"diag_{k}"] for k in
+                 ("counts", "mean", "m2", "min", "max")})
+            if "diag_hist" in z.files \
+                    and z["diag_hist"].shape == self.diag_hist.shape:
+                self.diag_hist = np.asarray(z["diag_hist"], dtype=float)
+            if "diag_fam_acc" in z.files and z["diag_fam_acc"].shape \
+                    == self.fam_rung_accept.shape:
+                self.fam_rung_accept = np.asarray(z["diag_fam_acc"],
+                                                  dtype=float)
+                self.fam_rung_propose = np.asarray(z["diag_fam_prop"],
+                                                   dtype=float)
         return PTState(x=self._tensor(z["x"]), lnl=self._tensor(z["lnl"]),
                        lnp=self._tensor(z["lnp"]), key=key, cov=z["cov"],
                        history=self._tensor(z["history"]),
@@ -586,12 +631,10 @@ class PTSampler:
         hist_len = st.hist_len
         acc = st.accepted
         sacc = torch.zeros(max(ntemps - 1, 1), dtype=F64, device=dev)
-        fam_acc = torch.zeros(_NFAM, dtype=F64, device=dev)
-        fam_prop = torch.zeros(_NFAM, dtype=F64, device=dev)
         out_x = torch.empty((todo, nrec, nd), dtype=F64, device=dev)
         out_l = torch.empty((todo, nrec), dtype=F64, device=dev)
         out_p = torch.empty((todo, nrec), dtype=F64, device=dev)
-        mask_counts = torch.zeros(3, dtype=F64, device=dev)
+        mask_cls = []
         if self.use_maskstats:
             pb = torch.as_tensor(like.param_blocks, device=dev)
             blk_cls = block_classes(pb)
@@ -606,6 +649,10 @@ class PTSampler:
         # launch a step) and folded into counts at the block's end
         nf_l, nf_p, nf_r = [], [], []
         emit_health = self.health is not None
+        emit_diag = self.diag_ledger is not None
+        # each step's family choices and acceptances kept by reference,
+        # counted per rung and family at the block's end
+        choices, accepts = [], []
         if emit_health:
             n_hpsr = len(self._health_psrs)
             h_jit = torch.zeros(n_hpsr, dtype=F64, device=dev)
@@ -701,10 +748,8 @@ class PTSampler:
             lnl = torch.where(accept, lnl_new, lnl)
             lnp = torch.where(accept, lnp_new, lnp)
             acc = acc + accept
-            cold_ch = choice[:nchains]
-            fam_prop += torch.bincount(cold_ch, minlength=_NFAM).to(F64)
-            fam_acc += torch.bincount(cold_ch, weights=accept[:nchains]
-                                      .to(F64), minlength=_NFAM)
+            choices.append(choice)
+            accepts.append(accept)
             if self.use_maskstats:
                 cls = torch.where(choice == 3, blk_cls[jp], 2)
                 if use_cg:
@@ -717,7 +762,7 @@ class PTSampler:
                     # a slide pair is one backend's two white parameters:
                     # its efac dimension's block
                     cls = torch.where(choice == _NS, blk_cls[ns_ie], cls)
-                mask_counts += torch.bincount(cls[:nchains], minlength=3)
+                mask_cls.append(cls[:nchains])
 
             # --- parallel-tempering swaps every swap_every steps ------
             if ntemps > 1 and step_idx % self.swap_every \
@@ -755,8 +800,7 @@ class PTSampler:
         # the block's one host sync: emissions, final state, counters
         leaves = dict(out_x=out_x, out_l=out_l, out_p=out_p, x=x, lnl=lnl,
                       lnp=lnp, history=hist, accepted=acc, sacc=sacc,
-                      fam_acc=fam_acc, fam_prop=fam_prop,
-                      mask_counts=mask_counts)
+                      **self._fam_fold(choices, accepts))
         if emit_nf:
             # a non-finite lnL at a finite-prior point, or a NaN prior (lnL
             # + NaN is NaN); the kernel route's rejections counted apart
@@ -769,6 +813,17 @@ class PTSampler:
                           rej=torch.sum(bad & rej_s, dim=1))
         if emit_health:
             leaves.update(h_jit=h_jit, h_div=h_div, h_cond=h_cond)
+        if mask_cls:
+            # the cold proposals by block class [site, common, full]
+            cls = torch.stack(mask_cls).reshape(-1)
+            leaves["mask_counts"] = torch.zeros(3, dtype=F64, device=dev) \
+                .index_add(0, cls, torch.ones(cls.numel(), dtype=F64,
+                                              device=dev))
+        if emit_diag:
+            leaves.update(zip(
+                ("diag_mean", "diag_m2", "diag_min", "diag_max", "diag_hist"),
+                devicemetrics.block_moments(out_x[:, :nchains],
+                                            *self._hist_grid)))
         t_sync = time.perf_counter()
         snap = host_snapshot(leaves)
         self._last_sync_s = time.perf_counter() - t_sync
@@ -784,10 +839,57 @@ class PTSampler:
         if ntemps > 1:
             st.swaps_accepted = st.swaps_accepted + snap["sacc"]
             st.swaps_proposed = st.swaps_proposed + n_swaps * nchains
-        self.fam_accept += snap["fam_acc"]
-        self.fam_propose += snap["fam_prop"]
-        self.mask_counts += snap["mask_counts"]
+        # the cold rung's row feeds the per-process counters, the whole
+        # matrix the plane's per-rung rates
+        self.fam_accept += snap["fam_a"][0]
+        self.fam_propose += snap["fam_p"][0]
+        if mask_cls:
+            self.mask_counts += snap["mask_counts"]
+        if emit_diag:
+            self.diag_ledger.append_block(
+                todo, snap["diag_mean"], snap["diag_m2"], snap["diag_min"],
+                snap["diag_max"])
+            self.diag_hist += snap["diag_hist"]
+            self.fam_rung_accept += snap["fam_a"]
+            self.fam_rung_propose += snap["fam_p"]
         return snap
+
+    def _fam_fold(self, choices, accepts):
+        """Each rung's proposals (``fam_p``) and acceptances (``fam_a``)
+        by family, (ntemps, nfam), from one block's per-step ``choices``
+        and ``accepts`` (W,): a few launches a block, none in a step,
+        and no host synchronisation (``index_add``; ``bincount`` reads
+        its maximum back)."""
+        dev = choices[0].device
+        rung = torch.arange(self.W, device=dev) // self.nchains
+        cell = (rung[None, :] * _NFAM + torch.stack(choices)).reshape(-1)
+        acc = torch.stack(accepts).to(F64).reshape(-1)
+        zero = torch.zeros(self.ntemps * _NFAM, dtype=F64, device=dev)
+        shape = (self.ntemps, _NFAM)
+        return dict(fam_a=zero.index_add(0, cell, acc).reshape(shape),
+                    fam_p=zero.index_add(0, cell, torch.ones_like(acc))
+                    .reshape(shape))
+
+    def _reset_diag(self):
+        """Clear the plane's accumulators (a fresh start, or the end of
+        ``anneal_init``: the ledger describes only the measured chain)."""
+        if self.diag_ledger is not None:
+            self.diag_ledger = devicemetrics.MomentLedger(self.nchains,
+                                                          self.ndim)
+        self.diag_hist = np.zeros_like(self.diag_hist)
+        self.fam_rung_accept = np.zeros((self.ntemps, _NFAM))
+        self.fam_rung_propose = np.zeros((self.ntemps, _NFAM))
+
+    def _diag_ckpt(self):
+        """The plane's ``diag_*`` checkpoint keys (none before a block)."""
+        if self.diag_ledger is None or not len(self.diag_ledger):
+            return {}
+        out = {f"diag_{k}": v
+               for k, v in self.diag_ledger.state_dict().items()}
+        out["diag_hist"] = self.diag_hist.copy()
+        out["diag_fam_acc"] = self.fam_rung_accept.copy()
+        out["diag_fam_prop"] = self.fam_rung_propose.copy()
+        return out
 
     def _escalate_nonfinite(self, snap, st, todo):
         """Count the block's non-finite evaluations (and, apart, the
@@ -950,6 +1052,7 @@ class PTSampler:
         self.fam_accept = np.zeros(_NFAM)
         self.fam_propose = np.zeros(_NFAM)
         self.mask_counts = np.zeros(3)
+        self._reset_diag()
         self._anneal_state = st
         return st
 
@@ -1009,16 +1112,24 @@ class PTSampler:
                                         f"chain_{T_k:.6g}.txt"), rows))
         return tables
 
-    def _commit(self, tables, cov, mask_stats, ckpt, rec, heartbeat):
+    def _commit(self, tables, cov, mask_stats, ckpt, rec, heartbeat,
+                mixing=None, mixing_stats=None):
         """Write one block's outputs in the order a resume relies on: the
         chain rows (fault site ``pt.chain`` after them), then ``cov.npy``
         and ``mask_stats.json``, then the checkpoint that accounts for the
-        rows, and the block's ``checkpoint`` and ``heartbeat`` events."""
+        rows, and the block's ``checkpoint``, ``heartbeat`` and ``mixing``
+        events, then ``mixing_stats.json``."""
         with profiling.span("pt.host_work", step=int(ckpt["step"])):
             self._commit_files(tables, cov, mask_stats, ckpt)
         rec.checkpoint(step=int(ckpt["step"]))
         if heartbeat is not None:
             rec.heartbeat(**heartbeat)
+            if mixing is not None:
+                rec.event("mixing", **mixing)
+        if mixing_stats is not None:
+            atomic_write_json(os.path.join(self.outdir,
+                                           "mixing_stats.json"),
+                              mixing_stats)
 
     def _commit_files(self, tables, cov, mask_stats, ckpt):
         for path, rows in tables:
@@ -1072,6 +1183,9 @@ class PTSampler:
             self._truncate_chain_to(st.step, thin, block_size)
         else:
             st = self._fresh_state()
+            if st.step == 0:
+                # no earlier sample() call's statistics on a reused sampler
+                self._reset_diag()
             # a fresh run: truncate the cold chain and remove any stale
             # hot-rung file of an earlier run in the same directory
             open(os.path.join(self.outdir, "chain_1.txt"), "w").close()
@@ -1164,17 +1278,22 @@ class PTSampler:
                     collect.append(cs.astype(np.float32))
                 mask_stats = (cache_hit_summary(*self.mask_counts)
                               if self.use_maskstats else None)
-                heartbeat = None
+                plane = self._mixing_plane(st, snap, rec)
+                heartbeat = mixing = mixing_stats = None
                 if rec.enabled:
                     meter.add(self.W * todo)
                     heartbeat = self._heartbeat(
                         st, nsamp, snap, cs, acc_rate, swap_rate, meter,
-                        diag_t)
+                        diag_t, plane)
+                if self.diag_ledger is not None:
+                    mixing = self._mixing_event(st, plane)
+                    mixing_stats = self._mixing_stats(st, plane)
                 ckpt = self._ckpt_arrays(st, snap)
+                ckpt.update(self._diag_ckpt())
                 self._drain()
                 self._pending = writer.submit(
                     self._commit, tables, ckpt["cov"], mask_stats, ckpt,
-                    rec, heartbeat)
+                    rec, heartbeat, mixing, mixing_stats)
                 stats = {"step": st.step, "steps": todo, "walkers": self.W,
                          "block_s": block_s,
                          "ms_per_step": 1e3 * block_s / todo,
@@ -1195,20 +1314,97 @@ class PTSampler:
             writer.shutdown(wait=True)
         return st
 
-    def _heartbeat(self, st, nsamp, snap, cs, acc_rate, swap_rate, meter,
-                   diag_t):
-        """One block's heartbeat fields (the reference's, from the block's
-        host snapshot: no device read)."""
-        accepted = snap["accepted"]
+    def _mixing_plane(self, st, snap, rec):
+        """The block's per-rung rates and, with the diagnostics plane on,
+        one streaming fold of the ledger (``summ``, the per-parameter
+        summary, and ``worst``, its heartbeat figures); the gauges
+        ``swap_rate``, ``rung_accept``, ``stream_rhat`` and
+        ``stream_ess`` are set from them. None with telemetry off."""
+        if not (rec.enabled or self.diag_ledger is not None):
+            return None
         sacc, sprop = st.swaps_accepted, st.swaps_proposed
-        hb = dict(
-            step=int(st.step), nsamp=int(nsamp), accept=round(acc_rate, 4),
-            swap=round(swap_rate, 4),
+        plane = dict(
             accept_rung=[round(float(a), 4) for a in
-                         accepted.reshape(self.ntemps, self.nchains)
+                         snap["accepted"].reshape(self.ntemps, self.nchains)
                          .mean(axis=1) / max(st.step, 1)],
             swap_rung=[round(float(r), 4) for r in
                        sacc / np.maximum(sprop, 1.0)],
+            summ=None, worst=None)
+        if self.diag_ledger is not None:
+            plane["summ"] = self.diag_ledger.param_summary()
+            plane["worst"] = self.diag_ledger.worst(summary=plane["summ"])
+        reg = telemetry.registry()
+        for i, r in enumerate(plane["swap_rung"]):
+            reg.gauge("swap_rate", edge=i).set(r)
+        for i, a in enumerate(plane["accept_rung"]):
+            reg.gauge("rung_accept", rung=i).set(a)
+        devicemetrics.set_stream_gauges(plane["worst"])
+        return plane
+
+    def _fam_rung_rate(self):
+        return np.round(self.fam_rung_accept
+                        / np.maximum(self.fam_rung_propose, 1.0), 4).tolist()
+
+    def _mixing_event(self, st, plane):
+        """The ``mixing`` event's fields (the per-rung family matrices,
+        too wide for a heartbeat)."""
+        worst = plane["worst"] or {}
+        return dict(step=int(st.step), accept_rung=plane["accept_rung"],
+                    swap_rung=plane["swap_rung"],
+                    fam_names=list(_FAM_NAMES),
+                    fam_rung_rate=self._fam_rung_rate(),
+                    fam_rung_propose=self.fam_rung_propose
+                    .astype(np.int64).tolist(),
+                    rhat_stream=worst.get("rhat"),
+                    ess_stream=worst.get("ess"))
+
+    def _mixing_stats(self, st, plane):
+        """``mixing_stats.json``, the reference's: per parameter the
+        streaming moments, R-hat and ESS (post-burn) and the
+        run-cumulative histogram; the ladder, per-rung acceptance, per-edge
+        swap rates and the per-rung family matrices."""
+        summ = plane["summ"]
+        rh, es = summ["rhat"], summ["ess"]
+        per_param = {}
+        for i, name in enumerate(self.like.param_names):
+            per_param[name] = {
+                "mean": round(float(summ["mean"][i]), 6),
+                "std": round(float(summ["std"][i]), 6),
+                "min": round(float(summ["min"][i]), 6),
+                "max": round(float(summ["max"][i]), 6),
+                "rhat_stream": (round(float(rh[i]), 5)
+                                if rh is not None and np.isfinite(rh[i])
+                                else None),
+                "ess_stream": (round(float(es[i]), 1)
+                               if es is not None and np.isfinite(es[i])
+                               else None),
+                "hist": [int(c) for c in self.diag_hist[i]],
+                "hist_lo": round(float(self._hist_lo[i]), 6),
+                "hist_hi": round(float(self._hist_lo[i]
+                                       + self._hist_span[i]), 6),
+            }
+        return {"step": int(st.step),
+                "steps_folded": self.diag_ledger.total_steps,
+                "stream_burn_frac": devicemetrics.STREAM_BURN_FRAC,
+                "cumulative_fields": ["hist", "fam_rung_rate",
+                                      "fam_rung_propose"],
+                "params": per_param,
+                "ladder": [round(float(T), 4) for T in st.ladder],
+                "accept_rung": plane["accept_rung"],
+                "swap_rung": plane["swap_rung"],
+                "fam_names": list(_FAM_NAMES),
+                "fam_rung_rate": self._fam_rung_rate(),
+                "fam_rung_propose": self.fam_rung_propose
+                .astype(np.int64).tolist()}
+
+    def _heartbeat(self, st, nsamp, snap, cs, acc_rate, swap_rate, meter,
+                   diag_t, plane):
+        """One block's heartbeat fields (the reference's, from the block's
+        host snapshot: no device read)."""
+        hb = dict(
+            step=int(st.step), nsamp=int(nsamp), accept=round(acc_rate, 4),
+            swap=round(swap_rate, 4), accept_rung=plane["accept_rung"],
+            swap_rung=plane["swap_rung"],
             fam_accept={n: round(float(a / max(p, 1.0)), 4) for n, a, p in
                         zip(_FAM_NAMES, self.fam_accept, self.fam_propose)},
             ladder=[round(float(T), 4) for T in st.ladder],
@@ -1220,6 +1416,9 @@ class PTSampler:
             host_sync_wall_s=round(self._last_sync_s, 4),
             block_bubble_s=round(self._last_bubble_s, 4),
             max_lnl=round(float(np.max(snap["lnl"])), 3))
+        if plane["worst"] is not None:
+            hb["rhat_stream"] = plane["worst"]["rhat"]
+            hb["ess_stream"] = plane["worst"]["ess"]
         if self.health is not None:
             hb["jitter_engaged"] = sum(led.n_jitter for led in self.health)
             hb["refine_diverged"] = sum(led.n_diverge

@@ -19,6 +19,15 @@ names, event types, field names and ``EWT_*`` switches:
   ``tools/report.py``'s (``tests/test_torch_telemetry.py`` holds the two
   equal), so a stream can be checked where the JAX package is absent.
 
+Heartbeats and ``run_end`` refresh the OpenMetrics textfile and a run
+scope arms the ``/metrics`` endpoint (``utils/metricsexport.py``; both
+off without their switches). The device diagnostics plane
+(``utils/devicemetrics.py``) adds the ``mixing`` event, the
+``rhat_stream``/``ess_stream`` heartbeat keys (PT, HMC), HMC's energy-error
+and nested sampling's walk-scale keys, and the gauges ``swap_rate{edge}``,
+``rung_accept{rung}``, ``stream_rhat``, ``stream_ess``, ``walk_scale`` and
+``budget_exhaust_frac``, all in the vocabulary below.
+
 The port has no jit, so the reference's ``traced`` wrapper and the
 ``compile``, ``cost_analysis`` and ``retraces{fn=}`` records it makes
 have no counterpart here. ``pallas_path`` in a heartbeat is the port's
@@ -620,6 +629,13 @@ class RunRecorder:
 
     def heartbeat(self, **fields):
         self.event("heartbeat", **fields)
+        # the OpenMetrics textfile at heartbeat cadence
+        # (utils/metricsexport.py; a no-op without EWT_METRICS_TEXTFILE)
+        try:
+            from .metricsexport import maybe_export
+            maybe_export()
+        except Exception:   # noqa: BLE001 — export never stops a run
+            pass
 
     def checkpoint(self, **fields):
         self.event("checkpoint", **fields)
@@ -633,6 +649,12 @@ class RunRecorder:
         fields.setdefault("metrics", _REGISTRY.snapshot())
         self.event("run_end", **fields)
         self.flush()
+        # the final textfile: the scrape target ends on this registry
+        try:
+            from .metricsexport import maybe_export
+            maybe_export(force=True)
+        except Exception:   # noqa: BLE001 — export never stops a run
+            pass
 
 
 class _NoopRecorder:
@@ -696,6 +718,14 @@ def run_scope(run_dir, **start_fields):
     rec.run_start(**start_fields)
     _ACTIVE.append(rec)
     flight_recorder().bind(run_dir)
+    # the metrics exporters (utils/metricsexport.py): the /metrics
+    # endpoint (EWT_METRICS_PORT) and a metrics_export event for each
+    # armed exporter; inert without their switches
+    try:
+        from .metricsexport import autostart
+        autostart(rec)
+    except Exception:   # noqa: BLE001 — export never stops a run
+        pass
     status = "ok"
     try:
         yield rec

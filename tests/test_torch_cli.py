@@ -314,4 +314,6 @@ def test_no_source_names_jax_or_the_reference():
                     bad.append(f"{path}:{node.lineno}: {n}")
     assert len(files) > 30 and not bad, bad
     assert {os.path.join(PKG, "native.py"),
-            os.path.join(PKG, "samplers", "convergence.py")} <= set(files)
+            os.path.join(PKG, "samplers", "convergence.py"),
+            os.path.join(PKG, "utils", "devicemetrics.py"),
+            os.path.join(PKG, "utils", "metricsexport.py")} <= set(files)

@@ -7,7 +7,13 @@
 - ports of ``tests/test_samplers.py``'s ``TestConvergence`` (a Gaussian to
   its gates, the warm start after a kill, the checkpoint rewind when the
   chain file is short, the hot-rung files cut back on resume) and
-  ``TestConvergenceGrowth`` (geometric checks, thinned diagnostics).
+  ``TestConvergenceGrowth`` (geometric checks, thinned diagnostics);
+- the streaming gate: on by default, a check the sampler's streaming
+  ledger already fails runs no exact fold, and the run converges on an
+  exact check only; ``EWT_STREAMING_DIAG=0`` folds exactly at every
+  check; a resume that rewinds the checkpoint cuts the ledger's
+  ``diag_*`` keys back (or drops them) as the JAX package's
+  ``sample_to_convergence`` does on the same checkpoint, and the resumed ledger folds no step twice.
 """
 
 import math
@@ -250,3 +256,105 @@ def test_geometric_checks_and_thinned_diagnostics(tmp_path):
         steps += -(-todo // 100) * 100
         want.append(steps)
     assert checks == want
+
+
+# ---- the streaming gate (utils/devicemetrics.py) ------------------------ #
+
+def _check_modes(outdir):
+    import json
+    return [e["diag_mode"] for e in
+            (json.loads(ln) for ln in
+             (outdir / "events.jsonl").read_text().splitlines())
+            if e.get("phase") == "convergence_check"]
+
+
+def _count_folds(monkeypatch):
+    folds = []
+    real = tconv.summarize_chains
+
+    def counted(*a, **k):
+        folds.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(tconv, "summarize_chains", counted)
+    return folds
+
+
+def test_streaming_gate_skips_exact_folds(tmp_path, monkeypatch):
+    """With the gate on (the default), a check the streaming ledger
+    already fails runs no exact fold of the chains; the run converges
+    only on an exact check, whose figures pass."""
+    monkeypatch.setenv("EWT_TELEMETRY", "1")
+    monkeypatch.delenv("EWT_STREAMING_DIAG", raising=False)
+    monkeypatch.delenv("EWT_DEVICE_DIAG", raising=False)
+    folds = _count_folds(monkeypatch)
+    s = PTSampler(GaussianLike([0.0, 1.0], [0.5, 0.3]), str(tmp_path),
+                  ntemps=1, nchains=8, seed=0)
+    rep = sample_to_convergence(s, target_ess=600.0, rhat_max=1.05,
+                                check_every=200, max_steps=8000,
+                                block_size=100, verbose=False)
+    modes = _check_modes(tmp_path)
+    assert rep.converged and modes[-1] == "exact"
+    assert "stream" in modes
+    assert len(folds) == modes.count("exact")
+    assert rep.ess_min >= 600.0 and rep.rhat_max <= 1.05
+    assert s.diag_ledger.total_steps == rep.steps
+
+
+def test_streaming_gate_off_checks_exactly(tmp_path, monkeypatch):
+    monkeypatch.setenv("EWT_TELEMETRY", "1")
+    monkeypatch.setenv("EWT_STREAMING_DIAG", "0")
+    folds = _count_folds(monkeypatch)
+    s = PTSampler(GaussianLike([0.0, 1.0], [0.5, 0.3]), str(tmp_path),
+                  ntemps=1, nchains=8, seed=0)
+    rep = sample_to_convergence(s, target_ess=600.0, rhat_max=1.05,
+                                check_every=200, max_steps=8000,
+                                block_size=100, verbose=False)
+    modes = _check_modes(tmp_path)
+    assert rep.converged and set(modes) == {"exact"}
+    assert len(folds) == len(modes)
+
+
+@pytest.mark.parametrize("keep", [300, 250], ids=["aligned", "unaligned"])
+def test_resume_rewind_of_the_ledger_matches_jax(tmp_path, monkeypatch,
+                                                 keep):
+    """A chain file shorter than the checkpoint rewinds the checkpoint's
+    step counter; the streaming ledger's ``diag_*`` keys are cut back with
+    it where the step lands on a block boundary, else dropped, as the JAX
+    package's ``sample_to_convergence`` does on the same checkpoint."""
+    import shutil
+    import types
+    monkeypatch.setenv("EWT_TELEMETRY", "1")
+    monkeypatch.delenv("EWT_DEVICE_DIAG", raising=False)
+    like = GaussianLike([0.0, 1.0], [0.5, 0.3])
+    run = tmp_path / "run"
+    s = PTSampler(like, str(run), ntemps=1, nchains=4, seed=0)
+    s.sample(400, resume=False, verbose=False, block_size=100)
+    rows = (run / "chain_1.txt").read_text().splitlines()
+    (run / "chain_1.txt").write_text("\n".join(rows[:keep * 4]) + "\n")
+    shutil.copytree(run, tmp_path / "jax")
+    blocks, steps = tconv._resume_blocks(
+        PTSampler(like, str(run), ntemps=1, nchains=4, seed=0), False)
+    assert steps == keep
+    jsampler = types.SimpleNamespace(
+        outdir=str(tmp_path / "jax"), nchains=4, ndim=2, like=like,
+        _ckpt_path=str(tmp_path / "jax" / "state.npz"))
+    jconv.sample_to_convergence(jsampler, max_steps=keep, resume=True,
+                                verbose=False)
+    got, want = (dict(np.load(d / "state.npz"))
+                 for d in (run, tmp_path / "jax"))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert int(got["step"]) == keep
+    if keep == 300:
+        assert list(got["diag_counts"]) == [100] * 3
+        s2 = PTSampler(like, str(run), ntemps=1, nchains=4, seed=0)
+        rep = sample_to_convergence(s2, target_ess=1e9, rhat_max=0.0,
+                                    check_every=100, max_steps=500,
+                                    block_size=100, resume=True,
+                                    verbose=False)
+        # no double fold: the ledger covers exactly the sampled steps
+        assert s2.diag_ledger.total_steps == rep.steps == 500
+        assert s2.diag_hist.sum() == 200 * 4 * 2
+    else:
+        assert not any(k.startswith("diag_") for k in got)

@@ -251,7 +251,7 @@ def test_hot_chain_files(tmp_path):
     assert not s.adapt_ladder and list(st.ladder) == [1.0, 3.0]
     assert sorted(os.listdir(tmp_path)) == sorted(
         ["chain_1.txt", "chain_3.txt", "cov.npy", "events.jsonl",
-         "pars.txt", "state.npz",
+         "mixing_stats.json", "pars.txt", "state.npz",
          "state.npz.sha256"] + (["state.prev.npz", "state.prev.npz.sha256"]
                                 if os.path.exists(tmp_path / "state.prev.npz")
                                 else []))

@@ -15,7 +15,11 @@ float64 on the CPU, and the reference test's own checks on the port:
   the port wrote, all five columns;
 - partial noisefile defaults;
 - the sampled-ephemeris delay (``bayes_ephem: sampled``): ``D c`` exactly,
-  and the GP conditioned on the delay-subtracted residuals.
+  and the GP conditioned on the delay-subtracted residuals;
+- a sampled chromatic index (``chromred("vary_30_nfreqs")``): the
+  realizations at the truth with the index at 2 and over 16 draws with
+  the index spread over its prior, each within ``RTOL`` of the JAX
+  package's.
 """
 
 import numpy as np
@@ -60,12 +64,14 @@ def injected():
     return jp, tp, tred, tdm
 
 
-def _terms(SM, TL, psr, ephem=False):
+def _terms(SM, TL, psr, ephem=False, chrom=False):
     m = SM(psr=psr)
     terms = [m.efac("by_backend"), m.spin_noise("powerlaw_30_nfreqs"),
              m.dm_noise("powerlaw_30_nfreqs")]
     if ephem:
         terms.append(m.bayes_ephem("sampled"))
+    if chrom:
+        terms.append(m.chromred("vary_30_nfreqs"))
     return TL(psr, terms), m
 
 
@@ -198,3 +204,25 @@ def test_sampled_ephemeris_delay_realization(injected):
     _assert_close(out0, jrc.realizations(theta0))
     np.testing.assert_allclose(out0["bayes_ephem"], 0.0, atol=1e-20)
     assert np.corrcoef(out0["red_noise"], red)[0, 1] > 0.95
+
+
+def test_sampled_chromatic_index_realizations(injected):
+    jp, psr = injected[:2]
+    rec = trec.NoiseReconstructor(psr, _terms(TSM, TTL, psr, chrom=True)[0],
+                                  device="cpu")
+    jrc = jrec.NoiseReconstructor(jp, _terms(JSM, JTL, jp, chrom=True)[0])
+    assert rec.param_names == jrc.param_names
+    idx = f"{psr.name}_chromatic_gp_idx"
+    assert rec.param_names[-1] == idx
+    truth = dict(_truth(psr.name), **{
+        f"{psr.name}_chromatic_gp_log10_A": -13.5,
+        f"{psr.name}_chromatic_gp_gamma": 3.0, idx: 2.0})
+    out = rec.realizations(truth)
+    _assert_close(out, jrc.realizations(truth))
+    assert np.abs(out["chromatic_gp"]).max() > 0
+    base = rec.theta_from_dict(truth)
+    draws = base[None, :] + 0.05 * np.random.default_rng(3) \
+        .standard_normal((16, len(base)))
+    draws[:, -1] = np.linspace(0.0, 6.0, 16)
+    _assert_close(rec.realizations_batch(draws),
+                  jrc.realizations_batch(draws))

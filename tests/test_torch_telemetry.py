@@ -17,12 +17,15 @@
   ``events.jsonl`` that ``tools/report.py --check`` accepts with zero
   problems and that ``tools/report.py`` folds; its event types, in order,
   and its heartbeat key sets equal the JAX package's CLI on the same
-  paramfile and knobs (``EWT_DEVICE_DIAG=0``, ``EWT_STREAMING_DIAG=0``,
-  ``EWT_MESH_STATS=0``, ``EWT_TELEMETRY_DIAG_S=0`` on both), except for
-  what a plane this slice leaves out emits (named in ``NOT_PORTED``) and
-  the data-dependent ``kernel_health`` events (``DATA_DEPENDENT``: the
-  two packages draw different chains); the nested run's number of blocks
-  is where its evidence converges, so there repeats are collapsed;
+  paramfile and knobs, the device diagnostics plane and the streaming
+  gate at their defaults (on) in both (``EWT_MESH_STATS=0``,
+  ``EWT_TELEMETRY_DIAG_S=0`` on both), except for what a plane the port
+  leaves out emits (named in ``NOT_PORTED``) and the data-dependent
+  ``kernel_health`` events (``DATA_DEPENDENT``: the two packages draw
+  different chains); the nested run's number of blocks is where its
+  evidence converges, so there repeats are collapsed; the PT run's
+  ``mixing`` events carry the reference's fields and its
+  ``mixing_stats.json`` the reference's keys;
 - with ``EWT_TELEMETRY=0`` there is no stream, and the chain is bit for
   bit the telemetry-on chain.
 """
@@ -46,21 +49,17 @@ torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = REPO / "examples"
 
-#: what the reference emits from planes this slice leaves out: ``compile``
-#: events (its ``traced`` jit wrapper; the port has no jit) and ``mixing``
-#: events plus the heartbeat keys of the device diagnostics plane
+#: what the reference emits that the port has no counterpart for:
+#: ``compile`` events (its ``traced`` jit wrapper; the port has no jit)
 NOT_PORTED = {
-    "events": {"compile", "mixing"},
-    "heartbeat": {"energy_err_mean", "energy_err_std", "energy_err_max",
-                  "eps_min", "eps_max", "scale_min", "scale_max",
-                  "budget_exhaust_frac", "first_accept_frac",
-                  "rhat_stream", "ess_stream"},
+    "events": {"compile"},
+    "heartbeat": set(),
 }
 #: events whose number and place depend on the chain's draws
 DATA_DEPENDENT = {"kernel_health"}
-#: the reference's planes this slice leaves out, switched off on both
-SAME_KNOBS = {"EWT_DEVICE_DIAG": "0", "EWT_STREAMING_DIAG": "0",
-              "EWT_MESH_STATS": "0", "EWT_TELEMETRY_DIAG_S": "0"}
+#: switched off on both: the mesh plane (not ported) and the throttle of
+#: the heartbeats' exact R-hat/ESS fold (so both fold every block)
+SAME_KNOBS = {"EWT_MESH_STATS": "0", "EWT_TELEMETRY_DIAG_S": "0"}
 
 
 @pytest.fixture(autouse=True)
@@ -443,7 +442,8 @@ def streams(tmp_path_factory):
             mp.setenv(k, v)
         mp.setenv("EWT_TELEMETRY", "1")
         for k in ("EWT_PALLAS", "EWT_FLIGHTREC", "EWT_FAULT_PLAN",
-                  "EWT_KERNEL_HEALTH"):
+                  "EWT_KERNEL_HEALTH", "EWT_DEVICE_DIAG",
+                  "EWT_STREAMING_DIAG"):
             mp.delenv(k, raising=False)
         # the paramfile parsers drop ``advi_init`` for hmc (both); it is
         # registered so the 1500-step warm start is skipped
@@ -508,6 +508,46 @@ def test_port_stream_matches_reference(streams, kind):
     if kind == "pt":
         assert {"jitter_engaged", "refine_diverged", "kernel_cond"} \
             <= hb_keys(port_dir)[0]
+
+
+def test_port_mixing_matches_reference(streams):
+    """The device diagnostics plane at its default: the PT run's
+    ``mixing`` events (one per block) carry the reference's fields, its
+    ``mixing_stats.json`` the reference's keys, top level and per
+    parameter, and the HMC and nested heartbeats the plane's keys."""
+    port_dir, jax_dir = streams["pt"]
+
+    def mixing(d):
+        return [e for e in _events(d / "events.jsonl")
+                if e["type"] == "mixing"]
+
+    mp, mj = mixing(port_dir), mixing(jax_dir)
+    assert len(mp) == len(mj) == 2
+    assert [set(e) for e in mp] == [set(e) for e in mj]
+    assert mp[-1]["fam_names"] == mj[-1]["fam_names"]
+    assert np.shape(mp[-1]["fam_rung_rate"]) \
+        == np.shape(mj[-1]["fam_rung_rate"])
+    sp, sj = (json.load(open(d / "mixing_stats.json"))
+              for d in (port_dir, jax_dir))
+    assert set(sp) == set(sj)
+    assert list(sp["params"]) == list(sj["params"])
+    for name in sp["params"]:
+        assert set(sp["params"][name]) == set(sj["params"][name])
+    assert sp["steps_folded"] == sj["steps_folded"] == 200
+    ncold = 8
+    assert all(sum(v["hist"]) == 200 * ncold for v in sp["params"].values())
+    for kind, keys in (("hmc", {"energy_err_mean", "energy_err_std",
+                                "energy_err_max", "eps_min", "eps_max",
+                                "rhat_stream", "ess_stream"}),
+                       ("nested", {"scale_min", "scale_max",
+                                   "budget_exhaust_frac",
+                                   "first_accept_frac"})):
+        hbs = [e for e in _events(streams[kind][0] / "events.jsonl")
+               if e["type"] == "heartbeat"]
+        # HMC: the last block's (the streaming figures need two blocks);
+        # nested: every block's (not the closing heartbeat)
+        blocks = hbs[-1:] if kind == "hmc" else hbs[:-1]
+        assert blocks and all(keys <= set(h) for h in blocks), kind
 
 
 def test_telemetry_off_no_stream_same_chain(tmp_path, monkeypatch):
