@@ -57,8 +57,8 @@ Phases (any failure exits non-zero before the result line):
    of ``system_noise.dat`` (temporary copies of the paramfile with
    ``nsamp: 1200``, so that the ``covUpdate``=1000 adaptation fires),
    then the HMC path (``hmc_single_psr.dat --num 0`` at its full width,
-   64 chains and 16 leapfrog steps, with the ADVI warm start, 60 steps
-   of which 30 warmup), with the launch counters zeroed just before
+   64 chains and 16 leapfrog steps, with the ADVI warm start, 40 steps
+   of which 20 warmup), with the launch counters zeroed just before
    each run and read just after (the HMC run also where the ADVI warm
    start ends); the expected kernels must have launched in each run and
    phase, and the chain must be finite with a plausible acceptance rate.
@@ -184,7 +184,7 @@ Phases (any failure exits non-zero before the result line):
    phase) and stage 3 (n = 1800) over the kernels' cap on the classic
    chain, counted as ``over-cap`` routes; two near-typical points
    against the dense float64 oracle on the card (n 6435), differences
-   within 0.5 + 5e-4 |dlnL|; the corner scan on 64 prior draws; the
+   within 0.5 + 5e-4 |dlnL|; the corner scan on 32 prior draws; the
    evaluation cache as on ``gwb_array.dat`` (64 updates; the site, common
    and full update timed at one theta); ``python -m
    enterprise_warp_tpu_torch.results --optimal_statistic 1`` on the
@@ -273,7 +273,36 @@ Phases (any failure exits non-zero before the result line):
    gates (for the parameters the streaming figures rank worst), and its
    count of exact folds printed; (11.4) the OpenMetrics
    textfile and one request to ``/metrics`` on 127.0.0.1, the same text;
-12. the ``kernels`` JSON line, one entry per kernel and main path that
+12. the pulsar axis across processes (:func:`phase_pulsar_axis`), ranks
+   launched as subprocesses through the ``EWT_*`` contract, each with its
+   own time limit (one failed rank fails the phase): (12.1) config 3 from
+   disk through the CLI with ``psr_shard: 1`` over two gloo ranks sharing
+   the card, 200 steps: rank 0 writes the run's files and rank 1 only
+   ``events.1.jsonl`` and ``mesh_stats.1.json``, the ranks' final states
+   equal, kernel 1 launched on both (rows ``mega_solve@psr_shard_r0``/
+   ``_r1``, each rank's stage-1 shape on its last step), one
+   ``all_reduce`` an evaluation and no gather, the sharded lnL at the
+   chain's last 8 states within the joint class of the unsharded build,
+   ms/step, one evaluation and its collective alone timed; (12.2) one
+   NCCL rank, the sharded build at those states, started beside the pair
+   but building and timing only after the pair is done; (12.3)
+   ``gwb_array.dat`` over the two ranks: the autograd gradient at 4
+   states against the unsharded one within 1e-3 max(1, |g|), an HMC leg
+   (W 16, 20 steps) with equal final states, the health twin
+   (``EWT_KERNEL_HEALTH=1``, 40 steps: kernel 3 on each rank's stage 1,
+   rows ``chol_precond@psr_shard_health_r0``/``_r1``, held on the run's
+   last step; its stage 3 on kernel 1, row
+   ``mega_solve@psr_shard_health_stage3``; the ranks' health ledgers
+   equal), and
+   ``sample_to_convergence`` with three checks (every resume after the
+   first taken from rank 0; the ranks' states equal at every check);
+   (12.4) ``system_noise.dat --num 0`` with ``chain_shard: 1``: the
+   gathered start lnL within 1e-9 relative of the whole batch's, equal
+   states, and whether the chain is bit for bit the unsharded run's (its
+   ms/step beside); (12.5) where more than one card is visible, 12.1
+   with NCCL on ``min(count, 4)`` cards, one rank a card (else it prints
+   ``multi-GPU: not run``);
+13. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``, after the smoke's wall time.
@@ -345,10 +374,10 @@ CHOL_ATOL = (2e-5, 2e-4, 2e-5)
 # in float32, as chol_precond_kernel sums it, is about 2e-2 there
 E_OWN_RTOL, E_OWN_ATOL = 1e-4, 1e-12
 # the HMC path: the paramfile's full width (64 chains, 16 leapfrog
-# steps), 60 steps of which 30 warmup (explicit, so run_hmc keeps it)
+# steps), 40 steps of which 20 warmup (explicit, so run_hmc keeps it)
 # after the ADVI warm start (1500 steps of 16 draws); cut as NSAMP is,
-# and from 100/50 for the smoke's time on slower hosts
-HMC_KEYS = dict(nsamp=60, warmup=30, nchains=64, n_leapfrog=16)
+# and from 100/50 and 60/30 for the smoke's time on slower hosts
+HMC_KEYS = dict(nsamp=40, warmup=20, nchains=64, n_leapfrog=16)
 # the PT warm start's ADVI fit on --num 1's hot run: 300 steps (the
 # paramfile default is 800; cut for the smoke's time)
 HOT_ADVI_STEPS = 300
@@ -399,7 +428,27 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
                   "the classic chain, 8 walkers",
          "chrom_gwb": "gwb_array.dat --num 0 with J1234-5678's sampled "
                       "chromatic index (chromred: vary_10_nfreqs): PT-MCMC "
-                      "over the joint likelihood, 8 walkers"}
+                      "over the joint likelihood, 8 walkers",
+         "shard_r0": "BASELINE config 3 through the CLI with psr_shard: 1 "
+                     "over two gloo ranks sharing the card: rank 0's "
+                     "stage 1 (pulsars 0-22), PT-MCMC, 8 walkers",
+         "shard_r1": "BASELINE config 3 through the CLI with psr_shard: 1 "
+                     "over two gloo ranks sharing the card: rank 1's "
+                     "stage 1 (pulsars 23-44), PT-MCMC, 8 walkers",
+         "shard_health_r0": "gwb_array.dat's joint likelihood sharded over "
+                            "two gloo ranks sharing the card, "
+                            "EWT_KERNEL_HEALTH=1: rank 0's stage 1 on the "
+                            "health twin's classic chain, PT-MCMC, 8 "
+                            "walkers",
+         "shard_health_r1": "gwb_array.dat's joint likelihood sharded over "
+                            "two gloo ranks sharing the card, "
+                            "EWT_KERNEL_HEALTH=1: rank 1's stage 1 on the "
+                            "health twin's classic chain, PT-MCMC, 8 "
+                            "walkers",
+         "shard_health_s3": "gwb_array.dat's joint likelihood sharded over "
+                            "two gloo ranks sharing the card, "
+                            "EWT_KERNEL_HEALTH=1: stage 3, replicated on "
+                            "both ranks (rank 0's), PT-MCMC, 8 walkers"}
 # the joint paths: right-hand-side widths past the refine phase's 8-column
 # panel, BASELINE config 3's size, and the agreement of lnL differences
 # with the dense float64 oracle there (tests/test_parallel.py:612)
@@ -422,7 +471,7 @@ JOINT_ATOL, JOINT_RTOL = 5e-2, 1e-7
 # the evaluation cache: seeded updates held against a full recompute at
 # each of the joint paths; prior draws of the corner scans
 CACHE_UPDATES = 64
-CORNER_DRAWS = {"gwb": 400, "pta45": 64}
+CORNER_DRAWS = {"gwb": 400, "pta45": 32}
 # the corner scans: a gap beyond CORNER_FAR nats above float64 is an
 # attractive corner for a PT chain; the float64 redo is also scored at
 # these thresholds beside the shipped CORNER_C
@@ -602,17 +651,20 @@ def write_paramfile(tmp, name, dest=None, extra=None, cov_update=None,
     return path
 
 
-def load_likes(prfile, num, dev, gram_mode="split"):
-    """The parsed paramfile and its ``{model_id: likelihood}``."""
+def load_likes(prfile, num, dev, gram_mode="split", mesh=False):
+    """The parsed paramfile and its ``{model_id: likelihood}`` (``mesh``:
+    the pulsar axis over the process group)."""
     import types
     from enterprise_warp_tpu_torch.config import Params
     from enterprise_warp_tpu_torch.models.assemble import \
         init_model_likelihoods
+    from enterprise_warp_tpu_torch.parallel import make_psr_mesh
     opts = types.SimpleNamespace(num=num, drop=0, mpi_regime=2,
                                  wipe_old_output=0, extra_model_terms=None)
     params = Params(prfile, opts=opts)
-    return params, init_model_likelihoods(params, gram_mode=gram_mode,
-                                          write_pars=False, device=dev)
+    return params, init_model_likelihoods(
+        params, gram_mode=gram_mode, write_pars=False, device=dev,
+        mesh=make_psr_mesh(len(params.psrs), device=dev) if mesh else None)
 
 
 def near_typical(like, nwalk, seed):
@@ -1548,6 +1600,36 @@ def hold_precond(torch, cf, entry, S, j1, j2, trio_k, tiers):
                  f"{ek:.3e} from float64 against the plain "
                  f"version's {ep:.3e}")
     return max(err)
+
+
+def hold_precond_run(torch, cf, entry, S, j1, j2, dev):
+    """A sampler run's last input ``S`` of the preconditioner kernel held
+    against its plain version (:func:`hold_precond`) on the walkers at an
+    equilibrated condition of at most KAPPA_MAX; the others are reported,
+    not held. Returns ``(max |kernel - plain| held, tiers)``."""
+    *trio_k, tk = cf._chol_precond_cuda(S, j1, j2)
+    tiers = tk.tolist()
+    ev = torch.linalg.eigvalsh(S.double())
+    cond = (ev.abs().amax(dim=-1) / ev.amin(dim=-1).clamp(min=1e-300))
+    cond = torch.where(ev.amin(dim=-1) > 0, cond,
+                       torch.full_like(cond, float("inf"))).cpu()
+    held = [i for i in range(S.shape[0]) if cond[i] <= KAPPA_MAX]
+    print(f"{entry} inputs: condition per walker "
+          f"{[float(f'{c:.3g}') for c in cond.tolist()]}; held "
+          f"{len(held)} of {S.shape[0]}")
+    err = 0.0
+    if held:
+        idx = torch.as_tensor(held, device=dev)
+        err = hold_precond(torch, cf, entry, S[idx], j1, j2,
+                           [t[idx] for t in trio_k],
+                           [tiers[i] for i in held])
+    if len(held) < S.shape[0]:
+        idx = torch.as_tensor([i for i in range(S.shape[0])
+                               if i not in held], device=dev)
+        trio_p = cf._fused_torch(S[idx], j1, j2)
+        print(f"{entry}, walkers above the bound (reported): |k-p| of U, "
+              f"V, E {[float((k[idx] - p).abs().max()) for k, p in zip(trio_k, trio_p)]}")
+    return err, tiers
 
 
 def spd_batch(torch, dev, B, n, seed):
@@ -2800,31 +2882,8 @@ def phase_run_plane(tmp, dev, smi, results):
         S_, a, b = (x.detach() if torch.is_tensor(x) else x
                     for x in rec.last[250])
         S_ = S_.contiguous()
-        *trio_k, tk = cf._chol_precond_cuda(S_, a, b)
-        tiers = tk.tolist()
-        # walkers above an equilibrated condition of KAPPA_MAX are
-        # reported, not held
-        ev = torch.linalg.eigvalsh(S_.double())
-        cond = (ev.abs().amax(dim=-1) / ev.amin(dim=-1).clamp(min=1e-300))
-        cond = torch.where(ev.amin(dim=-1) > 0, cond,
-                           torch.full_like(cond, float("inf"))).cpu()
-        held = [i for i in range(S_.shape[0]) if cond[i] <= KAPPA_MAX]
-        print(f"10.1 chol_precond@health inputs: condition per walker "
-              f"{[float(f'{c:.3g}') for c in cond.tolist()]}; held "
-              f"{len(held)} of {S_.shape[0]}")
-        err = 0.0
-        if held:
-            idx = torch.as_tensor(held, device=dev)
-            err = hold_precond(torch, cf, "chol_precond@health", S_[idx], a,
-                               b, [t[idx] for t in trio_k],
-                               [tiers[i] for i in held])
-        if len(held) < S_.shape[0]:
-            out = [i for i in range(S_.shape[0]) if i not in held]
-            idx = torch.as_tensor(out, device=dev)
-            trio_p = cf._fused_torch(S_[idx], a, b)
-            print("10.1 chol_precond@health, walkers above the bound "
-                  f"(reported): |k-p| of U, V, E "
-                  f"{[float((k[idx] - p).abs().max()) for k, p in zip(trio_k, trio_p)]}")
+        err, tiers = hold_precond_run(torch, cf, "chol_precond@health", S_,
+                                      a, b, dev)
         ms = time_cuda(lambda: cf._chol_precond_cuda(S_, a, b))
         plain_ms = time_cuda(lambda: cf._fused_torch(S_, a, b))
         flops, nbytes = chol_cost(S_.shape[0], 250, tiers)
@@ -3358,6 +3417,648 @@ def phase_plane(tmp, dev, smi):
                  "gauges")
     finally:
         runs.close()
+
+
+# ---- phase 12: the pulsar axis across processes ------------------------ #
+
+#: steps of the sharded config 3 run (one block) and of the chain-axis run
+SHARD_NSAMP = 200
+#: the HMC leg over two ranks (gwb_array.dat's joint likelihood)
+SHARD_HMC = dict(nchains=16, warmup=10, n_leapfrog=8, nsamp=20)
+#: the health twin's run (two blocks) and sample_to_convergence's
+#: (``checks`` checks of one block each) over the same two ranks
+SHARD_CONV = dict(nchains=8, block=20, checks=3)
+#: each rank's and the NCCL rank's time limit, in seconds
+RANK_TIMEOUT_S = 420
+#: the joint class (PERF.md section 2): |dlnL| <= 5e-2 + 1e-7 |lnL|
+JOINT_CLASS = (5e-2, 1e-7)
+
+
+def _variant(prfile, dest, tmp, **keys):
+    """A copy of a paramfile with ``out`` under ``tmp/out/<dest>`` and
+    ``keys`` set: replaced where the file has the key, else added before
+    the model section."""
+    lines = []
+    with open(prfile) as fh:
+        for line in fh.read().splitlines():
+            key = line.split(":")[0].strip()
+            if key == "out":
+                line = f"out: {os.path.join(tmp, 'out', dest)}"
+            elif key in keys:
+                line = f"{key}: {keys.pop(key)}"
+            elif line.strip() == "{0}":
+                lines += [f"{k}: {v}" for k, v in keys.items()]
+                keys = {}
+            lines.append(line)
+    path = os.path.join(tmp, dest)
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def _run_dir(root):
+    """The run directory under an output root: the one holding
+    ``chain_1.txt``."""
+    found = [r for r, _, fs in os.walk(root) if "chain_1.txt" in fs]
+    if len(found) != 1:
+        fail(f"{root}: {len(found)} run directories")
+    return found[0]
+
+
+def _digest(*arrs):
+    """A short sha256 of the arrays' bytes (the ranks' state digests)."""
+    import hashlib
+    import numpy as np
+    import torch
+    h = hashlib.sha256()
+    for a in arrs:
+        h.update(np.ascontiguousarray(
+            torch.as_tensor(a).detach().cpu().numpy()).tobytes())
+    return h.hexdigest()[:16]
+
+
+def pulsar_axis_rank(spec_path):
+    """One rank of phase 12, launched by :func:`phase_pulsar_axis` through
+    the ``EWT_*`` contract with the JSON spec at ``spec_path``: its
+    ``parts`` among ``12.1`` (the config 3 paramfile through the CLI with
+    ``psr_shard: 1``, then the sharded lnL at the chain's last 8 states),
+    ``12.2`` (the sharded build of config 3 at those states), ``12.3``
+    (gradients and an HMC leg on ``gwb_array.dat``) and ``12.4`` (the
+    CLI with ``chain_shard: 1`` on ``system_noise.dat --num 0``). Writes
+    its report to ``<dir>/rank<i>.json``. ``spec["device"]`` ``"cpu"``
+    rehearses it on the host (no kernel launches there)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    sys.path.insert(0, HERE)
+    from enterprise_warp_tpu_torch.parallel import distributed
+    on_card = spec.get("device", "cuda") == "cuda"
+    rank, world = distributed.init_distributed(
+        device="cuda" if on_card else "cpu")
+    from enterprise_warp_tpu_torch import cli
+    from enterprise_warp_tpu_torch.ops import cuda_lib, routes
+    from enterprise_warp_tpu_torch.ops import megakernel as mk
+    from enterprise_warp_tpu_torch.samplers import ptmcmc
+    if on_card:
+        dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}")
+        torch.cuda.set_device(dev)
+        cuda_lib.load_library()
+        sync = torch.cuda.synchronize
+    else:
+        dev, sync = torch.device("cpu"), (lambda: None)
+    rep = dict(rank=rank, world=world, device=str(dev),
+               backend=dist.get_backend())
+    kept = {}
+    run_block, fresh, sample = (ptmcmc.PTSampler._run_block,
+                                ptmcmc.PTSampler._fresh_state,
+                                ptmcmc.PTSampler.sample)
+
+    def timed_block(self, st, todo, temps=None):
+        t0 = time.perf_counter()
+        out = run_block(self, st, todo, temps)
+        kept["block_s"] = kept.get("block_s", 0.0) \
+            + time.perf_counter() - t0
+        kept["steps"] = kept.get("steps", 0) + int(todo)
+        return out
+
+    def start_state(self):
+        st = fresh(self)
+        inner = getattr(self.like, "_like", None)
+        if inner is not None:
+            # the chain axis: the gathered lnL of the start state against
+            # the whole batch through the likelihood itself
+            l0 = inner.loglike_batch(st.x)
+            kept["start_gap"] = float(((st.lnl - l0).abs()
+                                       / l0.abs()).max())
+        return st
+
+    def kept_sample(self, *a, **k):
+        st = sample(self, *a, **k)
+        kept.update(like=self.like, st=st)
+        return st
+
+    ptmcmc.PTSampler._run_block = timed_block
+    ptmcmc.PTSampler._fresh_state = start_state
+    ptmcmc.PTSampler.sample = kept_sample
+
+    def cli_run(prfile):
+        kept.clear()
+        routes.reset_counts()
+        distributed.reset_collectives()
+        t0 = time.perf_counter()
+        rc = cli.main(["--prfile", prfile, "--num", "0"], device=dev)
+        sync()
+        st = kept["st"]
+        return dict(rc=rc, wall_s=time.perf_counter() - t0,
+                    launches=dict(routes.LAUNCHES),
+                    routes={f"{k}/{p}": v
+                            for (k, p), v in routes.ROUTES.items()},
+                    coll=dict(distributed.COLLECTIVES),
+                    digest=_digest(st.x, st.lnl, st.lnp), steps=int(st.step),
+                    ms_step=1e3 * kept["block_s"] / kept["steps"])
+
+    if "12.1" in spec["parts"]:
+        with Record(mk, "mega_solve_logdet", 0) as rec:
+            r = cli_run(spec["pf45"])
+        like = kept["like"]
+        r["spmd"] = bool(like._stages.get("spmd"))
+        r["nshard"] = like._stages.get("nshard")
+        r["stage1_sizes"] = {str(n): dict(c) for n, c in rec.sizes.items()}
+        last = rec.last.get(like._stages["NW"])
+        if last is not None:        # the wrapper is the card's route
+            torch.save([a.cpu() if torch.is_tensor(a) else a for a in last],
+                       os.path.join(spec["dir"], f"stage1.{rank}.pt"))
+        dist.barrier()          # rank 0's chain is on disk
+        chain = np.loadtxt(os.path.join(_run_dir(spec["out45"]),
+                                        "chain_1.txt"))
+        states = chain[-8:, :like.ndim]
+        distributed.reset_collectives()
+        lnl = like.loglike_batch(states)
+        r["states_coll"] = dict(distributed.COLLECTIVES)
+        r["lnl8"] = lnl.cpu().tolist()
+        r.update(_axis_times(like, states, sync))
+        if rank == 0:
+            # whole or absent for the NCCL rank that waits for it
+            tmp = spec["states"] + ".tmp.npy"
+            np.save(tmp, states)
+            os.replace(tmp, spec["states"])
+        rep["12.1"] = r
+    if "12.2" in spec["parts"]:
+        # the states of 12.1; the card to itself once the pair is done,
+        # so no time of either is taken beside the other's work
+        t0 = time.perf_counter()
+        while not os.path.exists(spec["pair_done"]):
+            if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                raise TimeoutError(f"no {spec['pair_done']}")
+            time.sleep(0.5)
+        rep["waited_s"] = time.perf_counter() - t0
+        _, likes = load_likes(spec["pf45"], 0, dev, mesh=True)
+        like = likes[min(likes)]
+        states = np.load(spec["states"])
+        routes.reset_counts()
+        distributed.reset_collectives()
+        lnl = like.loglike_batch(states)
+        sync()
+        rep["12.2"] = dict(spmd=bool(like._stages.get("spmd")),
+                           nshard=like._stages.get("nshard"),
+                           coll=dict(distributed.COLLECTIVES),
+                           launches=dict(routes.LAUNCHES),
+                           lnl8=lnl.cpu().tolist(),
+                           **_axis_times(like, states, sync))
+    if "12.3" in spec["parts"]:
+        from enterprise_warp_tpu_torch.samplers.hmc import HMCSampler
+        _, shard = load_likes(spec["gwb"], 0, dev, mesh=True)
+        _, whole = load_likes(spec["gwb"], 0, dev)
+        likeS, like0 = shard[min(shard)], whole[min(whole)]
+        th0 = torch.as_tensor(near_typical(like0, 4, 41), device=dev)
+
+        def value_grad(like):
+            th = th0.clone().requires_grad_(True)
+            lnl = like.loglike_batch(th)
+            g, = torch.autograd.grad(lnl.sum(), th)
+            return lnl.detach(), g
+
+        routes.reset_counts()
+        distributed.reset_collectives()
+        lS, gS = value_grad(likeS)
+        coll = dict(distributed.COLLECTIVES)
+        l0, g0 = value_grad(like0)
+        sync()
+        routes.reset_counts()
+        hmc_kw = dict(SHARD_HMC)
+        nsamp = hmc_kw.pop("nsamp")
+        h = HMCSampler(likeS, os.path.join(spec["dir"], "hmc"), seed=0,
+                       **hmc_kw)
+        hs = h.sample(nsamp, resume=False, verbose=False, block_size=10)
+        sync()
+        hmc_launches = dict(routes.LAUNCHES)
+        # the sharded health twin: kernel 3 on the pinned classic chain
+        # of each rank's stage 1, the words riding the collective
+        from enterprise_warp_tpu_torch.ops import cholfuse as cf
+        routes.reset_counts()
+        os.environ["EWT_KERNEL_HEALTH"] = "1"
+        try:
+            with Record(cf, "chol_precond_health", 0) as hrec, \
+                    Record(mk, "mega_solve_logdet", 0) as srec:
+                hp = ptmcmc.PTSampler(
+                    likeS, os.path.join(spec["dir"], "health"), ntemps=1,
+                    nchains=SHARD_CONV["nchains"], seed=0,
+                    cov_update=SHARD_CONV["block"])
+                hst = hp.sample(SHARD_CONV["block"] * 2, resume=False,
+                                verbose=False)
+            sync()
+        finally:
+            os.environ.pop("EWT_KERNEL_HEALTH")
+        for tag, rec in (("health", hrec), ("health_s3", srec)):
+            for n, args in rec.last.items():
+                torch.save([a.cpu() if torch.is_tensor(a) else a
+                            for a in args],
+                           os.path.join(spec["dir"], f"{tag}.{rank}.{n}.pt"))
+        health = dict(
+            launches=dict(routes.LAUNCHES),
+            routes={f"{k}/{p}": v for (k, p), v in routes.ROUTES.items()},
+            sizes={str(n): dict(c) for n, c in hrec.sizes.items()},
+            stage3_sizes={str(n): dict(c) for n, c in srec.sizes.items()},
+            ledgers=[led.stats() for led in hp.health or []],
+            state=_digest(hst.x, hst.lnl, hst.lnp))
+        # sample_to_convergence over the sharded likelihood: every check
+        # after the first resumes from the checkpoint, which only rank 0
+        # writes; rank 1 takes each resume from rank 0
+        from enterprise_warp_tpu_torch.samplers.convergence import \
+            sample_to_convergence
+        states = []
+        distributed.reset_collectives()
+        cp = ptmcmc.PTSampler(likeS, os.path.join(spec["dir"], "conv"),
+                              ntemps=1, nchains=SHARD_CONV["nchains"],
+                              seed=1, cov_update=SHARD_CONV["block"])
+        orig = cp.sample
+
+        def traced(*a, **k):
+            st = orig(*a, **k)
+            states.append(f"{_digest(st.x, st.lnl, st.lnp)}@{st.step}")
+            return st
+
+        cp.sample = traced
+        conv = sample_to_convergence(
+            cp, target_ess=1e9, check_every=SHARD_CONV["block"],
+            max_steps=SHARD_CONV["block"] * SHARD_CONV["checks"],
+            block_size=SHARD_CONV["block"], verbose=False)
+        rep["12.3"] = dict(
+            spmd=bool(likeS._stages.get("spmd")), coll=coll,
+            lnl_gap=float((lS - l0).abs().max()),
+            grad_gap=float(((gS - g0).abs()
+                            / g0.abs().clamp(min=1.0)).max()),
+            grad=_digest(gS), hmc=_digest(hs.z),
+            hmc_finite=bool(torch.isfinite(hs.z).all()),
+            hmc_launches=hmc_launches, health=health,
+            conv=dict(states=states, steps=conv.steps,
+                      chains=_digest(conv.chains),
+                      coll=dict(distributed.COLLECTIVES)))
+    if "12.4" in spec["parts"]:
+        r = cli_run(spec["chain_pf"])
+        r["split"] = type(kept["like"]).__name__
+        r["start_gap"] = kept.get("start_gap")
+        rep["12.4"] = r
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as fh:
+        json.dump(rep, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0 and "12.1" in spec["parts"]:
+        open(spec["pair_done"], "w").close()
+    return 0
+
+
+def _axis_times(like, states, sync, reps=10):
+    """The sharded evaluation at ``states`` and its collective alone (a
+    zero vector of the evaluation's packed length through the same
+    wrapper and group), each the mean of ``reps`` after a warm call, in
+    ms; every rank runs the same calls."""
+    import torch
+    import torch.distributed as dist
+    from enterprise_warp_tpu_torch.parallel import distributed
+    lay = like.mesh_layout
+    width = (like._stages["npsr"] * like._stages["n_g"] * (
+        like._stages["n_g"] + 1) + 6)
+    buf = torch.zeros((len(states), width), dtype=torch.float64,
+                      device=like.device)
+    out = {}
+    for key, fn in (("eval_ms", lambda: like.loglike_batch(states)),
+                    ("collective_ms", lambda: distributed.all_reduce_sum(
+                        buf, like.mesh.group))):
+        fn()
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        out[key] = 1e3 * (time.perf_counter() - t0) / reps
+    out["packed_mb"] = 8.0 * buf.numel() / 1e6
+    out["payload_bytes_model"] = lay["psum_payload_bytes"]
+    return out
+
+
+def _launch_ranks(groups, threads):
+    """Run groups of ranks of :func:`pulsar_axis_rank` side by side, each
+    group ``(spec, nproc, label)`` a process group of its own through the
+    EWT_* contract (a ``file://`` store in ``spec["dir"]``), each process
+    with ``threads`` CPU threads; every rank is stopped at RANK_TIMEOUT_S,
+    and one failed rank fails the phase. Returns each group's reports."""
+    runs = []
+    t0 = time.perf_counter()
+    for spec, nproc, label in groups:
+        d = spec["dir"]
+        os.makedirs(d, exist_ok=True)
+        spec_path = os.path.join(d, "spec.json")
+        with open(spec_path, "w") as fh:
+            json.dump(spec, fh)
+        env = dict(os.environ, EWT_COORDINATOR=f"file://{d}/store",
+                   EWT_NUM_PROCESSES=str(nproc), EWT_DIST_TIMEOUT_S="300",
+                   OMP_NUM_THREADS=str(threads))
+        code = (f"import sys; sys.path.insert(0, {HERE!r}); "
+                "import chip_smoke; "
+                f"sys.exit(chip_smoke.pulsar_axis_rank({spec_path!r}))")
+        for i in range(nproc):
+            log = open(os.path.join(d, f"rank{i}.log"), "w")
+            runs.append((label, d, i, nproc, log, subprocess.Popen(
+                [sys.executable, "-c", code], cwd=HERE,
+                env=dict(env, EWT_PROCESS_ID=str(i)), stdout=log,
+                stderr=subprocess.STDOUT)))
+    try:
+        for *_, p in runs:
+            p.wait(timeout=max(RANK_TIMEOUT_S - (time.perf_counter() - t0),
+                               1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for *_, log, p in runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    reports = {}
+    for label, d, i, nproc, _, p in runs:
+        if p.returncode != 0:
+            print(open(os.path.join(d, f"rank{i}.log")).read()[-3000:])
+            fail(f"{label}: rank {i} of {nproc} exited {p.returncode}")
+        with open(os.path.join(d, f"rank{i}.json")) as fh:
+            reports.setdefault(label, []).append(json.load(fh))
+    print(f"{', '.join(reports)}: done in {time.perf_counter() - t0:.1f} s")
+    return [reports[label] for _, _, label in groups]
+
+
+def _in_joint_class(a, ref):
+    import numpy as np
+    a, ref = np.asarray(a), np.asarray(ref)
+    gap = np.abs(a - ref)
+    ok = np.isfinite(a).all() and bool(np.all(
+        gap <= JOINT_CLASS[0] + JOINT_CLASS[1] * np.abs(ref)))
+    return ok, float(gap.max())
+
+
+def phase_pulsar_axis(tmp, dev, smi, results, pf45, like45, step_ms45, h):
+    """Phase 12, the pulsar axis across processes (module docstring);
+    ``like45`` is config 3's unsharded likelihood on the card,
+    ``step_ms45`` its ms/step in this smoke, ``h`` main's ``hold_solve``
+    and ``solve_calls``."""
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch.utils import telemetry
+    d = os.path.join(tmp, "axis")
+    out45 = os.path.join(tmp, "out", "pta45_shard.dat")
+    spec = dict(
+        dir=d, out45=out45, states=os.path.join(d, "states.npy"),
+        pair_done=os.path.join(d, "pair_done"),
+        pf45=_variant(pf45, "pta45_shard.dat", tmp, psr_shard=1,
+                      nsamp=SHARD_NSAMP),
+        gwb=write_paramfile(tmp, "gwb_array.dat", dest="gwb_shard.dat"),
+        chain_pf=write_paramfile(tmp, "system_noise.dat",
+                                 dest="sn_chain_shard.dat",
+                                 nsamp=SHARD_NSAMP,
+                                 extra={"chain_shard": 1}),
+        parts=["12.1", "12.3", "12.4"])
+    # the NCCL rank of 12.2 starts beside the pair (its process and CUDA
+    # start overlap) and waits until the pair is done before it builds
+    # and times anything; its process group is its own
+    spec2 = dict(spec, dir=os.path.join(d, "nccl"), parts=["12.2"])
+    reps, nccl = _launch_ranks(
+        [(spec, 2, "12 pulsar axis (two gloo ranks on cuda:0)"),
+         (spec2, 1, "12.2 one NCCL rank")],
+        max(1, (os.cpu_count() or 1) // 3))
+    # ---- 12.1 ----
+    r = [rep["12.1"] for rep in reps]
+    for i, x in enumerate(r):
+        print(f"12.1 rank {i} ({reps[i]['backend']}, {reps[i]['device']}):"
+              f" rc {x['rc']} nshard {x['nshard']} launches {x['launches']}"
+              f" routes {x['routes']} collectives {x['coll']} stage-1 "
+              f"solve calls {x['stage1_sizes']} state {x['digest']} "
+              f"{x['ms_step']:.3f} ms/step (unsharded config 3 in this "
+              f"smoke: {step_ms45:.3f} ms/step); at the 8 states one "
+              f"evaluation "
+              f"{x['eval_ms']:.3f} ms, its collective alone "
+              f"{x['collective_ms']:.3f} ms ({x['packed_mb']:.3f} MB) "
+              f"[{smi}]")
+        if x["rc"] != 0 or not x["spmd"] or x["nshard"] != 2:
+            fail(f"12.1: rank {i} did not run the sharded path")
+        if x["launches"]["mega_solve"] <= 0:
+            fail(f"12.1: the solve kernel never launched on rank {i}")
+        if x["coll"].get("all_gather") or x["states_coll"] != \
+                {"all_reduce": 1}:
+            fail(f"12.1: rank {i}: not one all_reduce and no all_gather "
+                 f"per evaluation ({x['states_coll']}, run {x['coll']})")
+    if r[0]["digest"] != r[1]["digest"] or r[0]["lnl8"] != r[1]["lnl8"]:
+        fail("12.1: the ranks' final states differ")
+    out45 = _run_dir(out45)
+    names = set(os.listdir(out45))
+    ranked = {n for n in names if ".1." in n}
+    print(f"12.1 output directory: {sorted(names)}")
+    if not {"chain_1.txt", "pars.txt", "cov.npy", "events.jsonl",
+            "mesh_stats.json"} <= names or \
+            ranked != {"events.1.jsonl", "mesh_stats.1.json"}:
+        fail("12.1: rank 0 must write the run's files and rank 1 only "
+             "events.1.jsonl and mesh_stats.1.json")
+    stream_check(out45, "12.1 rank 0")
+    problems, msgs = telemetry.check_stream(os.path.join(out45,
+                                                         "events.1.jsonl"))
+    if problems:
+        fail(f"12.1: events.1.jsonl has {problems} problem(s): {msgs}")
+    mesh = [json.load(open(os.path.join(out45, n))) for n in
+            ("mesh_stats.json", "mesh_stats.1.json")]
+    print(f"12.1 mesh_stats: shard work {mesh[0]['shard_work']} evals "
+          f"{mesh[0]['shard_evals']} skew {mesh[0]['shard_skew']:.4f} "
+          f"(model {mesh[0]['model_skew']:.4f}), collective share of the "
+          f"block wall by the cost model "
+          f"{mesh[0]['collective_frac_model']:.4f}")
+    if mesh[0]["shard_evals"] != mesh[1]["shard_evals"]:
+        fail("12.1: the ranks' mesh ledgers differ")
+    states = np.load(spec["states"])
+    l45 = like45.loglike_batch(states).cpu().numpy()
+    print(f"12.1 the unsharded build at the 8 states: one evaluation "
+          f"{time_cuda(lambda: like45.loglike_batch(states), 2, 10):.3f} ms "
+          f"[{smi}]")
+    ok, gap = _in_joint_class(r[0]["lnl8"], l45)
+    print(f"12.1 sharded lnL at the chain's last 8 states against the "
+          f"unsharded port on the card: largest gap {gap:.3e} (class "
+          f"{JOINT_CLASS[0]:g} + {JOINT_CLASS[1]:g} |lnL|)")
+    if not ok:
+        fail("12.1: the sharded lnL lies outside the joint class")
+    # kernel 1 at each rank's stage-1 shape, held on the run's last step
+    for i in range(2):
+        a = torch.load(os.path.join(d, f"stage1.{i}.pt"))
+        a = [t.to(dev) if torch.is_tensor(t) else t for t in a]
+        kern, plain, shape, exact = h.solve_calls(a)
+        entry = f"mega_solve@psr_shard_r{i}"
+        h.hold_solve(entry, f"shard_r{i}", kern, plain,
+                     lambda tiers: solve_cost(*a[1].shape, a[4], tiers),
+                     shape, exact=exact, what=f"rank {i}'s last step")
+        results[entry]["launches"] = r[i]["launches"]["mega_solve"]
+    # ---- 12.2: one NCCL rank ----
+    x = nccl[0]
+    ok, gap = _in_joint_class(x["12.2"]["lnl8"], l45)
+    print(f"12.2 one rank ({x['backend']}): nshard {x['12.2']['nshard']} "
+          f"collectives {x['12.2']['coll']} launches "
+          f"{x['12.2']['launches']}; lnL at the same 8 states against the "
+          f"unsharded build: largest gap {gap:.3e}; one evaluation "
+          f"{x['12.2']['eval_ms']:.3f} ms, its collective alone "
+          f"{x['12.2']['collective_ms']:.3f} ms [{smi}]")
+    if x["backend"] != "nccl" or not x["12.2"]["spmd"] or \
+            x["12.2"]["coll"] != {"all_reduce": 1} or not ok:
+        fail("12.2: the one-rank NCCL build is not the sharded path within "
+             "the class with one collective")
+    # ---- 12.3 ----
+    g = [rep["12.3"] for rep in reps]
+    for i, x in enumerate(g):
+        print(f"12.3 rank {i}: gwb_array gradient at 4 states, largest "
+              f"|dg|/max(1,|g|) {x['grad_gap']:.3e}, |dlnL| "
+              f"{x['lnl_gap']:.3e}, collectives {x['coll']}; HMC "
+              f"{SHARD_HMC} finite {x['hmc_finite']} state {x['hmc']} "
+              f"launches {x['hmc_launches']}")
+        if not (x["spmd"] and x["grad_gap"] <= 1e-3 and x["hmc_finite"]
+                and x["coll"] == {"all_reduce": 1, "all_reduce_grad": 1}):
+            fail(f"12.3: rank {i}: the sharded gradient or the HMC leg")
+        # kernel 1 forward; its backward is the plain AD twin of the
+        # solve chain (ops/megakernel.py:_MegaSolve), as on one card
+        if x["hmc_launches"]["mega_solve"] <= 0:
+            fail(f"12.3: rank {i}: the HMC leg did not run kernel 1")
+    if g[0]["grad"] != g[1]["grad"] or g[0]["hmc"] != g[1]["hmc"]:
+        fail("12.3: the ranks' gradients or HMC states differ")
+    # the sharded health twin: kernel 3 on each rank's stage 1, the same
+    # words (so the same ledgers and ladder decisions) on both ranks
+    from enterprise_warp_tpu_torch.ops import cholfuse as cf
+    for i, x in enumerate(g):
+        hx = x["health"]
+        print(f"12.3 rank {i} health twin (EWT_KERNEL_HEALTH=1, "
+              f"{SHARD_CONV['block'] * 2} steps, W {SHARD_CONV['nchains']}):"
+              f" launches {hx['launches']} routes {hx['routes']} kernel-3 "
+              f"calls by order and batch {hx['sizes']} state {hx['state']}; "
+              f"ledgers {hx['ledgers']}")
+        if not hx["launches"].get("chol_precond") or not hx["ledgers"] \
+                or not all(led["n_evals"] > 0 for led in hx["ledgers"]):
+            fail(f"12.3: rank {i}: the sharded health twin did not run "
+                 f"kernel 3 or fold its words")
+    if g[0]["health"]["ledgers"] != g[1]["health"]["ledgers"] or \
+            g[0]["health"]["state"] != g[1]["health"]["state"]:
+        fail("12.3: the ranks' health ledgers or states differ")
+    for i in range(2):
+        sizes = g[i]["health"]["sizes"]
+        if len(sizes) != 1:
+            fail(f"12.3: rank {i}: kernel 3 at more than one order {sizes}")
+        (n, calls), = sizes.items()
+        S_, a, b = (t.to(dev) if torch.is_tensor(t) else t
+                    for t in torch.load(os.path.join(
+                        d, f"health.{i}.{n}.pt")))
+        S_ = S_.contiguous()
+        entry = f"chol_precond@psr_shard_health_r{i}"
+        err, tiers = hold_precond_run(torch, cf, entry, S_, a, b, dev)
+        ms = time_cuda(lambda: cf._chol_precond_cuda(S_, a, b))
+        plain_ms = time_cuda(lambda: cf._fused_torch(S_, a, b))
+        flops, nbytes = chol_cost(S_.shape[0], int(n), tiers)
+        bms, bby = bound(flops, nbytes)
+        print(f"{entry} at {tuple(S_.shape)}: kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  bound {bms:.3g} ms ({bby}; "
+              f"{flops / 1e9:.6f} GFLOP, {nbytes / 1e6:.4f} MB) median of "
+              f"50 [{smi}]")
+        if sum(calls.values()) != g[i]["health"]["launches"]["chol_precond"]:
+            fail(f"12.3: rank {i}: kernel-3 calls {calls} against launches "
+                 f"{g[i]['health']['launches']}")
+        results[entry] = dict(
+            run=f"shard_health_r{i}", shape=f"Sn {tuple(S_.shape)}",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=bby, launches=g[i]["health"]["launches"]["chol_precond"])
+    # the twin's stage 3, replicated: kernel 1 on the same system on both
+    # ranks, held on rank 0's last step
+    s3 = [x["health"]["stage3_sizes"] for x in g]
+    if s3[0] != s3[1] or len(s3[0]) != 1 or sum(
+            next(iter(s3[0].values())).values()) != \
+            g[0]["health"]["launches"]["mega_solve"]:
+        fail(f"12.3: the health twin's stage-3 solves {s3} against launches "
+             f"{[x['health']['launches'] for x in g]}")
+    n3, = s3[0]
+    a = torch.load(os.path.join(d, f"health_s3.0.{n3}.pt"))
+    a = [t.to(dev) if torch.is_tensor(t) else t for t in a]
+    kern, plain, shape, exact = h.solve_calls(a)
+    h.hold_solve("mega_solve@psr_shard_health_stage3", "shard_health_s3",
+                 kern, plain,
+                 lambda tiers: solve_cost(*a[1].shape, a[4], tiers), shape,
+                 exact=exact, what="rank 0's last step")
+    results["mega_solve@psr_shard_health_stage3"]["launches"] = \
+        g[0]["health"]["launches"]["mega_solve"]
+    # sample_to_convergence over the two ranks: every resume after the
+    # first check taken from rank 0, the same state at every check
+    for i, x in enumerate(g):
+        print(f"12.3 rank {i} sample_to_convergence ({SHARD_CONV['checks']}"
+              f" checks of {SHARD_CONV['block']} steps): states "
+              f"{x['conv']['states']} collectives {x['conv']['coll']}")
+    if g[0]["conv"] != g[1]["conv"] or \
+            len(g[0]["conv"]["states"]) != SHARD_CONV["checks"] or \
+            g[0]["conv"]["coll"].get("broadcast") != SHARD_CONV["checks"] - 1:
+        fail("12.3: the ranks' states differ across sample_to_convergence's "
+             "checks")
+    # ---- 12.4 ----
+    c = [rep["12.4"] for rep in reps]
+    whole_pf = write_paramfile(tmp, "system_noise.dat",
+                               dest="sn_chain_whole.dat", nsamp=SHARD_NSAMP)
+    from enterprise_warp_tpu_torch import cli
+    from enterprise_warp_tpu_torch.samplers import ptmcmc
+    run_block, blocks = ptmcmc.PTSampler._run_block, [0.0, 0]
+
+    def timed_block(self, st, todo, temps=None):
+        t0 = time.perf_counter()
+        out = run_block(self, st, todo, temps)
+        blocks[0] += time.perf_counter() - t0
+        blocks[1] += int(todo)
+        return out
+
+    ptmcmc.PTSampler._run_block = timed_block
+    try:
+        rc = cli.main(["--prfile", whole_pf, "--num", "0"], device="cuda")
+    finally:
+        ptmcmc.PTSampler._run_block = run_block
+    if rc != 0:
+        fail("12.4: the unsharded run failed")
+    chains = [open(os.path.join(_run_dir(os.path.join(tmp, "out", dest)),
+                                "chain_1.txt"), "rb").read()
+              for dest in ("sn_chain_shard.dat", "sn_chain_whole.dat")]
+    for i, x in enumerate(c):
+        print(f"12.4 rank {i}: rc {x['rc']} {x['split']} collectives "
+              f"{x['coll']} launches {x['launches']} start-state lnL "
+              f"gathered against the whole batch: largest relative gap "
+              f"{x['start_gap']:.3e}; state {x['digest']}; "
+              f"{x['ms_step']:.3f} ms/step")
+        if x["rc"] != 0 or x["split"] != "_ChainSplit" or \
+                x["start_gap"] > 1e-9 or x["coll"].get("all_reduce") or \
+                x["coll"].get("all_gather", 0) != SHARD_NSAMP + 1:
+            fail(f"12.4: rank {i}: the chain axis' evaluation split")
+    if c[0]["digest"] != c[1]["digest"]:
+        fail("12.4: the ranks' final states differ")
+    print(f"12.4 the sharded chain bit for bit the unsharded run's at the "
+          f"same seed: {chains[0] == chains[1]}; the unsharded run "
+          f"{1e3 * blocks[0] / blocks[1]:.3f} ms/step, one process, after "
+          f"the pair [{smi}]")
+    # ---- 12.5 ----
+    ncard = torch.cuda.device_count()
+    if ncard > 1:
+        n = min(ncard, 4)
+        spec5 = dict(spec, dir=os.path.join(d, "multi"), parts=["12.1"],
+                     states=os.path.join(d, "multi", "states.npy"),
+                     pair_done=os.path.join(d, "multi", "pair_done"),
+                     out45=os.path.join(tmp, "out", "pta45_multi.dat"),
+                     pf45=_variant(pf45, "pta45_multi.dat", tmp, psr_shard=1,
+                                   nsamp=SHARD_NSAMP))
+        m, = _launch_ranks([(spec5, n, f"12.5 {n} NCCL ranks, one a card")],
+                           max(1, (os.cpu_count() or 1) // n))
+        for i, x in enumerate(m):
+            y = x["12.1"]
+            print(f"12.5 rank {i} ({x['backend']}, {x['device']}): "
+                  f"launches {y['launches']} {y['ms_step']:.3f} ms/step "
+                  f"state {y['digest']}")
+        if len({x["12.1"]["digest"] for x in m}) != 1 or \
+                any(x["backend"] != "nccl" for x in m):
+            fail("12.5: the NCCL ranks' final states differ")
+    else:
+        print(f"multi-GPU: not run ({ncard} device visible)")
 
 
 def main():
@@ -4779,6 +5480,8 @@ def main():
               f"{setup['tim_engine']} TIM engine (PR 12's run, Python "
               "engine: 0.316 s)")
         blocks = [st for st in stats if st["kind"] == "block_stats"]
+        step_ms45 = 1e3 * sum(st["block_s"] for st in blocks) \
+            / sum(st["steps"] for st in blocks)
         print(f"config 3 from disk through the CLI: {len(psrs45)} pulsars x "
               f"{PTA45['ntoa']} TOAs, {like45.ndim} parameters, NW "
               f"{st45['NW']} MW {st45['MW']} n_g {st45['n_g']} nb_tot "
@@ -5054,6 +5757,12 @@ def main():
                 lg.removeHandler(handler)
         phase_plane(tmp, dev, smi)
         lap("11")
+
+        # ---- phase 12: the pulsar axis across processes ------------------
+        phase_pulsar_axis(tmp, dev, smi, results, pf45, like45, step_ms45,
+                          types.SimpleNamespace(
+                              hold_solve=hold_solve, solve_calls=solve_calls))
+        lap("12")
 
     kernels = []
     for entry, r in results.items():

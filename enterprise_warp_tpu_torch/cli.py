@@ -22,8 +22,17 @@ pulsar quarantined by the health ladder exits 76 with
 it and exits 75 with the checkpoint on disk. The reference's bottom rung
 re-executes the CLI on the CPU; the port never moves a card run to the
 host, so it always takes the reference's ``EWT_DEMOTION_EXEC=0`` branch.
-The ``serve`` subcommand and the ``psr_shard``/``chain_shard`` knobs are
-later slices of the port and raise ``NotImplementedError``.
+
+Processes: the CLI first joins the process group of the ``EWT_*``
+environment contract (``parallel/distributed.py``; a no-op without it)
+and prints ``distributed: process i/N``. ``psr_shard: N`` (``1``: every
+process) shards a multi-pulsar joint likelihood's pulsar axis over
+``min(N, world)`` ranks; ``chain_shard`` splits the PT walker batch's
+evaluations over the ranks (the PT branch only; HMC and nested sampling
+note it and run unsharded). With both set the pulsar axis takes the
+group and ``chain_shard`` is noted and ignored. Only process 0 writes
+run outputs. The ``serve`` subcommand is a later slice of the port and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -86,6 +95,17 @@ def main(argv=None, device="cuda"):
     from .resilience.integrity import EXIT_QUARANTINED, DataQuarantine
 
     device = resolve_device(device)
+    # the process group of the EWT_* contract (a no-op for one process)
+    from .parallel.distributed import init_distributed
+    pidx, pcnt = init_distributed(device=device)
+    if pcnt > 1:
+        print(f"distributed: process {pidx}/{pcnt}, "
+              f"single-writer={'yes' if pidx == 0 else 'no'}")
+        if device.type == "cuda":
+            import torch
+            device = torch.device(
+                f"cuda:{pidx % torch.cuda.device_count()}")
+            torch.cuda.set_device(device)
     custom = None
     if opts.custom_models_py and opts.custom_models:
         custom = import_custom_models(opts.custom_models_py,
@@ -103,12 +123,10 @@ def main(argv=None, device="cuda"):
     except ParseError as exc:
         print(f"malformed input file: {exc}", file=sys.stderr)
         return EXIT_QUARANTINED
-    for knob in ("psr_shard", "chain_shard"):
-        if params.sampler_kwargs.get(knob):
-            raise NotImplementedError(f"{knob} {_LATER}")
+    mesh = psr_mesh(params, pcnt, device)
     t_psr = time.perf_counter()
     likes = init_model_likelihoods(params, gram_mode=opts.gram_mode,
-                                   device=device)
+                                   device=device, mesh=mesh)
     from .native import load as native_core
     setup = dict(paramfile_s=t_par - t0, pulsars_s=t_psr - t_par,
                  likelihood_s=time.perf_counter() - t_psr,
@@ -138,12 +156,14 @@ def main(argv=None, device="cuda"):
                                  prfile=os.path.abspath(opts.prfile),
                                  label=getattr(params, "label", None)):
             _run_samplers(params, likes, not bool(opts.wipe_old_output),
-                          device)
+                          device, psr_sharded=mesh is not None)
     except PulsarQuarantine as q:
         # the health ladder's last rung: this pulsar is out (76: do not
-        # restart it); the record merges with earlier quarantines
+        # restart it); the record merges with earlier quarantines, and
+        # every rank reaches it, so the primary alone writes it
         print(f"pulsar quarantine: {q}", file=sys.stderr)
-        _record_quarantine(params.output_dir, q)
+        if pidx == 0:
+            _record_quarantine(params.output_dir, q)
         return EXIT_QUARANTINED
     except PlatformDemotion as d:
         # every in-process rung is applied by the samplers; past them the
@@ -172,20 +192,70 @@ def _record_quarantine(output_dir, q):
     atomic_write_json(qpath, record)
 
 
-def _run_samplers(params, likes, resume, device):
+def psr_mesh(params, world, device):
+    """The pulsar-axis layout the paramfile's ``psr_shard`` asks for
+    (``N``: ``min(N, world)`` ranks, ``1``: every rank), or None: one
+    rank, a one-pulsar run (noted), or no knob."""
+    ps = params.sampler_kwargs.get("psr_shard")
+    if not ps:
+        return None
+    if len(params.psrs) < 2:
+        print("note: psr_shard needs a multi-pulsar joint model; "
+              "single-pulsar run stays unsharded")
+        return None
+    want = world if int(ps) == 1 else min(int(ps), world)
+    if want < 2:
+        return None
+    from .parallel import make_psr_mesh
+    mesh = make_psr_mesh(len(params.psrs), n_devices=want, device=device)
+    print(f"pulsar-axis sharding: joint likelihood over {mesh.nshard} "
+          f"of {world} processes")
+    return mesh
+
+
+def chain_mesh(params, psr_sharded):
+    """The walker-axis layout the paramfile's ``chain_shard`` asks for,
+    or None (the knob unset, a sampler other than PT, which is noted, the
+    pulsar axis already holding the group, or one rank)."""
+    cs = params.sampler_kwargs.get("chain_shard")
+    if not cs:
+        return None
+    if params.sampler not in ("ptmcmcsampler", "emcee", "ptemcee"):
+        print(f"note: chain_shard applies to the PT-MCMC branch only; "
+              f"sampler '{params.sampler}' runs unsharded")
+        return None
+    if psr_sharded:
+        print("note: psr_shard holds the process group; chain_shard is "
+              "ignored")
+        return None
+    from .parallel.distributed import process_count
+    world = process_count()
+    want = world if int(cs) == 1 else min(int(cs), world)
+    if want < 2:
+        return None
+    from .parallel import make_chain_mesh
+    print(f"chain-axis sharding: walker evaluations over {want} of "
+          f"{world} processes")
+    return make_chain_mesh(want)
+
+
+def _run_samplers(params, likes, resume, device, psr_sharded=False):
     """Dispatch on the paramfile's sampler (module docstring)."""
+    from .parallel.distributed import is_primary
     from .samplers import (HyperModelLikelihood, run_hmc, run_nested,
                            run_ptmcmc)
     first_id = min(likes)
     like = likes[first_id]
     kw = params.sampler_kwargs
+    mesh = chain_mesh(params, psr_sharded)
     if params.sampler == "ptmcmcsampler":
         if len(likes) >= 2:
             like = HyperModelLikelihood(likes)
         nsamp = int(getattr(params, "nsamp", kw.get("nsamp", 1000000)))
         run_ptmcmc(like, params.output_dir, nsamp, params=params,
-                   resume=resume)
-        check_joint_chain(params, like, device)
+                   resume=resume, mesh=mesh)
+        if is_primary():
+            check_joint_chain(params, like, device)
     elif params.sampler == "hmc":
         if len(likes) > 1:
             print("note: HMC has no gradient for the discrete nmodel index; "
@@ -199,8 +269,9 @@ def _run_samplers(params, likes, resume, device):
         run_ptmcmc(like, params.output_dir, int(kw.get("nsteps", 10000)),
                    params=params, resume=resume,
                    ntemps=int(kw.get("ntemps", 1)),
-                   nchains=int(kw.get("nwalkers", 64)))
-        check_joint_chain(params, like, device)
+                   nchains=int(kw.get("nwalkers", 64)), mesh=mesh)
+        if is_primary():
+            check_joint_chain(params, like, device)
     else:
         if len(likes) > 1:
             print(f"note: nested sampling uses model {first_id}; run "

@@ -452,18 +452,21 @@ class Params:
                 prefix, f"{num}_{psr.name}") + "/"
 
         if self.opts is None or getattr(self.opts, "mpi_regime", 0) != 2:
-            if not os.path.exists(self.output_dir):
-                os.makedirs(self.output_dir)
-            elif self.opts is not None and \
-                    bool(getattr(self.opts, "wipe_old_output", 0)):
+            # every process of a group shares the output directory; only
+            # the primary wipes it or writes into it
+            from ..parallel.distributed import is_primary
+            primary = is_primary()
+            if primary and os.path.exists(self.output_dir) \
+                    and self.opts is not None \
+                    and bool(getattr(self.opts, "wipe_old_output", 0)):
                 warnings.warn(
                     f"removing everything in {self.output_dir}")
                 shutil.rmtree(self.output_dir)
-                os.makedirs(self.output_dir)
+            os.makedirs(self.output_dir, exist_ok=True)
             # honesty artifact (numerical-integrity plane): any result
             # computed from this output dir must carry the pulsars the
             # ingestion gate removed from the array
-            if self.quarantined_pulsars:
+            if self.quarantined_pulsars and primary:
                 from ..io.writers import atomic_write_json
                 atomic_write_json(
                     os.path.join(self.output_dir, "quarantined.json"),

@@ -174,6 +174,29 @@ def remove_checkpoint(path: str):
             pass
 
 
+#: resolve_checkpoint's memo: absolute path -> (stat signature of the
+#: four generation files, resolved path). One resume resolves the same
+#: checkpoint twice (sample_to_convergence reads the step counter, then
+#: the sampler loads the state); the memo keeps that to one digest pass
+#: and, on a corrupt archive, one ``ckpt_corrupt`` record. Any write,
+#: rotation or corruption changes a signature and invalidates the entry.
+_RESOLVE_MEMO: dict = {}
+
+
+def _generation_stat_sig(path: str):
+    """``(st_mtime_ns, st_size)`` of ``path``, its sidecar, its previous
+    generation and that one's sidecar (None for an absent file)."""
+    sig = []
+    for p in (path, sidecar_path(path), prev_generation(path),
+              sidecar_path(prev_generation(path))):
+        try:
+            st = os.stat(p)
+            sig.append((st.st_mtime_ns, st.st_size))
+        except OSError:
+            sig.append(None)
+    return tuple(sig)
+
+
 def resolve_checkpoint(path: str, what: str = "checkpoint"):
     """Digest-verified checkpoint resolution with last-good fallback:
     tries ``path`` then :func:`prev_generation`; a candidate is
@@ -182,8 +205,11 @@ def resolve_checkpoint(path: str, what: str = "checkpoint"):
     ``what``, recorded as a ``ckpt_corrupt`` event and
     ``ckpt_verify{outcome=corrupt}``, and falls through to the previous
     generation. Returns the usable path, or None when no restorable
-    generation exists. Fault site ``ckpt.verify``: kind ``torn``
-    truncates ``path`` on disk before verification."""
+    generation exists. A repeat call on unchanged files returns the
+    memoized verdict (``_RESOLVE_MEMO``) without hashing or recording
+    again. Fault site ``ckpt.verify`` fires on every call, before the
+    memo: kind ``torn`` truncates ``path`` on disk before verification
+    (which changes the signature, so it is always verified anew)."""
     from ..resilience import faults
     from ..utils import telemetry
     from ..utils.logging import get_logger
@@ -193,6 +219,11 @@ def resolve_checkpoint(path: str, what: str = "checkpoint"):
             data = fh.read()
         with open(path, "wb") as fh:
             fh.write(faults.torn_bytes(spec, data))
+    key = os.path.abspath(path)
+    sig = _generation_stat_sig(key)
+    memo = _RESOLVE_MEMO.get(key)
+    if memo is not None and memo[0] == sig:
+        return memo[1]
     log = get_logger("ewt.ckpt")
     reg = telemetry.registry()
     for generation, cand in enumerate((path, prev_generation(path))):
@@ -219,7 +250,9 @@ def resolve_checkpoint(path: str, what: str = "checkpoint"):
             reg.counter("ckpt_verify", outcome="fallback").inc()
             log.warning("%s restored from previous generation %s", what,
                         cand)
+        _RESOLVE_MEMO[key] = (sig, cand)
         return cand
+    _RESOLVE_MEMO[key] = (sig, None)
     return None
 
 

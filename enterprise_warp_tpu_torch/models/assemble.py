@@ -122,11 +122,15 @@ def has_correlated_common(termlists) -> bool:
 
 
 def init_model_likelihoods(params, gram_mode="split", write_pars=True,
-                           device="cuda"):
+                           device="cuda", mesh=None):
     """``{model_id: likelihood}``: one pulsar, the correlated joint
     likelihood, or the uncorrelated sum; ``tm: sampled`` in a model
     section samples each pulsar's timing model (not with a correlated
-    common term, as in the reference)."""
+    common term, as in the reference). ``mesh`` — a pulsar-axis
+    ``parallel.ShardLayout`` threaded to the correlated joint build (its
+    sharded path); one-pulsar and uncorrelated models ignore it. Only the
+    primary process writes ``pars.txt`` and the ``*_nfreqs.txt`` files."""
+    from ..parallel.distributed import is_primary
     likes = {}
     for ii, pm in params.models.items():
         tm_opt = getattr(pm, "tm", "default") or "default"
@@ -161,7 +165,8 @@ def init_model_likelihoods(params, gram_mode="split", write_pars=True,
             from ..parallel import build_pta_likelihood
             like = build_pta_likelihood(params.psrs, termlists,
                                         fixed_values=fixed,
-                                        gram_mode=gram_mode, device=device)
+                                        gram_mode=gram_mode, device=device,
+                                        mesh=mesh)
         else:
             like = MultiPulsarLikelihood([
                 build_pulsar_likelihood(p, tl, fixed_values=fixed,
@@ -171,7 +176,8 @@ def init_model_likelihoods(params, gram_mode="split", write_pars=True,
         likes[ii] = like
         if write_pars and getattr(params, "output_dir", None) and \
                 (params.opts is None
-                 or getattr(params.opts, "mpi_regime", 0) != 2):
+                 or getattr(params.opts, "mpi_regime", 0) != 2) \
+                and is_primary():
             np.savetxt(os.path.join(params.output_dir, "pars.txt"),
                        like.param_names, fmt="%s")
             write_nfreqs_files(params.output_dir, nfreqs_logs)

@@ -49,8 +49,29 @@ health word, ``health_psr_names``).
 A sampled chromatic index (``chromred("vary...")`` in a pulsar's model)
 rescales that pulsar's region-N columns per walker before the Grams
 (``dyn_blocks``, the reference's); the basis is then walker-dependent, so
-no evaluation cache is installed, as in the reference. The pulsar-axis
-mesh is a later slice of the port (``ROADMAP.md``).
+no evaluation cache is installed, as in the reference.
+
+The pulsar axis across processes (``mesh=``, a
+:class:`~.distributed.ShardLayout` from :func:`~.distributed.make_mesh`),
+the reference's explicit SPMD path: the parameter programs run
+replicated from the replicated theta; each rank runs stages 1-2 on its
+own contiguous range of pulsars (on the card one solve-kernel launch
+over its (walker, pulsar) pairs, the float64 redo of flagged pairs
+local to the shard); every cross-pulsar quantity (the Schur blocks
+``Ss``/``Xs`` scattered at the shard's offset, the health words, the
+mesh plane's attribution lanes and the six scalar sums) goes into one
+flat float64 vector per walker, summed by exactly one
+:func:`~.distributed.all_reduce_sum` per evaluation, and stage 3 runs
+replicated from the sum. Two departures from the reference: the shards
+are uneven where the pulsar count does not divide (no padded pulsars,
+where ``shard_map`` needs equal shards), and the kernel routes stay on
+inside the sharded region (the reference pins its classic chain there
+because a ``custom_vjp`` has no transpose through ``psum``; the port's
+gradient goes through the autograd pair of ``distributed.py``: the
+packed sum is the identity in the backward and theta's entry into the
+shard's front end sums its gradient over the group). A sampled
+chromatic index keeps the unsharded path, and a sharded likelihood
+carries no evaluation cache, as in the reference.
 """
 
 from __future__ import annotations
@@ -66,13 +87,15 @@ from ..models.build import (PulsarLikelihood, _noise_slide_pairs,
                             _resolve_params, collect_params, eval_block_phi,
                             lower_terms, param_value)
 from ..models.prior_mixin import PriorMixin
-from ..ops.kernel import (CHOL_JITTER, _gram_pair, _mixed_psd_solve_logdet,
-                          _t, equilibrated_cholesky, whiten_inputs)
+from ..ops.kernel import (CHOL_JITTER, HW_WIDTH, _gram_pair,
+                          _mixed_psd_solve_logdet, _t, equilibrated_cholesky,
+                          whiten_inputs)
 from ..ops.megakernel import _safe_eigh
 from ..ops.spectra import (broken_powerlaw_psd, free_spectrum_psd,
                            powerlaw_psd)
 from ..samplers.evalproto import (BLOCK_COMMON, BLOCK_GLOBAL,
                                   install_masked_protocol)
+from .distributed import all_reduce_sum, grad_all_reduce, scatter_to_global
 from .orf import is_low_rank, is_positive_definite, orf_matrix
 
 # Improper-flat-prior stand-in for timing-model columns on the dense oracle
@@ -98,6 +121,17 @@ def _bmm64(A, B):
 # stage-1 solve done again in float64 (``_pairs12``), where the reference
 # clamps the eigenvalues.
 CORNER_C = 1e-5
+
+#: the mesh plane's attribution lanes per shard, riding the packed sum:
+#: evaluations, active TOAs (the stage-1/2 work proxy), jitter-engaged
+#: and refine-diverged pulsar counts
+MESH_ATTR_WIDTH = 4
+
+
+def _nan_to_neginf(lnl):
+    """A NaN lnL as minus infinity (a rejected proposal)."""
+    return torch.where(torch.isnan(lnl), torch.full_like(lnl, -math.inf),
+                       lnl)
 
 
 def _solve_f64(S, B, jitter):
@@ -361,7 +395,7 @@ def _coupling_inverse(phi_gw, s, orf):
 
 def build_pta_likelihood(psrs, termlists, fixed_values=None,
                          gram_mode="split", ecorr_dt=10.0, joint_mode=None,
-                         device="cuda"):
+                         device="cuda", mesh=None):
     """Compile per-pulsar TermLists + ORF coupling into one joint
     walker-batched likelihood (:class:`PTALikelihood`).
 
@@ -372,8 +406,14 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
     solve kernel on CUDA tensors within its order cap, the classic chain
     otherwise; with ``gram_mode`` 'f64' they never take the kernel. The
     stage functions are exposed as ``like._stages`` for measurement.
+
+    ``mesh`` — a pulsar-axis :class:`~.distributed.ShardLayout`: the Schur
+    path then runs sharded (module docstring; ``_stages["spmd"]``). A
+    layout of another axis (the sampler's ``chain``) is ignored.
     """
     device = resolve_device(device)
+    if mesh is not None and getattr(mesh, "axis", None) != "psr":
+        mesh = None
     if joint_mode is None:
         joint_mode = "dense" if gram_mode == "f64" else "schur"
     if joint_mode not in ("schur", "dense"):
@@ -596,26 +636,31 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
         torch.diagonal(M, dim1=1, dim2=3).copy_(blocks.permute(0, 2, 3, 1))
         return M.reshape(W, npsr * m, npsr * m)
 
-    def _common(theta, gram="f64"):
-        """Shared front end: white noise and PSD programs, whitened Grams.
-        Returns ``(G, X, rwr_p, logdet_n, logphi, invphi_N)``: ``G`` (W,
-        npsr, nb_tot, nb_tot), ``X`` (W, npsr, nb_tot), the per-pulsar
-        whitened-residual norms ``rwr_p`` (W, npsr). ``gram`` is the Gram's
-        precision (``ops/kernel.py:_gram_pair``): float64 in every Gram
-        mode (the port's departure from the reference, see CORNER_C);
-        ``"split"`` gives the reference's front end, for measurement."""
-        nw = eval_white(theta, sigma2_t)                # (W, npsr, ntoa)
-        phi_N = eval_phi(theta) * cs2_N_t               # (W, npsr, NW)
+    def _common(theta, gram="f64", lo=0, hi=None):
+        """Shared front end: white noise and PSD programs, whitened Grams,
+        for the pulsars ``lo:hi`` (all of them by default; a shard of the
+        pulsar axis passes its range, the parameter programs still run
+        over every pulsar from the replicated theta). Returns ``(G, X,
+        rwr_p, logdet_n, logphi, invphi_N)``: ``G`` (W, P, nb_tot,
+        nb_tot), ``X`` (W, P, nb_tot), the per-pulsar whitened-residual
+        norms ``rwr_p`` (W, P), the sums ``logdet_n`` and ``logphi`` over
+        the range. ``gram`` is the Gram's precision
+        (``ops/kernel.py:_gram_pair``): float64 in every Gram mode (the
+        port's departure from the reference, see CORNER_C); ``"split"``
+        gives the reference's front end, for measurement."""
+        sl = slice(lo, npsr if hi is None else hi)
+        nw = eval_white(theta, sigma2_t)[:, sl]         # (W, P, ntoa)
+        phi_N = (eval_phi(theta) * cs2_N_t)[:, sl]      # (W, P, NW)
         logphi = torch.sum(torch.log(phi_N), dim=(1, 2))
-        sqw = torch.sqrt(mask_t / nw)
-        Ts = _basis(theta) * sqw[..., None]
-        rs = R_t * sqw
+        sqw = torch.sqrt(mask_t[sl] / nw)
+        Ts = _basis(theta)[..., sl, :, :] * sqw[..., None]
+        rs = R_t[sl] * sqw
         # the large Gram: a plain product outside any kernel, batched over
         # walkers and pulsars
         G = _gram_pair(Ts, Ts, gram).to(F64)
         X = torch.einsum("wpik,wpi->wpk", Ts, rs)
         rwr_p = torch.sum(rs * rs, dim=-1)
-        logdet_n = torch.sum(torch.log(nw) * mask_t, dim=(1, 2))
+        logdet_n = torch.sum(torch.log(nw) * mask_t[sl], dim=(1, 2))
         return G, X, rwr_p, logdet_n, logphi, 1.0 / phi_N
 
     def _split(G, X, invphi_N, tm_pad):
@@ -692,21 +737,23 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
             st["hw"] = out[2]
         return st
 
-    def _stage12(G, X, invphi_N, corner_c=CORNER_C, with_health=False):
+    def _stage12(G, X, invphi_N, corner_c=CORNER_C, with_health=False,
+                 lo=0):
         """Stages 1 and 2 for every (walker, pulsar) pair at once, as one
-        flat batch of W·npsr systems (:func:`_pairs12`), and each pulsar's
+        flat batch of W·P systems (:func:`_pairs12`; the P pulsars from
+        ``lo`` on, as :func:`_common` gave them), and each pulsar's
         contribution to the GW Schur system: ``q1``, ``ld_nn``, ``ld_tm``,
-        ``ev_ratio`` (W, npsr), ``Xs`` (W, npsr, n_g), ``Ss`` (W, npsr,
-        n_g, n_g). ``corner_c`` is the float64 redo's threshold
-        (``CORNER_C``); ``None`` is the reference's clamp alone; the
-        float64 Gram mode never redoes a pair."""
-        W = G.shape[0]
-        B = W * npsr
+        ``ev_ratio`` (W, P), ``Xs`` (W, P, n_g), ``Ss`` (W, P, n_g, n_g).
+        ``corner_c`` is the float64 redo's threshold (``CORNER_C``);
+        ``None`` is the reference's clamp alone; the float64 Gram mode
+        never redoes a pair."""
+        W, P = G.shape[:2]
+        B = W * P
         st = _pairs12(G.reshape(B, nb_tot, nb_tot), X.reshape(B, nb_tot),
                       invphi_N.reshape(B, NW),
-                      torch.arange(npsr, device=G.device).repeat(W),
+                      torch.arange(lo, lo + P, device=G.device).repeat(W),
                       corner_c, with_health)
-        return {k: v.reshape(W, npsr, *v.shape[1:]) for k, v in st.items()}
+        return {k: v.reshape(W, P, *v.shape[1:]) for k, v in st.items()}
 
     def _stage3(theta, st, rwr_p, logdet_n, logphi):
         """The GW Schur system with the ORF coupling, and the scalar sums."""
@@ -750,15 +797,14 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
         G, X, rwr_p, logdet_n, logphi, invphi_N = _common(theta)
         st = _stage12(G, X, invphi_N, with_health=True)
         hw = st.pop("hw")
-        lnl = _stage3(theta, st, rwr_p, logdet_n, logphi)
-        return torch.where(torch.isnan(lnl), torch.full_like(lnl, -math.inf),
-                           lnl), hw
+        return _nan_to_neginf(_stage3(theta, st, rwr_p, logdet_n,
+                                      logphi)), hw
 
     # ---- the update_mask contract (samplers/evalproto.py): one
     # parameter vector (ndim,), the cache a dict of (1, ...) tensors -----
     def _cache_lnl(th, cache):
-        lnl = _stage3(th, cache, cache["rwr"], cache["ldn"], cache["lphi"])[0]
-        return torch.where(torch.isnan(lnl), -math.inf, lnl)
+        return _nan_to_neginf(_stage3(th, cache, cache["rwr"], cache["ldn"],
+                                      cache["lphi"])[0])
 
     def _cache_init(theta):
         """Full recompute: ``(lnl, cache)``; the cache holds every
@@ -818,27 +864,166 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
         return -0.5 * (quad + logdet_n + logphi + tm_const + logdet_b
                        + logdet_sigma)
 
-    inner = loglike_schur if joint_mode == "schur" else loglike_dense
+    # ---- the pulsar axis across processes (module docstring) -----------
+    use_spmd = mesh is not None and joint_mode == "schur" and not dyn_blocks
+    if mesh is not None and not use_spmd:
+        print("note: psr_shard keeps the unsharded joint likelihood here ("
+              + ("a sampled chromatic index makes the basis "
+                 "walker-dependent" if dyn_blocks else
+                 f"joint_mode '{joint_mode}' has no sharded path") + ")")
+    if use_spmd:
+        ranges = mesh.ranges(npsr)
+        nshard = len(ranges)
+        group = mesh.group
+        n_ss, n_xs = npsr * n_g * n_g, npsr * n_g
+
+        def _shard_packed(theta, s, with_health=False, with_attr=False):
+            """Stages 1-2 of shard ``s`` at ``theta`` (W, ndim): the front
+            end and the (walker, pulsar) pairs of its pulsars only
+            (:func:`_common` and :func:`_stage12` on its range), packed
+            into one vector (W, L) with every cross-pulsar quantity at its
+            global offset. The sum of every shard's vector is what stage
+            3 reads (:func:`_unpack`)."""
+            lo, hi = ranges[s]
+            G, X, rwr_p, logdet_n, logphi, invphi_N = _common(theta, lo=lo,
+                                                              hi=hi)
+            st = _stage12(G, X, invphi_N, with_health=with_health, lo=lo)
+            W, P = rwr_p.shape
+            parts = []
+            if n_g:
+                parts.append(scatter_to_global(
+                    st["Ss"].reshape(W, P, n_g * n_g), npsr, lo,
+                    dim=1).reshape(W, -1))
+                parts.append(scatter_to_global(st["Xs"], npsr, lo,
+                                               dim=1).reshape(W, -1))
+            if with_health:
+                parts.append(scatter_to_global(st["hw"].to(F64), npsr, lo,
+                                               dim=1).reshape(W, -1))
+            if with_attr:
+                ones = torch.ones(W, dtype=F64, device=device)
+                if with_health:
+                    jit = torch.sum(st["hw"][..., 0] > 0.5, dim=1).to(F64)
+                    div = torch.sum(st["hw"][..., 1] > 0.5, dim=1).to(F64)
+                else:
+                    jit = div = 0.0 * ones
+                row = torch.stack([ones, ones * mask_t[lo:hi].sum(), jit,
+                                   div], dim=-1)[:, None, :]
+                parts.append(scatter_to_global(row, nshard, s,
+                                               dim=1).reshape(W, -1))
+            parts.append(torch.stack([
+                st["q1"].sum(dim=1), st["ld_nn"].sum(dim=1),
+                st["ld_tm"].sum(dim=1), rwr_p.sum(dim=1), logdet_n,
+                logphi], dim=-1))
+            return torch.cat(parts, dim=-1)
+
+        def _packed_len(with_health, with_attr):
+            return (n_ss + n_xs) + (npsr * HW_WIDTH if with_health else 0) \
+                + (nshard * MESH_ATTR_WIDTH if with_attr else 0) + 6
+
+        def _unpack(packed, with_health, with_attr=False):
+            """The summed vector (W, L) -> stage 3's inputs, the health
+            words (W, npsr, 3) and the attribution table (W, nshard,
+            4)."""
+            W = packed.shape[0]
+            off, st, hw, attr = 0, {}, None, None
+            if n_g:
+                st["Ss"] = packed[:, :n_ss].reshape(W, npsr, n_g, n_g)
+                st["Xs"] = packed[:, n_ss:n_ss + n_xs].reshape(W, npsr, n_g)
+                off = n_ss + n_xs
+            if with_health:
+                hw = packed[:, off:off + npsr * HW_WIDTH].reshape(
+                    W, npsr, HW_WIDTH)
+                off += npsr * HW_WIDTH
+            if with_attr:
+                attr = packed[:, off:off + nshard * MESH_ATTR_WIDTH] \
+                    .reshape(W, nshard, MESH_ATTR_WIDTH)
+                off += nshard * MESH_ATTR_WIDTH
+            sc = packed[:, off:off + 6]
+            # the scalar slots arrive summed: stage 3's sums over the
+            # pulsar axis see one column
+            st.update(q1=sc[:, 0:1], ld_nn=sc[:, 1:2], ld_tm=sc[:, 2:3])
+            return st, sc[:, 3:4], sc[:, 4], sc[:, 5], hw, attr
+
+        def _spmd(theta, with_health=False, with_attr=False):
+            """One sharded evaluation: this rank's shard body and THE
+            collective, then stage 3 replicated."""
+            theta_f = grad_all_reduce(theta, group)
+            if mesh.rank < nshard:
+                local = _shard_packed(theta_f, mesh.rank, with_health,
+                                      with_attr)
+            else:
+                # a rank past the last shard adds zeros (and still joins
+                # the gradient's sum)
+                local = torch.zeros(
+                    (theta.shape[0], _packed_len(with_health, with_attr)),
+                    dtype=F64, device=device) \
+                    + 0.0 * theta_f.sum(dim=1, keepdim=True)
+            packed = all_reduce_sum(local, group)
+            st, rwr, ldn, lphi, hw, attr = _unpack(packed, with_health,
+                                                   with_attr)
+            return _nan_to_neginf(_stage3(theta, st, rwr, ldn, lphi)), \
+                hw, attr
+
+        def loglike_spmd(theta):
+            return _spmd(theta)[0]
+
+        def loglike_health_spmd(theta):
+            """lnL and the (W, npsr, 3) health words, riding the same
+            collective: every rank sees the same words and takes the same
+            ladder decision."""
+            lnl, hw, _ = _spmd(theta, with_health=True)
+            return lnl, hw
+
+        def loglike_mesh_spmd(theta, with_health=True):
+            """lnL, the health words (None without ``with_health``, which
+            pins the classic chain as the health twin does) and the (W,
+            nshard, 4) attribution table, all on the one collective."""
+            return _spmd(theta, with_health=with_health, with_attr=True)
+
+    if use_spmd:
+        inner = loglike_spmd
+    else:
+        inner = loglike_schur if joint_mode == "schur" else loglike_dense
 
     def evaluate(theta):
-        lnl = inner(theta)
-        return torch.where(torch.isnan(lnl), torch.full_like(lnl, -math.inf),
-                           lnl)
+        return _nan_to_neginf(inner(theta))
 
     like = PTALikelihood(psrs, sampled, evaluate, gram_mode, device)
     like.joint_mode = joint_mode
     # the update_mask contract, under the reference's conditions (the
     # Schur path, no mesh, a static basis: a sampled chromatic index makes
     # the basis walker-dependent) unless EWT_UPDATE_MASK=0
-    if joint_mode == "schur" and not dyn_blocks \
+    if joint_mode == "schur" and not dyn_blocks and not use_spmd \
             and os.environ.get("EWT_UPDATE_MASK", "1") != "0":
         install_masked_protocol(like, _cache_init, _cache_site,
                                 _cache_common, param_blocks)
     if joint_mode == "schur":
         # the health plane's twin and its pulsar-axis attribution
-        like._eval_health_batch = lambda theta: loglike_health(
-            like.as_theta(theta))
+        health = loglike_health_spmd if use_spmd else loglike_health
+        like._eval_health_batch = lambda theta: health(like.as_theta(theta))
         like.health_psr_names = [p.name for p in psrs]
     like._stages = dict(common=_common, stage12=_stage12, stage3=_stage3,
-                        NW=NW, MW=MW, n_g=n_g, npsr=npsr, nb_tot=nb_tot)
+                        NW=NW, MW=MW, n_g=n_g, npsr=npsr, nb_tot=nb_tot,
+                        spmd=use_spmd, nshard=nshard if use_spmd else 1)
+    like.mesh = mesh if use_spmd else None
+    if use_spmd:
+        like._eval_mesh_batch = lambda theta, with_health=True: \
+            loglike_mesh_spmd(like.as_theta(theta), with_health)
+        like._stages.update(shard_packed=_shard_packed, unpack=_unpack,
+                            ranges=ranges)
+        # the mesh plane's static cost model (the reference's layout):
+        # stage-1/2 FLOPs per shard (Gram 2·ntoa·nb^2 + factor nb^3 per
+        # pulsar), stage 3's (npsr·n_g)^3 and the collective's payload
+        shard_psrs = [hi - lo for lo, hi in ranges]
+        shard_toas = [int(toamask[lo:hi].sum()) for lo, hi in ranges]
+        like.mesh_layout = dict(
+            nshard=nshard, npsr_loc=max(shard_psrs),
+            attr_width=MESH_ATTR_WIDTH, shard_psrs=shard_psrs,
+            shard_toas=shard_toas, shard_process=list(range(nshard)),
+            flops_stage12_per_shard=[
+                2.0 * t * nb_tot ** 2 + p * float(nb_tot) ** 3
+                for t, p in zip(shard_toas, shard_psrs)],
+            flops_stage3=float(npsr * n_g) ** 3,
+            psum_payload_bytes=int(_packed_len(True, True) * 8),
+            cost_basis="static_cost_model")
     return like

@@ -29,6 +29,13 @@ Counterpart of ``enterprise_warp_tpu/resilience/integrity.py``:
   (:class:`PulsarQuarantine`: the pulsar leaves the array alone). Healthy
   blocks walk it back down. Fault sites ``kernel.health`` and
   ``psr.quarantine`` drive the rungs.
+
+  Across processes: the sharded joint likelihood's health twin
+  (``parallel/pta.py``) returns the same ``(npsr, 3)`` words as the
+  unsharded one, summed into place on the evaluation's one collective,
+  so every rank folds the same words into its ledgers and takes the same
+  ladder decision (a demotion on one rank alone would leave the others
+  waiting in the next collective).
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..io.writers import checkpoint_replace, resolve_checkpoint
+from ..parallel.distributed import from_primary, is_primary
 from ..utils import telemetry
 from ..utils.diagnostics import summarize_chains
 from ..utils.logging import get_logger
@@ -168,9 +169,17 @@ def _resume_blocks(sampler, verbose):
     checkpoint accounts for, as one collected block, with the checkpoint
     counter rewound where the file holds fewer complete steps, and the
     chain files (the hot rungs' too) cut back to that step. Returns
-    ``(blocks, steps)``; no blocks where there is nothing to resume."""
+    ``(blocks, steps)``; no blocks where there is nothing to resume. The
+    primary reads and repairs the files; every other rank takes its
+    blocks and step from it (:func:`~..parallel.distributed.from_primary`)
+    and reads no file the primary may be writing."""
+    return from_primary(lambda: _resume_repair(sampler, verbose))
+
+
+def _resume_repair(sampler, verbose):
+    """:func:`_resume_blocks` on the process that reads the files."""
     chain_path = os.path.join(sampler.outdir, "chain_1.txt")
-    ckpt = resolve_checkpoint(sampler._ckpt_path)
+    ckpt = resolve_checkpoint(sampler._ckpt_path, what="pt checkpoint")
     if ckpt is None or not os.path.exists(chain_path):
         return [], 0
     raw, dropped = _robust_loadtxt(chain_path)
@@ -186,14 +195,15 @@ def _resume_blocks(sampler, verbose):
                   "step %d; rewinding checkpoint counter", nsteps, ckpt_step)
         z = _rewind_diag(dict(np.load(ckpt)), nsteps)
         z["step"] = nsteps
-        tmp = sampler._ckpt_path + ".tmp.npz"
-        np.savez(tmp, **z)
-        checkpoint_replace(tmp, sampler._ckpt_path)
+        if is_primary():
+            tmp = sampler._ckpt_path + ".tmp.npz"
+            np.savez(tmp, **z)
+            checkpoint_replace(tmp, sampler._ckpt_path)
     truncated = nsteps * sampler.nchains < raw.shape[0]
     raw = raw[:nsteps * sampler.nchains]
     # the resumed sampler appends: stale rows past the checkpoint or a
     # partial line would shift every later block
-    if dropped or truncated:
+    if (dropped or truncated) and is_primary():
         tmp = chain_path + ".tmp"
         np.savetxt(tmp, raw)
         os.replace(tmp, chain_path)
@@ -202,7 +212,7 @@ def _resume_blocks(sampler, verbose):
             continue
         hraw, hdrop = _robust_loadtxt(hp)
         keep = nsteps * sampler.nchains
-        if hdrop or hraw.shape[0] != keep:
+        if (hdrop or hraw.shape[0] != keep) and is_primary():
             tmp = hp + ".tmp"
             np.savetxt(tmp, hraw[:keep])
             os.replace(tmp, hp)

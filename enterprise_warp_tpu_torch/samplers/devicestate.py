@@ -12,8 +12,13 @@ state on the card between blocks and reads it once per block:
   line) and runs it after the next block has been enqueued, so the card
   computes block ``k+1`` while the host finishes block ``k``.
 
-The reference's mesh plumbing (``chain_sharding``, ``resolve_placement``,
-``place_resident``) is a later slice of the port.
+The chain axis: :func:`chain_slice` is the rank's walker slice, the
+port's stand-in for the reference's ``chain_sharding`` (an evaluation
+split, ``samplers/ptmcmc.py``), and :func:`host_pull` the one-leaf
+sibling of :func:`host_snapshot`. The reference's ``resolve_placement``
+and ``place_resident`` are JAX commit rules (where a jitted program's
+resident state lives beside mesh-sharded constants) and have no torch
+counterpart: every rank's tensors live on its own device.
 """
 
 from __future__ import annotations
@@ -45,6 +50,31 @@ def host_snapshot(tree):
         out[k] = buf[at:at + n].reshape(tuple(v.shape)).astype(dtype)
         at += n
     return out
+
+
+def host_pull(v):
+    """Host copy of ONE tensor (the one-leaf :func:`host_snapshot`): a
+    numpy array that owns its memory, never a view of a device buffer a
+    later launch may overwrite."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", copy=True).numpy()
+    return np.array(v)
+
+
+def chain_slice(mesh, W):
+    """This rank's contiguous walker slice of a ``W``-walker batch under
+    a ``chain`` layout (``parallel.ShardLayout``), or None without one
+    (None, another axis, or one shard). ``W`` must divide by the
+    layout's width."""
+    if mesh is None or getattr(mesh, "axis", None) != "chain" \
+            or mesh.nshard < 2:
+        return None
+    if W % mesh.nshard:
+        raise ValueError(
+            f"chain-axis sharding needs ntemps*nchains divisible by the "
+            f"layout's width: W={W} over {mesh.nshard} ranks")
+    n = W // mesh.nshard
+    return slice(mesh.rank * n, (mesh.rank + 1) * n)
 
 
 class HostPipeline:

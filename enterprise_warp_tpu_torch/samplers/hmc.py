@@ -48,8 +48,10 @@ the block's one host read (the ``energy_err_*`` and ``eps_min``/
 theta chains, fed from the rows the chain file gets anyway
 (``rhat_stream``/``ess_stream``, the ``diag_*`` checkpoint keys).
 
-Not ported (see ``ROADMAP.md``): the sharded (mesh) leg
-(``chain_shard``/``psr_shard`` raise).
+Processes (``parallel/distributed.py``): a sharded joint likelihood
+(``psr_shard``) reaches HMC through its gradient, summed over the group;
+``chain_shard`` is the PT branch's alone. Only the primary process writes
+the chain, ``pars.txt`` and the checkpoint.
 """
 
 from __future__ import annotations
@@ -63,8 +65,9 @@ import numpy as np
 import torch
 
 from .. import F64
-from ..io.writers import (checkpoint_replace, resolve_checkpoint,
-                          write_table)
+from ..io.writers import (checkpoint_exists, checkpoint_replace,
+                          resolve_checkpoint, write_table)
+from ..parallel.distributed import from_primary, is_primary
 from ..resilience import faults
 from ..resilience.supervisor import (BlockSupervisor, PlatformDemotion,
                                      apply_demotion, preemption_requested)
@@ -75,7 +78,6 @@ from ..utils.logging import EvalRateMeter, get_logger
 from .transform import make_logp_z, value_and_grad
 
 _log = get_logger("ewt.hmc")
-_LATER = "is not ported yet (see ROADMAP.md)"
 # set once a device_state-off request has been logged (once a process)
 _STATE_NOTED = []
 
@@ -216,6 +218,8 @@ class HMCSampler:
         return os.path.join(self.outdir, "state.npz")
 
     def _save_state(self, st):
+        if not is_primary():
+            return
         tmp = self._ckpt_path + ".tmp.npz"
         # the streaming ledger rides the checkpoint (``diag_*`` keys)
         diag = {}
@@ -230,11 +234,25 @@ class HMCSampler:
         checkpoint_replace(tmp, self._ckpt_path)
         faults.fire("hmc.ckpt", path=self._ckpt_path, step=int(st.step))
 
-    def _load_state(self, path):
-        z = np.load(path)
+    def _read_ckpt(self):
+        """The resolved checkpoint's arrays (None without one), read by
+        the primary and shared with every rank
+        (:func:`~..parallel.distributed.from_primary`)."""
+        def read():
+            ckpt = resolve_checkpoint(self._ckpt_path,
+                                      what="hmc checkpoint")
+            if ckpt is None:
+                return None
+            with np.load(ckpt) as z:
+                return {k: z[k] for k in z.files}
+        return from_primary(read)
+
+    def _load_state(self, z):
+        """The state of the checkpoint arrays ``z``
+        (:meth:`_read_ckpt`)."""
         key = np.asarray(z["key"], dtype=np.uint8)
         self.gen.set_state(torch.from_numpy(key.copy()))
-        if self.diag_ledger is not None and "diag_counts" in z.files:
+        if self.diag_ledger is not None and "diag_counts" in z:
             self.diag_ledger = devicemetrics.MomentLedger.from_state(
                 self.W, self.ndim,
                 {k: z[f"diag_{k}"] for k in
@@ -247,14 +265,14 @@ class HMCSampler:
                         accepted=self._tensor(z["accepted"]),
                         divergences=int(z["divergences"]),
                         mu=float(z["mu"]), da_iter=int(z["da_iter"]),
-                        ngrad=int(z["ngrad"]) if "ngrad" in z.files else 0)
+                        ngrad=int(z["ngrad"]) if "ngrad" in z else 0)
 
     def _truncate_chain_to(self, step):
         """Resume repair: a kill between the chain append and the state
         save leaves rows past the checkpoint; cut ``chain_1.txt`` back to
         the ``step * W`` rows the checkpoint accounts for."""
         path = os.path.join(self.outdir, "chain_1.txt")
-        if not os.path.exists(path):
+        if not is_primary() or not os.path.exists(path):
             return
         with open(path) as fh:
             lines = [ln for ln in fh.read().splitlines()
@@ -386,7 +404,7 @@ class HMCSampler:
 
     def _sample_impl(self, nsamp, resume, verbose, block_size, rec):
         chain_path = os.path.join(self.outdir, "chain_1.txt")
-        ckpt = resolve_checkpoint(self._ckpt_path) if resume else None
+        ckpt = self._read_ckpt() if resume else None
         if ckpt is not None:
             st = self._load_state(ckpt)
             if verbose:
@@ -398,9 +416,11 @@ class HMCSampler:
             if self.diag_ledger is not None:
                 self.diag_ledger = devicemetrics.MomentLedger(self.W,
                                                               self.ndim)
-            open(chain_path, "w").close()
-        np.savetxt(os.path.join(self.outdir, "pars.txt"),
-                   self.like.param_names, fmt="%s")
+            if is_primary():
+                open(chain_path, "w").close()
+        if is_primary():
+            np.savetxt(os.path.join(self.outdir, "pars.txt"),
+                       self.like.param_names, fmt="%s")
         meter = EvalRateMeter(initial_total=self.W * int(st.ngrad))
         diag_t = [0.0]
         ndiv_seen = int(st.divergences)
@@ -475,7 +495,8 @@ class HMCSampler:
                 thetas, (lnpri + lnl_np)[:, None], lnl_np[:, None],
                 np.full((len(thetas), 1), acc_rate),
                 np.zeros((len(thetas), 1))], axis=1)
-            write_table(chain_path, rows, append=True)
+            if is_primary():
+                write_table(chain_path, rows, append=True)
             if self.diag_ledger is not None:
                 self.diag_ledger.append_samples(
                     thetas.reshape(todo, self.W, self.ndim))
@@ -580,9 +601,6 @@ def run_hmc(like, outdir, nsamp, params=None, resume=True, seed=0,
     checkpoint."""
     opts = dict(seed=seed)
     skw = getattr(params, "sampler_kwargs", {}) if params is not None else {}
-    for knob in ("chain_shard", "psr_shard"):
-        if skw.get(knob) or kw.get(knob):
-            raise NotImplementedError(f"{knob} for HMC {_LATER}")
     if "device_state" in skw:
         opts["device_state"] = bool(int(skw["device_state"]))
     if params is not None:
@@ -596,8 +614,8 @@ def run_hmc(like, outdir, nsamp, params=None, resume=True, seed=0,
         if "jitter_L" in skw:
             opts["jitter_L"] = bool(int(skw["jitter_L"]))
     opts.update(kw)
-    resuming = resume and resolve_checkpoint(
-        os.path.join(outdir, "state.npz")) is not None
+    resuming = resume and from_primary(lambda: checkpoint_exists(
+        os.path.join(outdir, "state.npz")))
     if advi_init and "mass0" not in opts and not resuming:
         from .vi import fit_advi
         fit = fit_advi(like, steps=1500, mc=16, seed=seed, verbose=verbose)

@@ -75,6 +75,7 @@ from .. import F64
 from ..io.writers import (atomic_write_json, checkpoint_replace,
                           remove_checkpoint, resolve_checkpoint)
 from ..models.build import params_fingerprint
+from ..parallel.distributed import from_primary, is_primary
 from ..resilience import faults
 from ..resilience.supervisor import (BlockSupervisor, PlatformDemotion,
                                      apply_demotion, preemption_requested)
@@ -535,9 +536,13 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
                 rng=dev.type)
     z = None
     if resume and ckpt_path is not None:
-        resolved = resolve_checkpoint(ckpt_path, what="nested checkpoint")
-        if resolved is not None:
-            z = _ckpt_load_compatible(resolved, want)
+        # the primary reads; every rank resumes from what it read
+        def read():
+            resolved = resolve_checkpoint(ckpt_path,
+                                          what="nested checkpoint")
+            return None if resolved is None \
+                else _ckpt_load_compatible(resolved, want)
+        z = from_primary(read)
     gen = torch.Generator(device=dev)
     ks_blocks = []
     n_dispatch = n_sync = 0
@@ -574,8 +579,9 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
 
     def _write_ckpt(state, n_led, it_now, nd_now, ns_now, n_ks):
         """One block-boundary checkpoint (host snapshot arrays and the
-        ledger up to ``n_led`` blocks), atomic and durable."""
-        if ckpt_path is None:
+        ledger up to ``n_led`` blocks), atomic and durable; the primary
+        process's alone."""
+        if ckpt_path is None or not is_primary():
             return
         tmp = ckpt_path[:-len(".npz")] + ".tmp.npz"
 
@@ -765,7 +771,7 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
 
     # a converged run's checkpoint is removed; one stopped early (a
     # preemption) keeps its last block resumable
-    if converged and ckpt_path is not None:
+    if converged and ckpt_path is not None and is_primary():
         remove_checkpoint(ckpt_path)
     elif not converged and it > last_ckpt_it and last_commit:
         _write_ckpt(**last_commit)
@@ -899,7 +905,7 @@ def _finalize(like, outdir, label, seed, nlive, kbatch, nsteps, it,
         num_iterations=it,
         num_likelihood_evaluations=int((it * kbatch * nsteps) + nlive),
     )
-    if outdir is not None:
+    if outdir is not None and is_primary():
         os.makedirs(outdir, exist_ok=True)
         atomic_write_json(os.path.join(outdir, f"{label}_result.json"),
                           result, indent=None)

@@ -77,6 +77,24 @@ and batch-means ESS at block cadence, the ``diag_*`` keys of
 heartbeat keys, the per-rung gauges, a ``mixing`` event and
 ``mixing_stats.json``.
 
+Processes (``parallel/distributed.py``): every file write goes through
+``is_primary()`` (the chain files, ``pars.txt``, ``cov.npy``,
+``mask_stats.json``, ``mixing_stats.json`` and the checkpoint); a
+secondary rank streams only its own ``events.<i>.jsonl``. The chain axis
+(``mesh=``, a ``chain`` :class:`~..parallel.distributed.ShardLayout`) is
+an evaluation split: every rank holds the same replicated state, seed and
+proposals, evaluates its ``W / nshard`` walkers, and one ``all_gather``
+per evaluation assembles the lnL (and the health words with it). The mesh
+plane (``devicemetrics.mesh_enabled()`` and a likelihood with
+``_eval_mesh_batch`` and ``mesh_layout``, the sharded joint likelihood):
+the per-shard attribution lanes come home on the evaluation's own
+collective, are summed on the device over the block and read in its one
+snapshot, and each block folds them into a ``MeshStatsLedger``: the
+``shard_skew``/``collective_wall_ms``/``straggler_index`` gauges and
+heartbeat keys, a ``mesh_stats`` event and ``mesh_stats.json`` (rank
+``i``: ``mesh_stats.<i>.json``). It adds no collective and no host
+synchronisation to a step.
+
 Not ported (``NotImplementedError``): the ``flow`` proposal family.
 """
 
@@ -96,6 +114,8 @@ from .. import F64
 from ..io.writers import (atomic_write_json, checkpoint_exists,
                           checkpoint_replace, resolve_checkpoint,
                           write_table)
+from ..parallel.distributed import (all_gather_rows, from_primary,
+                                    is_primary)
 from ..resilience import faults
 from ..resilience.supervisor import (BlockSupervisor, PlatformDemotion,
                                      apply_demotion, pin_classic,
@@ -104,7 +124,7 @@ from ..utils import devicemetrics, profiling, telemetry
 from ..utils.diagnostics import cache_hit_summary, throttled_block_worst
 from ..utils.flightrec import flight_recorder
 from ..utils.logging import EvalRateMeter, get_logger
-from .devicestate import host_snapshot
+from .devicestate import chain_slice, host_snapshot
 from .evalproto import BLOCK_COMMON
 
 _log = get_logger("ewt.ptmcmc")
@@ -268,6 +288,36 @@ def propose_ns(x, pairs, b, u_glob, z, u_f):
     return prop, qc, ie
 
 
+class _ChainSplit:
+    """The chain axis's evaluation split of a likelihood: each rank
+    evaluates its contiguous ``W / nshard`` walkers and one
+    ``all_gather`` assembles the (W,) lnL (the health twin's lnL and
+    words packed into the same gathered rows). Every other attribute is
+    the likelihood's."""
+
+    def __init__(self, like, mesh, W):
+        self._like = like
+        self._group = mesh.group
+        self._rows = chain_slice(mesh, W)
+        self.loglike_batch = self._split
+        if hasattr(like, "_eval_health_batch"):
+            self._eval_health_batch = self._split_health
+
+    def __getattr__(self, name):
+        return getattr(self._like, name)
+
+    def _split(self, x):
+        return all_gather_rows(self._like.loglike_batch(x[self._rows]),
+                               self._group)
+
+    def _split_health(self, x):
+        lnl, hw = self._like._eval_health_batch(x[self._rows])
+        rows = torch.cat([lnl[:, None].to(F64),
+                          hw.reshape(len(lnl), -1).to(F64)], dim=1)
+        g = all_gather_rows(rows, self._group)
+        return g[:, 0], g[:, 1:].reshape((g.shape[0],) + hw.shape[1:])
+
+
 class PTSampler:
     """Adaptive PT-MCMC over a likelihood providing ``loglike_batch``
     ((W, ndim) tensor -> (W,)), ``log_prior``, ``log_prior_dims``,
@@ -283,16 +333,20 @@ class PTSampler:
                  ind_weight=0, ind_inflate=1.4,
                  cg_weight=0, cg_k=3, cg_group_frac=0.5,
                  kde_weight=0, kde_bw=None, ns_weight=0,
-                 flow=None, flow_weight=0, device=None):
+                 flow=None, flow_weight=0, device=None, mesh=None):
         if flow is not None or flow_weight:
             raise NotImplementedError(
                 "the flow proposal family is not ported yet (ROADMAP.md, "
                 "Queue 1: serving and flows)")
-        self.like = like
-        self.outdir = outdir
         self.ntemps = int(ntemps)
         self.nchains = int(nchains)
         self.W = self.ntemps * self.nchains
+        # the chain axis: each rank evaluates its share of the walkers
+        if mesh is not None and getattr(mesh, "axis", None) == "chain" \
+                and mesh.nshard > 1:
+            like = _ChainSplit(like, mesh, self.W)
+        self.like = like
+        self.outdir = outdir
         self.ndim = like.ndim
         self.device = torch.device(device if device is not None else
                                    getattr(like, "device", "cpu"))
@@ -390,6 +444,12 @@ class PTSampler:
             names = list(getattr(like, "health_psr_names", None) or ["?"])
             self._health_psrs = names
             self.health = [HealthLedger(psr=n) for n in names]
+        # the mesh plane: a sharded joint likelihood's attribution lanes
+        self.mesh_stats = None
+        if devicemetrics.mesh_enabled() \
+                and hasattr(like, "_eval_mesh_batch") \
+                and getattr(like, "mesh_layout", None):
+            self.mesh_stats = devicemetrics.MeshStatsLedger(like.mesh_layout)
         os.makedirs(outdir, exist_ok=True)
 
     # ---------------- initialization / resume -------------------------- #
@@ -483,36 +543,51 @@ class PTSampler:
         sidecar and the previous generation kept
         (``io.writers.checkpoint_replace``). Fault site ``pt.ckpt`` fires
         after the replace: a kill there is the clean boundary crash that
-        resume is held against."""
+        resume is held against. Only the primary process writes."""
+        if not is_primary():
+            return
         tmp = self._ckpt_path + ".tmp.npz"
         np.savez(tmp, **arrays)
         checkpoint_replace(tmp, self._ckpt_path)
         faults.fire("pt.ckpt", path=self._ckpt_path,
                     step=int(arrays["step"]))
 
-    def _load_state(self, path):
-        z = np.load(path)
+    def _read_ckpt(self):
+        """The resolved checkpoint's arrays (None without one), read by
+        the primary and shared with every rank
+        (:func:`~..parallel.distributed.from_primary`)."""
+        def read():
+            ckpt = resolve_checkpoint(self._ckpt_path, what="pt checkpoint")
+            if ckpt is None:
+                return None
+            with np.load(ckpt) as z:
+                return {k: z[k] for k in z.files}
+        return from_primary(read)
+
+    def _load_state(self, z):
+        """The state of the checkpoint arrays ``z``
+        (:meth:`_read_ckpt`)."""
         sacc = np.atleast_1d(np.asarray(z["swaps_accepted"], dtype=float))
         sprop = np.atleast_1d(np.asarray(z["swaps_proposed"], dtype=float))
         if sacc.shape != (self.ntemps - 1,):
             sacc = np.zeros(self.ntemps - 1)
             sprop = np.zeros(self.ntemps - 1)
-        ladder = (np.asarray(z["ladder"]) if "ladder" in z.files
+        ladder = (np.asarray(z["ladder"]) if "ladder" in z
                   else self.init_ladder.copy())
         key = np.asarray(z["key"], dtype=np.uint8)
         self.gen.set_state(torch.from_numpy(key.copy()))
         # the plane continues from the checkpointed statistics; the
         # cumulative histogram and family counts only where their shapes
         # match (a rewound checkpoint has none: convergence.py)
-        if self.diag_ledger is not None and "diag_counts" in z.files:
+        if self.diag_ledger is not None and "diag_counts" in z:
             self.diag_ledger = devicemetrics.MomentLedger.from_state(
                 self.nchains, self.ndim,
                 {k: z[f"diag_{k}"] for k in
                  ("counts", "mean", "m2", "min", "max")})
-            if "diag_hist" in z.files \
+            if "diag_hist" in z \
                     and z["diag_hist"].shape == self.diag_hist.shape:
                 self.diag_hist = np.asarray(z["diag_hist"], dtype=float)
-            if "diag_fam_acc" in z.files and z["diag_fam_acc"].shape \
+            if "diag_fam_acc" in z and z["diag_fam_acc"].shape \
                     == self.fam_rung_accept.shape:
                 self.fam_rung_accept = np.asarray(z["diag_fam_acc"],
                                                   dtype=float)
@@ -598,6 +673,8 @@ class PTSampler:
             self._escalate_nonfinite(snap, st, todo)
         if self.health is not None and "h_n" in snap:
             self._fold_health(snap, st)
+        if "mesh_attr" in snap:
+            self._fold_mesh(snap, st)
         return snap["out_x"], snap["out_l"], snap["out_p"]
 
     def _advance(self, st, todo, temps=None):
@@ -649,7 +726,9 @@ class PTSampler:
         # launch a step) and folded into counts at the block's end
         nf_l, nf_p, nf_r = [], [], []
         emit_health = self.health is not None
+        emit_mesh = self.mesh_stats is not None
         emit_diag = self.diag_ledger is not None
+        t_block = time.perf_counter()
         # each step's family choices and acceptances kept by reference,
         # counted per rung and family at the block's end
         choices, accepts = [], []
@@ -658,6 +737,11 @@ class PTSampler:
             h_jit = torch.zeros(n_hpsr, dtype=F64, device=dev)
             h_div = torch.zeros(n_hpsr, dtype=F64, device=dev)
             h_cond = torch.zeros(n_hpsr, dtype=F64, device=dev)
+
+        if emit_mesh:
+            m_attr = torch.zeros((self.mesh_stats.nshard,
+                                  self.mesh_stats.attr_width),
+                                 dtype=F64, device=dev)
 
         def rand(*shape):
             return torch.rand(shape, generator=gen, dtype=F64, device=dev)
@@ -710,15 +794,22 @@ class PTSampler:
                 prop = torch.where(c == _NS, ns_prop, prop)
 
             lnp_new = like.log_prior(prop)
-            if emit_health:
+            if emit_mesh:
+                # the attribution lanes ride the evaluation's collective;
+                # summed on the device, read in the block's snapshot
+                lnl_new, hw, at = like._eval_mesh_batch(
+                    prop, with_health=emit_health)
+                m_attr = m_attr + at.sum(dim=0)
+            elif emit_health:
                 lnl_new, hw = like._eval_health_batch(prop)
+            else:
+                lnl_new = like.loglike_batch(prop)
+            if emit_health:
                 hwv = hw if hw.ndim == 3 else hw[:, None, :]
                 h_jit = h_jit + torch.sum(hwv[:, :, 0] > 0.5, dim=0)
                 h_div = h_div + torch.sum(hwv[:, :, 1] > 0.5, dim=0)
                 h_cond = torch.maximum(h_cond,
                                        torch.amax(hwv[:, :, 2], dim=0))
-            else:
-                lnl_new = like.loglike_batch(prop)
             if emit_nf:
                 nf_l.append(lnl_new)
                 nf_p.append(lnp_new)
@@ -813,6 +904,8 @@ class PTSampler:
                           rej=torch.sum(bad & rej_s, dim=1))
         if emit_health:
             leaves.update(h_jit=h_jit, h_div=h_div, h_cond=h_cond)
+        if emit_mesh:
+            leaves["mesh_attr"] = m_attr
         if mask_cls:
             # the cold proposals by block class [site, common, full]
             cls = torch.stack(mask_cls).reshape(-1)
@@ -831,6 +924,8 @@ class PTSampler:
         self._g_sync.set(self._last_sync_s)
         if emit_health:
             snap["h_n"] = float(W * todo)
+        if emit_mesh:
+            snap["mesh_wall_s"] = time.perf_counter() - t_block
         st.x, st.lnl, st.lnp, st.history = x, lnl, lnp, hist
         st.accepted = acc
         st.hist_len = int(min(st.hist_len + todo, _HISTORY))
@@ -1001,6 +1096,28 @@ class PTSampler:
                                  where="sampler", stats=stats)
             raise PulsarQuarantine(psr, "kernel_health", stats)
 
+    def _fold_mesh(self, snap, st):
+        """Fold one block's attribution table into the mesh ledger
+        (``devicemetrics.MeshStatsLedger``) with the block's measured
+        wall, set the ``shard_skew``, ``collective_wall_ms`` and
+        ``straggler_index{host=}`` gauges, and emit the ``mesh_stats``
+        event and this process's ``mesh_stats`` sidecar."""
+        with profiling.span("pt.mesh_fold", step=int(st.step)):
+            gauges = self.mesh_stats.fold(snap["mesh_attr"],
+                                          snap["mesh_wall_s"])
+            reg = telemetry.registry()
+            reg.gauge("shard_skew").set(gauges["shard_skew"])
+            reg.gauge("collective_wall_ms").set(gauges["collective_wall_ms"])
+            reg.gauge("straggler_index",
+                      host=str(gauges["straggler_host"])).set(
+                float(gauges["straggler_index"]))
+            rec = telemetry.active_recorder()
+            if rec is not None:
+                payload = self.mesh_stats.snapshot()
+                rec.event("mesh_stats", step=int(st.step), **payload)
+                if getattr(rec, "run_dir", None):
+                    devicemetrics.write_mesh_stats(rec.run_dir, payload)
+
     def anneal_init(self, schedule=None, steps_per=100, resample=True,
                     ess_frac=0.5, verbose=True):
         """SMC-style tempered initialization of the walker ensemble.
@@ -1017,7 +1134,7 @@ class PTSampler:
         measurement starts clean. A no-op where a checkpoint exists (a
         resumed run must not re-anneal). Meant for one rung
         (``ntemps == 1``); a PT ladder is a bridge of its own."""
-        if checkpoint_exists(self._ckpt_path):
+        if from_primary(lambda: checkpoint_exists(self._ckpt_path)):
             return None
         if schedule is None:
             schedule = (64.0, 32.0, 16.0, 8.0, 4.0, 2.0)
@@ -1064,8 +1181,10 @@ class PTSampler:
         this sampler wrote up to that very checkpoint, unchanged since,
         are left as they are: a driver that continues a run in the same
         process (:func:`~.convergence.sample_to_convergence`) does not
-        re-read the chain at every call."""
-        if self._committed == (int(step), self._chain_sizes()):
+        re-read the chain at every call. Only the primary process
+        writes."""
+        if not is_primary() \
+                or self._committed == (int(step), self._chain_sizes()):
             return
         B = max(int(block_size), 1)
         n_full, r = divmod(int(step), B)
@@ -1126,12 +1245,14 @@ class PTSampler:
             rec.heartbeat(**heartbeat)
             if mixing is not None:
                 rec.event("mixing", **mixing)
-        if mixing_stats is not None:
+        if mixing_stats is not None and is_primary():
             atomic_write_json(os.path.join(self.outdir,
                                            "mixing_stats.json"),
                               mixing_stats)
 
     def _commit_files(self, tables, cov, mask_stats, ckpt):
+        if not is_primary():
+            return
         for path, rows in tables:
             write_table(path, rows, append=True)
         faults.fire("pt.chain", path=tables[0][0], step=int(ckpt["step"]))
@@ -1175,7 +1296,7 @@ class PTSampler:
 
     def _sample_impl(self, nsamp, resume, verbose, thin, block_size,
                      collect, rec):
-        ckpt = resolve_checkpoint(self._ckpt_path) if resume else None
+        ckpt = self._read_ckpt() if resume else None
         if ckpt is not None:
             st = self._load_state(ckpt)
             if verbose:
@@ -1188,13 +1309,16 @@ class PTSampler:
                 self._reset_diag()
             # a fresh run: truncate the cold chain and remove any stale
             # hot-rung file of an earlier run in the same directory
-            open(os.path.join(self.outdir, "chain_1.txt"), "w").close()
-            for path in glob.glob(os.path.join(self.outdir, "chain_*.txt")):
-                if os.path.basename(path) != "chain_1.txt":
-                    os.remove(path)
+            if is_primary():
+                open(os.path.join(self.outdir, "chain_1.txt"), "w").close()
+                for path in glob.glob(os.path.join(self.outdir,
+                                                   "chain_*.txt")):
+                    if os.path.basename(path) != "chain_1.txt":
+                        os.remove(path)
         chain_path = os.path.join(self.outdir, "chain_1.txt")
-        np.savetxt(os.path.join(self.outdir, "pars.txt"),
-                   self.like.param_names, fmt="%s")
+        if is_primary():
+            np.savetxt(os.path.join(self.outdir, "pars.txt"),
+                       self.like.param_names, fmt="%s")
         # evals_total stays cumulative across resumes; rates are this
         # session's
         meter = EvalRateMeter(initial_total=self.W * int(st.step))
@@ -1425,6 +1549,11 @@ class PTSampler:
                                         for led in self.health)
             hb["kernel_cond"] = round(max(led.max_logcond
                                           for led in self.health), 3)
+        if self.mesh_stats is not None and self.mesh_stats._blocks:
+            ms = self.mesh_stats.snapshot()
+            hb["shard_skew"] = round(ms["shard_skew"], 4)
+            hb["collective_wall_ms"] = round(ms["collective_wall_ms"], 3)
+            hb["straggler_index"] = ms["straggler_index"]
         mem = profiling.memory_watermark(self.device)
         if mem is not None:
             hb.update(mem)
@@ -1489,8 +1618,8 @@ def run_ptmcmc(like, outdir, nsamp, params=None, resume=True, seed=0,
             cov = _covm_from_csv(covm, like.param_names)
             if cov is not None:
                 opts["init_cov"] = cov
-        resuming = resume and checkpoint_exists(
-            os.path.join(outdir, "state.npz"))
+        resuming = resume and from_primary(lambda: checkpoint_exists(
+            os.path.join(outdir, "state.npz")))
         if _knob(params, "advi_init") and not resuming:
             from .vi import fit_advi
             if verbose:

@@ -1,9 +1,10 @@
 """The device diagnostics plane: block moments on the device and the
 streaming mixing diagnostics on the host.
 
-Counterpart of ``enterprise_warp_tpu/utils/devicemetrics.py`` without its
-mesh half (``mesh_enabled``, ``MeshStatsLedger``, ``write_mesh_stats``:
-``ROADMAP.md``, the multi-GPU item).
+Counterpart of ``enterprise_warp_tpu/utils/devicemetrics.py``, its mesh
+half included (:func:`mesh_enabled`, :class:`MeshStatsLedger`,
+:func:`write_mesh_stats`: the sharded joint likelihood's per-shard
+attribution, folded at block cadence).
 
 **Device side.** The reference threads fixed-shape accumulators (Welford
 moments, extrema, a fixed-bin histogram) through its ``lax.scan`` carry
@@ -55,7 +56,8 @@ import torch
 
 from . import telemetry
 
-__all__ = ["enabled", "welford_merge", "welford_finalize",
+__all__ = ["enabled", "mesh_enabled", "MeshStatsLedger",
+           "write_mesh_stats", "welford_merge", "welford_finalize",
            "hist_init", "hist_add", "hist_bounds", "block_moments",
            "set_stream_gauges",
            "MomentLedger", "DEFAULT_NBINS", "STREAM_BURN_FRAC"]
@@ -433,3 +435,140 @@ class MomentLedger:
         for i in range(counts.size):
             led.append_block(counts[i], mean[i], m2[i], mn[i], mx[i])
         return led
+
+
+# ------------------------------------------------------------------ #
+#  the mesh plane                                                     #
+# ------------------------------------------------------------------ #
+
+#: the collective's cost-model coefficient: FLOP-equivalents charged per
+#: byte of the packed sum's payload when the block wall is split into
+#: local, collective and stage-3 shares. A model knob, not a measurement
+#: (``EWT_MESH_COLL_FPB`` overrides it; every payload names the basis).
+DEFAULT_COLL_FLOP_PER_BYTE = 32.0
+
+
+def mesh_enabled() -> bool:
+    """Whether the mesh plane is armed: under ``EWT_TELEMETRY`` (the
+    master switch), with ``EWT_MESH_STATS=0`` as the plane's own."""
+    return telemetry.enabled() \
+        and os.environ.get("EWT_MESH_STATS", "1") != "0"
+
+
+class MeshStatsLedger:
+    """Host-side fold of the per-shard attribution lanes that ride the
+    sharded evaluation's packed sum (``parallel/pta.py:MESH_ATTR_WIDTH``
+    lanes a shard: evaluations, active TOAs, jitter-engaged and
+    refine-diverged pulsars) and the static cost model's wall split.
+
+    Built from ``like.mesh_layout``. Per block, :meth:`fold` takes the
+    block's ``(nshard, attr_width)`` table and its measured wall and
+    returns the gauges: ``shard_skew`` (max over mean of the work lane;
+    1.0 is balanced), ``collective_wall_ms`` (the wall times the model's
+    collective share ``C_coll / (max C12 + C3 + C_coll)``, ``C_coll`` the
+    payload bytes times ``EWT_MESH_COLL_FPB``: an attribution of the
+    measured wall, not a second timer), ``straggler_index`` and
+    ``straggler_host`` (the shard with the most work and its process).
+    Numpy only, at block cadence."""
+
+    def __init__(self, layout):
+        self.layout = dict(layout)
+        self.nshard = int(layout["nshard"])
+        self.attr_width = int(layout.get("attr_width", 4))
+        self._attr = np.zeros((self.nshard, self.attr_width))
+        self._wall_s = 0.0
+        self._blocks = 0
+        self._straggler_hits = np.zeros(self.nshard, dtype=np.int64)
+        self._procs = [int(p) for p in layout.get(
+            "shard_process", [0] * self.nshard)][:self.nshard]
+        f12 = np.asarray(layout.get("flops_stage12_per_shard",
+                                    [1.0] * self.nshard), dtype=np.float64)
+        f3 = float(layout.get("flops_stage3", 0.0))
+        self.coll_flop_per_byte = float(os.environ.get(
+            "EWT_MESH_COLL_FPB", DEFAULT_COLL_FLOP_PER_BYTE))
+        c_coll = (float(layout.get("psum_payload_bytes", 0))
+                  * self.coll_flop_per_byte)
+        crit = max(float(f12.max(initial=0.0)) + f3 + c_coll, 1.0)
+        self.frac_coll = c_coll / crit
+        self.frac_stage3 = f3 / crit
+        self.frac_local = float(f12.max(initial=0.0)) / crit
+        #: the imbalance the cost model predicts from the shard geometry
+        self.model_skew = float(f12.max(initial=0.0)) \
+            / max(float(f12.mean()), 1.0)
+
+    @staticmethod
+    def _skew(work):
+        mean = float(work.mean())
+        if mean <= 0.0:
+            return 1.0
+        return float(work.max(initial=0.0)) / mean
+
+    def _host(self, shard):
+        return self._procs[shard] if shard < len(self._procs) else 0
+
+    def fold(self, attr, wall_s):
+        """Fold one block's table and measured wall; returns the block's
+        gauges."""
+        attr = np.asarray(attr, dtype=np.float64).reshape(
+            self.nshard, self.attr_width)
+        wall_s = max(float(wall_s), 0.0)
+        self._attr += attr
+        self._wall_s += wall_s
+        self._blocks += 1
+        work = attr[:, 1]
+        straggler = int(np.argmax(work))
+        self._straggler_hits[straggler] += 1
+        return {"shard_skew": self._skew(work),
+                "collective_wall_ms": wall_s * 1e3 * self.frac_coll,
+                "straggler_index": straggler,
+                "straggler_host": self._host(straggler)}
+
+    def snapshot(self):
+        """The run-cumulative payload of the ``mesh_stats`` event and the
+        sidecar."""
+        work = self._attr[:, 1]
+        straggler = int(np.argmax(work)) if self.nshard else 0
+        wall_ms = self._wall_s * 1e3
+        return {
+            "nshard": self.nshard,
+            "blocks": int(self._blocks),
+            "shard_evals": [float(v) for v in self._attr[:, 0]],
+            "shard_work": [float(v) for v in work],
+            "shard_jitter": [float(v) for v in self._attr[:, 2]],
+            "shard_diverged": [float(v) for v in self._attr[:, 3]],
+            "shard_process": list(self._procs),
+            "straggler_hits": [int(v) for v in self._straggler_hits],
+            "shard_skew": self._skew(work),
+            "model_skew": self.model_skew,
+            "straggler_index": straggler,
+            "straggler_host": self._host(straggler),
+            "wall_ms": wall_ms,
+            "collective_wall_ms": wall_ms * self.frac_coll,
+            "stage3_wall_ms": wall_ms * self.frac_stage3,
+            "local_wall_ms": wall_ms * self.frac_local,
+            "collective_frac_model": self.frac_coll,
+            "coll_flop_per_byte": self.coll_flop_per_byte,
+            "cost_basis": self.layout.get("cost_basis",
+                                          "static_cost_model"),
+        }
+
+
+def write_mesh_stats(run_dir, payload):
+    """The mesh plane's sidecar: ``mesh_stats.json`` on the primary,
+    ``mesh_stats.<process_index>.json`` on every other process (each owns
+    its path: ``primary_only(telemetry_ok=True)``). Returns the path."""
+    from ..parallel.distributed import primary_only, process_index
+
+    @primary_only(telemetry_ok=True)
+    def _write():
+        import json
+        idx = process_index()
+        name = "mesh_stats.json" if idx == 0 else f"mesh_stats.{idx}.json"
+        path = os.path.join(run_dir, name)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(payload, fh, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+        return path
+
+    return _write()

@@ -154,7 +154,10 @@ class FlightRecorder:
         if not enabled():
             return None
         run_dir = run_dir or self.run_dir
-        if run_dir is None or self.dumps >= _MAX_DUMPS:
+        # the dumps share the run directory's anomaly/ path: the primary
+        # process alone writes them
+        if run_dir is None or self.dumps >= _MAX_DUMPS \
+                or not telemetry._is_primary():
             return None
         with self._lock:
             key = once_key or reason

@@ -187,9 +187,10 @@ def write_textfile(path: str | None = None) -> str | None:
 def maybe_export(force: bool = False) -> str | None:
     """Heartbeat-cadence textfile refresh: rewrite the armed target
     unless one landed within :data:`_MIN_INTERVAL_S` (``force``
-    bypasses the throttle — the run_end final export)."""
+    bypasses the throttle — the run_end final export). The textfile is
+    a shared path: only the primary process writes it."""
     path = textfile_path()
-    if path is None:
+    if path is None or not telemetry._is_primary():
         return None
     if not force and time.monotonic() - _last_write[0] < _MIN_INTERVAL_S:
         return None

@@ -479,12 +479,21 @@ class RunRecorder:
     from ``EWT_CAMPAIGN_ID``, else the previous session, else is minted.
     ``run_start`` is followed by a ``run_lineage`` event. Events may come
     from the sampler's thread and its block-writer thread: a lock keeps
-    the buffer and its flushes whole."""
+    the buffer and its flushes whole.
+
+    Processes: every process records its own stream, ``events.jsonl`` on
+    the primary and ``events.<i>.jsonl`` on process ``i`` (telemetry is
+    exempt from the single-writer rule because the name carries the
+    index; ``tools/report.py`` stitches the streams); with more than one
+    process ``run_start`` and every heartbeat carry ``process_index``."""
 
     def __init__(self, run_dir: str, flush_every: int = 20,
                  flush_interval: float = 5.0):
         self.run_dir = run_dir
-        self.path = os.path.join(run_dir, "events.jsonl")
+        self.process_index, self.process_count = _host_identity()
+        self.path = os.path.join(
+            run_dir, "events.jsonl" if self.process_index == 0
+            else f"events.{self.process_index}.jsonl")
         self.enabled = enabled()
         self._buf: list = []
         self._flush_every = flush_every
@@ -612,6 +621,9 @@ class RunRecorder:
         info = dict(fields)
         info.setdefault("run_id", self.run_id)
         info.setdefault("campaign", self.campaign)
+        if self.process_count > 1 or self.process_index:
+            info.setdefault("process_index", self.process_index)
+            info.setdefault("process_count", self.process_count)
         try:
             for k, v in _device_fingerprint().items():
                 info.setdefault(k, v)
@@ -628,6 +640,8 @@ class RunRecorder:
         self.flush()        # the header must survive an early crash
 
     def heartbeat(self, **fields):
+        if self.process_count > 1 or self.process_index:
+            fields.setdefault("process_index", self.process_index)
         self.event("heartbeat", **fields)
         # the OpenMetrics textfile at heartbeat cadence
         # (utils/metricsexport.py; a no-op without EWT_METRICS_TEXTFILE)
@@ -667,6 +681,8 @@ class _NoopRecorder:
     campaign = None
     parent_run_id = None
     lineage_reason = None
+    process_index = 0
+    process_count = 1
 
     def event(self, *args, **fields):
         pass
@@ -689,6 +705,26 @@ def active_recorder():
     return _ACTIVE[-1] if _ACTIVE else None
 
 
+def _is_primary() -> bool:
+    """``parallel.distributed.is_primary``, True where that fails:
+    telemetry never stops a run."""
+    try:
+        from ..parallel.distributed import is_primary
+        return is_primary()
+    except Exception:   # noqa: BLE001 — telemetry never kills a run
+        return True
+
+
+def _host_identity() -> tuple:
+    """``(process_index, process_count)``, ``(0, 1)`` where the
+    distributed layer fails: telemetry never stops a run."""
+    try:
+        from ..parallel.distributed import process_count, process_index
+        return process_index(), process_count()
+    except Exception:   # noqa: BLE001 — telemetry never kills a run
+        return 0, 1
+
+
 def _preempted() -> bool:
     from ..resilience.supervisor import preemption_requested
     return preemption_requested()
@@ -705,7 +741,10 @@ def run_scope(run_dir, **start_fields):
     ``sample_to_convergence`` or the CLI) reuse the active recorder. Yields a recorder, a
     no-op one when telemetry is off or ``run_dir`` is None. The outermost
     scope also binds the flight recorder to the run and, on exit, writes
-    ``<run_dir>/trace.json`` when spans are on."""
+    ``<run_dir>/trace.json`` when spans are on. Every process records its
+    own stream (:class:`RunRecorder`); the artifacts (the flight
+    recorder's dumps, ``trace.json``, the metrics exporters) are the
+    primary's alone."""
     if _ACTIVE:
         yield _ACTIVE[-1]
         return
@@ -717,15 +756,17 @@ def run_scope(run_dir, **start_fields):
     rec = RunRecorder(run_dir)
     rec.run_start(**start_fields)
     _ACTIVE.append(rec)
-    flight_recorder().bind(run_dir)
-    # the metrics exporters (utils/metricsexport.py): the /metrics
-    # endpoint (EWT_METRICS_PORT) and a metrics_export event for each
-    # armed exporter; inert without their switches
-    try:
-        from .metricsexport import autostart
-        autostart(rec)
-    except Exception:   # noqa: BLE001 — export never stops a run
-        pass
+    primary = _is_primary()
+    if primary:
+        flight_recorder().bind(run_dir)
+        # the metrics exporters (utils/metricsexport.py): the /metrics
+        # endpoint (EWT_METRICS_PORT) and a metrics_export event for
+        # each armed exporter; inert without their switches
+        try:
+            from .metricsexport import autostart
+            autostart(rec)
+        except Exception:   # noqa: BLE001 — export never stops a run
+            pass
     status = "ok"
     try:
         yield rec
@@ -743,8 +784,9 @@ def run_scope(run_dir, **start_fields):
             flight_recorder().anomaly("preempted", run_dir=run_dir,
                                       once_key=f"preempted:{run_dir}")
         _ACTIVE.remove(rec)
-        flight_recorder().unbind()
-        profiling.flush_trace(run_dir)
+        if primary:
+            flight_recorder().unbind()
+            profiling.flush_trace(run_dir)
         profiling.capture_stop()
         rec.run_end(status=status)
         rec.close()

@@ -137,13 +137,15 @@ def test_cli_runs_hmc_on_cpu(tmp_path, monkeypatch):
     assert len(pars) == 4 and all(p.startswith("J0042-0000") for p in pars)
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
+def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
     with pytest.raises(NotImplementedError):
         cli.main(["serve"], device="cpu")
-    # the chain-axis mesh waits for the multi-GPU slice
+    # the chain axis is the PT branch's alone: the nested branch notes
+    # chain_shard, as the reference's CLI does, and runs unsharded
     prfile = _nested_paramfile(tmp_path, chain_shard=2)
-    with pytest.raises(NotImplementedError):
-        cli.main(["--prfile", prfile, "--num", "0"], device="cpu")
+    assert cli.main(["--prfile", prfile, "--num", "0"], device="cpu") == 0
+    assert "note: chain_shard applies to the PT-MCMC branch only; " \
+        "sampler 'dynesty' runs unsharded" in capsys.readouterr().out
     # the nested sampler's per-iteration switch (block_iters: 0) is
     # accepted: the blocked walk, one iteration a block
     prfile = _nested_paramfile(tmp_path, block_iters=0)
@@ -316,4 +318,5 @@ def test_no_source_names_jax_or_the_reference():
     assert {os.path.join(PKG, "native.py"),
             os.path.join(PKG, "samplers", "convergence.py"),
             os.path.join(PKG, "utils", "devicemetrics.py"),
-            os.path.join(PKG, "utils", "metricsexport.py")} <= set(files)
+            os.path.join(PKG, "utils", "metricsexport.py"),
+            os.path.join(PKG, "parallel", "distributed.py")} <= set(files)

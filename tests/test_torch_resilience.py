@@ -456,6 +456,97 @@ def test_ckpt_verify_torn_falls_back_a_generation(tmp_path):
     assert len(bad) == 1 and bad[0]["generation"] == 0
 
 
+def _corrupt(path):
+    """Overwrite four bytes of a checkpoint generation in place (its
+    sidecar digest no longer matches)."""
+    with open(path, "r+b") as fh:
+        fh.seek(10)
+        fh.write(b"\x00\x00\x00\x00")
+
+
+def _corrupt_count():
+    return telemetry.registry().snapshot()["counters"].get(
+        "ckpt_verify{outcome=corrupt}", 0)
+
+
+def test_repeat_resolve_memoized_single_telemetry(tmp_path):
+    """The twin of the reference's memo test: one corrupt archive resolved
+    twice counts one ``ckpt_verify{outcome=corrupt}`` and writes one
+    ``ckpt_corrupt`` event; a write invalidates the memo."""
+    from enterprise_warp_tpu_torch.io import writers
+    path = str(tmp_path / "state.npz")
+
+    def gen(i):
+        tmp = str(tmp_path / "tmp.npz")
+        with open(tmp, "wb") as fh:
+            fh.write(b"generation %d " % i * 8)
+        writers.checkpoint_replace(tmp, path)
+
+    gen(1)
+    gen(2)
+    _corrupt(path)
+    c0 = _corrupt_count()
+    with telemetry.run_scope(str(tmp_path), sampler="t"):
+        r1 = writers.resolve_checkpoint(path)
+        assert _corrupt_count() == c0 + 1
+        assert writers.resolve_checkpoint(path) == r1     # a memo hit
+        assert _corrupt_count() == c0 + 1
+        gen(3)                                            # invalidates
+        assert writers.resolve_checkpoint(path) == path
+    assert r1 == writers.prev_generation(path)
+    assert _corrupt_count() == c0 + 1
+    bad = [e for e in _events(tmp_path / "events.jsonl")
+           if e["type"] == "ckpt_corrupt"]
+    assert len(bad) == 1
+
+
+def test_one_resume_of_a_corrupt_archive_writes_one_ckpt_corrupt(
+        tmp_path, monkeypatch):
+    """A resume through ``sample_to_convergence`` (which resolves the
+    checkpoint, then the sampler again) and one through ``run_hmc`` (which
+    decides it is resuming by ``checkpoint_exists`` and resolves once, in
+    the sampler) each write exactly one ``ckpt_corrupt``, as the
+    reference's do."""
+    from enterprise_warp_tpu_torch.samplers import hmc as thmc
+    from enterprise_warp_tpu_torch.samplers.convergence import \
+        sample_to_convergence
+
+    pt_dir = tmp_path / "pt"
+    s = PTSampler(_like(), str(pt_dir), ntemps=1, nchains=8, seed=0,
+                  cov_update=40)
+    s.sample(120, resume=False, verbose=False)
+    _corrupt(str(pt_dir / "state.npz"))
+    s = PTSampler(_like(), str(pt_dir), ntemps=1, nchains=8, seed=0,
+                  cov_update=40)
+    with telemetry.run_scope(str(pt_dir), sampler="ptmcmc"):
+        sample_to_convergence(s, target_ess=1e9, check_every=40,
+                              max_steps=160, block_size=40, resume=True,
+                              verbose=False)
+    bad = [e for e in _events(pt_dir / "events.jsonl")
+           if e["type"] == "ckpt_corrupt"]
+    assert len(bad) == 1 and bad[0]["generation"] == 0
+
+    hmc_dir = tmp_path / "hmc"
+    opts = dict(nchains=8, warmup=10, n_leapfrog=4, advi_init=False,
+                verbose=False)
+    thmc.run_hmc(_like(), str(hmc_dir), 40, resume=False, **opts)
+    _corrupt(str(hmc_dir / "state.npz"))
+    calls = []
+    real = thmc.resolve_checkpoint
+
+    def counted(*a, **k):
+        calls.append(a[0])
+        return real(*a, **k)
+
+    monkeypatch.setattr(thmc, "resolve_checkpoint", counted)
+    with telemetry.run_scope(str(hmc_dir), sampler="hmc"):
+        thmc.run_hmc(_like(), str(hmc_dir), 60, resume=True, **opts)
+    assert len(calls) == 1
+    bad = [e for e in _events(hmc_dir / "events.jsonl")
+           if e["type"] == "ckpt_corrupt"]
+    assert len(bad) == 1 and bad[0]["what"] == "hmc checkpoint"
+
+
 # ------------------------------------------------------------------ #
 #  kill and resume, across processes                                  #
 # ------------------------------------------------------------------ #
