@@ -302,7 +302,33 @@ Phases (any failure exits non-zero before the result line):
    ms/step beside); (12.5) where more than one card is visible, 12.1
    with NCCL on ``min(count, 4)`` cards, one rank a card (else it prints
    ``multi-GPU: not run``);
-13. the ``kernels`` JSON line, one entry per kernel and main path that
+13. the serving plane (:func:`phase_serve`): (13.1) one ``ServeDriver``
+   on the card with ``fixed_white_noise.dat --num 0`` (the solve kernel,
+   Sn (16, 250, 250)) and ``system_noise.dat --num 1`` (the likelihood
+   kernel, S (122, 120), W 16) registered at serve width 16, buckets 1,
+   4, 16: each model's first result cold and warm, ``warm()``, then a
+   seeded synthetic trace (120 requests of 1-8 prior draws over 8
+   tenants, seed 0) with the launch counts zeroed just before and read
+   just after (both kernels launched at width 16 on every call, kernel 3
+   not at all), the dispatches against 120 sequential ones, the mean
+   fill, p50/p90/p99 latency and the decomposition's mean parts (each
+   request's parts summing to its latency), clean streams; (13.2) every
+   request's rows served packed bit-equal to the same rows served alone
+   at the same width (a row that differs prints which wrapper's outputs
+   depend on the co-batched rows, then fails); (13.3) on a full bucket of
+   16 near-typical points of ``--num 1``: a ``serve.harvest``
+   ``nonfinite`` fault on one row quarantines that request alone and its
+   co-tenants are bit-equal to a clean run, a ``serve.dispatch`` error is
+   retried by the supervisor to the clean result, and one ``classic``
+   demotion re-dispatches under ``EWT_PALLAS_MEGA=0`` on a fresh AOT key
+   (kernel 3, not kernel 2) within the lnL class of the megakernel run;
+   (13.4) ``cli.main(["serve", "-p", fixed_white_noise, "--warm",
+   "--synthetic", "64", "--tenants", "8"])`` exits 0 with every request
+   done or quarantined for a non-finite lnL (none dropped, no dispatch
+   error) and clean streams; (13.5) each kernel held against its plain
+   version on the trace's last batch, walker by walker, and timed (rows
+   ``mega_solve@serve``, ``mega_like@serve``);
+14. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``, after the smoke's wall time.
@@ -448,7 +474,15 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
          "shard_health_s3": "gwb_array.dat's joint likelihood sharded over "
                             "two gloo ranks sharing the card, "
                             "EWT_KERNEL_HEALTH=1: stage 3, replicated on "
-                            "both ranks (rank 0's), PT-MCMC, 8 walkers"}
+                            "both ranks (rank 0's), PT-MCMC, 8 walkers",
+         "serve_fixed": "the serving plane: fixed_white_noise.dat --num 0 "
+                        "through ServeDriver at serve width 16, a seeded "
+                        "synthetic trace of 120 requests over 8 tenants "
+                        "beside system_noise.dat --num 1",
+         "serve_like": "the serving plane: system_noise.dat --num 1 "
+                       "through ServeDriver at serve width 16, a seeded "
+                       "synthetic trace of 120 requests over 8 tenants "
+                       "beside fixed_white_noise.dat --num 0"}
 # the joint paths: right-hand-side widths past the refine phase's 8-column
 # panel, BASELINE config 3's size, and the agreement of lnL differences
 # with the dense float64 oracle there (tests/test_parallel.py:612)
@@ -4061,6 +4095,362 @@ def phase_pulsar_axis(tmp, dev, smi, results, pf45, like45, step_ms45, h):
         print(f"multi-GPU: not run ({ncard} device visible)")
 
 
+# ---- phase 13: the serving plane ---------------------------------------- #
+# serve width and buckets of 13.1: both kernels at width 16 on the serving path
+SERVE_WIDTH = 16
+SERVE_BUCKETS = (1, 4, 16)
+# 13.1's seeded synthetic trace: requests of 1-8 prior draws over 8
+# tenants, the models drawn at random
+SERVE_TRACE = dict(n_requests=120, tenants=8, max_theta=8, seed=0)
+SERVE_CLI_REQUESTS = 64
+
+
+def serve_models(tmp, dev):
+    """The two serve models of 13.1, on ``dev``: ``fixed_white_noise.dat
+    --num 0`` (folded Grams: the solve kernel at n 250) and
+    ``system_noise.dat --num 1`` (the likelihood kernel, S (122, 120))."""
+    pf = write_paramfile(tmp, "fixed_white_noise.dat", dest="serve_fixed.dat")
+    ps = write_paramfile(tmp, "system_noise.dat", dest="serve_like.dat")
+    return {"fixed": load_likes(pf, 0, dev)[1][0],
+            "like": load_likes(ps, 1, dev)[1][0]}, pf
+
+
+def serve_driver(root, models, **kw):
+    from enterprise_warp_tpu_torch.serve import ServeDriver
+    drv = ServeDriver(root, buckets=SERVE_BUCKETS, **kw)
+    for name, like in models.items():
+        drv.register(name, like, width=SERVE_WIDTH)
+    return drv
+
+
+def batch_dependence(like, rows):
+    """Diagnostic of a packed row that differs from the same row served
+    alone: evaluate ``rows`` and the same rows rolled by one under a
+    ``TorchFunctionMode`` that records every torch call's tensor outputs,
+    and print the first calls whose outputs, aligned row for row, differ
+    between the two orders (the op whose result depends on the co-batched
+    rows or on a row's position)."""
+    import numpy as np
+    import torch
+    from torch.overrides import TorchFunctionMode
+    W = len(rows)
+
+    class Tape(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", str(func))
+            leaves = out if isinstance(out, (tuple, list)) else (out,)
+            # uninitialised buffers are no one's result
+            self.calls.append((name, [] if "empty" in name else
+                               [t.detach().clone() for t in leaves
+                                if isinstance(t, torch.Tensor)]))
+            return out
+
+    tapes = []
+    for order in (np.arange(W), np.roll(np.arange(W), 1)):
+        with Tape() as tape:
+            like.loglike_batch(rows[order])
+        tapes.append((tape.calls, torch.as_tensor(np.argsort(order))))
+    (ca, _), (cb, inv) = tapes
+    shown = 0
+    for n, ((fa, ta), (fb, tb)) in enumerate(zip(ca, cb)):
+        for x, y in zip(ta, tb):
+            if x.shape != y.shape or x.dtype.is_complex:
+                continue
+            if x.dim() and x.shape[0] == W:
+                y = y[inv.to(y.device)]
+            same = (x == y) | (x.isnan() & y.isnan()) \
+                if x.is_floating_point() else x == y
+            if not bool(same.all()):
+                d = (x.double() - y.double()).abs()
+                d = d[torch.isfinite(d)]
+                print(f"13.2 diagnostic: call {n} {fa} (shape "
+                      f"{tuple(x.shape)}, {x.dtype}) differs under a row "
+                      f"permutation, max |d| "
+                      f"{float(d.max()) if d.numel() else float('nan'):.3e}")
+                shown += 1
+                break
+        if shown >= 6:
+            break
+    print(f"13.2 diagnostic: {len(ca)} and {len(cb)} torch calls recorded")
+
+
+def phase_serve(tmp, dev, smi, results, h):
+    """Phase 13 (module docstring): the serving plane on the card. ``h``
+    holds main's helpers (``hold_solve``, ``solve_calls``,
+    ``like_calls``); the rows go into ``results``."""
+    import io
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch import cli
+    from enterprise_warp_tpu_torch.ops import megakernel as mk
+    from enterprise_warp_tpu_torch.ops import routes
+    from enterprise_warp_tpu_torch.resilience import faults
+    from enterprise_warp_tpu_torch.resilience.supervisor import \
+        PlatformDemotion
+    from enterprise_warp_tpu_torch.serve.cli import synthetic_trace
+    from enterprise_warp_tpu_torch.utils import telemetry
+
+    models, pf_fixed = serve_models(tmp, dev)
+    kernel_of = {"fixed": "mega_solve", "like": "mega_like"}
+    for name, like in models.items():
+        print(f"13: serve model {name!r}: {like.psr.name}, {len(like.psr)} "
+              f"TOAs, {like.ndim} parameters, const_grams "
+              f"{like.const_grams}")
+
+    # ---- 13.1 the library path ----------------------------------------
+    cold = {}
+    with serve_driver(os.path.join(tmp, "serve_cold"), models) as drv:
+        rng = np.random.default_rng(1)
+        for name, like in models.items():
+            rid = drv.submit("probe", name, like.sample_prior(rng, 1))
+            drv.run()
+            cold[name] = next(r["latency_ms"] for r in drv.request_log
+                              if r["rid"] == rid)
+    root = os.path.join(tmp, "serve")
+    drv = serve_driver(root, models)
+    walls = drv.warm()
+    warm = {}
+    rng = np.random.default_rng(1)
+    for name, like in models.items():
+        rid = drv.submit("probe", name, like.sample_prior(rng, 1))
+        drv.run()
+        warm[name] = next(r["latency_ms"] for r in drv.request_log
+                          if r["rid"] == rid)
+    for name in models:
+        key = drv.cache.key(models[name], SERVE_WIDTH)
+        print(f"13.1 {name}: first result {cold[name]:.3f} ms cold (the "
+              f"executable warmed by that request; the kernel library "
+              f"already loaded) and {warm[name]:.3f} ms warm; warm-up "
+              f"{1e3 * walls[name][SERVE_WIDTH]:.3f} ms, library found "
+              f"built {drv.cache.cache_verdicts[key]} [{smi}]")
+    trace = synthetic_trace(models, SERVE_TRACE["n_requests"],
+                            tenants=SERVE_TRACE["tenants"],
+                            max_theta=SERVE_TRACE["max_theta"],
+                            seed=SERVE_TRACE["seed"])
+    base, f0 = len(drv.request_log), len(drv._fills)
+    d0 = drv.n_dispatch
+    rids = []
+    routes.reset_counts()
+    with RecordBatches(mk, "mega_solve_logdet", 0) as rec_s, \
+            RecordBatches(mk, "mega_like", 1) as rec_l:
+        t0 = time.perf_counter()
+        for spec in trace:
+            rids.append(drv.submit(spec["tenant"], spec["model"],
+                                   spec["thetas"]))
+        s = drv.run()
+        wall = time.perf_counter() - t0
+    launches = dict(routes.LAUNCHES)
+    drv.close()
+    log = drv.request_log[base:]
+    ndisp = drv.n_dispatch - d0
+    fills = drv._fills[f0:]
+    lat = sorted(r["latency_ms"] for r in log)
+
+    def q(p):
+        return lat[min(int(p * len(lat)), len(lat) - 1)]
+    parts = {k: float(np.mean([r[k] for r in log]))
+             for k in ("queue_ms", "pack_ms", "dispatch_ms", "harvest_ms",
+                       "other_ms")}
+    nrows = sum(len(sp["thetas"]) for sp in trace)
+    print(f"13.1: {len(trace)} requests ({nrows} rows) over "
+          f"{SERVE_TRACE['tenants']} tenants in {wall:.3f} s: {ndisp} "
+          f"dispatches against {len(trace)} sequential, mean fill "
+          f"{np.mean(fills):.4f}; latency p50 {q(0.5):.3f} p90 {q(0.9):.3f} "
+          f"p99 {q(0.99):.3f} ms; mean parts (ms) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; done {len(log)}, quarantined {s['quarantined_requests']} "
+          f"{sorted(drv.quarantined.values())}; launches {launches} "
+          f"[{smi}]")
+    if not s["accounting"]["balanced"] or s["dropped_requests"] \
+            or s["dispatch_error_quarantines"] or s["rejected_requests"]:
+        fail(f"13.1: the trace's accounting {s['accounting']}")
+    if drv.quarantined or s["quarantined_requests"] \
+            or len(log) != len(trace):
+        fail(f"13.1: every request must finish, none quarantined: "
+             f"{len(log)} of {len(trace)} done, {drv.quarantined}")
+    if not launches["mega_solve"] or not launches["mega_like"] \
+            or launches["chol_precond"]:
+        fail(f"13.1: the serving path's launches {launches}: kernel 1 and "
+             "kernel 2 must launch, kernel 3 must not")
+    for name, kname, recd in (("fixed", "mega_solve", rec_s),
+                              ("like", "mega_like", rec_l)):
+        sizes = {n: dict(c) for n, c in recd.sizes.items()}
+        print(f"13.1 {name}: {kname} calls per order and batch {sizes}")
+        if set(recd.last) != {SERVE_WIDTH} or sum(
+                sum(c.values()) for c in recd.sizes.values()) \
+                != launches[kname]:
+            fail(f"13.1: {kname} did not run at the serve width "
+                 f"{SERVE_WIDTH} on every launch")
+    for r in log:
+        staged = sum(r[k] for k in parts)
+        if abs(staged - r["latency_ms"]) > 0.01:
+            fail(f"13.1: request {r['rid']}'s decomposition sums to "
+                 f"{staged} ms, not its latency {r['latency_ms']} ms")
+    for rid, spec in zip(rids, trace):
+        if rid not in drv.results or not (
+                np.isfinite(drv.results[rid]).all()
+                and drv.results[rid].shape == (len(spec["thetas"]),)):
+            fail(f"13.1: request {rid}'s result is missing or not finite")
+    for path in [os.path.join(root, "events.jsonl")] + [
+            os.path.join(root, "tenants", t, "events.jsonl")
+            for t in sorted(os.listdir(os.path.join(root, "tenants")))]:
+        problems, msgs = telemetry.check_stream(path)
+        if problems:
+            fail(f"13.1: {path}: {msgs}")
+
+    # ---- 13.2 the packing contract ---------------------------------------
+    t0 = time.perf_counter()
+    worst = {}
+    with serve_driver(os.path.join(tmp, "serve_alone"), models) as alone:
+        for rid, spec in zip(rids, trace):
+            r2 = alone.submit(spec["tenant"], spec["model"], spec["thetas"])
+            alone.run()
+            a, b = alone.results.get(r2), drv.results.get(rid)
+            if a is None or b is None:
+                fail(f"13.2: request {rid} has no result (packed "
+                     f"{drv.quarantined.get(rid)}, alone "
+                     f"{alone.quarantined.get(r2)})")
+            gap = float(np.max(np.abs(a - b)))
+            worst[spec["model"]] = max(worst.get(spec["model"], 0.0), gap)
+            if not np.array_equal(a, b):
+                print(f"13.2: request {rid} ({spec['model']}) packed and "
+                      f"alone differ by {gap:.3e}")
+                batch_dependence(models[spec["model"]], np.concatenate(
+                    [sp["thetas"] for sp in trace
+                     if sp["model"] == spec["model"]])[:SERVE_WIDTH])
+                fail("13.2: a packed row differs from the same row served "
+                     "alone at the same width")
+    print(f"13.2: every request's rows served packed equal the same rows "
+          f"served alone at width {SERVE_WIDTH} bit for bit (max |d| "
+          f"{worst}) in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13.3 adversity ----------------------------------------------------
+    like = models["like"]
+    th = near_typical(like, SERVE_WIDTH, 41)
+    rids16 = [f"q{i:02d}" for i in range(SERVE_WIDTH)]
+
+    def full_bucket(tag, plan=None, **kw):
+        faults.install_plan(plan)
+        try:
+            with serve_driver(os.path.join(tmp, f"serve_{tag}"),
+                              {"like": like}, **kw) as d:
+                for i, rid in enumerate(rids16):
+                    d.submit(f"t{i % 4}", "like", th[i:i + 1], rid=rid)
+                out = d.run()
+        finally:
+            faults.install_plan(None)
+        return d, out
+
+    clean, sc = full_bucket("clean")
+    if sc["requests_done"] != SERVE_WIDTH or sc["dispatches"] != 1:
+        fail(f"13.3: the clean full bucket {sc['accounting']}")
+    poison, sp = full_bucket("poison", {"faults": [
+        {"site": "serve.harvest", "kind": "nonfinite", "where": "q07"}]})
+    same = all(np.array_equal(poison.results[r], clean.results[r])
+               for r in rids16 if r != "q07")
+    print(f"13.3 harvest nonfinite on q07 of a full bucket: quarantined "
+          f"{poison.quarantined}, {sp['bisect_dispatches']} bisect "
+          f"dispatches, co-tenants bit-equal to the clean run {same}")
+    if poison.quarantined != {"q07": "nonfinite_result"} or not same \
+            or sp["requests_done"] != SERVE_WIDTH - 1:
+        fail("13.3: the poisoned row's quarantine")
+    snap0 = telemetry.registry().snapshot()["counters"].get(
+        "dispatch_retry{site=serve.dispatch}", 0)
+    retried, sr = full_bucket("retry", {"faults": [
+        {"site": "serve.dispatch", "kind": "error", "at": 1}]})
+    snap1 = telemetry.registry().snapshot()["counters"].get(
+        "dispatch_retry{site=serve.dispatch}", 0)
+    same = all(np.array_equal(retried.results[r], clean.results[r])
+               for r in rids16)
+    print(f"13.3 dispatch error: {snap1 - snap0} supervisor retry, "
+          f"{sr['requests_done']} done, bit-equal to the clean run {same}")
+    if snap1 - snap0 != 1 or sr["requests_done"] != SERVE_WIDTH or not same:
+        fail("13.3: the dispatch error was not retried to the clean result")
+    prev = os.environ.get("EWT_PALLAS_MEGA")
+    routes.reset_counts()
+    try:
+        with serve_driver(os.path.join(tmp, "serve_demote"),
+                          {"like": like}) as d:
+            d.warm()
+            key0 = d.cache.key(like, SERVE_WIDTH)
+            real = d.sup.call
+            state = {"n": 0}
+
+            def demote_once(thunk, **kw):
+                if not state["n"]:
+                    state["n"] = 1
+                    raise PlatformDemotion("mega", "classic",
+                                           "serve.dispatch")
+                return real(thunk, **kw)
+            d.sup.call = demote_once
+            routes.reset_counts()
+            for i, rid in enumerate(rids16):
+                d.submit(f"t{i % 4}", "like", th[i:i + 1], rid=rid)
+            sd = d.run()
+            key1 = d.cache.key(like, SERVE_WIDTH)
+        dl = dict(routes.LAUNCHES)
+        mega_env = os.environ.get("EWT_PALLAS_MEGA")
+    finally:
+        if prev is None:
+            os.environ.pop("EWT_PALLAS_MEGA", None)
+        else:
+            os.environ["EWT_PALLAS_MEGA"] = prev
+    a = np.concatenate([d.results[r] for r in rids16])
+    b = np.concatenate([clean.results[r] for r in rids16])
+    gap = np.abs(a - b)
+    print(f"13.3 classic demotion: EWT_PALLAS_MEGA={mega_env}, AOT key "
+          f"{key0} -> {key1}, launches {dl}, {sd['requests_done']} done; "
+          f"classic against the megakernel max|dlnL| {gap.max():.3e} "
+          f"(class {LNL_ATOL} + {LNL_RTOL}|lnL|)")
+    if mega_env != "0" or key1 == key0 or dl["mega_like"] \
+            or not dl["chol_precond"] or sd["requests_done"] != SERVE_WIDTH \
+            or not np.all(gap <= LNL_ATOL + LNL_RTOL * np.abs(b)):
+        fail("13.3: the classic demotion")
+
+    # ---- 13.4 the CLI ---------------------------------------------------
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["serve", "-p", pf_fixed, "--warm", "--synthetic",
+                       str(SERVE_CLI_REQUESTS), "--tenants", "8"],
+                      device=str(dev))
+    line = buf.getvalue().strip().splitlines()[-1]
+    cs = json.loads(line)
+    print(f"13.4 CLI: rc {rc}, {cs['requests_done']} done in "
+          f"{cs['dispatches']} dispatches (fill {cs['mean_batch_fill']}), "
+          f"quarantined {cs['quarantined_requests']}, latency "
+          f"{cs['latency_ms']}")
+    croot = cs["root"]
+    streams = [os.path.join(croot, "events.jsonl")] + [
+        os.path.join(croot, "tenants", t, "events.jsonl")
+        for t in sorted(os.listdir(os.path.join(croot, "tenants")))]
+    problems = sum(telemetry.check_stream(p)[0] for p in streams)
+    print(f"13.4: {len(streams)} streams checked, {problems} problems")
+    if rc != 0 or cs["dropped_requests"] or cs["quarantined_requests"] \
+            or cs["requests_done"] != SERVE_CLI_REQUESTS or problems:
+        fail("13.4: the serve subcommand")
+
+    # ---- 13.5 the kernels on the serve path's last batch -----------------
+    for entry, run, kname, recd in (
+            ("mega_solve@serve", "serve_fixed", "mega_solve", rec_s),
+            ("mega_like@serve", "serve_like", "mega_like", rec_l)):
+        args = recd.last[SERVE_WIDTH]
+        calls = h.like_calls if kname == "mega_like" else h.solve_calls
+        kern, plain, shape, exact = calls(args)
+        cost = (lambda tiers, a=args: like_cost(a[0], a[4], a[7], tiers)) \
+            if kname == "mega_like" else \
+            (lambda tiers, a=args: solve_cost(*a[1].shape, a[4], tiers))
+        h.hold_solve(entry, run, kern, plain, cost, shape, exact=exact,
+                     what="the serve trace's last batch")
+        results[entry].update(launches=launches[kname],
+                              batch_sizes=dict(recd.sizes[
+                                  args[0].shape[-1]]))
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: {PKG}/ not found next to this script; run it "
@@ -5763,6 +6153,12 @@ def main():
                           types.SimpleNamespace(
                               hold_solve=hold_solve, solve_calls=solve_calls))
         lap("12")
+
+        # ---- phase 13: the serving plane ---------------------------------
+        phase_serve(tmp, dev, smi, results, types.SimpleNamespace(
+            hold_solve=hold_solve, solve_calls=solve_calls,
+            like_calls=like_calls))
+        lap("13")
 
     kernels = []
     for entry, r in results.items():

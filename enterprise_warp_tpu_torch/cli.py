@@ -31,8 +31,10 @@ process) shards a multi-pulsar joint likelihood's pulsar axis over
 evaluations over the ranks (the PT branch only; HMC and nested sampling
 note it and run unsharded). With both set the pulsar axis takes the
 group and ``chain_shard`` is noted and ignored. Only process 0 writes
-run outputs. The ``serve`` subcommand is a later slice of the port and
-raises ``NotImplementedError``.
+run outputs.
+
+``serve``: ``main(["serve", "-p", <paramfile>, ...])`` runs the serving
+layer's CLI (``serve/cli.py:serve_main``) on the same ``device``.
 """
 
 from __future__ import annotations
@@ -44,7 +46,6 @@ import os
 import sys
 import time
 
-_LATER = "is a later slice of the port (see ROADMAP.md)"
 _log = logging.getLogger(__name__)
 # a joint chain's largest lnL against the dense float64 oracle at the same
 # point: the reference's class for the Schur path (tests/test_parallel.py),
@@ -85,7 +86,8 @@ def main(argv=None, device="cuda"):
     caller asks for the CPU)."""
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if argv and argv[0] == "serve":
-        raise NotImplementedError(f"the serve subcommand {_LATER}")
+        from .serve.cli import serve_main
+        return serve_main(argv[1:], device=device)
     opts = _parser().parse_args(argv)
 
     from . import resolve_device

@@ -364,6 +364,86 @@ def eval_T(theta, bb_static, T_w):
     return T
 
 
+def _build_fingerprint(psr, mapping, wb_static, basis_blocks, bb_static,
+                       tm, n_refine, const_grams, pair):
+    """Digest of what a build bakes into its evaluation beyond the
+    sampled parameters (the serving cache's executable identity, see
+    :func:`topology_fingerprint`): the fixed parameters' values, the
+    white and basis block structure, the build-time route choices and the
+    ingestion audit's verdict (a repaired dataset keys afresh)."""
+    import hashlib
+    h = hashlib.sha256()
+    for nm in sorted(mapping):
+        if mapping[nm][0] == "const":
+            h.update(f"c:{nm}={mapping[nm][1]!r};".encode())
+    for kind, mm, refs in wb_static:
+        h.update(f"w:{kind}:{tuple(mm.shape)}:{refs};".encode())
+    for blk, bb in zip(basis_blocks, bb_static):
+        h.update(f"b:{bb['psd']}:{bb['ncols']}:{bb['col_slice']}:"
+                 f"{bb['idx_map']}:{bb['dyn']}:{blk.orf};".encode())
+    h.update(f"tm={tm};refine={n_refine};cg={bool(const_grams)};"
+             f"pair={pair};".encode())
+    dq = getattr(psr, "dq_report", None)
+    h.update(f"dq={dq.token() if dq is not None else 'unaudited'};"
+             .encode())
+    return h.hexdigest()[:16]
+
+
+#: the environment pins that change what an evaluation runs (kernel
+#: routes and solve choices): part of every topology fingerprint, so a
+#: demotion that sets ``EWT_PALLAS_MEGA=0`` keys fresh executables
+ROUTE_PINS = ("EWT_PALLAS", "EWT_PALLAS_MEGA", "EWT_PALLAS_CHOL",
+              "EWT_REFINE", "EWT_BLOCKED_CHOL", "EWT_PAIR_PROGRAM")
+
+
+def topology_fingerprint(like):
+    """Executable identity of a likelihood for the serving cache
+    (``serve/aot.py``): two likelihoods with equal fingerprints run the
+    same evaluation at a given batch bucket, so one warmed executable
+    serves requests against either.
+
+    The digest holds the class name and :func:`params_fingerprint`,
+    ``gram_mode`` and ``const_grams``, the ``build_fingerprint``, the
+    pulsar's data (name, TOA count, residual and TOA-error bytes, the
+    ingestion audit's token) where the likelihood has both a pulsar and a
+    build fingerprint, the :data:`ROUTE_PINS`, and the device type. An
+    object without a pulsar build keys on its own ``topology_token`` if
+    it declares one, else on its instance (joint and multi-pulsar
+    builds, the hypermodel, analytic targets: their closures cannot be
+    enumerated, so sharing across instances would be unsound). The
+    reference also hashes its consts leaves' shapes; the port closes
+    over its arrays, so the device type takes their place."""
+    import hashlib
+    h = hashlib.sha256()
+    h.update(type(like).__name__.encode())
+    h.update(params_fingerprint(like).encode())
+    h.update(f"gram={getattr(like, 'gram_mode', '')};"
+             f"cg={getattr(like, 'const_grams', '')};".encode())
+    bfp = getattr(like, "build_fingerprint", None)
+    psr = getattr(like, "psr", None)
+    if bfp is not None:
+        h.update(f"build={bfp};".encode())
+    if psr is not None and bfp is not None:
+        h.update(f"psr={psr.name}:{len(psr)};".encode())
+        h.update(np.ascontiguousarray(
+            np.asarray(psr.residuals, dtype=np.float64)).tobytes())
+        h.update(np.ascontiguousarray(
+            np.asarray(psr.toaerrs, dtype=np.float64)).tobytes())
+        dq = getattr(psr, "dq_report", None)
+        h.update(f"dq={dq.token() if dq is not None else 'unaudited'};"
+                 .encode())
+    else:
+        token = getattr(like, "topology_token", None)
+        h.update((f"token={token};" if token is not None
+                  else f"instance={id(like)};").encode())
+    for knob in ROUTE_PINS:
+        h.update(f"{knob}={os.environ.get(knob, '')};".encode())
+    dev = getattr(like, "device", None)
+    h.update(f"device={torch.device(dev).type if dev is not None else ''};"
+             .encode())
+    return h.hexdigest()[:16]
+
+
 def build_pulsar_likelihood(psr, terms, fixed_values=None,
                             gram_mode="split", ecorr_dt=10.0,
                             tm="marginalized", const_grams=None, device="cuda"):
@@ -496,6 +576,9 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
     like.noise_pairs = _noise_slide_pairs(psr, like.param_names)
     like.const_grams = bool(const_grams)
     like.pair_program = pair_prog is not None
+    like.build_fingerprint = _build_fingerprint(
+        psr, mapping, wb_static, basis_blocks, bb_static, tm, n_refine,
+        const_grams, pair_prog is not None)
     like.static = dict(r_w=r_w_t, M_w=M_w_t, T_w=T_w_t, cs2=cs2,
                        sigma2=sigma2, wb=wb_static, bb=bb_static,
                        D_w=D_w_t, det_refs=det_refs, tm_refs=tm_refs)

@@ -1,10 +1,13 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into ``enterprise_warp_tpu_torch/
-_build/`` (git-ignored), under a file lock so concurrent processes build
-once. The library name carries a digest of the source, so an edited
-kernel is rebuilt. Nothing here runs at import: the CPU tests import this
+with a plain C interface, at first use, into the build directory
+(``enterprise_warp_tpu_torch/_build/``, git-ignored, unless
+``utils/compilecache.py`` relocates it), under a file lock so concurrent
+processes build once. The library name carries a digest of the source and
+the flags, so an edited kernel is rebuilt, and a process that finds the
+library already built reuses it: :data:`BUILD_VERDICTS` says which
+(``True``: found built, ``False``: ``nvcc`` ran). Nothing here runs at import: the CPU tests import this
 module on machines with no ``nvcc`` and no card.
 
 Pointers and the stream cross into C as ``ctypes.c_void_p``
@@ -23,8 +26,12 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils import compilecache
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+#: the default build directory (``compilecache.build_dir()`` is the one in
+#: use)
+BUILD_DIR = compilecache.DEFAULT_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,6 +73,9 @@ _libs = {}
 #: compiler output (``-Xptxas -v``: registers, shared memory, spills) of
 #: each build this process ran, by source name
 BUILD_LOG = {}
+#: by source name: True when :func:`build` found the library already
+#: built, False when it ran ``nvcc``
+BUILD_VERDICTS = {}
 
 
 def nvcc_path() -> str:
@@ -85,14 +95,17 @@ def build(name="megakernel") -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    bdir = compilecache.build_dir()
+    out = bdir / f"lib{name}_{digest[:16]}.so"
+    BUILD_VERDICTS[name] = True
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / f"{name}.lock", "w") as lockf:
+    bdir.mkdir(parents=True, exist_ok=True)
+    with open(bdir / f"{name}.lock", "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         if out.exists():
             return out
+        BUILD_VERDICTS[name] = False
         tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
         proc = subprocess.run(
             [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -117,3 +130,8 @@ def load_library(name="megakernel"):
                     getattr(lib, fn).restype = restype
             _libs[name] = lib
     return lib
+
+
+def loaded(name="megakernel") -> bool:
+    """Whether this process has loaded ``csrc/<name>.cu``'s library."""
+    return name in _libs

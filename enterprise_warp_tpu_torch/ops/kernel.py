@@ -106,11 +106,43 @@ def _t(A):
     return A.transpose(-1, -2)
 
 
+#: row length multiple (elements) that puts every row of a fresh tensor on
+#: the same alignment as the first (32 bytes for float32 and float64)
+_ROW_ALIGN = 8
+
+
+def _row_sum(x):
+    """Sum over the last axis, each row's value independent of the other
+    rows and of the row's place in the batch. CUDA's reduction kernel
+    reads a long contiguous row in vectors from its first aligned element,
+    so two rows whose start addresses differ in alignment are summed in
+    different orders: a walker's lnL would then depend on where it sits in
+    the batch (the serving layer's packing contract, ``serve/packer.py``).
+    Every row is zero-padded to a multiple of :data:`_ROW_ALIGN` elements
+    in a fresh tensor, which puts all rows on one alignment; the zeros add
+    exactly."""
+    pad = (-x.shape[-1]) % _ROW_ALIGN
+    if pad or not x.is_contiguous() or x.data_ptr() % (
+            _ROW_ALIGN * x.element_size()):
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.sum(dim=-1)
+
+
+def _sym(A):
+    """``(A + A^T) / 2``, the input ``jnp.linalg.cholesky`` and
+    ``jnp.linalg.eigh`` factor (``symmetrize_input=True``); ``torch.linalg``
+    reads the lower triangle alone. A symmetric ``A`` comes back bit for
+    bit."""
+    return (A + A.transpose(-1, -2)) / 2
+
+
 def cholesky_nan(A):
-    """Lower Cholesky factor with JAX's failure semantics: a batch
-    element whose factorization fails comes back all-NaN (where
-    ``torch.linalg.cholesky`` would raise). No host synchronisation."""
-    L, info = torch.linalg.cholesky_ex(A)
+    """Lower Cholesky factor with JAX's semantics: the symmetrized input
+    (a Schur complement from an inexact solve, ``P - H^T Z``, is not
+    exactly symmetric), and a batch element whose factorization fails
+    comes back all-NaN (where ``torch.linalg.cholesky`` would raise). No
+    host synchronisation."""
+    L, info = torch.linalg.cholesky_ex(_sym(A))
     return torch.where((info != 0)[..., None, None],
                        torch.full_like(L, math.nan), L)
 
@@ -254,7 +286,7 @@ def gram_blocks(nw, r_w, M_w, T_w, mask=None, gram_mode="split",
             Pq[..., ntm, ntm]
     else:
         X = _gram_pair(Ts, rs[..., None], gram_mode)[..., 0]
-        rwr = torch.sum(rs * rs, dim=-1)
+        rwr = _row_sum(rs * rs)
         if Ms is None:
             H = Ts.new_zeros(Ts.shape[:-2] + (Ts.shape[-1], 0))
             P = Ts.new_zeros(Ts.shape[:-2] + (0, 0))
@@ -288,8 +320,8 @@ def equilibrated_cholesky(S, jitter, with_health=False):
         Lj = cholesky_nan(Sn + jitter * _eye(S.shape[-1], S))
         L = torch.where(bad[..., None, None], Lj, L)
         engaged = bad
-    logdet = 2.0 * torch.sum(torch.log(_diag(L)), dim=-1) \
-        + torch.sum(torch.log(d), dim=-1)
+    logdet = 2.0 * _row_sum(torch.log(_diag(L))) \
+        + _row_sum(torch.log(d))
     if with_health:
         return L, s, logdet, _health_word(engaged, torch.zeros_like(engaged),
                                           d)
@@ -367,7 +399,7 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
         Z32, ld_eq = mega_solve_logdet(Sn.to(torch.float32), Bn32,
                                        float(jitter), float(jitter2),
                                        refine)
-        logdet = ld_eq.to(f64) + torch.sum(torch.log(d), dim=-1)
+        logdet = ld_eq.to(f64) + _row_sum(torch.log(d))
         return s[..., None] * Z32.to(f64), logdet
     from .cholfuse import fused_chol_enabled
     fused = delta_mode == "split" and fused_chol_enabled()
@@ -417,9 +449,9 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
         if i == 0:
             r0 = r
         Z = Z + psolve(r)
-    res_ref = torch.sum(torch.square(Bn - Sn @ Z), dim=(-2, -1))
-    res_pre = torch.sum(torch.square(r0 if r0 is not None
-                                     else Bn - Sn @ Z0), dim=(-2, -1))
+    res_ref = _row_sum(torch.square(Bn - Sn @ Z).flatten(-2))
+    res_pre = _row_sum(torch.square(r0 if r0 is not None
+                                    else Bn - Sn @ Z0).flatten(-2))
     # NaN-propagating comparison: a NaN refined residual falls back too
     diverged = ~(res_ref <= res_pre)
     Z = torch.where(diverged[..., None, None], Z0, Z)
@@ -438,13 +470,13 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
         E = (Linv @ _t(K)).to(f64)
     E32 = E.to(torch.float32)
     E2 = E32 @ E32
-    corr = (_diag(E).sum(dim=-1) - torch.sum(E * _t(E), dim=(-2, -1)) / 2.0
-            + torch.sum(E2 * _t(E32), dim=(-2, -1)).to(f64) / 3.0
-            - torch.sum(E2 * _t(E2), dim=(-2, -1)).to(f64) / 4.0)
-    corr = torch.where(torch.sum(E * E, dim=(-2, -1)) < 0.09, corr,
+    corr = (_row_sum(_diag(E)) - _row_sum((E * _t(E)).flatten(-2)) / 2.0
+            + _row_sum((E2 * _t(E32)).flatten(-2)).to(f64) / 3.0
+            - _row_sum((E2 * _t(E2)).flatten(-2)).to(f64) / 4.0)
+    corr = torch.where(_row_sum((E * E).flatten(-2)) < 0.09, corr,
                        torch.zeros_like(corr))
-    logdet = (2.0 * torch.sum(torch.log(diagL.to(f64)), dim=-1)
-              + corr + torch.sum(torch.log(d), dim=-1))
+    logdet = (2.0 * _row_sum(torch.log(diagL.to(f64)))
+              + corr + _row_sum(torch.log(d)))
     if with_health:
         return s[..., None] * Z, logdet, _health_word(engaged, diverged, d)
     return s[..., None] * Z, logdet
@@ -558,10 +590,10 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
             L, sS, logdet_sigma = chol(Sigma, 0.0)
             u = torch.linalg.solve_triangular(L, (sS * X)[..., None],
                                               upper=False)[..., 0]
-            quad = rwr - torch.sum(u * u, dim=-1)
+            quad = rwr - _row_sum(u * u)
         else:
             zx, logdet_sigma = solve(Sigma, X[..., None])
-            quad = rwr - torch.sum(X * zx[..., 0], dim=-1)
+            quad = rwr - _row_sum(X * zx[..., 0])
     elif gram_mode == "f64":
         L, sS, logdet_sigma = chol(Sigma, 0.0)
         u = torch.linalg.solve_triangular(L, (sS * X)[..., None],
@@ -573,7 +605,7 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
         LA, sA, logdet_a = chol(A, 0.0)
         z = torch.linalg.solve_triangular(LA, (sA * y)[..., None],
                                           upper=False)[..., 0]
-        quad = rwr - torch.sum(u * u, dim=-1) - torch.sum(z * z, dim=-1)
+        quad = rwr - _row_sum(u * u) - _row_sum(z * z)
     else:
         ZXH, logdet_sigma = solve(Sigma, torch.cat([X[..., None], H],
                                                    dim=-1))
@@ -586,10 +618,10 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
         LA, sA, logdet_a = chol(A, jitter_a)
         z = torch.linalg.solve_triangular(LA, (sA * y)[..., None],
                                           upper=False)[..., 0]
-        quad = rwr - torch.sum(X * zx, dim=-1) - torch.sum(z * z, dim=-1)
+        quad = rwr - _row_sum(X * zx) - _row_sum(z * z)
 
     logn = torch.log(nw) if mask is None else torch.log(nw) * mask
-    logdet_n = torch.sum(logn, dim=-1)
-    logdet_b = torch.sum(torch.log(b), dim=-1)
+    logdet_n = _row_sum(logn)
+    logdet_b = _row_sum(torch.log(b))
     lnl = -0.5 * (quad + logdet_n + logdet_b + logdet_sigma + logdet_a)
     return (lnl, hw) if with_health else lnl

@@ -336,11 +336,14 @@ def mega_like(S32, w, s, ivb, Bn, j1, j2, refine):
 
 
 def _safe_eigh(A):
-    """``torch.linalg.eigh`` with JAX's failure semantics: a non-finite
-    batch element yields NaN eigenvalues instead of an exception."""
+    """``torch.linalg.eigh`` with JAX's semantics: the symmetrized input
+    (``ops/kernel.py:_sym``), and a non-finite batch element yields NaN
+    eigenvalues instead of an exception."""
+    from .kernel import _sym
     finite = torch.isfinite(A).all(dim=-1).all(dim=-1)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-    ev, V = torch.linalg.eigh(torch.where(finite[:, None, None], A, eye))
+    ev, V = torch.linalg.eigh(torch.where(finite[:, None, None], _sym(A),
+                                          eye))
     ev = torch.where(finite[:, None], ev, torch.full_like(ev, float("nan")))
     return ev, V
 
@@ -384,7 +387,7 @@ def _mega_lnl_impl(nw, b, r_w, M_w, T_w, mask, refine):
     ``_mega_lnl_impl``). Departs from the reference in one place: a
     walker that :func:`schur_reject` flags gets NaN, where the reference's
     kernel route returns a finite lnL far above float64."""
-    from .kernel import CHOL_JITTER
+    from .kernel import CHOL_JITTER, _row_sum
     f64 = r_w.dtype
     ntm = M_w.shape[1]
     nb = T_w.shape[1]
@@ -423,11 +426,9 @@ def _mega_lnl_impl(nw, b, r_w, M_w, T_w, mask, refine):
     emax = evA.abs().amax(dim=-1, keepdim=True)
     evA_cl = torch.maximum(evA, 1e-13 * emax + 1e-300)
     u = (VA.transpose(-1, -2) @ y[..., None])[..., 0]
-    quad = rwr - Wm[:, ntm, 0] - torch.sum(u * u / evA_cl, dim=-1)
-    ld_all = (torch.sum(torch.log(nw) * mask, dim=-1)
-              + torch.sum(torch.log(d), dim=-1)
-              + torch.sum(torch.log(b), dim=-1)
-              + torch.sum(torch.log(evA_cl), dim=-1))
+    quad = rwr - Wm[:, ntm, 0] - _row_sum(u * u / evA_cl)
+    ld_all = (_row_sum(torch.log(nw) * mask) + _row_sum(torch.log(d))
+              + _row_sum(torch.log(b)) + _row_sum(torch.log(evA_cl)))
     lnl = -0.5 * (quad + ld_all + ld_eq.to(f64))
     rej = schur_reject(evA, quad)
     LAST_REJECT[0] = rej

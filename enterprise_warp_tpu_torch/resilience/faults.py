@@ -6,9 +6,11 @@ Named injection sites are threaded through the port: ``pt.dispatch``,
 ``pt.ckpt``, ``pt.chain``, ``pt.nonfinite``, ``hmc.dispatch``,
 ``hmc.ckpt``, ``hmc.nonfinite``, ``nested.iteration``, ``nested.ckpt``,
 ``nested.nonfinite``, ``kernel.health``, ``psr.quarantine``,
-``cli.per_pulsar``, ``ckpt.verify``, ``io.atomic_json``, ``events.flush``
-and ``data.audit`` (the reference's probe-ladder and serving sites have
-no counterpart yet). A *fault plan* — ``EWT_FAULT_PLAN=<json>`` or a
+``cli.per_pulsar``, ``ckpt.verify``, ``io.atomic_json``, ``events.flush``,
+``data.audit`` and the serving driver's ``serve.admit``,
+``serve.dispatch``, ``serve.harvest`` (``nonfinite`` poisons the
+harvested batch) and ``serve.quarantine`` (the reference's probe-ladder
+sites have no counterpart yet). A *fault plan* — ``EWT_FAULT_PLAN=<json>`` or a
 programmatic :class:`FaultPlan` — decides which occurrence of a site
 misbehaves and how::
 

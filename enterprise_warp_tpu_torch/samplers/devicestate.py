@@ -15,10 +15,14 @@ state on the card between blocks and reads it once per block:
 The chain axis: :func:`chain_slice` is the rank's walker slice, the
 port's stand-in for the reference's ``chain_sharding`` (an evaluation
 split, ``samplers/ptmcmc.py``), and :func:`host_pull` the one-leaf
-sibling of :func:`host_snapshot`. The reference's ``resolve_placement``
-and ``place_resident`` are JAX commit rules (where a jitted program's
-resident state lives beside mesh-sharded constants) and have no torch
-counterpart: every rank's tensors live on its own device.
+sibling of :func:`host_snapshot`.
+
+Placement: :func:`resolve_placement` is the device a likelihood's
+resident state lives on (the likelihood's own; every rank's tensors live
+on its own device, so the reference's replicated-over-a-mesh placement
+has no counterpart), and :func:`place_resident` puts one state leaf
+there: a tensor already resident passes through, host numpy is copied,
+never aliased.
 """
 
 from __future__ import annotations
@@ -59,6 +63,27 @@ def host_pull(v):
     if isinstance(v, torch.Tensor):
         return v.detach().to("cpu", copy=True).numpy()
     return np.array(v)
+
+
+def resolve_placement(like):
+    """The device a likelihood's resident state lives on: its own
+    ``device`` (the CPU for an object without one). Resolve once per
+    model."""
+    return torch.device(getattr(like, "device", None) or "cpu")
+
+
+def place_resident(v, placement):
+    """One state leaf as a float64 tensor on ``placement``: a tensor
+    already there passes through, anything else is copied (a REAL copy:
+    a caller may reuse or free its host rows while the device reads
+    them)."""
+    if isinstance(v, torch.Tensor) and v.device == placement \
+            and v.dtype == torch.float64:
+        return v
+    if isinstance(v, torch.Tensor):
+        return v.to(device=placement, dtype=torch.float64, copy=True)
+    return torch.tensor(np.asarray(v, dtype=np.float64),
+                        dtype=torch.float64, device=placement)
 
 
 def chain_slice(mesh, W):

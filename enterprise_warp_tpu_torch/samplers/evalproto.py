@@ -1,7 +1,14 @@
-"""The update_mask contract of a block-structured likelihood.
+"""The evaluation protocol of a likelihood, and the update_mask contract
+of a block-structured one.
 
-Counterpart of the masked half of ``enterprise_warp_tpu/samplers/
-evalproto.py``. A likelihood whose evaluation decomposes into per-pulsar
+Counterpart of ``enterprise_warp_tpu/samplers/evalproto.py``.
+:func:`eval_protocol` returns ``(batch_fn(thetas), single_fn(theta),
+())`` for any likelihood object, from its ``loglike_batch``. The empty
+tuple stands where the reference's consts are: the port closes over its
+device arrays instead of passing them as jit arguments, so no class
+installs a separate evaluation (the reference's ``install_protocol``).
+
+A likelihood whose evaluation decomposes into per-pulsar
 blocks plus a common coupling (the joint PTA Schur path,
 ``parallel/pta.py``) installs, through :func:`install_masked_protocol`,
 
@@ -37,6 +44,18 @@ from .. import F64
 
 BLOCK_COMMON = -1     # coupling-only common parameters (the GW block)
 BLOCK_GLOBAL = -2     # touches more than one block: never maskable
+
+
+def eval_protocol(like):
+    """``(batch_fn(thetas), single_fn(theta), ())`` for any likelihood
+    object with a ``loglike_batch``."""
+    def single(theta):
+        if torch.is_tensor(theta):
+            return like.loglike_batch(theta[None])[0]
+        return like.loglike_batch(
+            np.asarray(theta, dtype=np.float64)[None])[0]
+
+    return like.loglike_batch, single, ()
 
 
 def install_masked_protocol(like, init_fn, site_fn, common_fn,

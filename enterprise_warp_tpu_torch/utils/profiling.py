@@ -18,6 +18,9 @@ Counterpart of ``enterprise_warp_tpu/utils/profiling.py``:
   :func:`live_buffer_report` groups the allocator's live blocks
   (``torch.cuda.memory_snapshot``) by size; :func:`host_rss_bytes`.
 - :func:`timeit` — CUDA-event timing with warm-up and repetitions.
+- :func:`stage` — a measured stage window on the host clock (no device
+  sync) that also opens a span when spans are on: the serving driver's
+  latency decomposition.
 
 Everything honours ``EWT_TELEMETRY=0``; the disabled :func:`span` returns
 one shared inert object.
@@ -25,6 +28,7 @@ one shared inert object.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -32,7 +36,7 @@ import time
 
 from . import telemetry
 
-__all__ = ["spans_enabled", "span", "span_records",
+__all__ = ["spans_enabled", "span", "stage", "span_records",
            "reset_spans", "flush_trace", "export_chrome_trace",
            "monotonic", "walltime", "timeit", "memory_watermark",
            "host_rss_bytes", "live_buffer_report", "capture_dir",
@@ -172,6 +176,28 @@ def span(name, device_sync=None, **attrs):
     if not spans_enabled():
         return _NOOP_SPAN
     return Span(name, device_sync=device_sync, **attrs)
+
+
+@contextlib.contextmanager
+def stage(name, **attrs):
+    """Measured stage window: always times the enclosed block on the host
+    clock (``monotonic``; no device sync, no launch) and also opens a
+    :func:`span` when spans are on. Yields a ``{"name", "dur_ms", "t0",
+    "t1"}`` box whose ``dur_ms`` and endpoints (``monotonic`` instants)
+    are filled before an exception propagates, so an ``except`` around
+    the ``with`` still reads the stage wall::
+
+        with profiling.stage("serve.dispatch", bucket=16) as st:
+            out = sup.call(thunk)
+        dur_ms = st["dur_ms"]
+    """
+    box = {"name": name, "dur_ms": None, "t0": monotonic(), "t1": None}
+    try:
+        with span(name, **attrs):
+            yield box
+    finally:
+        box["t1"] = monotonic()
+        box["dur_ms"] = (box["t1"] - box["t0"]) * 1e3
 
 
 def span_records():

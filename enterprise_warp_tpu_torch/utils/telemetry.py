@@ -29,8 +29,10 @@ and nested sampling's walk-scale keys, and the gauges ``swap_rate{edge}``,
 ``budget_exhaust_frac``, all in the vocabulary below.
 
 The port has no jit, so the reference's ``traced`` wrapper and the
-``compile``, ``cost_analysis`` and ``retraces{fn=}`` records it makes
-have no counterpart here. ``pallas_path`` in a heartbeat is the port's
+``cost_analysis`` and ``retraces{fn=}`` records it makes have no
+counterpart here; its one ``compile`` event is the serving layer's AOT
+warm-up (``serve/aot.py``). :class:`RingWindow` is the fixed-shape
+sliding window of the serving SLO engine (``serve/slo.py``). ``pallas_path`` in a heartbeat is the port's
 route counter ``ops/routes.py:ROUTES``.
 
 ``EWT_TELEMETRY=0`` turns everything off: recorders become no-ops and the
@@ -49,7 +51,7 @@ import time
 import uuid
 
 __all__ = ["enabled", "registry", "MetricsRegistry", "Counter", "Gauge",
-           "Histogram", "RunRecorder", "run_scope", "active_recorder",
+           "Histogram", "RingWindow", "RunRecorder", "run_scope", "active_recorder",
            "set_flight_hook", "last_lineage", "LINEAGE_REASONS",
            "route_summary", "KNOWN_EVENT_TYPES", "KNOWN_HEARTBEAT_FIELDS",
            "check_stream"]
@@ -144,6 +146,56 @@ class Histogram:
                 "p50": self.quantile(0.5), "p90": self.quantile(0.9),
                 "p99": self.quantile(0.99),
                 "samples_dropped": self.samples_dropped}
+
+
+class RingWindow:
+    """Fixed-shape sliding window: a preallocated float64 ring of the
+    last ``cap`` observations. A push is one array store and a cursor
+    bump, never an allocation, so a per-request observer adds no growing
+    host state to a long serve run. Unlike :class:`Histogram` (the whole
+    run), a ring answers questions about the recent window; its quantiles
+    over at most ``cap`` values are exact order statistics."""
+
+    __slots__ = ("_buf", "_cap", "_i", "count")
+
+    def __init__(self, cap: int = 256):
+        import numpy as np
+
+        self._cap = max(int(cap), 1)
+        self._buf = np.zeros(self._cap, dtype=np.float64)
+        self._i = 0
+        self.count = 0          # lifetime observations (>= window n)
+
+    @property
+    def n(self) -> int:
+        """Observations currently held (``cap`` once warmed up)."""
+        return min(self.count, self._cap)
+
+    def push(self, v):
+        self._buf[self._i] = float(v)
+        self._i = (self._i + 1) % self._cap
+        self.count += 1
+
+    def values(self):
+        """The held window as an array (not in arrival order: window
+        statistics are order-free)."""
+        return self._buf[:self.n]
+
+    def mean(self):
+        import numpy as np
+
+        return float(np.mean(self.values())) if self.n else None
+
+    def quantile(self, q: float):
+        """Exact order-statistic quantile of the window (None when
+        empty), :class:`Histogram`'s index convention."""
+        import numpy as np
+
+        if not self.n:
+            return None
+        s = np.sort(self.values())
+        q = min(max(float(q), 0.0), 1.0)
+        return float(s[min(int(q * self.n), self.n - 1)])
 
 
 class _NoopMetric:

@@ -10,6 +10,8 @@
   ``default_model_nested.dat`` at 60 live points, with the paramfile's
   knobs forwarded, and the ``emcee``/``ptemcee`` branch on
   ``system_noise.dat --num 1``;
+- it serves a synthetic trace through the ``serve`` subcommand on
+  ``fixed_white_noise.dat``, and refuses the subcommand's flow surrogates;
 - it runs the ``hmc`` branch on a copy of ``hmc_single_psr.dat``
   (``--num 1``, 20 steps of 8 chains, 4 leapfrog steps, no ADVI warm
   start) and leaves ``nsamp * nchains`` finite rows of ``ndim + 4``
@@ -138,8 +140,12 @@ def test_cli_runs_hmc_on_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
-    with pytest.raises(NotImplementedError):
-        cli.main(["serve"], device="cpu")
+    # the serve subcommand runs (test_cli_serves_a_synthetic_trace_on_cpu);
+    # its trained flow surrogates are a later slice and raise
+    prfile = _paramfile(tmp_path, 40, "fixed_white_noise.dat")
+    with pytest.raises(NotImplementedError, match="flow"):
+        cli.main(["serve", "-p", prfile, "--flow", "f=flow.npz"],
+                 device="cpu")
     # the chain axis is the PT branch's alone: the nested branch notes
     # chain_shard, as the reference's CLI does, and runs unsharded
     prfile = _nested_paramfile(tmp_path, chain_shard=2)
@@ -155,6 +161,41 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
     with open(res[0]) as fh:
         doc = json.load(fh)
     assert (doc["block_iters"], doc["kernel"]) == (1, "walk")
+
+
+def test_cli_serves_a_synthetic_trace_on_cpu(tmp_path, capsys):
+    """``cli.main(["serve", ...])`` on ``fixed_white_noise.dat``: the
+    warm start, the default seeded trace (24 requests of 1-8 prior draws
+    each) over 4 tenants at the default buckets, one summary line with
+    every request done in fewer dispatches than requests, one ``compile``
+    event (the warm start builds the serve width's executable, 64), and
+    schema-clean driver and tenant streams."""
+    import importlib.util
+    import io
+    prfile = _paramfile(tmp_path, 40, "fixed_white_noise.dat")
+    rc = cli.main(["serve", "-p", prfile, "--warm", "--synthetic", "24",
+                   "--tenants", "4"],
+                  device="cpu")
+    assert rc == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["requests_done"] == 24
+    assert summary["dropped_requests"] == 0
+    assert summary["accounting"]["balanced"]
+    assert summary["dispatches"] < summary["sequential_dispatch_equiv"]
+    root = summary["root"]
+    spec = importlib.util.spec_from_file_location(
+        "ewt_tool_report_cli", os.path.join(REPO, "tools", "report.py"))
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    streams = [os.path.join(root, "events.jsonl")] + [
+        os.path.join(root, "tenants", t, "events.jsonl")
+        for t in sorted(os.listdir(os.path.join(root, "tenants")))]
+    assert 2 < len(streams) <= 5
+    for path in streams:
+        assert report.check_stream(path, out=io.StringIO()) == 0, path
+    comp = [json.loads(ln) for ln in open(streams[0])]
+    assert [e["fn"] for e in comp if e["type"] == "compile"] == \
+        ["serve.eval_b64"]
 
 
 def _nested_paramfile(tmp_path, **keys):
@@ -319,4 +360,8 @@ def test_no_source_names_jax_or_the_reference():
             os.path.join(PKG, "samplers", "convergence.py"),
             os.path.join(PKG, "utils", "devicemetrics.py"),
             os.path.join(PKG, "utils", "metricsexport.py"),
-            os.path.join(PKG, "parallel", "distributed.py")} <= set(files)
+            os.path.join(PKG, "parallel", "distributed.py"),
+            os.path.join(PKG, "utils", "compilecache.py")} | {
+        os.path.join(PKG, "serve", f"{m}.py")
+        for m in ("__init__", "aot", "packer", "admission", "slo", "driver",
+                  "cli")} <= set(files)

@@ -11,6 +11,11 @@
   only asserted near the truth.
 - the three-tier jitter fixture of ``tests/test_megakernel.py`` through
   ``_mixed_psd_solve_logdet`` on the plain chain.
+- the factorizations read a symmetrized input, as ``jnp.linalg.cholesky``
+  and ``jnp.linalg.eigh`` do: two timing-model Schur complements
+  ``P - H^T Z`` of ``fixed_white_noise.dat --num 0`` at prior draws
+  (equilibrated Sigma at condition ~1e9), whose lower triangle alone is
+  not positive definite.
 """
 
 import os
@@ -31,7 +36,8 @@ from enterprise_warp_tpu_torch.config import Params as TParams
 from enterprise_warp_tpu_torch.models.assemble import \
     init_model_likelihoods as t_init
 from enterprise_warp_tpu_torch.ops import routes as troutes
-from enterprise_warp_tpu_torch.ops.kernel import gram_blocks
+from enterprise_warp_tpu_torch.ops.kernel import cholesky_nan, gram_blocks
+from enterprise_warp_tpu_torch.ops.megakernel import _safe_eigh
 from enterprise_warp_tpu_torch.ops.kernel import \
     _mixed_psd_solve_logdet as t_mixed
 
@@ -149,3 +155,41 @@ def test_three_tier_mixed_solve():
                                atol=2e-4)
     np.testing.assert_allclose(ldt.numpy(), np.asarray(ldj), rtol=2e-4,
                                atol=2e-4)
+
+
+# the split chain's timing-model Schur complements A = P - H^T Z at rows
+# 13 and 15 of the serving layer's synthetic trace (seed 0, 24 requests,
+# 4 tenants, max_theta 6) on fixed_white_noise.dat --num 0: Z is inexact
+# at an equilibrated condition of ~1e9, so A is asymmetric by ~1e-7
+ASYM_SCHUR = [
+    [[0.09125661583700839, -0.07902829470230366, -0.06781527503129336],
+     [-0.07902822964120237, 0.07195690305473235, 0.06328829519736645],
+     [-0.06781532356485698, 0.06328841893412473, 0.05630618863182002]],
+    [[0.09124325546881495, -0.07901338342790742, -0.06780093292956646],
+     [-0.07901329761994103, 0.07194011412656665, 0.06327210464647559],
+     [-0.06780094720819807, 0.06327221797517601, 0.056290553168262036]],
+]
+
+
+@pytest.mark.parametrize("row", [0, 1])
+def test_factorizations_symmetrize_like_jax(row):
+    """``cholesky_nan`` and ``_safe_eigh`` factor ``(A + A^T) / 2`` as the
+    reference's ``jnp.linalg`` calls do: on a Schur complement whose lower
+    triangle alone is indefinite the factor is finite and equals JAX's
+    (the lnL was -inf where the reference's is finite), and a symmetric
+    input is factored bit for bit as before."""
+    A = np.asarray(ASYM_SCHUR[row])
+    d = 1.0 / np.sqrt(np.diag(A))
+    An = torch.as_tensor(A * d[:, None] * d[None, :])
+    assert int(torch.linalg.cholesky_ex(An)[1]) != 0
+    L = cholesky_nan(An[None])[0]
+    Lj = np.asarray(jnp.linalg.cholesky(jnp.asarray(An.numpy())))
+    assert torch.isfinite(L).all() and np.isfinite(Lj).all()
+    np.testing.assert_allclose(L.numpy(), Lj, rtol=1e-9, atol=1e-12)
+    ev = _safe_eigh(An[None])[0][0]
+    evj = np.asarray(jnp.linalg.eigh(jnp.asarray(An.numpy()))[0])
+    np.testing.assert_allclose(ev.numpy(), evj, rtol=1e-6, atol=1e-12)
+    assert float(ev.min()) > 0
+    S = 0.5 * (An + An.T)
+    assert torch.equal(cholesky_nan(S[None])[0],
+                       torch.linalg.cholesky_ex(S)[0])
