@@ -328,7 +328,38 @@ Phases (any failure exits non-zero before the result line):
    error) and clean streams; (13.5) each kernel held against its plain
    version on the trace's last batch, walker by walker, and timed (rows
    ``mega_solve@serve``, ``mega_like@serve``);
-14. the ``kernels`` JSON line, one entry per kernel and main path that
+14. the flow plane and CEM (:func:`phase_flows`) on the north star's
+   pulsar, the leg of phase 9 as the corpus (its kept rows): (14.1)
+   ``fit_flow`` at the reference benchmark's flagship settings (RQ
+   splines, 6 layers of 64, batch 512, lr 1e-3, 4000 steps in blocks of
+   250, seed 0) with a checkpoint inside a run scope: the stream clean
+   (``flow_train`` start and end, a heartbeat a block) and the loss
+   fallen, ms/step printed; (14.2) ``rescore_flow`` of 1024 draws through
+   the exact likelihood (kernel 2 at W 1024): ``match`` held (IS-ESS
+   efficiency >= 0.1, means within 0.5 sigma, widths in [0.5, 2], the
+   chain's too), and the draws' log q on the card against the CPU's from
+   the same weights within 1e-9 relative; (14.3) ``save`` -> ``load`` on
+   the card: ``log_prob`` of 64 rows bit for bit and the topology token
+   unchanged, and a second load on the same AOT key (no second warm-up);
+   (14.4) the flow in ``sample`` mode on a ``ServeDriver`` at width 64,
+   buckets (1, 16, 64): five 1024-draw queries (p50, dispatches per
+   query), the served rows against ``flow_sample_logq`` on the same base
+   draws within 1e-12, mixed-size requests of 4 tenants packed bit-equal
+   to the same rows alone, a ``log_prob``-mode request on the scalar
+   lane, and ``cli serve`` with ``flow_models:`` and ``--flow
+   f2=...:log_prob`` (every request done); (14.5) ``PTSampler`` at 256
+   chains with the flow family (flow 60, scam 10, am 10, de 20, prior 10)
+   through the leg's anneal and gate, capped at 10000 steps: converged,
+   the posterior within the north star gates of the leg's, the flow
+   family proposed and accepted, one kernel-2 launch a step; the host
+   synchronisations of one steady block no more than the same block's
+   with the family's weight 0, none from the flow's code; a 200-step run
+   with a zero-weight flow bit for bit the flow-free run; (14.6)
+   ``fit_cem`` at its defaults (256 draws a round): every output finite,
+   ``init_x`` inside the prior; (14.7) kernel 2 held walker by walker and
+   timed on each path's last inputs (rows ``mega_like@rescore``,
+   ``mega_like@flowpt``, ``mega_like@cem``);
+15. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``, after the smoke's wall time.
@@ -482,7 +513,17 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
          "serve_like": "the serving plane: system_noise.dat --num 1 "
                        "through ServeDriver at serve width 16, a seeded "
                        "synthetic trace of 120 requests over 8 tenants "
-                       "beside fixed_white_noise.dat --num 0"}
+                       "beside fixed_white_noise.dat --num 0",
+         "rescore": "the flow plane on the north star's pulsar: "
+                    "rescore_flow, 1024 draws of an RQ-spline flow fitted "
+                    "to the leg's chain re-scored through the exact "
+                    "likelihood in one batch",
+         "flowpt": "the flow plane on the north star's pulsar: PT-MCMC, "
+                   "256 chains with the flow family (flow 60, scam 10, "
+                   "am 10, de 20, prior 10), SMC anneal, "
+                   "sample_to_convergence to ESS >= 1000 and R-hat <= 1.01",
+         "cem": "the north star's pulsar: fit_cem, the CEM search and AMIS "
+                "refine warm start, 256 draws a round"}
 # the joint paths: right-hand-side widths past the refine phase's 8-column
 # panel, BASELINE config 3's size, and the agreement of lnL differences
 # with the dense float64 oracle there (tests/test_parallel.py:612)
@@ -1801,11 +1842,8 @@ def run_north_star(dev, outdir):
             on_check=lambda *a: checks.append(a), **NORTH_STAR_GATE)
     finally:
         ptmcmc.write_table, convergence.summarize_chains = saved
-    posterior = {k: {"mean": v["mean"], "std": v["std"],
-                     "mean_err": v["std"] / max(v["ess"], 1.0) ** 0.5}
-                 for k, v in rep.summary.items() if not k.startswith("_")}
     parts["checks"] = len(checks)
-    return rep, sampler, posterior, dict(parts)
+    return rep, sampler, leg_posterior(rep), dict(parts)
 
 
 def profile_block(sampler, start, steps):
@@ -2725,6 +2763,20 @@ def run_env(plan=None, **env):
                 os.environ[k] = v
 
 
+def sync_site(message, filename, lineno):
+    """The site of a ``torch.cuda.set_sync_debug_mode("warn")`` warning:
+    the innermost frame of the calling stack outside torch (None for
+    another warning)."""
+    import traceback
+    if "synchroniz" not in str(message):
+        return None
+    for fr in reversed(traceback.extract_stack()[:-2]):
+        if f"{os.sep}torch{os.sep}" not in fr.filename and \
+                not fr.filename.endswith("warnings.py"):
+            return f"{os.path.relpath(fr.filename, HERE)}:{fr.lineno}"
+    return f"{os.path.relpath(filename, HERE)}:{lineno}"
+
+
 class CliRuns:
     """``cli.main`` runs on the card, with each run's block statistics
     (from the PT sampler's log records) and, on request, the host
@@ -2759,17 +2811,10 @@ class CliRuns:
     def _caller(self, message, category, filename, lineno, file=None,
                 line=None):
         import threading
-        import traceback
-        if "synchroniz" not in str(message):
-            return
-        site = f"{os.path.relpath(filename, HERE)}:{lineno}"
-        for fr in reversed(traceback.extract_stack()[:-1]):
-            if f"{os.sep}torch{os.sep}" not in fr.filename and \
-                    not fr.filename.endswith("warnings.py"):
-                site = f"{os.path.relpath(fr.filename, HERE)}:{fr.lineno}"
-                break
-        self.counting["sites"][
-            f"{threading.current_thread().name} {site}"] += 1
+        site = sync_site(message, filename, lineno)
+        if site is not None:
+            self.counting["sites"][
+                f"{threading.current_thread().name} {site}"] += 1
 
     def _block(self, st):
         import warnings
@@ -4449,6 +4494,418 @@ def phase_serve(tmp, dev, smi, results, h):
         results[entry].update(launches=launches[kname],
                               batch_sizes=dict(recd.sizes[
                                   args[0].shape[-1]]))
+
+
+# ---- phase 14: the flow plane and CEM ------------------------------------ #
+# 14.1: the reference benchmark's flagship flow (bench.py:1418): RQ
+# splines, 6 layers of 64, batch 512, 4000 Adam steps in blocks of 250
+FLOW_FIT = dict(kind="rqs", n_layers=6, hidden=64, batch=512, lr=1e-3,
+                steps=4000, block=250, seed=0)
+# 14.2: flow draws re-scored through the exact likelihood; the card's log q
+# against the CPU's on the same draws and weights (relative)
+FLOW_RESCORE_N = 1024
+FLOW_LOGQ_RTOL = 1e-9
+# 14.4: the reference benchmark's serve set-up (bench.py:1384-1386), its
+# 1024-draw queries, and the served rows against flow_sample_logq
+FLOW_SERVE_WIDTH = 64
+FLOW_SERVE_BUCKETS = (1, 16, 64)
+FLOW_QUERIES = 5
+FLOW_SERVE_RTOL = 1e-12
+FLOW_CLI_REQUESTS = 32
+# 14.5: the north star leg's width with the reference test's flow mixture
+# (tests/test_flows.py:255-257; prior draws at PTSampler's default 10),
+# its anneal and gate, capped at FLOW_PT_MAX_STEPS; the flow-off run
+FLOW_PT = dict(ntemps=1, nchains=256, seed=0, scam_weight=10, am_weight=10,
+               de_weight=20, prior_weight=10, flow_weight=60)
+FLOW_PT_MAX_STEPS = 10000
+FLOW_OFF_STEPS = 200
+# the steady block of 14.5 whose host synchronisations are counted
+FLOW_SYNC_STEPS = 100
+# 14.6: fit_cem at its defaults (35 + 15 rounds) at the leg's width
+CEM_KW = dict(batch=256, seed=0)
+
+
+def leg_posterior(rep):
+    """A converged run's posterior in ``NORTH_STAR.json``'s form
+    (``mean_err = std / sqrt(ESS)``, as the reference computes it)."""
+    return {k: {"mean": v["mean"], "std": v["std"],
+                "mean_err": v["std"] / max(v["ess"], 1.0) ** 0.5}
+            for k, v in rep.summary.items() if not k.startswith("_")}
+
+
+def count_syncs(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``;
+    returns its result, the number of synchronising calls and a Counter of
+    their sites (the innermost frame outside torch)."""
+    import warnings
+    import torch
+    sites = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        site = sync_site(message, filename, lineno)
+        if site is not None:
+            sites[site] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum(sites.values()), sites
+
+
+def phase_flows(tmp, dev, smi, results, ns, h):
+    """Phase 14 (module docstring): the flow plane and CEM on the card, on
+    the north star leg of phase 9. ``ns`` holds that leg's likelihood
+    (``like``), its convergence report (``rep``), posterior (``post``) and
+    parts' times (``parts``); ``h`` main's helpers (``hold_solve``,
+    ``like_calls``); the rows go into ``results``."""
+    import io
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch import cli
+    from enterprise_warp_tpu_torch.flows import (FlowPosterior, fit_flow,
+                                                 rescore_flow)
+    from enterprise_warp_tpu_torch.flows.coupling import flow_sample_logq
+    from enterprise_warp_tpu_torch.ops import megakernel as mk
+    from enterprise_warp_tpu_torch.ops import routes
+    from enterprise_warp_tpu_torch.samplers import PTSampler, fit_cem
+    from enterprise_warp_tpu_torch.samplers import convergence
+    from enterprise_warp_tpu_torch.samplers.ptmcmc import _FAM_NAMES
+    from enterprise_warp_tpu_torch.serve import ServeDriver
+    from enterprise_warp_tpu_torch.utils import telemetry
+
+    like, rep = ns.like, ns.rep
+    nd = like.ndim
+    corpus = rep.chains.reshape(-1, nd).astype(np.float64)
+    names = list(like.param_names)
+    leg_sd = np.array([ns.post[k]["std"] for k in names])
+    leg_mu = np.array([ns.post[k]["mean"] for k in names])
+    print(f"14: corpus: the north star leg's kept rows, {rep.chains.shape[0]}"
+          f" chains x {rep.chains.shape[1]} steps = {len(corpus)} rows of "
+          f"{nd} parameters")
+    rows = {}
+
+    def like_row(entry, run, rec, W, launched, what):
+        """Kernel 2's row on the last inputs ``rec`` recorded at batch
+        ``W``: held walker by walker, timed, with ``launched`` launches."""
+        args = tuple(x.detach() if torch.is_tensor(x) else x
+                     for x in rec.last[W])
+        kern, plain, shape, exact = h.like_calls(args)
+        h.hold_solve(entry, run, kern, plain,
+                     lambda tiers, a=args: like_cost(a[0], a[4], a[7],
+                                                     tiers),
+                     shape, exact=exact, what=what)
+        results[entry].update(launches=launched, batch_sizes=dict(
+            rec.sizes[args[0].shape[-1]]))
+
+    # ---- 14.1 the fit ---------------------------------------------------
+    fit_dir = os.path.join(tmp, "flow_fit")
+    ck = os.path.join(fit_dir, "flow_train.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with telemetry.run_scope(fit_dir, sampler="flow_train"):
+        spec, params, info = fit_flow(corpus, checkpoint_path=ck,
+                                      device=dev, **FLOW_FIT)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    nblk = len(info["loss_curve"])
+    print(f"14.1 fit_flow {FLOW_FIT}: {info['steps']} steps in {fit_s:.2f} s"
+          f" ({1e3 * fit_s / info['steps']:.3f} ms/step), loss per block "
+          f"{[round(v, 4) for v in info['loss_curve']]}, final "
+          f"{info['final_loss']:.4f} [{smi}]")
+    events = stream_check(fit_dir, "14.1 fit", blocks=nblk)
+    ft = [e.get("phase") for e in events if e["type"] == "flow_train"]
+    hb = [e for e in events if e["type"] == "heartbeat"]
+    if ft != ["start", "end"] or any(e.get("phase") != "flow_train"
+                                     or "loss" not in e for e in hb):
+        fail(f"14.1: the fit's stream: flow_train events {ft}, heartbeats "
+             f"{hb[:2]}")
+    if info["steps"] != FLOW_FIT["steps"] or not all(
+            np.isfinite(info["loss_curve"])) \
+            or not info["loss_curve"][-1] < info["loss_curve"][0]:
+        fail(f"14.1: the loss did not fall: {info['loss_curve']}")
+    flow = FlowPosterior(spec, params, param_names=names,
+                         data_digest=info["data_digest"], device=dev)
+
+    # ---- 14.2 the rescore ------------------------------------------------
+    with RecordBatches(mk, "mega_like", 1) as rec:
+        routes.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rescore_flow(flow, like, n=FLOW_RESCORE_N, seed=0,
+                           ref_chain=corpus, device=dev)
+        rescore_s = time.perf_counter() - t0
+        rows["rescore"] = (rec, dict(routes.LAUNCHES))
+    ch = res.get("chain", {})
+    print(f"14.2 rescore_flow n={FLOW_RESCORE_N}: match {res['match']} "
+          f"checks {res.get('checks')}, ESS {res['ess']:.1f}, efficiency "
+          f"{res['ess_efficiency']:.4f}, weight tail {res['weight_tail']}, "
+          f"non-finite {res['n_nonfinite']}, wall {rescore_s:.3f} s, "
+          f"launches {rows['rescore'][1]} [{smi}]")
+    for i, k in enumerate(names):
+        print(f"  {k}: flow mean shift {res['moments']['mean_shift_sigma'][i]:.3f}"
+              f" sigma, width ratio {res['moments']['width_ratio'][i]:.3f};"
+              f" against the chain shift "
+              f"{ch.get('mean_shift_sigma', [np.nan] * nd)[i]:.3f} sigma, "
+              f"width {ch.get('width_ratio', [np.nan] * nd)[i]:.3f}")
+    if not res["match"] or rows["rescore"][1]["mega_like"] < 1 \
+            or FLOW_RESCORE_N not in rec.last:
+        fail("14.2: the flow's honesty rescore (match, and kernel 2 at W "
+             f"{FLOW_RESCORE_N})")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    u = torch.randn((FLOW_RESCORE_N, nd), generator=gen,
+                    dtype=torch.float64, device=dev)
+    cpu_flow = flow.to("cpu")
+    with torch.no_grad():
+        _, lq_card = flow_sample_logq(spec, flow.params, u)
+        _, lq_cpu = flow_sample_logq(spec, cpu_flow.params, u.cpu())
+    gap = float(((lq_card.cpu() - lq_cpu).abs()
+                 / lq_cpu.abs().clamp(min=1.0)).max())
+    print(f"14.2 log q of the {FLOW_RESCORE_N} draws, card against CPU: "
+          f"max relative gap {gap:.3e} (limit {FLOW_LOGQ_RTOL:g})")
+    if not gap <= FLOW_LOGQ_RTOL:
+        fail("14.2: log q on the card and on the CPU disagree")
+
+    # ---- 14.3 the artifact -----------------------------------------------
+    art = os.path.join(tmp, "flow_post.npz")
+    flow.save(art)
+    back = FlowPosterior.load(art, device=dev)
+    th64 = torch.as_tensor(corpus[::max(len(corpus) // 64, 1)][:64],
+                           device=dev)
+    same = torch.equal(back.log_prob(th64), flow.log_prob(th64))
+    print(f"14.3 save -> load on the card: log_prob of 64 rows bit for bit "
+          f"{same}, topology token unchanged "
+          f"{back.topology_token == flow.topology_token} "
+          f"({flow.topology_token[-40:]})")
+    if not same or back.topology_token != flow.topology_token:
+        fail("14.3: the artifact's round trip")
+
+    # ---- 14.4 serving ------------------------------------------------------
+    sroot = os.path.join(tmp, "flow_serve")
+    drv = ServeDriver(sroot, buckets=FLOW_SERVE_BUCKETS)
+    sv = flow.serve_view("sample")
+    drv.register("flow0", sv, width=FLOW_SERVE_WIDTH)
+    t0 = time.perf_counter()
+    walls = drv.warm()
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    sv2 = FlowPosterior.load(art, device=dev).serve_view("sample")
+    key1, key2 = (drv.cache.key(s, FLOW_SERVE_WIDTH) for s in (sv, sv2))
+    rewarm = drv.cache.warm(sv2, [FLOW_SERVE_WIDTH])
+    print(f"14.3 a second load: AOT key {key2} (first {key1}), its warm-up "
+          f"{rewarm}")
+    if key1 != key2 or rewarm != {FLOW_SERVE_WIDTH: 0.0}:
+        fail("14.3: a second load of the artifact warmed a new executable")
+    q_ms, disp = [], []
+    worst = 0.0
+    for q in range(FLOW_QUERIES):
+        seeds = np.random.default_rng(1000 + q).standard_normal(
+            (FLOW_RESCORE_N, nd))
+        d0 = drv.n_dispatch
+        t0 = time.perf_counter()
+        rid = drv.submit("analyst", "flow0", seeds)
+        drv.run()
+        out = drv.results[rid]
+        q_ms.append(1e3 * (time.perf_counter() - t0))
+        disp.append(drv.n_dispatch - d0)
+        with torch.no_grad():
+            x, lq = flow_sample_logq(spec, flow.params,
+                                     torch.as_tensor(seeds, device=dev))
+        ref = torch.cat([x, lq[:, None]], dim=1).cpu().numpy()
+        if out.shape != ref.shape:
+            fail(f"14.4: served rows of shape {out.shape}, not {ref.shape}")
+        worst = max(worst, float(np.max(np.abs(out - ref)
+                                        / np.maximum(np.abs(ref), 1.0))))
+    q_sorted = sorted(q_ms)
+    print(f"14.4 {FLOW_QUERIES} queries of {FLOW_RESCORE_N} draws at serve "
+          f"width {FLOW_SERVE_WIDTH}: p50 {q_sorted[len(q_ms) // 2]:.3f} ms "
+          f"(each {[round(v, 3) for v in q_ms]}), dispatches per query "
+          f"{disp}; warm-up {warm_ms:.3f} ms ({walls}); served (draw, log q) "
+          f"against flow_sample_logq on the same u: max relative gap "
+          f"{worst:.3e} (limit {FLOW_SERVE_RTOL:g}) [{smi}]")
+    if worst > FLOW_SERVE_RTOL:
+        fail("14.4: the served draws disagree with flow_sample_logq")
+    rng = np.random.default_rng(7)
+    jobs = [(f"t{i % 4}", rng.standard_normal((n, nd)))
+            for i, n in enumerate((3, 17, 40, 5, 64, 9, 30, 1, 22, 11))]
+    rids = [drv.submit(t, "flow0", th) for t, th in jobs]
+    d0 = drv.n_dispatch
+    drv.run()
+    npk = drv.n_dispatch - d0
+    packed = [drv.results[r] for r in rids]
+    s = drv.summary()
+    drv.close()
+    with ServeDriver(os.path.join(tmp, "flow_alone"),
+                     buckets=FLOW_SERVE_BUCKETS) as alone:
+        alone.register("flow0", flow.serve_view("sample"),
+                       width=FLOW_SERVE_WIDTH)
+        for (t, th), pk in zip(jobs, packed):
+            r2 = alone.submit(t, "flow0", th)
+            alone.run()
+            if not np.array_equal(alone.results[r2], pk):
+                fail(f"14.4: a packed flow row differs from the same row "
+                     f"served alone (max |d| "
+                     f"{np.max(np.abs(alone.results[r2] - pk)):.3e})")
+    print(f"14.4 packed against alone: {len(jobs)} requests of 4 tenants "
+          f"({sum(len(th) for _, th in jobs)} rows) in {npk} dispatches, "
+          f"every row bit-equal to the same rows served alone at width "
+          f"{FLOW_SERVE_WIDTH}; driver summary: done {s['requests_done']}, "
+          f"dropped {s['dropped_requests']}")
+    if s["dropped_requests"] or s["quarantined_requests"]:
+        fail(f"14.4: the flow driver's accounting {s['accounting']}")
+    with ServeDriver(os.path.join(tmp, "flow_logprob"),
+                     buckets=FLOW_SERVE_BUCKETS) as dq:
+        dq.register("flowq", flow.serve_view("log_prob"),
+                    width=FLOW_SERVE_WIDTH)
+        rid = dq.submit("analyst", "flowq", th64.cpu().numpy())
+        dq.run()
+        lp = dq.results[rid]
+    ref = flow.log_prob(th64).cpu().numpy()
+    gap = float(np.max(np.abs(lp - ref) / np.maximum(np.abs(ref), 1.0)))
+    print(f"14.4 log_prob mode on the scalar lane: shape {lp.shape}, against "
+          f"log_prob max relative gap {gap:.3e}")
+    if lp.shape != (64,) or gap > FLOW_SERVE_RTOL:
+        fail("14.4: the log_prob mode")
+    pf = write_paramfile(tmp, "fixed_white_noise.dat", dest="serve_flow.dat",
+                         extra={"flow_models": f"f1={art}"})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["serve", "-p", pf, "--flow", f"f2={art}:log_prob",
+                       "--warm", "--synthetic", str(FLOW_CLI_REQUESTS)],
+                      device=str(dev))
+    cs = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"14.4 CLI serve with flow_models: f1 and --flow f2 (log_prob): rc "
+          f"{rc}, {cs['requests_done']} done in {cs['dispatches']} "
+          f"dispatches, quarantined {cs['quarantined_requests']}, dropped "
+          f"{cs['dropped_requests']}, latency {cs['latency_ms']}")
+    if rc != 0 or cs["requests_done"] != FLOW_CLI_REQUESTS \
+            or cs["dropped_requests"] or cs["quarantined_requests"]:
+        fail("14.4: the serve subcommand with flows")
+
+    # ---- 14.5 the flow family in PT --------------------------------------
+    pt_dir = os.path.join(tmp, "out", "flow_pt")
+    sampler = PTSampler(like, pt_dir, flow=flow, **FLOW_PT)
+    with RecordBatches(mk, "mega_like", 1) as rec:
+        routes.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler.anneal_init(verbose=False, **NORTH_STAR_ANNEAL)
+        torch.cuda.synchronize()
+        anneal_s = time.perf_counter() - t0
+        checks = []
+        frep = convergence.sample_to_convergence(
+            sampler, max_steps=FLOW_PT_MAX_STEPS, verbose=False,
+            on_check=lambda *a: checks.append(a), **NORTH_STAR_GATE)
+        torch.cuda.synchronize()
+        rows["flowpt"] = (rec, dict(routes.LAUNCHES))
+    ck_n = sum(e["type"] == "checkpoint" for e in last_session(
+        os.path.join(pt_dir, "events.jsonl")))
+    stream_check(pt_dir, "14.5 flow-family PT", blocks=ck_n + len(checks))
+    W = sampler.W
+    anneal_steps = len(NORTH_STAR_ANNEAL["schedule"]) \
+        * NORTH_STAR_ANNEAL["steps_per"]
+    wall = anneal_s + frep.wall_s
+    leg_wall = ns.parts["anneal_s"] + rep.wall_s
+    fp, fa = sampler.fam_propose, sampler.fam_accept
+    fam = {n: (int(p), a / p) for n, a, p in zip(_FAM_NAMES, fa, fp) if p}
+    print(f"14.5 flow-family PT (W {W}, {FLOW_PT}): converged "
+          f"{frep.converged} at {frep.steps} steps (R-hat "
+          f"{frep.rhat_max:.4f}, ESS {frep.ess_min:.1f}); wall {wall:.2f} s "
+          f"(anneal {anneal_s:.2f}, sampling {frep.wall_s:.2f}), "
+          f"{1e3 * frep.wall_s / frep.steps:.3f} ms/step, ESS/s "
+          f"{frep.ess_min / wall:.2f}; the north star leg: {rep.steps} steps, "
+          f"wall {leg_wall:.2f} s, {1e3 * rep.wall_s / rep.steps:.3f} "
+          f"ms/step, ESS/s {rep.ess_min / leg_wall:.2f}; flow family "
+          f"{int(fp[8])} proposed, acceptance {fa[8] / max(fp[8], 1):.4f}; "
+          f"cold proposals and acceptance per family {fam}; launches "
+          f"{rows['flowpt'][1]} [{smi}]")
+    if not frep.converged:
+        fail(f"14.5: the flow-family run did not converge within "
+             f"{FLOW_PT_MAX_STEPS} steps")
+    if not fp[8] or not fa[8]:
+        fail("14.5: the flow family was not proposed and accepted")
+    if rows["flowpt"][1]["mega_like"] < frep.steps + anneal_steps \
+            or rec.sizes[rec.last[W][0].shape[-1]].get(W, 0) \
+            < frep.steps + anneal_steps:
+        fail(f"14.5: not one likelihood-kernel launch at W {W} per step")
+    fpost = leg_posterior(frep)
+    m = posterior_match({"posterior": fpost}, {"posterior": ns.post})
+    print(f"14.5 flow-family posterior against the north star leg's: {m}")
+    for k in names:
+        d, c = fpost[k], ns.post[k]
+        print(f"  {k}: mean {d['mean']:.6g} ({c['mean']:.6g}), std "
+              f"{d['std']:.6g} ({c['std']:.6g})")
+    if not m["match"]:
+        fail("14.5: the flow-family posterior does not match the leg's")
+
+    def steady_block():
+        sampler.sample(frep.steps + FLOW_SYNC_STEPS, resume=True,
+                       verbose=False, block_size=FLOW_SYNC_STEPS)
+    off_dir = pt_dir + "_off"
+    shutil.copytree(pt_dir, off_dir)
+    off = PTSampler(like, off_dir, flow=flow,
+                    **dict(FLOW_PT, flow_weight=0))
+
+    def steady_off():
+        off.sample(frep.steps + FLOW_SYNC_STEPS, resume=True, verbose=False,
+                   block_size=FLOW_SYNC_STEPS)
+    _, n_on, s_on = count_syncs(steady_block)
+    _, n_off, s_off = count_syncs(steady_off)
+    in_flows = {k: v for k, v in s_on.items()
+                if f"{PKG}/flows/" in k or "propose_flow" in k}
+    print(f"14.5 host syncs in one steady block of {FLOW_SYNC_STEPS} steps "
+          f"after the run: flow family on {n_on} {dict(s_on)}, off (the "
+          f"same state, flow_weight 0) {n_off} {dict(s_off)}")
+    if n_on > n_off or in_flows:
+        fail(f"14.5: the flow family adds host synchronisations: {in_flows}")
+    chains = []
+    for tag, kw in (("flowless", {}), ("flow_off", {"flow": flow})):
+        d = os.path.join(tmp, "out", f"flow_{tag}")
+        s0 = PTSampler(like, d, **dict(FLOW_PT, flow_weight=0, **kw))
+        s0.sample(FLOW_OFF_STEPS, resume=False, verbose=False)
+        with open(os.path.join(d, "chain_1.txt"), "rb") as fh:
+            chains.append(fh.read())
+    print(f"14.5 flow-off ({FLOW_OFF_STEPS} steps, flow=flow, flow_weight 0) "
+          f"against no flow: chain bit for bit {chains[0] == chains[1]} "
+          f"({len(chains[0])} bytes)")
+    if chains[0] != chains[1]:
+        fail("14.5: a zero-weight flow changed the chain")
+
+    # ---- 14.6 CEM --------------------------------------------------------
+    with RecordBatches(mk, "mega_like", 1) as rec:
+        routes.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cem = fit_cem(like, device=dev, **CEM_KW)
+        cem_s = time.perf_counter() - t0
+        rows["cem"] = (rec, dict(routes.LAUNCHES))
+    lnp0 = like.log_prior(torch.as_tensor(cem["init_x"], device=dev))
+    shift = (cem["mean"] - leg_mu) / leg_sd
+    print(f"14.6 fit_cem {CEM_KW}: {cem['rounds_used']} rounds in "
+          f"{cem_s:.2f} s, lnZ {cem['lnZ']:.4f} +- {cem['lnZ_err']:.4f} "
+          f"(reliable {cem['lnZ_reliable']}, IS ESS {cem['ess_is']:.1f}), "
+          f"best lnpost {cem['best_lnpost']:.3f}, launches {rows['cem'][1]};"
+          f" mean shift from the leg in its sigma "
+          f"{dict(zip(names, np.round(shift, 3).tolist()))} [{smi}]")
+    if not all(np.isfinite(np.asarray(cem[k], dtype=float)).all()
+               for k in ("mean", "cov", "lnZ", "lnZ_err", "init_x")) \
+            or not bool(torch.isfinite(lnp0).all()):
+        fail("14.6: CEM's outputs are not finite and in the prior's support")
+
+    # ---- 14.7 the kernel rows ------------------------------------------------
+    like_row("mega_like@rescore", "rescore", rows["rescore"][0],
+             FLOW_RESCORE_N, rows["rescore"][1]["mega_like"],
+             "the rescore's draws")
+    like_row("mega_like@flowpt", "flowpt", rows["flowpt"][0], W,
+             rows["flowpt"][1]["mega_like"], "the flow-family run's last step")
+    like_row("mega_like@cem", "cem", rows["cem"][0], CEM_KW["batch"],
+             rows["cem"][1]["mega_like"], "CEM's last round")
 
 
 def main():
@@ -6159,6 +6616,13 @@ def main():
             hold_solve=hold_solve, solve_calls=solve_calls,
             like_calls=like_calls))
         lap("13")
+
+        # ---- phase 14: the flow plane and CEM ----------------------------
+        phase_flows(tmp, dev, smi, results, types.SimpleNamespace(
+            like=nsam.like, rep=rep, post=post, parts=parts),
+            types.SimpleNamespace(hold_solve=hold_solve,
+                                  like_calls=like_calls))
+        lap("14")
 
     kernels = []
     for entry, r in results.items():

@@ -19,10 +19,15 @@ the likelihood once for all walkers, with the reference's jump families
   block-frozen cold cloud,
 - ns: the noise-budget slide along one backend's (efac, equad)
   degeneracy curve (where the likelihood has ``noise_pairs``),
+- flow: a trained ``flows.FlowPosterior`` over the likelihood's
+  parameters (``flow=``): per walker an independence draw from the flow
+  (``flow_ind_frac`` of them) or a walk of ``flow_sigma`` in its latent
+  space,
 
 each written as a plain function of explicit draws (:func:`propose_ind`,
-:func:`propose_cg`, :func:`propose_kde`, :func:`propose_ns`) that returns
-the proposal and its exact MH correction. A family with zero weight draws
+:func:`propose_cg`, :func:`propose_kde`, :func:`propose_ns`,
+:func:`propose_flow`) that returns the proposal and its exact MH
+correction. A family with zero weight draws
 nothing, so the stream of the others is unchanged. Parallel-tempering
 swaps every ``swap_every`` steps with swap-rate ladder adaptation, and
 covariance/eigen adaptation plus the ensemble fits between blocks of
@@ -94,8 +99,6 @@ snapshot, and each block folds them into a ``MeshStatsLedger``: the
 heartbeat keys, a ``mesh_stats`` event and ``mesh_stats.json`` (rank
 ``i``: ``mesh_stats.<i>.json``). It adds no collective and no host
 synchronisation to a step.
-
-Not ported (``NotImplementedError``): the ``flow`` proposal family.
 """
 
 from __future__ import annotations
@@ -134,7 +137,7 @@ _HISTORY = 1000     # DE history ring length
 #: fam_accept/fam_propose), the reference's
 _FAM_NAMES = ("scam", "am", "de", "pd", "ind", "cg", "kde", "ns", "flow")
 _NFAM = len(_FAM_NAMES)
-_IND, _CG, _KDE, _NS = 4, 5, 6, 7
+_IND, _CG, _KDE, _NS, _FLOW = 4, 5, 6, 7, 8
 
 
 @dataclass
@@ -288,6 +291,25 @@ def propose_ns(x, pairs, b, u_glob, z, u_f):
     return prop, qc, ie
 
 
+def propose_flow(x, flow, u_ind, z, sigma=0.1, ind_frac=0.5):
+    """The flow family: per walker, an independence draw ``T(z)`` from
+    the flow (where ``u_ind < ind_frac``) or a walk in its latent space,
+    ``T(T^-1(x) + sigma z)`` (``z`` (W, ndim) standard normals,
+    ``u_ind`` (W,) uniforms). Returns ``(prop, qc)``: the independence
+    correction is ``log q(x) - log q(x')``; the latent walk's Gaussian
+    kernel is symmetric in u, leaving the Jacobian ratio
+    ``log|det dT^-1/dx|(x) + log|det dT/du|(u')``."""
+    from ..flows.coupling import base_logpdf, flow_forward, flow_inverse
+    u_w, ld_inv_old = flow_inverse(flow.spec, flow.params, x)
+    is_ind = u_ind < ind_frac
+    u_new = torch.where(is_ind[:, None], z, u_w + sigma * z)
+    x_new, ld_fwd_new = flow_forward(flow.spec, flow.params, u_new)
+    logq_old = base_logpdf(u_w) + ld_inv_old
+    logq_new = base_logpdf(u_new) - ld_fwd_new
+    return x_new, torch.where(is_ind, logq_old - logq_new,
+                              ld_inv_old + ld_fwd_new)
+
+
 class _ChainSplit:
     """The chain axis's evaluation split of a likelihood: each rank
     evaluates its contiguous ``W / nshard`` walkers and one
@@ -333,11 +355,8 @@ class PTSampler:
                  ind_weight=0, ind_inflate=1.4,
                  cg_weight=0, cg_k=3, cg_group_frac=0.5,
                  kde_weight=0, kde_bw=None, ns_weight=0,
-                 flow=None, flow_weight=0, device=None, mesh=None):
-        if flow is not None or flow_weight:
-            raise NotImplementedError(
-                "the flow proposal family is not ported yet (ROADMAP.md, "
-                "Queue 1: serving and flows)")
+                 flow=None, flow_weight=0, flow_sigma=0.1,
+                 flow_ind_frac=0.5, device=None, mesh=None):
         self.ntemps = int(ntemps)
         self.nchains = int(nchains)
         self.W = self.ntemps * self.nchains
@@ -360,9 +379,24 @@ class PTSampler:
             pr = like.params[iq].prior
             self._ns_qb.append((float(getattr(pr, "lo", -10.0)),
                                 float(getattr(pr, "hi", -5.0))))
+        # the flow family needs a flow over this likelihood's parameters;
+        # without one it has no weight and draws nothing
+        self.flow_sigma = float(flow_sigma)
+        self.flow_ind_frac = float(flow_ind_frac)
+        self.flow = None
+        self._flow_graphs = {}
+        if flow is None:
+            flow_weight = 0
+        elif int(getattr(flow, "ndim", -1)) != int(self.ndim):
+            raise ValueError(
+                f"flow models {getattr(flow, 'ndim', None)} dims but "
+                f"the likelihood has {self.ndim}")
+        else:
+            # its weights on the sampler's device once, here
+            self.flow = flow.to(self.device)
         weights = np.array([scam_weight, am_weight, de_weight,
                             prior_weight, ind_weight, cg_weight,
-                            kde_weight, ns_weight, 0], float)
+                            kde_weight, ns_weight, flow_weight], float)
         self.jump_probs = weights / weights.sum()
         # a uniform that rounds above the cumulative sum's last entry
         # selects the last family that has weight
@@ -451,6 +485,21 @@ class PTSampler:
                 and getattr(like, "mesh_layout", None):
             self.mesh_stats = devicemetrics.MeshStatsLedger(like.mesh_layout)
         os.makedirs(outdir, exist_ok=True)
+
+    def _flow_proposal(self, x, u_ind, z):
+        """:func:`propose_flow` with this sampler's flow and settings; on
+        the card one CUDA graph per walker count (the draws are made
+        outside it, so the stream is the eager one's)."""
+        def prop(x, u_ind, z):
+            return propose_flow(x, self.flow, u_ind, z, self.flow_sigma,
+                                self.flow_ind_frac)
+        if x.device.type != "cuda":
+            return prop(x, u_ind, z)
+        key = tuple(x.shape)
+        if key not in self._flow_graphs:
+            from ..flows.coupling import cuda_graphed
+            self._flow_graphs[key] = cuda_graphed(prop, x, u_ind, z)
+        return self._flow_graphs[key](x, u_ind, z)
 
     # ---------------- initialization / resume -------------------------- #
     def _tensor(self, a):
@@ -612,7 +661,7 @@ class PTSampler:
         eigvals, eigvecs = np.linalg.eigh(cov)
         eigvals = np.maximum(eigvals, 1e-16)
         chol = np.linalg.cholesky(cov)
-        if self.jump_probs[4:].sum() > 0:
+        if self.jump_probs[_IND:_FLOW].sum() > 0:
             # N(mean, inflate^2 cov) refit to the cold cloud; a degenerate
             # cloud (identical walkers, too few chains) keeps the adapted
             # covariance
@@ -691,8 +740,9 @@ class PTSampler:
             self._tensor(a) for a in prep[:7])
         cg_rows = torch.as_tensor(prep[7], dtype=torch.long, device=dev)
         kde_pts, kde_bw = self._tensor(prep[8]), self._tensor(prep[9])
-        use_ind, use_cg, use_kde, use_ns = (
-            bool(self.jump_probs[f] > 0) for f in (_IND, _CG, _KDE, _NS))
+        use_ind, use_cg, use_kde, use_ns, use_flow = (
+            bool(self.jump_probs[f] > 0)
+            for f in (_IND, _CG, _KDE, _NS, _FLOW))
         if use_ns:
             ns_pairs = (
                 torch.as_tensor([p[0] for p in self._ns_pairs], device=dev),
@@ -792,6 +842,10 @@ class PTSampler:
                     x, ns_pairs, randint(len(self._ns_pairs), W), rand(W),
                     randn(W), rand(W))
                 prop = torch.where(c == _NS, ns_prop, prop)
+            if use_flow:
+                fl_prop, fl_qc = self._flow_proposal(x, rand(W),
+                                                     randn(W, nd))
+                prop = torch.where(c == _FLOW, fl_prop, prop)
 
             lnp_new = like.log_prior(prop)
             if emit_mesh:
@@ -833,6 +887,8 @@ class PTSampler:
                 qcorr = torch.where(choice == _KDE, kde_qc, qcorr)
             if use_ns:
                 qcorr = torch.where(choice == _NS, ns_qc, qcorr)
+            if use_flow:
+                qcorr = torch.where(choice == _FLOW, fl_qc, qcorr)
             log_ratio = (lnp_new - lnp) + (lnl_new - lnl) / temps + qcorr
             accept = torch.log(rand(W)) < log_ratio
             x = torch.where(accept[:, None], prop, x)

@@ -26,9 +26,12 @@ the port's last in-process rung checkpoints the unfinished queue
 an external supervisor restarts with ``--resume`` to drain the restored
 queue on the kernels.
 
-Trained flow surrogates (``--flow``, the paramfile's ``flow_models:``)
-are a later slice of the port (``ROADMAP.md`` Queue 1 item 3) and raise
-``NotImplementedError``.
+Trained flow surrogates: ``--flow NAME=PATH[:MODE]`` (repeatable) and
+the paramfile's ``flow_models:`` (the same tokens) register
+``FlowPosterior.load(PATH).serve_view(MODE, NAME)`` beside the
+paramfile's models, on the same device; ``MODE`` is ``sample`` (the
+default: a request row is a base draw, a result row the posterior draw
+and its log q) or ``log_prob``.
 """
 
 from __future__ import annotations
@@ -41,10 +44,6 @@ import numpy as np
 
 __all__ = ["serve_main", "build_serve_models", "synthetic_trace",
            "load_trace"]
-
-_FLOWS_LATER = ("trained flow surrogates (--flow, flow_models:) are a "
-                "later slice of the port (ROADMAP.md Queue 1 item 3)")
-
 
 def build_serve_models(prfile, gram_mode="split", device="cuda"):
     """``({model_key: likelihood}, params)`` for a paramfile's topologies
@@ -153,19 +152,34 @@ def serve_main(argv=None, device="cuda"):
                     choices=("split", "f32", "f64"))
     ap.add_argument("--flow", action="append", default=[],
                     metavar="NAME=PATH[:MODE]",
-                    help="register a trained flow artifact as serve "
-                         "model NAME (a later slice of the port: "
-                         "raises NotImplementedError)")
+                    help="register a trained flow artifact "
+                         "(flows/model.py .npz) as serve model NAME; "
+                         "MODE is 'sample' (default: one request row "
+                         "= one base draw, result row = posterior "
+                         "draw + log q) or 'log_prob'. Repeatable; "
+                         "the paramfile key 'flow_models:' takes the "
+                         "same NAME=PATH[:MODE] tokens")
     opts = ap.parse_args(argv)
-    if opts.flow:
-        raise NotImplementedError(_FLOWS_LATER)
 
     device = resolve_device(device)
     models, params = build_serve_models(opts.prfile,
                                         gram_mode=opts.gram_mode,
                                         device=device)
-    if getattr(params, "flow_models", None):
-        raise NotImplementedError(_FLOWS_LATER)
+    flow_specs = list(opts.flow)
+    pf_flows = getattr(params, "flow_models", None)
+    if pf_flows:
+        flow_specs += ([str(t) for t in pf_flows]
+                       if isinstance(pf_flows, (list, tuple))
+                       else str(pf_flows).split())
+    for spec_str in flow_specs:
+        name, _, rhs = spec_str.partition("=")
+        if not name or not rhs:
+            raise ValueError(f"--flow expects NAME=PATH[:MODE], got "
+                             f"{spec_str!r}")
+        path, _, mode = rhs.partition(":")
+        from ..flows.model import FlowPosterior
+        models[name] = FlowPosterior.load(path, device=device).serve_view(
+            mode or "sample", name=name)
     root = opts.out or os.path.join(params.output_dir, "serve")
     buckets = None
     if opts.buckets:

@@ -11,7 +11,8 @@
   knobs forwarded, and the ``emcee``/``ptemcee`` branch on
   ``system_noise.dat --num 1``;
 - it serves a synthetic trace through the ``serve`` subcommand on
-  ``fixed_white_noise.dat``, and refuses the subcommand's flow surrogates;
+  ``fixed_white_noise.dat``, also with a trained flow surrogate
+  (``--flow``) beside it;
 - it runs the ``hmc`` branch on a copy of ``hmc_single_psr.dat``
   (``--num 1``, 20 steps of 8 chains, 4 leapfrog steps, no ADVI warm
   start) and leaves ``nsamp * nchains`` finite rows of ``ndim + 4``
@@ -140,12 +141,20 @@ def test_cli_runs_hmc_on_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
-    # the serve subcommand runs (test_cli_serves_a_synthetic_trace_on_cpu);
-    # its trained flow surrogates are a later slice and raise
+    # the serve subcommand serves a trained flow surrogate (--flow) beside
+    # the paramfile's model: every request done, the flow's too
+    from enterprise_warp_tpu_torch.flows import FlowPosterior, init_flow
+    spec, params = init_flow(1, 3, n_layers=2, hidden=8, kind="rqs",
+                             device="cpu")
+    art = str(tmp_path / "flow.npz")
+    FlowPosterior(spec, params, device="cpu").save(art)
     prfile = _paramfile(tmp_path, 40, "fixed_white_noise.dat")
-    with pytest.raises(NotImplementedError, match="flow"):
-        cli.main(["serve", "-p", prfile, "--flow", "f=flow.npz"],
-                 device="cpu")
+    assert cli.main(["serve", "-p", prfile, "--flow", f"f={art}",
+                     "--synthetic", "16", "--buckets", "1,8"],
+                    device="cpu") == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["requests_done"] == 16
+    assert summary["dropped_requests"] == 0
     # the chain axis is the PT branch's alone: the nested branch notes
     # chain_shard, as the reference's CLI does, and runs unsharded
     prfile = _nested_paramfile(tmp_path, chain_shard=2)
@@ -361,7 +370,11 @@ def test_no_source_names_jax_or_the_reference():
             os.path.join(PKG, "utils", "devicemetrics.py"),
             os.path.join(PKG, "utils", "metricsexport.py"),
             os.path.join(PKG, "parallel", "distributed.py"),
-            os.path.join(PKG, "utils", "compilecache.py")} | {
+            os.path.join(PKG, "utils", "compilecache.py"),
+            os.path.join(PKG, "samplers", "cem.py")} | {
         os.path.join(PKG, "serve", f"{m}.py")
         for m in ("__init__", "aot", "packer", "admission", "slo", "driver",
-                  "cli")} <= set(files)
+                  "cli")} | {
+        os.path.join(PKG, "flows", f"{m}.py")
+        for m in ("__init__", "coupling", "train", "model",
+                  "rescore")} <= set(files)

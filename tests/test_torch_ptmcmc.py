@@ -154,12 +154,28 @@ def test_failed_block_write_keeps_the_last_checkpoint(tmp_path,
 
 
 def test_flow_family_raises(tmp_path):
-    """The flow family waits for the port of ``flows/``: a weight or a
-    flow object stops the sampler before it runs."""
-    like = GaussianLike([0.0], [1.0])
-    for kw in (dict(flow_weight=5), dict(flow=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PTSampler(like, str(tmp_path), **kw)
+    """The flow family runs: with a flow over the likelihood's parameters
+    and a weight it is proposed and accepted on the cold rung beside the
+    classic four; a weight without a flow leaves it out (no draw), and a
+    flow of another width raises."""
+    from enterprise_warp_tpu_torch.flows import FlowPosterior, init_flow
+    like = GaussianLike([1.0, -2.0], [0.3, 0.7])
+    spec, params = init_flow(0, 2, n_layers=2, hidden=8, device="cpu")
+    params["loc"] = torch.tensor([1.0, -2.0], dtype=torch.float64)
+    params["log_scale"] = torch.log(torch.tensor([0.3, 0.7],
+                                                 dtype=torch.float64))
+    flow = FlowPosterior(spec, params, device="cpu")
+    s = PTSampler(like, str(tmp_path / "a"), ntemps=1, nchains=8, seed=2,
+                  flow=flow, flow_weight=20)
+    s.sample(200, resume=False, verbose=False)
+    assert s.jump_probs[8] > 0
+    assert s.fam_propose[8] > 0 and s.fam_accept[8] > 0
+    assert np.isfinite(np.loadtxt(tmp_path / "a" / "chain_1.txt")).all()
+    assert PTSampler(like, str(tmp_path / "b"),
+                     flow_weight=5).jump_probs[8] == 0
+    with pytest.raises(ValueError, match="dims"):
+        PTSampler(GaussianLike([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),
+                  str(tmp_path / "c"), flow=flow, flow_weight=5)
 
 
 def _injected_block(lnl_of, nchains, ndim):
