@@ -359,7 +359,18 @@ Phases (any failure exits non-zero before the result line):
    ``init_x`` inside the prior; (14.7) kernel 2 held walker by walker and
    timed on each path's last inputs (rows ``mega_like@rescore``,
    ``mega_like@flowpt``, ``mega_like@cem``);
-15. the ``kernels`` JSON line, one entry per kernel and main path that
+15. the port's lint on the card's tree (:func:`phase_lint`): (15.1)
+   ``analysis.run_lint`` over the package as checked out: the files
+   scanned, the suppressed findings by rule and the wall time printed, no
+   active finding; (15.2) every host synchronisation site recorded on the
+   card by 10.2, 11.3 and 14.5 (``set_sync_debug_mode``, the innermost
+   frame outside torch: :data:`SYNC_SITES`) that lies in the port's hot
+   modules (``ops/``, ``samplers/``, ``parallel/``) must lie within a
+   statement that carries a ``host-sync`` finding, active or suppressed;
+   each site printed with its count, its cover and the finding's reason,
+   ``_safe_eigh``'s ``torch.linalg.eigh`` among them; sites elsewhere
+   printed and counted, not held;
+16. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``, after the smoke's wall time.
@@ -2763,6 +2774,12 @@ def run_env(plan=None, **env):
                 os.environ[k] = v
 
 
+#: every host synchronisation site recorded on the card (10.2, 11.3, 14.5):
+#: "path:line" of the innermost frame outside torch -> count; phase 15
+#: holds the port's host-sync rule against it
+SYNC_SITES = collections.Counter()
+
+
 def sync_site(message, filename, lineno):
     """The site of a ``torch.cuda.set_sync_debug_mode("warn")`` warning:
     the innermost frame of the calling stack outside torch (None for
@@ -2815,6 +2832,7 @@ class CliRuns:
         if site is not None:
             self.counting["sites"][
                 f"{threading.current_thread().name} {site}"] += 1
+            SYNC_SITES[site] += 1
 
     def _block(self, st):
         import warnings
@@ -4545,6 +4563,7 @@ def count_syncs(fn):
         site = sync_site(message, filename, lineno)
         if site is not None:
             sites[site] += 1
+            SYNC_SITES[site] += 1
 
     torch.cuda.synchronize()
     with warnings.catch_warnings():
@@ -4906,6 +4925,77 @@ def phase_flows(tmp, dev, smi, results, ns, h):
              rows["flowpt"][1]["mega_like"], "the flow-family run's last step")
     like_row("mega_like@cem", "cem", rows["cem"][0], CEM_KW["batch"],
              rows["cem"][1]["mega_like"], "CEM's last round")
+
+
+# ---- phase 15: the port's lint on the card's tree ----------------------- #
+
+
+def phase_lint(smi):
+    """Phase 15 (module docstring): the lint over the checked-out package,
+    then the host-sync rule held against :data:`SYNC_SITES`."""
+    from enterprise_warp_tpu_torch.analysis import run_lint
+    from enterprise_warp_tpu_torch.analysis.core import HOT_PREFIXES, Module
+
+    # ---- 15.1 the lint --------------------------------------------------
+    t0 = time.perf_counter()
+    res = run_lint(paths=[os.path.join(HERE, PKG)], root=HERE)
+    wall = time.perf_counter() - t0
+    by_rule = collections.Counter(f.rule for f in res.suppressed)
+    print(f"15.1 lint over {PKG}/: {res.files_scanned} files, "
+          f"{len(res.active)} active findings, {len(res.suppressed)} "
+          f"suppressed by rule {dict(sorted(by_rule.items()))}, "
+          f"{wall:.2f} s")
+    for f in res.active:
+        print(f"  {f.format()}")
+    if res.active:
+        fail(f"15.1: {len(res.active)} active lint findings")
+
+    # ---- 15.2 the host-sync rule against the card's sync sites ----------
+    # each statement's first line and the last line of its head (a
+    # compound statement's header; its body holds statements of their own)
+    stmts = {}
+    covers = collections.defaultdict(list)   # path -> [(lo, hi, finding)]
+    for f in res.findings:
+        if f.rule != "host-sync":
+            continue
+        if f.path not in stmts:
+            stmts[f.path] = list(Module(os.path.join(HERE, f.path),
+                                        f.path).stmt_head_end.items())
+        inner = [r for r in stmts[f.path] if r[0] <= f.line <= r[1]]
+        if inner:
+            lo, hi = max(inner)
+            covers[f.path].append((lo, hi, f))
+    hot, cold, uncovered, eigh = 0, 0, [], False
+    for site, n in sorted(SYNC_SITES.items()):
+        path, line = site.rsplit(":", 1)
+        if not path.startswith(HOT_PREFIXES):
+            cold += n
+            print(f"15.2 {site}: {n} syncs, outside the hot modules "
+                  "(not held)")
+            continue
+        hot += n
+        cov = [f for lo, hi, f in covers.get(path, [])
+               if lo <= int(line) <= hi]
+        eigh = eigh or any("torch.linalg.eigh" in f.message for f in cov)
+        if cov:
+            state = (f"suppressed: {cov[0].suppress_reason}"
+                     if cov[0].suppressed else "active")
+            why = f"covered by {cov[0].path}:{cov[0].line} ({state})"
+        else:
+            why = "NOT covered by a host-sync finding"
+        print(f"15.2 {site}: {n} syncs, {why}")
+        if not cov:
+            uncovered.append(site)
+    nhot = sum(site.startswith(HOT_PREFIXES) for site in SYNC_SITES)
+    print(f"15.2 host-sync rule against the card: {nhot - len(uncovered)} of "
+          f"{nhot} hot-module sites covered ({hot} syncs), "
+          f"{len(SYNC_SITES) - nhot} sites elsewhere ({cold} syncs) [{smi}]")
+    if uncovered:
+        fail(f"15.2: sync sites in the hot modules with no host-sync "
+             f"finding: {uncovered}")
+    if not eigh:
+        fail("15.2: _safe_eigh's torch.linalg.eigh is not among the covered "
+             "sync sites")
 
 
 def main():
@@ -6623,6 +6713,10 @@ def main():
             types.SimpleNamespace(hold_solve=hold_solve,
                                   like_calls=like_calls))
         lap("14")
+
+        # ---- phase 15: the port's lint on the card's tree -----------------
+        phase_lint(smi)
+        lap("15")
 
     kernels = []
     for entry, r in results.items():

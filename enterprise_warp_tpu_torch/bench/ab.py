@@ -1,3 +1,5 @@
+# ewt: allow-no-print,no-raw-timing module — an A/B harness: the
+# rounds' wall times it takes and prints are its output
 """Parent-against-change A/B of the port's PT paths on the card.
 
     python -m enterprise_warp_tpu_torch.bench.ab --parent DIR \\

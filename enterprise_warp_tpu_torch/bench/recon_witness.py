@@ -1,3 +1,5 @@
+# ewt: allow-no-print module — a measurement script: its report on
+# stdout is its output
 """The noise reconstruction on the card against the CPU and a long-double
 witness, draw by draw.
 

@@ -1,3 +1,5 @@
+# ewt: allow-no-print module — the run command's user-facing lines
+# (rank, set-up, the joint chain's float64 check) are its stdout
 """Run CLI: ``python -m enterprise_warp_tpu_torch.cli --prfile <paramfile>
 --num N``.
 
@@ -44,7 +46,6 @@ import importlib.util
 import logging
 import os
 import sys
-import time
 
 _log = logging.getLogger(__name__)
 # a joint chain's largest lnL against the dense float64 oracle at the same
@@ -99,6 +100,7 @@ def main(argv=None, device="cuda"):
     device = resolve_device(device)
     # the process group of the EWT_* contract (a no-op for one process)
     from .parallel.distributed import init_distributed
+    from .utils.profiling import monotonic
     pidx, pcnt = init_distributed(device=device)
     if pcnt > 1:
         print(f"distributed: process {pidx}/{pcnt}, "
@@ -112,11 +114,11 @@ def main(argv=None, device="cuda"):
     if opts.custom_models_py and opts.custom_models:
         custom = import_custom_models(opts.custom_models_py,
                                       opts.custom_models)
-    t0 = time.perf_counter()
+    t0 = monotonic()
     try:
         params = Params(opts.prfile, opts=opts, custom_models_obj=custom,
                         init_pulsars=False)
-        t_par = time.perf_counter()
+        t_par = monotonic()
         params.init_pulsars()
         params.clone_all_params_to_models()
     except DataQuarantine as q:
@@ -126,12 +128,12 @@ def main(argv=None, device="cuda"):
         print(f"malformed input file: {exc}", file=sys.stderr)
         return EXIT_QUARANTINED
     mesh = psr_mesh(params, pcnt, device)
-    t_psr = time.perf_counter()
+    t_psr = monotonic()
     likes = init_model_likelihoods(params, gram_mode=opts.gram_mode,
                                    device=device, mesh=mesh)
     from .native import load as native_core
     setup = dict(paramfile_s=t_par - t0, pulsars_s=t_psr - t_par,
-                 likelihood_s=time.perf_counter() - t_psr,
+                 likelihood_s=monotonic() - t_psr,
                  npsr=len(params.psrs),
                  tim_engine="native" if native_core() else "python")
     _log.info("set-up: paramfile %.3f s, %d pulsars parsed in %.3f s "

@@ -109,6 +109,8 @@ def load():
         if not SRC.exists():
             return None
         try:
+            # ewt: allow-no-raw-kernel-launch — the host IO core (.tim parser,
+            # chain tables), a CPU library with no kernel in it
             _LIB = _bind(ctypes.CDLL(str(build())))
         except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
             get_logger("ewt.native").warning(

@@ -69,6 +69,9 @@ def _health_word(jitter_bit, diverge_bit, d):
                         logcond], dim=-1)
 
 
+# ewt: allow-precision — the whitening island: residuals and bases are
+# divided by sigma and normalized on the host in float64 before the
+# float32 kernel class sees them
 def whiten_inputs(residuals, toaerrs, M, T):
     """Host-side whitening/normalization (float64 numpy).
 
@@ -165,6 +168,8 @@ def _pad_rows(x, n_pad):
     return F.pad(x, (0, 0, 0, n_pad))
 
 
+# ewt: allow-precision — the Gram island: float32 chunk products summed
+# in float64, so a long TOA axis adds no float32 rounding
 def _chunked_f32_gram(x, y):
     """x^T y of two float32 row-padded matrices (leading batch axes
     allowed), with per-chunk partials accumulated in float64."""
@@ -197,6 +202,10 @@ def _gram_pair(S, B, mode):
 # Gram stage
 # --------------------------------------------------------------------
 
+# ewt: allow-precision — the skinny M/r Grams and the hi/lo split of
+# (T, T) are built from float64 host bases
+# ewt: allow-host-sync — the pair program's static products go to the device
+# once, when the likelihood is built
 def build_pair_program(r_w, M_w, T_w, device="cuda"):
     """Static pair-product matrices for the Gram-as-matmul path.
 
@@ -231,6 +240,8 @@ def build_pair_program(r_w, M_w, T_w, device="cuda"):
                 n_pad=n_pad)
 
 
+# ewt: allow-precision — the Gram island: split-precision products of
+# (T, T) summed in float64, the skinny M/r side in float64
 def pair_program_grams(w, prog):
     """All Gram blocks at weights ``w`` (float64, (W, ntoa)) through the
     pair program: ``(G, H, P, X, q, rwr)`` with the same precision classes

@@ -342,6 +342,9 @@ def _safe_eigh(A):
     from .kernel import _sym
     finite = torch.isfinite(A).all(dim=-1).all(dim=-1)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    # ewt: allow-host-sync — the Schur test's eigensolve: eigh checks its
+    # info on the host, one sync per kernel-2 call; a device-side test would
+    # remove it and let the PT step become one CUDA graph
     ev, V = torch.linalg.eigh(torch.where(finite[:, None, None], _sym(A),
                                           eye))
     ev = torch.where(finite[:, None], ev, torch.full_like(ev, float("nan")))

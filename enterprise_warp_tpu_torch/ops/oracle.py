@@ -1,3 +1,5 @@
+# ewt: allow-precision module — the dense float64 oracle every kernel
+# path is held against: its whole point is float64
 """Dense float64 numpy oracle for likelihood-equivalence tests.
 
 Counterpart of ``enterprise_warp_tpu/ops/oracle.py``: an independent

@@ -298,6 +298,8 @@ def _raw_all_reduce(t, group):
         return t.clone()
     import torch.distributed as dist
     if t.is_cuda and _group_backend(group) == "gloo":
+        # ewt: allow-host-sync — gloo reduces host memory: a CUDA tensor is
+        # staged through the host on a gloo group
         h = t.detach().to("cpu", copy=True)
         dist.all_reduce(h, group=group)
         return h.to(t.device)
@@ -357,6 +359,8 @@ def all_gather_rows(t, group=None):
     world = dist.get_world_size(group)
     src = t.detach().contiguous()
     if src.is_cuda and _group_backend(group) == "gloo":
+        # ewt: allow-host-sync — gloo gathers host memory: a CUDA tensor is
+        # staged through the host on a gloo group
         src = src.to("cpu")
     parts = [torch.empty_like(src) for _ in range(world)]
     dist.all_gather(parts, src, group=group)

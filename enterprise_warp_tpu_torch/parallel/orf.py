@@ -1,3 +1,5 @@
+# ewt: allow-precision module — ORF matrices in float64: the angle
+# cosines near 1 cancel in float32
 """Overlap reduction functions: cross-pulsar spatial correlation matrices.
 
 Counterpart of ``enterprise_warp_tpu/parallel/orf.py`` (numpy, a copy):

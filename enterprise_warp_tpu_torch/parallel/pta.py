@@ -1,3 +1,5 @@
+# ewt: allow-precision module — the joint likelihood's float64 islands:
+# whitened bases, per-pulsar Grams and the inter-pulsar Schur stage
 """The joint correlated-GWB PTA likelihood, batched over walkers.
 
 Counterpart of ``enterprise_warp_tpu/parallel/pta.py`` without its device
@@ -95,6 +97,7 @@ from ..ops.spectra import (broken_powerlaw_psd, free_spectrum_psd,
                            powerlaw_psd)
 from ..samplers.evalproto import (BLOCK_COMMON, BLOCK_GLOBAL,
                                   install_masked_protocol)
+from ..utils.logging import get_logger
 from .distributed import all_reduce_sum, grad_all_reduce, scatter_to_global
 from .orf import is_low_rank, is_positive_definite, orf_matrix
 
@@ -177,6 +180,8 @@ class PTALikelihood(PriorMixin):
 #  build-time compilation of the parameter-evaluation program            #
 # --------------------------------------------------------------------- #
 
+# ewt: allow-host-sync — build time: the parameter references go to the device
+# once per likelihood
 def _refs_to_arrays(refs, device):
     """List of ``('theta', i)`` / ``('const', v)`` refs -> gather tensors
     ``(is_theta, idx, const)``."""
@@ -195,6 +200,8 @@ def _gather_vals(theta, arrs):
     return torch.where(is_theta, theta[:, idx], const)
 
 
+# ewt: allow-host-sync — build time: the white-noise selections go to the
+# device once per likelihood
 def _compile_white(lowered, mapping, npsr, ntoa_max, ntoas, device):
     """Selector-index compilation of all pulsars' white-noise blocks.
 
@@ -258,6 +265,8 @@ def _compile_white(lowered, mapping, npsr, ntoa_max, ntoas, device):
 _PSD_FNS = {"powerlaw": powerlaw_psd, "turnover": broken_powerlaw_psd}
 
 
+# ewt: allow-host-sync — build time: the prior-variance program goes to the
+# device once per likelihood
 def _compile_phi(noise_specs, NW, npsr, device):
     """PSD-group compilation of all pulsars' region-N prior variances.
 
@@ -341,6 +350,8 @@ def _compile_phi(noise_specs, NW, npsr, device):
 #  ORF coupling: static prep + per-term inverse                          #
 # --------------------------------------------------------------------- #
 
+# ewt: allow-host-sync — build time: the ORF factors go to the device once per
+# likelihood
 def _prep_orf_static(orf_name, pos, device):
     """Static (theta-independent) ORF factorization, host float64: the
     inverse and ``ln|Gamma|`` of a positive-definite ORF, else its
@@ -513,6 +524,8 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
                     lognu=np.pad(blk.log_nu_ratio, (0, ntoa_max - n_a))))
             new_off += blk.ncols
 
+    # ewt: allow-host-sync — build time: the joint likelihood's static arrays
+    # go to the device once
     def dev(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=F64,
                                device=device)
@@ -578,6 +591,8 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
                                    (blk.ncols, npsr, npsr))
             cols = np.broadcast_to(flat.T[:, None, :],
                                    (blk.ncols, npsr, npsr))
+            # ewt: allow-host-sync — build time: the mask's scatter rows and
+            # columns go to the device once
             store.append((torch.as_tensor(rows.ravel(), device=device),
                           torch.as_tensor(cols.ravel(), device=device)))
 
@@ -867,10 +882,11 @@ def build_pta_likelihood(psrs, termlists, fixed_values=None,
     # ---- the pulsar axis across processes (module docstring) -----------
     use_spmd = mesh is not None and joint_mode == "schur" and not dyn_blocks
     if mesh is not None and not use_spmd:
-        print("note: psr_shard keeps the unsharded joint likelihood here ("
-              + ("a sampled chromatic index makes the basis "
-                 "walker-dependent" if dyn_blocks else
-                 f"joint_mode '{joint_mode}' has no sharded path") + ")")
+        get_logger("ewt.pta").info(
+            "psr_shard keeps the unsharded joint likelihood here (%s)",
+            "a sampled chromatic index makes the basis walker-dependent"
+            if dyn_blocks else
+            f"joint_mode '{joint_mode}' has no sharded path")
     if use_spmd:
         ranges = mesh.ranges(npsr)
         nshard = len(ranges)

@@ -1,3 +1,5 @@
+# ewt: allow-precision module — CEM's mean, covariance and importance weights are
+# float64 sampler state
 """Adaptive-importance-sampling Gaussian warm start (CEM search + AMIS).
 
 Counterpart of ``enterprise_warp_tpu/samplers/cem.py``. Fits a
@@ -93,10 +95,14 @@ def fit_cem(like, rounds=None, batch=256, inflate=1.5, seed=0,
 
     # the likelihood's own log_prior takes a batch (the reference vmaps a
     # per-vector one: its evalproto.prior_protocol)
+    # ewt: allow-host-sync — CEM is host-driven numpy: each round uploads its
+    # draws and reads back their log prior
     def lnp_batch(x):
         return like.log_prior(torch.as_tensor(x, dtype=F64, device=dev)) \
             .cpu().numpy()
 
+    # ewt: allow-host-sync — CEM is host-driven numpy: one upload and one read
+    # of lnL and log prior a round
     def eval_batch(x):
         xt = torch.as_tensor(x, dtype=F64, device=dev)
         lnl = like.loglike_batch(xt).cpu().numpy()

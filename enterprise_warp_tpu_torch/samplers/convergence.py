@@ -1,3 +1,5 @@
+# ewt: allow-precision module — R-hat and ESS folds over the chains are
+# float64 host statistics
 """Convergence-gated sampling and the insertion-rank diagnostics (numpy).
 
 Counterpart of ``enterprise_warp_tpu/samplers/convergence.py``:
@@ -29,7 +31,6 @@ from __future__ import annotations
 
 import glob
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +40,7 @@ from ..parallel.distributed import from_primary, is_primary
 from ..utils import telemetry
 from ..utils.diagnostics import summarize_chains
 from ..utils.logging import get_logger
+from ..utils.profiling import monotonic
 
 _log = get_logger("ewt.convergence")
 
@@ -292,7 +294,7 @@ def _drive(sampler, target_ess, rhat_max, check_every, max_steps,
     def _beat(mode, rhat, ess):
         rec.heartbeat(phase="convergence_check", step=int(steps),
                       diag_mode=mode, rhat=rhat, ess=ess,
-                      wall_s=round(time.perf_counter() - t_start, 2),
+                      wall_s=round(monotonic() - t_start, 2),
                       bubble_s=round(getattr(sampler, "bubble_total_s",
                                              0.0), 3),
                       host_sync_s=round(getattr(sampler,
@@ -300,7 +302,7 @@ def _drive(sampler, target_ess, rhat_max, check_every, max_steps,
                                         3))
 
     use_stream = os.environ.get("EWT_STREAMING_DIAG", "1") != "0"
-    t_start = time.perf_counter()
+    t_start = monotonic()
     t_after_first = None
     while steps < max_steps:
         todo = max(check_every, int(steps * (check_growth - 1.0)))
@@ -308,7 +310,7 @@ def _drive(sampler, target_ess, rhat_max, check_every, max_steps,
         sampler.sample(min(steps + todo, max_steps), resume=steps > 0,
                        verbose=False, block_size=block_size, collect=blocks)
         if t_after_first is None:
-            t_after_first = time.perf_counter()
+            t_after_first = monotonic()
         steps = min(steps + todo, max_steps)
         led = getattr(sampler, "diag_ledger", None) if use_stream else None
         stream = (led.worst(burn_frac) if led is not None and len(led)
@@ -323,8 +325,8 @@ def _drive(sampler, target_ess, rhat_max, check_every, max_steps,
                 _log.info("step %d: rhat_max=%.4f ess_min=%.0f (streaming)",
                           steps, stream["rhat"], stream["ess"])
             if on_check is not None:
-                on_check(steps, time.perf_counter() - t_start,
-                         time.perf_counter() - t_after_first)
+                on_check(steps, monotonic() - t_start,
+                         monotonic() - t_after_first)
             continue
         chains = _chains_from_blocks(blocks, burn_frac)
         s = _diag(chains)
@@ -333,10 +335,10 @@ def _drive(sampler, target_ess, rhat_max, check_every, max_steps,
         if verbose:
             _log.info("step %d: rhat_max=%.4f ess_min=%.0f", steps, rh, es)
         if on_check is not None:
-            on_check(steps, time.perf_counter() - t_start,
-                     time.perf_counter() - t_after_first)
+            on_check(steps, monotonic() - t_start,
+                     monotonic() - t_after_first)
         if rh <= rhat_max and es >= target_ess:
-            now = time.perf_counter()
+            now = monotonic()
             return ConvergenceReport(
                 converged=True, steps=steps, wall_s=now - t_start,
                 steady_wall_s=now - t_after_first, rhat_max=rh,
@@ -344,7 +346,7 @@ def _drive(sampler, target_ess, rhat_max, check_every, max_steps,
     chains = _chains_from_blocks(blocks, burn_frac)
     s = _diag(chains)
     rh, es = _worst_floats(s)
-    now = time.perf_counter()
+    now = monotonic()
     return ConvergenceReport(
         converged=False, steps=steps, wall_s=now - t_start,
         steady_wall_s=now - (t_after_first or t_start), rhat_max=rh,

@@ -1,3 +1,5 @@
+# ewt: allow-precision module — host snapshots move sampler state through one
+# float64 buffer (integers up to 2^53 round-trip exactly)
 """Device-resident sampler state: the block-commit snapshot and the
 double-buffered host pipeline.
 
@@ -31,6 +33,8 @@ import numpy as np
 import torch
 
 
+# ewt: allow-host-sync — the sanctioned block-boundary snapshot: one non-
+# blocking copy into pinned memory and one stream sync
 def host_snapshot(tree):
     """Host copy of a dict of tensors, all on one device: one float64
     buffer on the device, one non-blocking copy into pinned host memory,
@@ -56,6 +60,8 @@ def host_snapshot(tree):
     return out
 
 
+# ewt: allow-host-sync — the one-leaf host snapshot: a device->host copy by
+# design
 def host_pull(v):
     """Host copy of ONE tensor (the one-leaf :func:`host_snapshot`): a
     numpy array that owns its memory, never a view of a device buffer a
@@ -72,6 +78,8 @@ def resolve_placement(like):
     return torch.device(getattr(like, "device", None) or "cpu")
 
 
+# ewt: allow-host-sync — places host state on the device once (a resume, a
+# fresh start)
 def place_resident(v, placement):
     """One state leaf as a float64 tensor on ``placement``: a tensor
     already there passes through, anything else is copied (a REAL copy:

@@ -1,3 +1,5 @@
+# ewt: allow-precision module — the cached evaluation's theta and lnL parts
+# are float64 sampler state
 """The evaluation protocol of a likelihood, and the update_mask contract
 of a block-structured one.
 
@@ -121,6 +123,8 @@ class CachedEvaluator:
         if theta0 is not None:
             self.reset(theta0)
 
+    # ewt: allow-host-sync — the cached evaluator is host-driven: each call
+    # uploads its theta
     def _tensor(self, theta):
         return torch.as_tensor(theta, dtype=F64, device=self.like.device)
 

@@ -1,3 +1,5 @@
+# ewt: allow-precision module — positions, momenta, the mass matrix and the chain
+# are float64: the package's sampler-state island
 """Gradient-based HMC with batched chains.
 
 Counterpart of ``enterprise_warp_tpu/samplers/hmc.py``. Sampling runs in
@@ -58,7 +60,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -75,6 +76,7 @@ from ..utils import devicemetrics, profiling, telemetry
 from ..utils.diagnostics import throttled_block_worst
 from ..utils.flightrec import flight_recorder
 from ..utils.logging import EvalRateMeter, get_logger
+from ..utils.profiling import monotonic
 from .transform import make_logp_z, value_and_grad
 
 _log = get_logger("ewt.hmc")
@@ -163,6 +165,8 @@ class HMCSampler:
         self._diag_hb = {}
         os.makedirs(outdir, exist_ok=True)
 
+    # ewt: allow-host-sync — uploads host state (a fresh start, a resume, the
+    # mass matrix) at block boundaries
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), dtype=F64, device=self.device)
 
@@ -174,6 +178,8 @@ class HMCSampler:
         return lp, lnl, torch.where(torch.isfinite(g), g,
                                     torch.zeros_like(g))
 
+    # ewt: allow-host-sync — the initial-point search reads its log densities
+    # on the host, before sampling
     def _logp_values(self, z):
         with torch.no_grad():
             return self._logp(self._tensor(z))[0].cpu().numpy()
@@ -217,6 +223,8 @@ class HMCSampler:
     def _ckpt_path(self):
         return os.path.join(self.outdir, "state.npz")
 
+    # ewt: allow-host-sync — the checkpoint writes the chain state to disk at a
+    # block boundary
     def _save_state(self, st):
         if not is_primary():
             return
@@ -294,11 +302,14 @@ class HMCSampler:
         sqm = torch.sqrt(mass)
         l_min = max(1, self.n_leapfrog // 2)
         if self.jitter_L:
+            # ewt: allow-host-sync — the block's trajectory lengths are drawn
+            # on the device and read once a block, before the leapfrog loop
             lengths = torch.randint(l_min, self.n_leapfrog + 1, (todo,),
                                     generator=gen, device=dev).tolist()
         else:
             lengths = [self.n_leapfrog] * todo
 
+        # ewt: allow-host-sync — the step-size state goes up once a block
         def scalar(v):
             return torch.tensor(v, dtype=F64, device=dev)
 
@@ -369,13 +380,15 @@ class HMCSampler:
             le = torch.stack(d_logeps)
             reads += [fin.sum().to(F64), dh.sum(), (dh * dh).sum(),
                       dh.abs().amax(), le.amin(), le.amax()]
-        t_sync = time.perf_counter()
+        t_sync = monotonic()
         # the block's one host read
+        # ewt: allow-host-sync — the block's one host read: the step-size
+        # adaptation and the diagnostics
         vals = torch.stack(reads).cpu().tolist()
         log_eps, log_eps_bar, h_bar = vals[:3]
         ndiv, mean_acc = int(vals[3]), vals[4] / todo
         self._diag_hb = _energy_heartbeat(vals[5:]) if emit_diag else {}
-        self._last_sync_s = time.perf_counter() - t_sync
+        self._last_sync_s = monotonic() - t_sync
         self._g_sync.set(self._last_sync_s)
         st.z, st.accepted = z, acc
         st.log_eps, st.log_eps_bar = log_eps, log_eps_bar
@@ -442,7 +455,7 @@ class HMCSampler:
                     todo = min(todo, edge - st.step)
             adapt = st.step < self.warmup
             ngrad0 = st.ngrad
-            t0 = time.perf_counter()
+            t0 = monotonic()
             if t_ready is not None:
                 self._last_bubble_s = t0 - t_ready
                 self._g_bubble.set(self._last_bubble_s)
@@ -450,8 +463,11 @@ class HMCSampler:
                 zs, lnls, mean_acc = self._supervisor.call(
                     lambda: self._run_block(st, todo, adapt), gen=self.gen,
                     step=int(st.step), block_steps=int(todo))
+                # ewt: allow-host-sync,collective-safety — the block's
+                # positions come to the host once a block for the chain file;
+                # every rank reads its own replicated block
                 zs_np = zs.cpu().numpy()
-            t_ready = time.perf_counter()
+            t_ready = monotonic()
             block_s = t_ready - t0
             profiling.capture_tick()
             if st.divergences > ndiv_seen:
@@ -486,8 +502,15 @@ class HMCSampler:
             with torch.no_grad():
                 thetas = self.like.from_unit(
                     torch.sigmoid(zs.reshape(-1, self.ndim)))
+                # ewt: allow-host-sync,collective-safety — the block's chain
+                # rows (log prior, theta, lnL) come to the host once a block
+                # for the chain file; every rank reads its own
                 lnpri = self.like.log_prior(thetas).cpu().numpy()
+            # ewt: allow-host-sync,collective-safety — the block's chain rows
+            # come to the host once a block for the chain file
             thetas = thetas.cpu().numpy()
+            # ewt: allow-host-sync,collective-safety — the block's chain rows
+            # come to the host once a block for the chain file
             lnl_np = lnls.reshape(-1).cpu().numpy()
             self._escalate_nonfinite(st, thetas, lnl_np)
             acc_rate = float(st.accepted.mean()) / max(st.step, 1)

@@ -1,3 +1,5 @@
+# ewt: allow-precision module — the product-space walkers and their lnL are
+# float64 sampler state
 """Product-space hypermodel: Bayesian model selection in one chain.
 
 Counterpart of ``enterprise_warp_tpu/samplers/hypermodel.py``: the
@@ -32,6 +34,8 @@ class HyperModelLikelihood(PriorMixin):
     live on the same device.
     """
 
+    # ewt: allow-host-sync — build time: each member's parameter index goes to
+    # the device once
     def __init__(self, likes: dict):
         self.likes = dict(sorted(likes.items()))
         self.nmodels = len(self.likes)
@@ -85,6 +89,9 @@ class HyperModelLikelihood(PriorMixin):
                           device=self.device)
         for m, (like, idx) in enumerate(zip(self.likes.values(),
                                             self._index)):
+            # ewt: allow-host-sync — each member evaluates only the walkers
+            # that select it: the row count is data-dependent, one read per
+            # member a call
             rows = torch.nonzero(k == m).flatten()
             if rows.numel() == 0:
                 continue

@@ -1,3 +1,5 @@
+# ewt: allow-precision module — live points, lnL and the evidence sums are
+# float64 (lnZ accumulates over every iteration): sampler state
 """Batched nested sampling (evidence + posterior) on the likelihood's device.
 
 Counterpart of ``enterprise_warp_tpu/samplers/nested.py``, the native
@@ -66,7 +68,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 
 import numpy as np
 import torch
@@ -82,6 +83,7 @@ from ..resilience.supervisor import (BlockSupervisor, PlatformDemotion,
 from ..utils import devicemetrics, profiling, telemetry
 from ..utils.flightrec import flight_recorder
 from ..utils.logging import EvalRateMeter, get_logger
+from ..utils.profiling import monotonic
 from .convergence import (insertion_rank_ks, insertion_rank_neff,
                           insertion_rank_pass)
 from .devicestate import HostPipeline, host_snapshot
@@ -104,6 +106,8 @@ def _device(like):
     return torch.device(getattr(like, "device", "cpu"))
 
 
+# ewt: allow-host-sync — build time: the prior bounds go to the device once per
+# run
 def _uniform_bounds(like):
     """``(lo, hi)`` float64 tensors on the likelihood's device when every
     prior is Uniform, else None."""
@@ -170,8 +174,14 @@ def _make_iteration(like, nlive, kbatch, nsteps, slide_moves=None,
     if use_slide:
         pairs = list(like.noise_pairs)
         lo, hi = _uniform_bounds(like)
+        # ewt: allow-host-sync — build time: the slide pairs go to the device
+        # once per run
         sl_i = torch.tensor([p[0] for p in pairs], device=dev)
+        # ewt: allow-host-sync — build time: the slide pairs go to the device
+        # once per run
         sl_j = torch.tensor([p[1] for p in pairs], device=dev)
+        # ewt: allow-host-sync — build time: the slide pairs go to the device
+        # once per run
         sl_s2 = torch.tensor([p[2] for p in pairs], dtype=F64, device=dev)
         sl_lo, sl_span = lo, hi - lo
         n_pairs = len(pairs)
@@ -501,6 +511,8 @@ def _fresh_live(like, nlive, gen):
     redraws = 0
     for _ in range(20):
         bad = ~torch.isfinite(lnl)
+        # ewt: allow-host-sync — the fresh live set's redraw loop reads whether
+        # any point is non-finite, before sampling starts
         if not bool(torch.any(bad)):
             break
         u2 = _rand(gen, nlive, like.ndim)
@@ -548,7 +560,11 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
     n_dispatch = n_sync = 0
     fresh_calls = 0
     if z is not None:
+        # ewt: allow-host-sync,collective-safety — a resume uploads the
+        # checkpointed live set once, before the first block
         u = torch.as_tensor(z["u"], dtype=F64, device=dev)
+        # ewt: allow-host-sync,collective-safety — a resume uploads the
+        # checkpointed live set once, before the first block
         lnl = torch.as_tensor(z["lnl"], dtype=F64, device=dev)
         gen.set_state(torch.as_tensor(z["rng_state"], dtype=torch.uint8))
         scale, ln_x, lnz = float(z["scale"]), float(z["ln_x"]), \
@@ -572,6 +588,8 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
         dead_u, dead_lnl, dead_lnx, dead_dlnx, ranks_all = [], [], [], [], []
         ln_x, scale, it, lnz = 0.0, 0.5, 0, -np.inf
     ckpt_dispatch, it0 = n_dispatch, it
+    # ewt: allow-host-sync,collective-safety — the run's scalars go up once,
+    # before the first block
     scale_d, lnz_d, lnx_d = (torch.tensor(v, dtype=F64, device=dev)
                              for v in (scale, lnz, ln_x))
     block = _make_block(like, nlive, kbatch, nsteps,
@@ -619,7 +637,7 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
     last_ckpt_it = it
     converged = False
     nmax = nlive - kbatch           # insertion-rank support: {0..nmax}
-    t_loop = time.perf_counter()
+    t_loop = monotonic()
     sync_total_s = 0.0
     t_ready = None
     with telemetry.run_scope(outdir, sampler="nested", label=label,
@@ -639,7 +657,7 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
                 # blocks align to the absolute iteration grid, so a resume
                 # from a mid-grid checkpoint first runs a partial block
                 todo = min(block_iters - (it % block_iters), max_iter - it)
-                t0 = time.perf_counter()
+                t0 = monotonic()
                 last_bubble_s = 0.0
                 if t_ready is not None:
                     last_bubble_s = t0 - t_ready
@@ -656,7 +674,7 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
                 # host work runs in the gap
                 pipe.run_pending()
                 # ---- commit: the one host sync per block ------------- #
-                t1 = time.perf_counter()
+                t1 = monotonic()
                 leaves = dict(u=u, lnl=lnl, scale=scale_d, lnz=lnz_d,
                               ln_x=lnx_d, **ys)
                 with profiling.span("ns.commit", it=it, iters=todo):
@@ -665,7 +683,7 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
                                            site="nested.commit",
                                            iteration=int(it))
                 n_sync += 1
-                t2 = t_ready = time.perf_counter()
+                t2 = t_ready = monotonic()
                 sync_total_s += t2 - t1
                 g_sync.set(t2 - t1)
                 du = snap["dead_u"].reshape(-1, nd)
@@ -767,7 +785,7 @@ def _run_nested_blocked(like, outdir, nlive, dlogz, nsteps, kbatch, seed,
                       converged=bool(converged),
                       evals_per_s=round(meter.rate(), 1),
                       evals_total=int(meter.total))
-    loop_s = time.perf_counter() - t_loop
+    loop_s = monotonic() - t_loop
 
     # a converged run's checkpoint is removed; one stopped early (a
     # preemption) keeps its last block resumable
@@ -833,6 +851,7 @@ def _escalate_nonfinite_dead(du, dl, outdir, it):
     nbad = int(bad.sum())
     if not nbad:
         return
+    # ewt: allow-host-sync — du is the dead block on the host: no device read
     _log.warning("NS iteration block at %d: %d non-finite dead points, "
                  "first at u=%s", it, nbad, du[bad][0].tolist())
     telemetry.registry().counter("nonfinite_eval", where="nested").inc(nbad)
@@ -843,6 +862,8 @@ def _escalate_nonfinite_dead(du, dl, outdir, it):
                n_bad=nbad, bad_u=du[bad][:8], bad_lnl=dl[bad][:8])
 
 
+# ewt: allow-host-sync — the run's epilogue: the live set and the posterior
+# come to the host once to write the result
 def _finalize(like, outdir, label, seed, nlive, kbatch, nsteps, it,
               converged, u, lnl, ln_x, dead_u, dead_lnl, dead_lnx,
               dead_dlnx, slide_eff, dispatch_stats, insertion_rank,

@@ -1,3 +1,5 @@
+# ewt: allow-precision module — walker positions, lnL, lnpost and the proposal
+# covariance are float64: the package's sampler-state island
 """Adaptive parallel-tempering MCMC over a walker-batched likelihood.
 
 Counterpart of ``enterprise_warp_tpu/samplers/ptmcmc.py`` for the paramfile
@@ -106,7 +108,6 @@ from __future__ import annotations
 import glob
 import math
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -127,6 +128,7 @@ from ..utils import devicemetrics, profiling, telemetry
 from ..utils.diagnostics import cache_hit_summary, throttled_block_worst
 from ..utils.flightrec import flight_recorder
 from ..utils.logging import EvalRateMeter, get_logger
+from ..utils.profiling import monotonic
 from .devicestate import chain_slice, host_snapshot
 from .evalproto import BLOCK_COMMON
 
@@ -502,6 +504,8 @@ class PTSampler:
         return self._flow_graphs[key](x, u_ind, z)
 
     # ---------------- initialization / resume -------------------------- #
+    # ewt: allow-host-sync — uploads host state (the covariance fit, the
+    # proposal tables) at block boundaries, a few arrays a block
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), dtype=F64, device=self.device)
 
@@ -515,6 +519,8 @@ class PTSampler:
         if self.init_x is not None:
             reps = int(np.ceil(self.W / len(self.init_x)))
             x0 = np.tile(self.init_x, (reps, 1))[:self.W]
+        # ewt: allow-host-sync — the fresh start reads its walkers' lnL once,
+        # before sampling
         lnl = self._loglike(self._tensor(x0)).cpu().numpy()
         # re-draw walkers that landed on a non-finite corner: each one is
         # a counted nonfinite_eval, and exhausting the redraws is an
@@ -528,6 +534,8 @@ class PTSampler:
                 "nonfinite_eval", where="init").inc(int(bad.sum()))
             fr.record("nonfinite_eval", where="init", count=int(bad.sum()))
             x0[bad] = self.like.sample_prior(rng, int(bad.sum()))
+            # ewt: allow-host-sync — the fresh start's redraws read lnL before
+            # sampling
             lnl = self._loglike(self._tensor(x0)).cpu().numpy()
         else:
             bad = ~np.isfinite(lnl)
@@ -665,6 +673,8 @@ class PTSampler:
             # N(mean, inflate^2 cov) refit to the cold cloud; a degenerate
             # cloud (identical walkers, too few chains) keeps the adapted
             # covariance
+            # ewt: allow-host-sync — the block's host fit reads the cold
+            # walkers once a block
             cold_x = st.x[:self.nchains].cpu().numpy()
             ind_mean = cold_x.mean(axis=0)
             ind_cov = cov
@@ -738,12 +748,16 @@ class PTSampler:
         prep = self._host_prep(st)
         eigvecs, eigvals, chol, ind_mean, ind_L, ind_iL, lam = (
             self._tensor(a) for a in prep[:7])
+        # ewt: allow-host-sync — the block's cg rows go up once a block, before
+        # the step loop
         cg_rows = torch.as_tensor(prep[7], dtype=torch.long, device=dev)
         kde_pts, kde_bw = self._tensor(prep[8]), self._tensor(prep[9])
         use_ind, use_cg, use_kde, use_ns, use_flow = (
             bool(self.jump_probs[f] > 0)
             for f in (_IND, _CG, _KDE, _NS, _FLOW))
         if use_ns:
+            # ewt: allow-host-sync — the slide pairs go up once a block, before
+            # the step loop
             ns_pairs = (
                 torch.as_tensor([p[0] for p in self._ns_pairs], device=dev),
                 torch.as_tensor([p[1] for p in self._ns_pairs], device=dev),
@@ -763,6 +777,8 @@ class PTSampler:
         out_p = torch.empty((todo, nrec), dtype=F64, device=dev)
         mask_cls = []
         if self.use_maskstats:
+            # ewt: allow-host-sync — the parameter blocks go up once a block,
+            # before the step loop
             pb = torch.as_tensor(like.param_blocks, device=dev)
             blk_cls = block_classes(pb)
         n_swaps = 0
@@ -778,7 +794,7 @@ class PTSampler:
         emit_health = self.health is not None
         emit_mesh = self.mesh_stats is not None
         emit_diag = self.diag_ledger is not None
-        t_block = time.perf_counter()
+        t_block = monotonic()
         # each step's family choices and acceptances kept by reference,
         # counted per rung and family at the block's end
         choices, accepts = [], []
@@ -973,15 +989,15 @@ class PTSampler:
                 ("diag_mean", "diag_m2", "diag_min", "diag_max", "diag_hist"),
                 devicemetrics.block_moments(out_x[:, :nchains],
                                             *self._hist_grid)))
-        t_sync = time.perf_counter()
+        t_sync = monotonic()
         snap = host_snapshot(leaves)
-        self._last_sync_s = time.perf_counter() - t_sync
+        self._last_sync_s = monotonic() - t_sync
         self.host_sync_total_s += self._last_sync_s
         self._g_sync.set(self._last_sync_s)
         if emit_health:
             snap["h_n"] = float(W * todo)
         if emit_mesh:
-            snap["mesh_wall_s"] = time.perf_counter() - t_block
+            snap["mesh_wall_s"] = monotonic() - t_block
         st.x, st.lnl, st.lnp, st.history = x, lnl, lnp, hist
         st.accepted = acc
         st.hist_len = int(min(st.hist_len + todo, _HISTORY))
@@ -1121,6 +1137,9 @@ class PTSampler:
             fn = getattr(self.like, "_eval_f64_batch", None)
             if fn is not None:
                 sub = snap["x"][:min(self.nchains, 8)]
+                # ewt: allow-host-sync — the health ladder's float64 re-
+                # evaluation: at most 8 walkers, only when the ladder asks for
+                # it
                 ref = fn(sub).cpu().numpy()
                 got = snap["lnl"][:len(sub)]
                 finite = np.isfinite(ref) & np.isfinite(got)
@@ -1204,12 +1223,17 @@ class PTSampler:
                 st.cov = 0.5 * st.cov + 0.5 * np.cov(flat.T)
             next_T = schedule[i + 1] if i + 1 < len(schedule) else 1.0
             if resample:
+                # ewt: allow-host-sync,collective-safety — the anneal's
+                # resampling weights come to the host once per temperature;
+                # every rank reads its own replicated lnL
                 lw = (1.0 / next_T - 1.0 / T) * st.lnl.cpu().numpy()
                 lw -= lw.max()
                 w = np.exp(lw)
                 w /= w.sum()
                 ess = 1.0 / np.sum(w ** 2)
                 if ess < ess_frac * self.W:
+                    # ewt: allow-host-sync,collective-safety — the anneal's
+                    # resampled indices go up once per temperature
                     idx = torch.as_tensor(rng.choice(self.W, self.W, p=w),
                                           device=self.device)
                     st.x, st.lnl, st.lnp = st.x[idx], st.lnl[idx], \
@@ -1394,7 +1418,7 @@ class PTSampler:
                 todo = int(min(block_size, nsamp - st.step))
                 sacc_before = st.swaps_accepted.copy()
                 sprop_before = st.swaps_proposed.copy()
-                t0 = time.perf_counter()
+                t0 = monotonic()
                 if self._t_ready is not None:
                     # host time between the last block's results landing
                     # and this block's first launch
@@ -1405,9 +1429,11 @@ class PTSampler:
                                     steps=todo):
                     cold, cold_lnl, cold_lnp = self._run_block(st, todo)
                 snap = self._snap
-                self._t_ready = time.perf_counter()
+                self._t_ready = monotonic()
                 block_s = self._t_ready - t0
                 profiling.capture_tick()
+                # ewt: allow-host-sync,collective-safety — st.key is the
+                # generator's state on the host (numpy): no device read
                 flight_recorder().note_state(
                     sampler="ptmcmc", outdir=self.outdir, step=int(st.step),
                     block_steps=int(todo), rng_key=st.key.tolist())

@@ -1,3 +1,5 @@
+# ewt: allow-precision module — ADVI's variational parameters and draws are
+# float64 sampler state
 """Mean-field variational inference (ADVI) over the unconstrained space.
 
 Counterpart of ``enterprise_warp_tpu/samplers/vi.py``. The variational
@@ -16,13 +18,13 @@ underestimates correlations: treat widths as lower bounds.
 from __future__ import annotations
 
 import math
-import time
 
 import numpy as np
 import torch
 
 from .. import F64
 from ..utils.logging import get_logger
+from ..utils.profiling import monotonic
 from .transform import make_logp_z, value_and_grad
 
 _log = get_logger("ewt.vi")
@@ -53,6 +55,8 @@ def elbo_grad(logp_z, mu, log_sig, eps):
     return g_mu, g_ls, val
 
 
+# ewt: allow-host-sync — ADVI's epilogue reads its trace and 4096 draws back
+# once, after the fit
 def fit_advi(like, steps=2000, mc=16, lr=0.02, seed=0, device=None,
              verbose=False):
     """Fit a mean-field Gaussian in unconstrained space.
@@ -75,7 +79,7 @@ def fit_advi(like, steps=2000, mc=16, lr=0.02, seed=0, device=None,
     log_sig = torch.full((nd,), -1.0, dtype=F64, device=dev)
     opt = torch.optim.Adam([mu, log_sig], lr=lr)
     vals = []
-    t0 = time.perf_counter()
+    t0 = monotonic()
     for i in range(steps):
         eps = torch.randn((mc, nd), generator=gen, dtype=F64, device=dev)
         g_mu, g_ls, val = elbo_grad(logp_z, mu, log_sig, eps)
@@ -85,7 +89,7 @@ def fit_advi(like, steps=2000, mc=16, lr=0.02, seed=0, device=None,
         if verbose and (i + 1) % max(steps // 10, 1) == 0:
             _log.info("advi step %d/%d elbo=%.2f", i + 1, steps, float(val))
     trace = torch.stack(vals).cpu().numpy() if vals else np.zeros(0)
-    wall = time.perf_counter() - t0
+    wall = monotonic() - t0
     _log.info("advi: %d steps x %d draws in %.2f s", steps, mc, wall,
               extra={"advi_stats": {"steps": steps, "mc": mc,
                                     "wall_s": wall}})

@@ -1,3 +1,5 @@
+# ewt: allow-no-print module — the serve subcommand's report and its
+# JSON summary line are its stdout
 """``python -m enterprise_warp_tpu_torch.cli serve ...`` — the serve
 driver CLI.
 

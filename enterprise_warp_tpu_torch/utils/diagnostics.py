@@ -164,15 +164,15 @@ def throttled_block_worst(block, param_names, last_t, max_kept=256):
     heartbeat diagnostics of the PT and HMC samplers.
 
     ``block`` — (steps, nchains, ndim) host emissions; ``last_t`` — a
-    one-item list holding the ``time.perf_counter`` of the last
+    one-item list holding the ``profiling.monotonic`` of the last
     computation (0.0 forces one). Returns the ``_worst`` dict, or None
     inside the throttle window. Strided to at most ``max_kept`` steps per
     chain; recomputed at most every ``EWT_TELEMETRY_DIAG_S`` seconds
     (default 20, the first heartbeat always computes)."""
     import os
-    import time
 
-    now = time.perf_counter()
+    from .profiling import monotonic
+    now = monotonic()
     try:
         interval = float(os.environ.get("EWT_TELEMETRY_DIAG_S", "20"))
     except ValueError:

@@ -17,7 +17,8 @@ import contextlib
 import logging
 import os
 import sys
-import time
+
+from .profiling import monotonic
 
 _FORMAT = "%(asctime)s %(name)s %(levelname)s %(message)s"
 _configured = False
@@ -59,7 +60,7 @@ class EvalRateMeter:
     resumes while both rates measure this process's work only."""
 
     def __init__(self, initial_total: int = 0):
-        self.t0 = time.monotonic()
+        self.t0 = monotonic()
         self.total = int(initial_total)
         self._base = int(initial_total)
         self._win_t = self.t0
@@ -70,11 +71,11 @@ class EvalRateMeter:
         self._win_n += int(nevals)
 
     def rate(self) -> float:
-        dt = time.monotonic() - self.t0
+        dt = monotonic() - self.t0
         return (self.total - self._base) / dt if dt > 0 else 0.0
 
     def window_rate(self) -> float:
-        now = time.monotonic()
+        now = monotonic()
         dt = now - self._win_t
         out = self._win_n / dt if dt > 0 else 0.0
         self._win_t, self._win_n = now, 0
@@ -93,11 +94,11 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
+        t0 = monotonic()
         try:
             yield self
         finally:
-            dt = time.perf_counter() - t0
+            dt = monotonic() - t0
             self.durations[name] = self.durations.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1
             if self._log is not None:
@@ -113,11 +114,11 @@ class PhaseTimer:
 def log_phase(name: str, logger: logging.Logger | None = None):
     """One named phase, logged on exit."""
     log = logger or get_logger()
-    t0 = time.perf_counter()
+    t0 = monotonic()
     try:
         yield
     finally:
-        log.info("phase %s: %.3fs", name, time.perf_counter() - t0)
+        log.info("phase %s: %.3fs", name, monotonic() - t0)
 
 
 @contextlib.contextmanager

@@ -34,9 +34,9 @@ from __future__ import annotations
 import os
 import re
 import threading
-import time
 
 from . import telemetry
+from .profiling import monotonic
 
 __all__ = ["openmetrics", "textfile_path", "write_textfile",
            "maybe_export", "http_port", "start_http_server",
@@ -173,7 +173,7 @@ def write_textfile(path: str | None = None) -> str | None:
         return None
     # the throttle clock advances whatever the outcome: a dead target
     # must not turn every heartbeat into a fresh write attempt
-    _last_write[0] = time.monotonic()
+    _last_write[0] = monotonic()
     try:
         from ..io.writers import atomic_write_text
 
@@ -192,7 +192,7 @@ def maybe_export(force: bool = False) -> str | None:
     path = textfile_path()
     if path is None or not telemetry._is_primary():
         return None
-    if not force and time.monotonic() - _last_write[0] < _MIN_INTERVAL_S:
+    if not force and monotonic() - _last_write[0] < _MIN_INTERVAL_S:
         return None
     return write_textfile(path)
 

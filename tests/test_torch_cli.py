@@ -332,7 +332,14 @@ def _modules():
     return sorted(out)
 
 
+_ANALYSIS = ("__init__", "__main__", "core", "dataflow", "rules_style",
+             "rules_tracer", "rules_collective")
+
+
 def test_port_imports_neither_jax_nor_the_reference():
+    assert {f"enterprise_warp_tpu_torch.analysis.{m}" for m in _ANALYSIS
+            if m != "__init__"} | {"enterprise_warp_tpu_torch.analysis"} \
+        <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
@@ -377,4 +384,6 @@ def test_no_source_names_jax_or_the_reference():
                   "cli")} | {
         os.path.join(PKG, "flows", f"{m}.py")
         for m in ("__init__", "coupling", "train", "model",
-                  "rescore")} <= set(files)
+                  "rescore")} | {
+        os.path.join(PKG, "analysis", f"{m}.py")
+        for m in _ANALYSIS} <= set(files)
