@@ -93,7 +93,7 @@ Phases (any failure exits non-zero before the result line):
    from step to step; the per-call batch sizes and the share of samples
    in each ``nmodel`` bin are printed) and ``fixed_white_noise.dat --num
    0`` (Grams folded at build time: the solve kernel at (8, 250, 250),
-   no likelihood kernel), each with ``nsamp: 600`` and its launch
+   no likelihood kernel), each with ``nsamp: 400`` and its launch
    counts zeroed just before and read just after. Each kernel is held
    against its plain version on the inputs of the run's last step, where
    the chain stood then, walker by walker: a walker whose equilibrated
@@ -138,7 +138,7 @@ Phases (any failure exits non-zero before the result line):
    keeps or reverts a walker's whole Z), and the likelihood kernel at
    k = 33 (J1234-5678's basis S (334, 60) with a seeded 32-column timing
    model), each against its plain version within 5e-4. Then the CLI runs
-   ``gwb_array.dat --num 0`` (two pulsars, Hellings-Downs ``gwb``; 600
+   ``gwb_array.dat --num 0`` (two pulsars, Hellings-Downs ``gwb``; 400
    steps; ``CGWeight``, ``KDEWeight`` and ``NSWeight`` set, every family
    proposed and accepted): two solve-kernel launches per likelihood call
    (stage 1 at
@@ -176,7 +176,7 @@ Phases (any failure exits non-zero before the result line):
    ``.tim`` parsed by the native core equal to the Python engine's
    (integer MJDs, names, sites and flags exactly, seconds within 1e-9 s;
    both engines timed) (:func:`config3_on_disk`), then a paramfile and
-   noise-model JSON with the same terms through the CLI (8 walkers, 600
+   noise-model JSON with the same terms through the CLI (8 walkers, 400
    steps; its set-up wall time printed apart from the sampling, its TIM
    engine the native core, and the verdict of its float64 check of the
    chain): one solve-kernel launch per call (stage 1 at
@@ -222,14 +222,14 @@ Phases (any failure exits non-zero before the result line):
    of ``tools/report.py --check``'s rules (:func:`stream_check`): clean,
    one heartbeat per block, no demotion, retry, anomaly or health event.
    Then: (10.1) ``system_noise.dat --num 0`` with
-   ``EWT_KERNEL_HEALTH=1`` and ``EWT_FLIGHTREC=1`` (600 steps): only
+   ``EWT_KERNEL_HEALTH=1`` and ``EWT_FLIGHTREC=1`` (400 steps): only
    kernel 3 runs, at (8, 250, 250) on its global design; its last input
    held against the plain version (walkers above condition 1e4 reported),
    timed (median of 50) as row ``chol_precond@health``; the chain's last
    rows against the float64 oracle; the health counters and ms/step
    over the run (the default route's: phase 5's ``--num 0`` line);
    (10.2) after one counted run not compared, ``--num 0`` and ``--num
-   1``, 400 steps each in blocks of 200, ``EWT_TELEMETRY`` off and on
+   1``, 200 steps each in blocks of 100, ``EWT_TELEMETRY`` off and on
    (two runs a pulsar): the host synchronisations of the second
    block (``torch.cuda.set_sync_debug_mode``, on for that block only;
    each by its thread and calling line) equal, the chains bit for bit
@@ -258,7 +258,7 @@ Phases (any failure exits non-zero before the result line):
    index's posterior finite and inside its prior [0, 6]; (11.2)
    ``gwb_array.dat``'s model with J1234-5678's entry adding ``chromred:
    vary_10_nfreqs`` (fake_psr_0, one band, keeps the universal model),
-   600 steps: the last rows against the dense float64 oracle, no
+   400 steps: the last rows against the dense float64 oracle, no
    evaluation cache, the stage-1 and stage-3 solve launches (rows
    ``mega_solve@chrom_gwb_stage1``/``_stage3``); (11.3) the plane, on by
    default on every path: after one counted run not compared,
@@ -277,7 +277,7 @@ Phases (any failure exits non-zero before the result line):
    launched as subprocesses through the ``EWT_*`` contract, each with its
    own time limit (one failed rank fails the phase): (12.1) config 3 from
    disk through the CLI with ``psr_shard: 1`` over two gloo ranks sharing
-   the card, 200 steps: rank 0 writes the run's files and rank 1 only
+   the card, 100 steps: rank 0 writes the run's files and rank 1 only
    ``events.1.jsonl`` and ``mesh_stats.1.json``, the ranks' final states
    equal, kernel 1 launched on both (rows ``mega_solve@psr_shard_r0``/
    ``_r1``, each rank's stage-1 shape on its last step), one
@@ -370,7 +370,33 @@ Phases (any failure exits non-zero before the result line):
    each site printed with its count, its cover and the finding's reason,
    ``_safe_eigh``'s ``torch.linalg.eigh`` among them; sites elsewhere
    printed and counted, not held;
-16. the ``kernels`` JSON line, one entry per kernel and main path that
+16. the TOA axis across processes (:func:`phase_toa_axis`) on the north
+   star's pulsar and model at 32768 TOAs (:func:`toa_problem`: the same
+   ~12.8 yr span, 12 parameters, nb 80, three timing-model columns),
+   ranks launched as in phase 12 (:func:`toa_axis_rank`): two gloo ranks
+   sharing ``cuda:0`` build ``build_pulsar_likelihood(mesh=
+   make_toa_mesh())`` (each its own block of 16384 rows) and (16.1) take
+   lnL and the gradient at 8 near-truth points: one ``all_reduce`` and one
+   ``all_reduce_grad``, kernel 1 launched on each rank and kernel 2
+   declined as ``toa-sharded``, both ranks equal and equal to the
+   unsharded build on the card (rtol 1e-9, atol 1e-6; the gradient in the
+   smoke's class, 1e-3 max(1, |g|)), within the split class of float64
+   on the CPU (lnL: the gap and whether it is within 1e-3 printed; the
+   gradient's gap printed), the health
+   twin on one collective with kernel 3 and equal words; one sharded
+   evaluation, its collective alone (MB) and the unsharded evaluation
+   timed; (16.2) PT (one rung, 8 walkers) for 200 steps: equal final
+   states, one ``all_reduce`` per evaluation, no ``mesh_stats``, rank 0
+   writing the run's files and rank 1 only ``events.1.jsonl``, ms/step
+   beside the unsharded build's (the pair program off); (16.3) one NCCL
+   rank in a group of its own: ``make_toa_mesh`` of width 1 is the
+   unsharded build (no collective), and the collective alone over NCCL at
+   the packed width;
+   kernel 1 at (8, 80, 80) k 4 from each rank's last PT step and kernel 3
+   from the health twin held against their plain versions and timed
+   (rows ``mega_solve@toa_shard_r0``/``_r1``,
+   ``chol_precond@toa_shard_health``);
+17. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``, after the smoke's wall time.
@@ -423,15 +449,16 @@ GRAM_BOUND_FRAC = 0.25
 # covariance adaptation fires (blocks of 1000 and 200 steps)
 NSAMP = 1200
 # the other PT paths through the CLI (the warm starts, the families, phase
-# 6, the joint paths): past covUpdate = SHORT_COV_UPDATE, blocks of 500
+# 6, the joint paths): past covUpdate = SHORT_COV_UPDATE, blocks of 300
 # and 100 steps, so the adaptation still fires and each run's launch
 # counts hold. They are cut to this depth so that the script, the north
 # star leg at its full targets and phase 10 included, ends well inside
 # its 1200 s limit on a card whose host is slower: at 2000 steps, 1000
-# optimal-statistic draws and 200 HMC steps it ran past the limit, and
-# with every PT path at 1200 steps and phase 10 it took 859.9 s on the
-# NVIDIA H100 80GB HBM3 (PERF.md)
-SHORT_NSAMP, SHORT_COV_UPDATE = 600, 500
+# optimal-statistic draws and 200 HMC steps it ran past the limit, with
+# every PT path at 1200 steps and phase 10 it took 859.9 s on the NVIDIA
+# H100 80GB HBM3, and at 600 steps (covUpdate 500) with phase 16 1133.3 s
+# on a slow host (PERF.md)
+SHORT_NSAMP, SHORT_COV_UPDATE = 400, 300
 # the reference's interpret-vs-XLA limits on the preconditioner trio
 # (tests/test_cholfuse.py): U, V, E
 CHOL_ATOL = (2e-5, 2e-4, 2e-5)
@@ -534,7 +561,19 @@ PATHS = {"pt0": "system_noise.dat --num 0: PT-MCMC, 8 walkers",
                    "am 10, de 20, prior 10), SMC anneal, "
                    "sample_to_convergence to ESS >= 1000 and R-hat <= 1.01",
          "cem": "the north star's pulsar: fit_cem, the CEM search and AMIS "
-                "refine warm start, 256 draws a round"}
+                "refine warm start, 256 draws a round",
+         "toa_shard_r0": "the north star's pulsar at 32768 TOAs sharded over "
+                         "two gloo ranks sharing the card "
+                         "(make_toa_mesh): rank 0's replicated Sigma "
+                         "solve, PT-MCMC, 8 walkers",
+         "toa_shard_r1": "the north star's pulsar at 32768 TOAs sharded over "
+                         "two gloo ranks sharing the card "
+                         "(make_toa_mesh): rank 1's replicated Sigma "
+                         "solve, PT-MCMC, 8 walkers",
+         "toa_shard_health": "the north star's pulsar at 32768 TOAs sharded "
+                             "over two gloo ranks sharing the card: the "
+                             "health twin's classic chain (rank 0) at 8 "
+                             "near-truth points"}
 # the joint paths: right-hand-side widths past the refine phase's 8-column
 # panel, BASELINE config 3's size, and the agreement of lnL differences
 # with the dense float64 oracle there (tests/test_parallel.py:612)
@@ -2676,10 +2715,10 @@ RUNG_EVENTS = ("demotion", "retry", "anomaly", "kernel_health",
 # phase 10's fault-plan runs: system_noise.dat --num 1 (kernel 2), 300
 # steps in blocks of 100
 PLAN_NSAMP, PLAN_BLOCK = 300, 100
-# phase 10's telemetry off/on runs: two blocks of 200 steps, the host
+# phase 10's telemetry off/on runs: two blocks of 100 steps, the host
 # syncs counted in the second (the plane's cost in time is measured by
 # enterprise_warp_tpu_torch/bench/ab.py, alternated runs in one call)
-PLANE_NSAMP, PLANE_BLOCK = 400, 200
+PLANE_NSAMP, PLANE_BLOCK = 200, 100
 # the hang's watchdog: well above a 100-step block of --num 1 (< 1 s)
 HANG_WATCHDOG_S = 2
 # the health path's condition proxy: the reference's threshold (log10 14)
@@ -3519,7 +3558,7 @@ def phase_plane(tmp, dev, smi):
 # ---- phase 12: the pulsar axis across processes ------------------------ #
 
 #: steps of the sharded config 3 run (one block) and of the chain-axis run
-SHARD_NSAMP = 200
+SHARD_NSAMP = 100
 #: the HMC leg over two ranks (gwb_array.dat's joint likelihood)
 SHARD_HMC = dict(nchains=16, warmup=10, n_leapfrog=8, nsamp=20)
 #: the health twin's run (two blocks) and sample_to_convergence's
@@ -3837,8 +3876,9 @@ def _axis_times(like, states, sync, reps=10):
     return out
 
 
-def _launch_ranks(groups, threads):
-    """Run groups of ranks of :func:`pulsar_axis_rank` side by side, each
+def _launch_ranks(groups, threads, worker="pulsar_axis_rank"):
+    """Run groups of ranks of ``worker`` (:func:`pulsar_axis_rank` by
+    default, :func:`toa_axis_rank`) side by side, each
     group ``(spec, nproc, label)`` a process group of its own through the
     EWT_* contract (a ``file://`` store in ``spec["dir"]``), each process
     with ``threads`` CPU threads; every rank is stopped at RANK_TIMEOUT_S,
@@ -3856,7 +3896,7 @@ def _launch_ranks(groups, threads):
                    OMP_NUM_THREADS=str(threads))
         code = (f"import sys; sys.path.insert(0, {HERE!r}); "
                 "import chip_smoke; "
-                f"sys.exit(chip_smoke.pulsar_axis_rank({spec_path!r}))")
+                f"sys.exit(chip_smoke.{worker}({spec_path!r}))")
         for i in range(nproc):
             log = open(os.path.join(d, f"rank{i}.log"), "w")
             runs.append((label, d, i, nproc, log, subprocess.Popen(
@@ -4998,6 +5038,435 @@ def phase_lint(smi):
              "sync sites")
 
 
+# ---- phase 16: the TOA axis across processes ------------------------------ #
+
+#: the north star's pulsar and model at 32768 TOAs over the same ~12.8 yr
+#: span (334 TOAs every 14 days there)
+TOA_NTOA = 32768
+#: PT on the TOA-sharded likelihood: one rung of 8 walkers, 200 steps
+TOA_PT = dict(ntemps=1, nchains=8, seed=0)
+TOA_NSAMP = 200
+#: the 8 near-truth points of 16.1
+TOA_POINTS = 8
+#: the split class against float64 on the CPU, (atol, rtol): the smoke's
+#: (the reference's megakernel tolerance); whether the gap is within 1e-3
+#: is reported beside it
+TOA_F64_CLASS = (5e-2, 1e-3)
+
+
+def toa_problem(dev, gram_mode="split", mesh=None, ntoa=TOA_NTOA):
+    """:func:`north_star_problem`'s pulsar and model at ``ntoa`` TOAs over
+    the same span (a cadence of 14 * 334 / ``ntoa`` days), the white and
+    red noise injected from the same generators: 12 parameters, nb 80,
+    three timing-model columns. ``mesh`` shards its TOAs."""
+    from enterprise_warp_tpu_torch.models import (StandardModels, TermList,
+                                                  build_pulsar_likelihood)
+    from enterprise_warp_tpu_torch.sim.noise import (inject_basis_process,
+                                                     inject_white,
+                                                     make_fake_pulsar)
+    import numpy as np
+    psr = make_fake_pulsar(name="J1832-0836", ntoa=ntoa,
+                           cadence_days=14.0 * 334 / ntoa,
+                           backends=("CPSR2m", "CPSR2n", "CASPSR", "DFB"),
+                           freqs_mhz=(700.0, 1400.0, 3100.0), seed=11)
+    psr.residuals = 0.0 * psr.toaerrs
+    inject_white(psr, efac=1.2, equad_log10=-6.5,
+                 rng=np.random.default_rng(1))
+    inject_basis_process(psr, log10_A=-13.0, gamma=3.5, components=20,
+                         rng=np.random.default_rng(2))
+    m = StandardModels(psr=psr)
+    terms = TermList(psr, [m.efac("by_backend"), m.equad("by_backend"),
+                           m.spin_noise("powerlaw_20_nfreqs"),
+                           m.dm_noise("powerlaw_20_nfreqs")])
+    return build_pulsar_likelihood(psr, terms, gram_mode=gram_mode,
+                                   device=dev, mesh=mesh)
+
+
+def toa_points(like, seed=16):
+    """:data:`TOA_POINTS` points near the injection (efac 1.2, log10 equad
+    -6.5, spin noise log10_A -13 and gamma 3.5, DM noise at the middle of
+    its prior), spread 0.05."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    mid = []
+    for p in like.params:
+        n = p.name
+        mid.append(1.2 if n.endswith("efac") else -6.5 if "equad" in n
+                   else -13.0 if n.endswith("red_noise_log10_A")
+                   else 3.5 if n.endswith("red_noise_gamma")
+                   else 0.5 * (p.prior.lo + p.prior.hi))
+    return np.asarray(mid) + 0.05 * rng.standard_normal(
+        (TOA_POINTS, like.ndim))
+
+
+def _toa_times(like, states, group, sync, reps=10):
+    """The evaluation at ``states`` and the collective alone (a zero
+    vector of its packed width through the same wrapper and group), each
+    the mean of ``reps`` after a warm call, in ms; every rank runs the
+    same calls."""
+    import torch
+    import torch.distributed as dist
+    from enterprise_warp_tpu_torch.parallel import distributed
+    nb = like.static["bb"][-1]["col_slice"].stop
+    ntm = like.psr.Mmat.shape[1]
+    width = nb * nb + nb * ntm + ntm * ntm + nb + ntm + 2
+    buf = torch.zeros((len(states), width), dtype=torch.float64,
+                      device=like.device)
+    th = like.as_theta(states)
+    out = {}
+    for key, fn in (("eval_ms", lambda: like.loglike_batch(th)),
+                    ("collective_ms", lambda: distributed.all_reduce_sum(
+                        buf, group))):
+        fn()
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        out[key] = 1e3 * (time.perf_counter() - t0) / reps
+    out["packed_mb"] = 8.0 * buf.numel() / 1e6
+    return out
+
+
+def _toa_pt(like, outdir, sync, nsamp):
+    """PT for ``nsamp`` steps (:data:`TOA_PT`) on ``like``: the
+    final state's digest, ms/step over the sampler's blocks, the
+    evaluations its likelihood ran and the launches, routes and
+    collectives of the run."""
+    from enterprise_warp_tpu_torch.ops import routes
+    from enterprise_warp_tpu_torch.parallel import distributed
+    from enterprise_warp_tpu_torch.samplers import ptmcmc
+    run_block, blocks = ptmcmc.PTSampler._run_block, [0.0, 0]
+
+    def timed_block(self, st, todo, temps=None):
+        t0 = time.perf_counter()
+        out = run_block(self, st, todo, temps)
+        sync()
+        blocks[0] += time.perf_counter() - t0
+        blocks[1] += int(todo)
+        return out
+
+    evals = collections.Counter()
+    inner = {k: getattr(like, k) for k in ("_evaluate", "_eval_health_batch",
+                                           "_eval_f64_batch")}
+
+    def counted(key):
+        def call(*a, **k):
+            evals[key] += 1
+            return inner[key](*a, **k)
+        return call
+
+    for k in inner:
+        setattr(like, k, counted(k))
+    routes.reset_counts()
+    distributed.reset_collectives()
+    ptmcmc.PTSampler._run_block = timed_block
+    try:
+        pt = ptmcmc.PTSampler(like, outdir, **TOA_PT)
+        st = pt.sample(nsamp, resume=False, verbose=False)
+        sync()
+    finally:
+        ptmcmc.PTSampler._run_block = run_block
+        for k, fn in inner.items():
+            setattr(like, k, fn)
+    return dict(digest=_digest(st.x, st.lnl, st.lnp), steps=int(st.step),
+                ms_step=1e3 * blocks[0] / max(blocks[1], 1),
+                evals=sum(evals.values()),
+                launches=dict(routes.LAUNCHES),
+                routes={f"{k}/{p}": v for (k, p), v in routes.ROUTES.items()},
+                coll=dict(distributed.COLLECTIVES),
+                mesh_stats=pt.mesh_stats is not None)
+
+
+def toa_axis_rank(spec_path):
+    """One rank of phase 16, launched by :func:`phase_toa_axis` through the
+    ``EWT_*`` contract with the JSON spec at ``spec_path``. ``part``
+    ``pair``: the TOA-sharded build over the group (16.1: lnL, gradient
+    and the health twin at :func:`toa_points`, the evaluation and its
+    collective timed; 16.2: PT); ``nccl``: a group of one NCCL rank, which
+    waits until the pair is done (16.3: ``make_toa_mesh`` of width 1 is
+    the unsharded build; the same points, the collective alone over NCCL,
+    and the unsharded build's PT). Writes its report to
+    ``<dir>/rank<i>.json``; ``spec["device"]`` ``"cpu"`` rehearses it on
+    the host."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    sys.path.insert(0, HERE)
+    from enterprise_warp_tpu_torch.parallel import distributed, make_toa_mesh
+    on_card = spec.get("device", "cuda") == "cuda"
+    rank, world = distributed.init_distributed(
+        device="cuda" if on_card else "cpu")
+    from enterprise_warp_tpu_torch.ops import cholfuse as cf
+    from enterprise_warp_tpu_torch.ops import cuda_lib, routes
+    from enterprise_warp_tpu_torch.ops import megakernel as mk
+    if on_card:
+        dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}")
+        torch.cuda.set_device(dev)
+        cuda_lib.load_library()
+        sync = torch.cuda.synchronize
+    else:
+        dev, sync = torch.device("cpu"), (lambda: None)
+    rep = dict(rank=rank, world=world, device=str(dev),
+               backend=dist.get_backend())
+    mesh = make_toa_mesh(device=dev)
+    group = dist.group.WORLD
+
+    def value_grad(like, states):
+        th = like.as_theta(states).requires_grad_(True)
+        lnl = like.loglike_batch(th)
+        g, = torch.autograd.grad(lnl.sum(), th)
+        sync()
+        return lnl.detach().cpu().tolist(), g.cpu().tolist()
+
+    if spec["part"] == "pair":
+        t0 = time.perf_counter()
+        like = toa_problem(dev, mesh=mesh, ntoa=spec["ntoa"])
+        sync()
+        states = toa_points(like)
+        rep["build_s"] = time.perf_counter() - t0
+        rep["nshard"] = mesh.nshard
+        rep["sharded"] = like.mesh is not None
+        rep["held"] = sorted(like.static["shards"])
+        rep["rows"] = [int(sh["r"].shape[0])
+                       for sh in like.static["shards"].values()]
+        rep["ntoa_padded"] = like.static["ntoa_padded"]
+        # ---- 16.1: lnL and gradient, then the health twin ----
+        routes.reset_counts()
+        distributed.reset_collectives()
+        with Record(mk, "mega_solve_logdet", 0) as srec:
+            lnl, grad = value_grad(like, states)
+        rep["16.1"] = dict(
+            lnl=lnl, grad=grad, coll=dict(distributed.COLLECTIVES),
+            launches=dict(routes.LAUNCHES),
+            routes={f"{k}/{p}": v for (k, p), v in routes.ROUTES.items()},
+            solve_sizes={str(n): dict(c) for n, c in srec.sizes.items()})
+        routes.reset_counts()
+        distributed.reset_collectives()
+        with Record(cf, "chol_precond_health", 0) as hrec:
+            lh, hw = like._eval_health_batch(states)
+            sync()
+        for n, args in hrec.last.items():
+            torch.save([a.cpu() if torch.is_tensor(a) else a for a in args],
+                       os.path.join(spec["dir"], f"health.{rank}.{n}.pt"))
+        rep["16.1"]["health"] = dict(
+            lnl=lh.cpu().tolist(), hw=hw.cpu().tolist(),
+            coll=dict(distributed.COLLECTIVES),
+            launches=dict(routes.LAUNCHES),
+            sizes={str(n): dict(c) for n, c in hrec.sizes.items()})
+        rep["16.1"].update(_toa_times(like, states, group, sync))
+        # ---- 16.2: PT ----
+        out = os.path.join(spec["dir"], "pt")
+        with Record(mk, "mega_solve_logdet", 0) as prec:
+            r = _toa_pt(like, out, sync, spec["nsamp"])
+        for n, args in prec.last.items():
+            torch.save([a.cpu() if torch.is_tensor(a) else a for a in args],
+                       os.path.join(spec["dir"], f"solve.{rank}.{n}.pt"))
+        r["solve_sizes"] = {str(n): dict(c) for n, c in prec.sizes.items()}
+        rep["16.2"] = r
+        dist.barrier()          # both ranks' files are written
+        rep["16.2"]["files"] = sorted(os.listdir(out))
+    else:
+        # ---- 16.3: one NCCL rank, once the pair is done ----
+        t0 = time.perf_counter()
+        while not os.path.exists(spec["pair_done"]):
+            if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                raise TimeoutError(f"no {spec['pair_done']}")
+            time.sleep(0.5)
+        rep["waited_s"] = time.perf_counter() - t0
+        # the comparison build: the pair program off, so both sides sum
+        # the Gram per walker (the pair program's order is another member
+        # of the split class)
+        os.environ["EWT_PAIR_PROGRAM"] = "0"
+        try:
+            like = toa_problem(dev, mesh=mesh, ntoa=spec["ntoa"])
+        finally:
+            os.environ.pop("EWT_PAIR_PROGRAM")
+        states = toa_points(like)
+        routes.reset_counts()
+        distributed.reset_collectives()
+        lnl, grad = value_grad(like, states)
+        r = dict(nshard=mesh.nshard, sharded=like.mesh is not None,
+                 lnl=lnl, grad=grad, coll=dict(distributed.COLLECTIVES),
+                 launches=dict(routes.LAUNCHES),
+                 routes={f"{k}/{p}": v
+                         for (k, p), v in routes.ROUTES.items()})
+        r.update(_toa_times(like, states, group, sync))
+        r["pt"] = _toa_pt(like, os.path.join(spec["dir"], "pt_whole"), sync,
+                          spec["nsamp"])
+        rep["16.3"] = r
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as fh:
+        json.dump(rep, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0 and spec["part"] == "pair":
+        open(spec["pair_done"], "w").close()
+    return 0
+
+
+def phase_toa_axis(tmp, dev, smi, results, h):
+    """Phase 16, the TOA axis across processes (module docstring): two gloo
+    ranks sharing the card beside one NCCL rank (:func:`toa_axis_rank`),
+    then the checks, float64 on the CPU and the kernel rows; ``h`` is
+    main's ``hold_solve`` and ``solve_calls``."""
+    import numpy as np
+    import torch
+    d = os.path.join(tmp, "toa")
+    spec = dict(dir=d, part="pair", pair_done=os.path.join(d, "pair_done"),
+                device=torch.device(dev).type, ntoa=TOA_NTOA,
+                nsamp=TOA_NSAMP)
+    spec2 = dict(spec, dir=os.path.join(d, "nccl"), part="nccl")
+    pair, nccl = _launch_ranks(
+        [(spec, 2, "16 TOA axis (two gloo ranks on cuda:0)"),
+         (spec2, 1, "16.3 one NCCL rank")],
+        max(1, (os.cpu_count() or 1) // 3), worker="toa_axis_rank")
+    x3 = nccl[0]["16.3"]
+    # float64 on the CPU at the same points
+    t0 = time.perf_counter()
+    oracle = toa_problem("cpu", gram_mode="f64", ntoa=TOA_NTOA)
+    th64 = oracle.as_theta(toa_points(oracle)).requires_grad_(True)
+    l64 = oracle.loglike_batch(th64)
+    gr64, = torch.autograd.grad(l64.sum(), th64)
+    l64, gr64 = l64.detach().numpy(), gr64.numpy()
+    f64_s = time.perf_counter() - t0
+    # ---- 16.1 ----
+    for x in pair:
+        y = x["16.1"]
+        print(f"16.1 rank {x['rank']} ({x['backend']}, {x['device']}): "
+              f"nshard {x['nshard']} rows {x['rows']} of "
+              f"{x['ntoa_padded']} padded TOAs (from {spec['ntoa']}), build "
+              f"{x['build_s']:.2f} s; collectives {y['coll']} launches "
+              f"{y['launches']} routes {y['routes']} solve calls "
+              f"{y['solve_sizes']}; one sharded evaluation at W "
+              f"{TOA_POINTS} {y['eval_ms']:.3f} ms, its collective alone "
+              f"{y['collective_ms']:.3f} ms ({y['packed_mb']:.4f} MB, gloo "
+              f"through the host) [{smi}]")
+        if not x["sharded"] or x["nshard"] != 2 or \
+                x["held"] != [x["rank"]]:
+            fail(f"16.1: rank {x['rank']} did not hold its own TOA block")
+        if y["coll"] != {"all_reduce": 1, "all_reduce_grad": 1}:
+            fail(f"16.1: rank {x['rank']}: not one all_reduce and one "
+                 f"all_reduce_grad for the value and gradient ({y['coll']})")
+        if not y["launches"].get("mega_solve") or \
+                y["routes"].get("mega_like/toa-sharded") != 1:
+            fail(f"16.1: rank {x['rank']}: the Sigma solve did not run "
+                 "kernel 1, or kernel 2 did not decline as toa-sharded")
+    p0, p1 = (x["16.1"] for x in pair)
+    if p0["lnl"] != p1["lnl"] or p0["grad"] != p1["grad"]:
+        fail("16.1: the ranks' lnL or gradients differ")
+    ls, l0 = np.asarray(p0["lnl"]), np.asarray(x3["lnl"])
+    gs, g0 = np.asarray(p0["grad"]), np.asarray(x3["grad"])
+    gap = np.abs(ls - l0)
+    # the smoke's gradient class (phases 4 and 12.3): |dg| / max(1, |g|);
+    # the backward is kernel 1's float32 AD twin, which moves with the
+    # float64 Gram's summation order
+    ggap = float((np.abs(gs - g0) / np.maximum(np.abs(g0), 1.0)).max())
+    print(f"16.1 sharded against the unsharded build on the card (the pair "
+          f"program off): lnL {ls.tolist()} largest |dlnL| {gap.max():.3e} "
+          f"(relative {float((gap / np.abs(l0)).max()):.3e}); gradient "
+          f"largest |dg| / max(1, |g|) {ggap:.3e} (largest |dg| / max|g| "
+          f"{float(np.abs(gs - g0).max() / np.abs(g0).max()):.3e}); the "
+          f"unsharded evaluation {x3['eval_ms']:.3f} ms [{smi}]")
+    if not np.all(gap <= 1e-6 + 1e-9 * np.abs(l0)) or ggap > 1e-3:
+        fail("16.1: the sharded evaluation differs from the unsharded one")
+    g64 = np.abs(ls - l64)
+    d64 = float((np.abs(gs - gr64) / np.maximum(np.abs(gr64), 1.0)).max())
+    print(f"16.1 against float64 on the CPU ({f64_s:.1f} s): largest "
+          f"|dlnL| {g64.max():.3e}, within 1e-3: {bool(g64.max() <= 1e-3)}; "
+          f"gradient largest |dg| / max(1, |g|) {d64:.3e} (reported: the "
+          f"split Gram's gradient class at this size is not established)")
+    if not np.all(g64 <= TOA_F64_CLASS[0] + TOA_F64_CLASS[1] * np.abs(l64)):
+        fail("16.1: the sharded lnL disagrees with float64 on the CPU")
+    hx = [x["16.1"]["health"] for x in pair]
+    hgap = float(np.abs(np.asarray(hx[0]["lnl"]) - ls).max())
+    print(f"16.1 the health twin: collectives {hx[0]['coll']} launches "
+          f"{hx[0]['launches']} kernel-3 calls {hx[0]['sizes']}; its lnL "
+          f"against the kernel route's {hgap:.3e}; words equal on both "
+          f"ranks: {hx[0]['hw'] == hx[1]['hw']}")
+    # the twin's classic chain (float64-refined) against the kernel
+    # route's float32 solve: the split class of the float64 comparison
+    if hx[0]["hw"] != hx[1]["hw"] or hx[0]["lnl"] != hx[1]["lnl"] or \
+            hx[0]["coll"] != {"all_reduce": 1} or \
+            not hx[0]["launches"].get("chol_precond") or not np.all(
+                np.abs(np.asarray(hx[0]["lnl"]) - ls)
+                <= TOA_F64_CLASS[0] + TOA_F64_CLASS[1] * np.abs(ls)):
+        fail("16.1: the sharded health twin")
+    # ---- 16.2 ----
+    for x in pair:
+        y = x["16.2"]
+        print(f"16.2 rank {x['rank']}: PT {TOA_PT} {y['steps']} steps, "
+              f"{y['ms_step']:.3f} ms/step; evaluations {y['evals']} "
+              f"collectives {y['coll']} launches {y['launches']} solve calls "
+              f"{y['solve_sizes']} state {y['digest']} [{smi}]")
+        if y["coll"] != {"all_reduce": y["evals"]} or y["mesh_stats"] or \
+                not y["launches"].get("mega_solve") or \
+                y["steps"] != spec["nsamp"]:
+            fail(f"16.2: rank {x['rank']}: not one all_reduce per "
+                 "evaluation, kernel 1 not launched, or mesh_stats emitted")
+    y0, y1 = (x["16.2"] for x in pair)
+    if y0["digest"] != y1["digest"]:
+        fail("16.2: the ranks' final states differ")
+    names = set(y0["files"])
+    ranked = {n for n in names if ".1." in n}
+    print(f"16.2 output directory: {sorted(names)}; the unsharded build "
+          f"in the NCCL rank's process: {x3['pt']['ms_step']:.3f} "
+          f"ms/step (launches {x3['pt']['launches']}, routes "
+          f"{x3['pt']['routes']}) against {y0['ms_step']:.3f} ms/step "
+          f"sharded [{smi}]")
+    if not {"chain_1.txt", "pars.txt", "events.jsonl"} <= names or \
+            ranked != {"events.1.jsonl"} or \
+            any(n.startswith("mesh_stats") for n in names):
+        fail("16.2: rank 0 must write the run's files and rank 1 only "
+             "events.1.jsonl")
+    stream_check(os.path.join(d, "pt"), "16.2 rank 0")
+    # ---- 16.3 ----
+    x = nccl[0]
+    print(f"16.3 one rank ({x['backend']}): make_toa_mesh width "
+          f"{x3['nshard']}, sharded {x3['sharded']}, collectives "
+          f"{x3['coll']}; the collective alone over NCCL at the packed "
+          f"width {x3['collective_ms']:.4f} ms ({x3['packed_mb']:.4f} MB) "
+          f"[{smi}]")
+    if x["backend"] != "nccl" or x3["sharded"] or x3["coll"]:
+        fail("16.3: a one-rank NCCL group is the unsharded build with no "
+             "collective")
+    # ---- the kernels at this path's shapes ----
+    for i in range(2):
+        n, = (int(k) for k in pair[i]["16.2"]["solve_sizes"])
+        a = torch.load(os.path.join(d, f"solve.{i}.{n}.pt"))
+        a = [t.to(dev) if torch.is_tensor(t) else t for t in a]
+        kern, plain, shape, exact = h.solve_calls(a)
+        entry = f"mega_solve@toa_shard_r{i}"
+        h.hold_solve(entry, f"toa_shard_r{i}", kern, plain,
+                     lambda tiers: solve_cost(*a[1].shape, a[4], tiers),
+                     shape, exact=exact, what=f"rank {i}'s last PT step")
+        results[entry]["launches"] = pair[i]["16.2"]["launches"]["mega_solve"]
+    from enterprise_warp_tpu_torch.ops import cholfuse as cf
+    sizes = hx[0]["sizes"]
+    if len(sizes) != 1:
+        fail(f"16.1: kernel 3 at more than one order {sizes}")
+    n, = sizes
+    S_, a, b = (t.to(dev) if torch.is_tensor(t) else t
+                for t in torch.load(os.path.join(d, f"health.0.{n}.pt")))
+    S_ = S_.contiguous()
+    entry = "chol_precond@toa_shard_health"
+    err, tiers = hold_precond_run(torch, cf, entry, S_, a, b, dev)
+    ms = time_cuda(lambda: cf._chol_precond_cuda(S_, a, b))
+    plain_ms = time_cuda(lambda: cf._fused_torch(S_, a, b))
+    flops, nbytes = chol_cost(S_.shape[0], int(n), tiers)
+    bms, bby = bound(flops, nbytes)
+    print(f"{entry} at {tuple(S_.shape)}: kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {bms:.3g} ms ({bby}; "
+          f"{flops / 1e9:.6f} GFLOP, {nbytes / 1e6:.4f} MB) median of 50 "
+          f"[{smi}]")
+    results[entry] = dict(
+        run="toa_shard_health", shape=f"Sn {tuple(S_.shape)}",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=bby, launches=hx[0]["launches"]["chol_precond"])
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         print(f"chip_smoke: {PKG}/ not found next to this script; run it "
@@ -5917,20 +6386,35 @@ def main():
                                       batch_sizes=sizes[n])
         for lg in loggers:
             lg.removeHandler(handler)
+        # the three output directories are independent: one results CLI
+        # process each, side by side, its log in a file (a pipe read only
+        # at the end would stall a process that filled it)
+        procs = []
         for d in run_dirs:
-            proc = subprocess.run(
+            log = open(d + ".results.log", "w+")
+            procs.append((d, log, subprocess.Popen(
                 [sys.executable, "-m", f"{PKG}.results", "--result", d,
                  "--info", "1", "--noisefiles", "1", "--credlevels", "1",
                  "--logbf", "1", "--covm", "1"],
-                cwd=HERE, capture_output=True, text=True, timeout=600)
-            said = [ln.split(" INFO ", 1)[-1] for ln in
-                    proc.stderr.splitlines() if "logBF" in ln
-                    or "only model" in ln or "no nmodel" in ln]
+                cwd=HERE, stdout=subprocess.DEVNULL, stderr=log)))
+        for d, log, proc in procs:
+            try:
+                proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            log.seek(0)
+            err = log.read()
+            log.close()
+            said = [ln.split(" INFO ", 1)[-1] for ln in err.splitlines()
+                    if "logBF" in ln or "only model" in ln
+                    or "no nmodel" in ln]
             print(f"results CLI on {os.path.basename(d)}: rc "
                   f"{proc.returncode}; {'; '.join(said)}")
             if proc.returncode != 0:
                 fail(f"the results CLI exited {proc.returncode} on {d}: "
-                     + proc.stderr[-2000:])
+                     + err[-2000:])
             if not os.path.exists(os.path.join(d, "noisefiles",
                                                "J1234-5678_noise.json")):
                 fail(f"the results CLI wrote no noise file for {d}")
@@ -6717,6 +7201,11 @@ def main():
         # ---- phase 15: the port's lint on the card's tree -----------------
         phase_lint(smi)
         lap("15")
+
+        # ---- phase 16: the TOA axis across processes ---------------------
+        phase_toa_axis(tmp, dev, smi, results, types.SimpleNamespace(
+            hold_solve=hold_solve, solve_calls=solve_calls))
+        lap("16")
 
     kernels = []
     for entry, r in results.items():

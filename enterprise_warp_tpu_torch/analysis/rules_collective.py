@@ -1,9 +1,10 @@
 """Collective-safety rule: every ``torch.distributed`` collective goes
 through ``parallel/distributed.py``'s counted wrappers, and no host
-sync sits in a function of the joint likelihood or the samplers that
-reaches one.
+sync sits in a function of the joint likelihood, the single-pulsar
+build (its TOA axis) or the samplers that reaches one.
 
-The sharded joint likelihood (``parallel/pta.py``) holds a one-
+The sharded joint likelihood (``parallel/pta.py``) and the TOA-sharded
+single-pulsar likelihood (``models/build.py``) hold a one-
 collective-per-evaluation contract, and the chain axis (``samplers/
 ptmcmc.py:_ChainSplit``) one ``all_gather`` a step: both are counted
 (``distributed.COLLECTIVES``) and staged through the host on a gloo
@@ -32,7 +33,8 @@ _COLLECTIVES = {
 WRAPPERS = ("_raw_all_reduce", "all_reduce_sum", "grad_all_reduce",
             "all_gather_rows", "from_primary")
 _WRAPPER_HOME = f"{PKG_NAME}/parallel/distributed.py"
-_SYNC_SCOPE = (f"{PKG_NAME}/parallel/pta.py", f"{PKG_NAME}/samplers/")
+_SYNC_SCOPE = (f"{PKG_NAME}/parallel/pta.py", f"{PKG_NAME}/models/build.py",
+               f"{PKG_NAME}/samplers/")
 
 
 @register
@@ -46,9 +48,10 @@ class CollectiveSafetyRule(Rule):
         "distributed.py's counted wrappers (_raw_all_reduce, "
         "all_reduce_sum, grad_all_reduce, all_gather_rows, "
         "from_primary): they count each collective and stage CUDA "
-        "tensors through the host on a gloo group. In parallel/pta.py "
-        "and samplers/, a function that calls a wrapper (directly or "
-        "through functions of its module) holds no host sync: every "
+        "tensors through the host on a gloo group. In parallel/pta.py, "
+        "models/build.py and samplers/, a function that calls a "
+        "wrapper (directly or through functions of its module) holds "
+        "no host sync: every "
         "rank would wait at it before the collective (reference rule: "
         "collective-safety).")
 

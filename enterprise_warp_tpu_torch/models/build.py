@@ -11,8 +11,18 @@ terms subtract their delays from the whitened residuals per walker. A
 sampled chromatic index (``chromred("vary...")``) scales its block's
 basis columns per walker (:func:`eval_T`), so the classic chain gets a
 per-walker basis ``(W, ntoa, nb)``; the likelihood kernel declines such a
-basis and the Sigma solve makes its own kernel decision. TOA-axis meshes
-are a later slice of the port (``ROADMAP.md``).
+basis and the Sigma solve makes its own kernel decision.
+
+The TOA axis across processes (``mesh=``, a ``toa``
+:class:`~..parallel.distributed.ShardLayout` from
+``parallel.make_toa_mesh``): the TOAs are padded to a multiple of
+``nshard * 256`` (padded rows: mask 0, sigma 1, zero residual and basis
+rows), each rank keeps only its row block on its own device, computes its
+white noise, basis, delays, Gram partials and masked ``sum log nw``, and
+ONE packed ``all_reduce_sum`` per evaluation sums them; the Sigma stage
+(``ops.kernel.sigma_stage``) then runs replicated on every rank. The
+likelihood kernel declines such an evaluation (route ``toa-sharded``);
+the Sigma solve keeps its own kernel decision.
 """
 
 from __future__ import annotations
@@ -26,8 +36,9 @@ import torch
 
 from .. import F64, resolve_device
 from ..ops import megakernel, quantization_matrix
-from ..ops.kernel import (build_pair_program, gram_blocks,
-                          marginalized_loglike, whiten_inputs)
+from ..ops.kernel import (_CHUNK, _row_sum, build_pair_program,
+                          gram_blocks, marginalized_loglike, sigma_stage,
+                          whiten_inputs)
 from ..ops.spectra import (broken_powerlaw_psd, df_from_freqs,
                            free_spectrum_psd, powerlaw_psd)
 from .prior_mixin import PriorMixin
@@ -286,24 +297,45 @@ def param_value(theta, ref):
                       device=theta.device)
 
 
-def white_static(white_blocks, mapping, device):
-    return [(wb.kind, torch.as_tensor(wb.mask_matrix, dtype=F64,
-                                      device=device),
-             [mapping[p.name] for p in wb.params])
-            for wb in white_blocks]
+def _stacked(theta, refs):
+    """The parameters ``refs`` per walker, (W, len(refs))."""
+    return torch.stack([param_value(theta, rf) for rf in refs], dim=-1)
 
 
-def basis_static(basis_blocks, mapping, device):
+def white_static(white_blocks, mapping, device, n_pad=0, rows=None):
+    """Device-ready white-noise blocks. A TOA-sharded build pads each
+    selection mask with ``n_pad`` zero columns and keeps the columns
+    ``rows`` (a slice) of its shard."""
+    out = []
+    for wb in white_blocks:
+        mm = np.pad(wb.mask_matrix, ((0, 0), (0, n_pad)))
+        if rows is not None:
+            mm = mm[:, rows]
+        out.append((wb.kind, torch.as_tensor(mm, dtype=F64, device=device),
+                    [mapping[p.name] for p in wb.params]))
+    return out
+
+
+def basis_static(basis_blocks, mapping, device, n_pad=0, rows=None):
+    """Device-ready basis blocks; ``n_pad``/``rows`` cut a TOA-sharded
+    build's ``log_nu_ratio`` as :func:`white_static` cuts its masks
+    (padded rows get a unit chromatic scale)."""
     def dev(a):
         return None if a is None else torch.as_tensor(a, dtype=F64,
                                                       device=device)
+
+    def lognu(a):
+        if a is None:
+            return None
+        a = np.pad(a, (0, n_pad))
+        return dev(a if rows is None else a[rows])
     return [dict(psd=bb.psd, freqs=dev(bb.freqs), df=dev(bb.df),
                  idx_map=[mapping[p.name] for p in bb.params],
                  fixed_phi=dev(bb.fixed_phi), ncols=bb.ncols,
                  col_slice=bb.col_slice,
                  dyn=None if bb.dynamic_idx is None
                  else mapping[bb.dynamic_idx.name],
-                 lognu=dev(bb.log_nu_ratio))
+                 lognu=lognu(bb.log_nu_ratio))
             for bb in basis_blocks]
 
 
@@ -365,12 +397,14 @@ def eval_T(theta, bb_static, T_w):
 
 
 def _build_fingerprint(psr, mapping, wb_static, basis_blocks, bb_static,
-                       tm, n_refine, const_grams, pair):
+                       tm, n_refine, const_grams, pair, blocked, toa):
     """Digest of what a build bakes into its evaluation beyond the
     sampled parameters (the serving cache's executable identity, see
     :func:`topology_fingerprint`): the fixed parameters' values, the
-    white and basis block structure, the build-time route choices and the
-    ingestion audit's verdict (a repaired dataset keys afresh)."""
+    white and basis block structure, the build-time route choices (the
+    ``EWT_BLOCKED_CHOL`` pin among them), the TOA layout (``toa``:
+    ``(nshard, padded ntoa)``, None unsharded) and the ingestion audit's
+    verdict (a repaired dataset keys afresh)."""
     import hashlib
     h = hashlib.sha256()
     for nm in sorted(mapping):
@@ -381,8 +415,8 @@ def _build_fingerprint(psr, mapping, wb_static, basis_blocks, bb_static,
     for blk, bb in zip(basis_blocks, bb_static):
         h.update(f"b:{bb['psd']}:{bb['ncols']}:{bb['col_slice']}:"
                  f"{bb['idx_map']}:{bb['dyn']}:{blk.orf};".encode())
-    h.update(f"tm={tm};refine={n_refine};cg={bool(const_grams)};"
-             f"pair={pair};".encode())
+    h.update(f"tm={tm};refine={n_refine};bchol={blocked};"
+             f"cg={bool(const_grams)};pair={pair};toa={toa};".encode())
     dq = getattr(psr, "dq_report", None)
     h.update(f"dq={dq.token() if dq is not None else 'unaudited'};"
              .encode())
@@ -444,9 +478,20 @@ def topology_fingerprint(like):
     return h.hexdigest()[:16]
 
 
+def _toa_layout(mesh, toa_axis):
+    """The layout a build shards its TOA rows over: ``mesh`` where its
+    axis is ``toa_axis`` and it has more than one shard, else None (no
+    sharding: a ``chain`` or ``psr`` layout is not this build's)."""
+    if mesh is None or getattr(mesh, "axis", None) != toa_axis \
+            or getattr(mesh, "nshard", 1) < 2:
+        return None
+    return mesh
+
+
 def build_pulsar_likelihood(psr, terms, fixed_values=None,
                             gram_mode="split", ecorr_dt=10.0,
-                            tm="marginalized", const_grams=None, device="cuda"):
+                            tm="marginalized", const_grams=None, device="cuda",
+                            mesh=None, toa_axis="toa"):
     """Build the walker-batched likelihood of one pulsar and TermList.
 
     ``fixed_values`` maps Constant-prior parameter names to values (the
@@ -463,13 +508,26 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
     here, through the same code path a per-eval recompute takes.
     ``EWT_PAIR_PROGRAM=0`` turns the Gram-as-matmul program off;
     ``EWT_REFINE`` sets the refinement passes of the Sigma solve
-    (default 3). The resolved choices are exposed as
-    ``like.const_grams`` / ``like.pair_program``.
+    (default 3); ``EWT_BLOCKED_CHOL=1`` declines the three kernels and
+    factors the Sigma solve's preconditioner through
+    ``ops.kernel.blocked_cholesky``. All three are read here, at build
+    time. The resolved choices are exposed as ``like.const_grams`` /
+    ``like.pair_program`` / ``like.blocked_chol``.
+
+    ``mesh``: a ``toa_axis`` layout of two or more shards
+    (``parallel.make_toa_mesh``) shards the TOA rows across the process
+    group (module docstring); any other layout is ignored. The pair
+    program and the folded Grams are off under it (``const_grams=True``
+    raises). ``like.mesh`` is the layout (None unsharded) and
+    ``like.device`` this rank's device. A layout without a process group
+    keeps every shard in this process and sums them before the
+    collective, so the one-process value is the sharded program's.
     """
     device = resolve_device(device)
     if tm not in ("marginalized", "sampled"):
         raise ValueError(f"unknown tm mode '{tm}' "
                          "(use 'marginalized' or 'sampled')")
+    layout = _toa_layout(mesh, toa_axis)
     ntoa = len(psr)
     sigma = np.asarray(psr.toaerrs, dtype=np.float64)
     det_terms = []
@@ -496,77 +554,100 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=F64,
                                device=device)
 
-    sigma2 = dev(sigma ** 2)
-    r_w_t, M_w_t, T_w_t, cs2 = dev(r_w), dev(M_w), dev(T_w), dev(col_scale2)
-    wb_static = white_static(white_blocks, mapping, device)
-    bb_static = basis_static(basis_blocks, mapping, device)
-
-    D_w_t = None if D_w is None else dev(D_w)
+    cs2 = dev(col_scale2)
+    wb_static = white_static(white_blocks, mapping, device,
+                             rows=None if layout is None else slice(0, 0))
+    bb_static = basis_static(basis_blocks, mapping, device,
+                             rows=None if layout is None else slice(0, 0))
     # the pair program and the folded Grams need residuals and a basis
     # that no walker changes: no sampled timing model, no sampled
-    # deterministic delays, no sampled chromatic index
+    # deterministic delays, no sampled chromatic index; and whole rows
     static_basis = all(bb["dyn"] is None for bb in bb_static)
     static_resid = tm_refs is None and det_refs is None and static_basis
-    pair_prog = None
-    if gram_mode == "split" and static_resid \
-            and os.environ.get("EWT_PAIR_PROGRAM", "1") != "0":
-        pair_prog = build_pair_program(r_w, M_w, T_w, device=device)
     wn_fixed = all(rf[0] == "const" for _, _, refs in wb_static
                    for rf in refs)
+    cg_eligible = wn_fixed and static_resid and layout is None
     if const_grams is None:
-        const_grams = wn_fixed and static_resid \
+        const_grams = cg_eligible \
             and os.environ.get("EWT_CONST_GRAMS", "1") != "0"
-    elif const_grams and not (wn_fixed and static_resid):
+    elif const_grams and not cg_eligible:
         raise ValueError(
             "const_grams=True requires a fixed-white-noise model with no "
             "sampled timing model, deterministic delays, sampled "
             f"chromatic index, or TOA-axis mesh (white noise fixed: "
             f"{wn_fixed})")
-    grams_cached = None
-    if const_grams:
-        nw0 = eval_nw(torch.zeros((1, max(len(sampled), 1)), dtype=F64,
-                                  device=device), wb_static, ntoa, sigma2)
-        grams_cached = tuple(g[0] for g in gram_blocks(
-            nw0, r_w_t, M_w_t, T_w_t, gram_mode=gram_mode,
-            pair_program=pair_prog))
     n_refine = int(os.environ.get("EWT_REFINE", "3"))
+    blocked = os.environ.get("EWT_BLOCKED_CHOL", "0") == "1"
 
-    def stacked(theta, refs):
-        return torch.stack([param_value(theta, rf) for rf in refs], dim=-1)
-
-    def evaluate_core(theta, with_health=False, gm=None):
-        """lnL (W,) at ``theta``; ``with_health`` also returns the (W, 3)
-        health words (classic chain pinned); ``gm="f64"`` is the float64
-        twin (no folded Grams, no pair program)."""
-        gm = gm or gram_mode
-        fold = gm == gram_mode
-        megakernel.LAST_REJECT[0] = None
-        nw = eval_nw(theta, wb_static, ntoa, sigma2)
-        phi = eval_phi(theta, bb_static, cs2)
-        T_eff = eval_T(theta, bb_static, T_w_t)
-        r_eff = r_w_t
-        if det_refs is not None:
-            r_eff = r_eff - stacked(theta, det_refs) @ D_w_t.T
-        if tm_refs is None:
-            out = marginalized_loglike(
-                nw, phi, r_eff, M_w_t, T_eff, gram_mode=gm,
-                pair_program=None if grams_cached is not None or not fold
-                else pair_prog, refine=n_refine,
-                grams=grams_cached if fold else None,
-                with_health=with_health)
-        else:
-            r_eff = r_eff - stacked(theta, tm_refs) @ M_w_t.T
-            out = marginalized_loglike(nw, phi, r_eff, None, T_eff,
-                                       gram_mode=gm, refine=n_refine,
-                                       with_health=with_health)
-        lnl, hw = out if with_health else (out, None)
-        # the kernel route's rejections of this call (None off that route)
-        like.last_reject = megakernel.LAST_REJECT[0]
+    def finish(lnl, hw, with_health):
         # a numerically non-PD Sigma (extreme prior corners) yields NaN;
         # the reference maps Cholesky failure to -inf likewise
         lnl = torch.where(torch.isnan(lnl), torch.full_like(lnl, -math.inf),
                           lnl)
         return (lnl, hw) if with_health else lnl
+
+    pair_prog = None
+    static = dict(cs2=cs2, wb=wb_static, bb=bb_static, det_refs=det_refs,
+                  tm_refs=tm_refs)
+    if layout is None:
+        sigma2 = dev(sigma ** 2)
+        r_w_t, M_w_t, T_w_t = dev(r_w), dev(M_w), dev(T_w)
+        D_w_t = None if D_w is None else dev(D_w)
+        if gram_mode == "split" and static_resid \
+                and os.environ.get("EWT_PAIR_PROGRAM", "1") != "0":
+            pair_prog = build_pair_program(r_w, M_w, T_w, device=device)
+        grams_cached = None
+        if const_grams:
+            nw0 = eval_nw(torch.zeros((1, max(len(sampled), 1)), dtype=F64,
+                                      device=device), wb_static, ntoa,
+                          sigma2)
+            grams_cached = tuple(g[0] for g in gram_blocks(
+                nw0, r_w_t, M_w_t, T_w_t, gram_mode=gram_mode,
+                pair_program=pair_prog))
+        static.update(r_w=r_w_t, M_w=M_w_t, T_w=T_w_t, sigma2=sigma2,
+                      D_w=D_w_t)
+
+        def evaluate_core(theta, with_health=False, gm=None):
+            """lnL (W,) at ``theta``; ``with_health`` also returns the (W,
+            3) health words (classic chain pinned); ``gm="f64"`` is the
+            float64 twin (no folded Grams, no pair program)."""
+            gm = gm or gram_mode
+            fold = gm == gram_mode
+            megakernel.LAST_REJECT[0] = None
+            nw = eval_nw(theta, wb_static, ntoa, sigma2)
+            phi = eval_phi(theta, bb_static, cs2)
+            T_eff = eval_T(theta, bb_static, T_w_t)
+            r_eff = r_w_t
+            if det_refs is not None:
+                r_eff = r_eff - _stacked(theta, det_refs) @ D_w_t.T
+            if tm_refs is None:
+                out = marginalized_loglike(
+                    nw, phi, r_eff, M_w_t, T_eff, gram_mode=gm,
+                    pair_program=None if grams_cached is not None
+                    or not fold else pair_prog, refine=n_refine,
+                    grams=grams_cached if fold else None,
+                    with_health=with_health, blocked=blocked)
+            else:
+                r_eff = r_eff - _stacked(theta, tm_refs) @ M_w_t.T
+                out = marginalized_loglike(nw, phi, r_eff, None, T_eff,
+                                           gram_mode=gm, refine=n_refine,
+                                           with_health=with_health,
+                                           blocked=blocked)
+            lnl, hw = out if with_health else (out, None)
+            # the kernel route's rejections of this call (None off that
+            # route)
+            like.last_reject = megakernel.LAST_REJECT[0]
+            return finish(lnl, hw, with_health)
+        toa = None
+    else:
+        evaluate_core, shards, toa = _toa_sharded_core(
+            layout, device, dict(
+                r_w=r_w, M_w=M_w, T_w=T_w, sigma=sigma, D_w=D_w,
+                white_blocks=white_blocks, basis_blocks=basis_blocks,
+                mapping=mapping, bb_static=bb_static, cs2=cs2,
+                det_refs=det_refs, tm_refs=tm_refs, gram_mode=gram_mode,
+                n_refine=n_refine, blocked=blocked), finish)
+        static.update(shards=shards, nshard=toa[0], ntoa_padded=toa[1])
 
     def evaluate(theta):
         return evaluate_core(theta)
@@ -576,12 +657,12 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
     like.noise_pairs = _noise_slide_pairs(psr, like.param_names)
     like.const_grams = bool(const_grams)
     like.pair_program = pair_prog is not None
+    like.blocked_chol = blocked
+    like.mesh = layout
     like.build_fingerprint = _build_fingerprint(
         psr, mapping, wb_static, basis_blocks, bb_static, tm, n_refine,
-        const_grams, pair_prog is not None)
-    like.static = dict(r_w=r_w_t, M_w=M_w_t, T_w=T_w_t, cs2=cs2,
-                       sigma2=sigma2, wb=wb_static, bb=bb_static,
-                       D_w=D_w_t, det_refs=det_refs, tm_refs=tm_refs)
+        const_grams, pair_prog is not None, blocked, toa)
+    like.static = static
     # the health plane's twins (resilience/integrity.py): the same lnL on
     # the classic chain plus the (W, 3) health words, and the float64
     # re-evaluation of the ladder's reeval rung
@@ -590,8 +671,114 @@ def build_pulsar_likelihood(psr, terms, fixed_values=None,
     like._eval_f64_batch = lambda theta: evaluate_core(
         like.as_theta(theta), gm="f64")
     like.health_psr_names = [psr.name]
-    like.eval_nw = lambda theta: eval_nw(like.as_theta(theta), wb_static,
-                                         ntoa, sigma2)
+    if layout is None:
+        like.eval_nw = lambda theta: eval_nw(like.as_theta(theta),
+                                             wb_static, ntoa, sigma2)
     like.eval_phi = lambda theta: eval_phi(like.as_theta(theta), bb_static,
                                            cs2)
     return like
+
+
+def _toa_sharded_core(layout, device, b, finish):
+    """The TOA-sharded evaluation of :func:`build_pulsar_likelihood`:
+    ``(evaluate_core, shards, (nshard, padded ntoa))``. ``b`` holds the
+    build's host arrays (whitened, unpadded) and resolved choices;
+    ``finish`` maps NaN to -inf. ``shards`` maps each shard this process
+    holds to its device rows: its own in a process group (none for a
+    rank past the last shard), every shard without a group."""
+    from ..parallel.distributed import all_reduce_sum, grad_all_reduce
+    nshard, group = layout.nshard, layout.group
+    ntoa = b["r_w"].shape[0]
+    # each shard's rows start on a chunk boundary, so the split-mode
+    # float32 partials stay shard-local
+    n_pad = (-ntoa) % (nshard * _CHUNK)
+    rows = (ntoa + n_pad) // nshard
+    nb = b["T_w"].shape[1]
+    tm_refs, det_refs = b["tm_refs"], b["det_refs"]
+    ntm = 0 if tm_refs is not None else b["M_w"].shape[1]
+    # one packed row per walker: G, H, P, X, q, rwr and sum log nw
+    sizes = [nb * nb, nb * ntm, ntm * ntm, nb, ntm, 1, 1]
+
+    def pad(a, value=0.0):
+        a = np.asarray(a, dtype=np.float64)
+        return np.pad(a, ((0, n_pad),) + ((0, 0),) * (a.ndim - 1),
+                      constant_values=value)
+
+    host = dict(r=pad(b["r_w"]), M=pad(b["M_w"]), T=pad(b["T_w"]),
+                s2=pad(b["sigma"] ** 2, 1.0),
+                mask=np.r_[np.ones(ntoa), np.zeros(n_pad)],
+                D=None if b["D_w"] is None else pad(b["D_w"]))
+    if group is None:
+        held = range(nshard)
+    else:
+        held = [layout.rank] if layout.rank < nshard else []
+    shards = {}
+    for s in held:
+        sl = slice(s * rows, (s + 1) * rows)
+        sh = {k: None if v is None else torch.as_tensor(
+            np.ascontiguousarray(v[sl]), dtype=F64, device=device)
+            for k, v in host.items()}
+        sh["wb"] = white_static(b["white_blocks"], b["mapping"], device,
+                                n_pad=n_pad, rows=sl)
+        sh["bb"] = basis_static(b["basis_blocks"], b["mapping"], device,
+                                n_pad=n_pad, rows=sl)
+        shards[s] = sh
+
+    def shard_packed(theta, sh, gm):
+        """One shard's Gram partials and masked ``sum log nw`` at
+        ``theta``, packed (W, L)."""
+        nw = eval_nw(theta, sh["wb"], rows, sh["s2"])
+        T_eff = eval_T(theta, sh["bb"], sh["T"])
+        r_eff, M = sh["r"], sh["M"]
+        if det_refs is not None:
+            r_eff = r_eff - _stacked(theta, det_refs) @ sh["D"].T
+        if tm_refs is not None:
+            r_eff = r_eff - _stacked(theta, tm_refs) @ M.T
+            M = None
+        # padded rows hold zero residual, basis and design rows and nw = 1
+        # there, so they add nothing unmasked, and the weights' square
+        # root stays differentiable (a masked weight of 0 would give the
+        # gradient 0 * inf)
+        G, H, P, X, q, rwr = gram_blocks(nw, r_eff, M, T_eff, gram_mode=gm)
+        W = theta.shape[0]
+        ldn = _row_sum(torch.log(nw) * sh["mask"])
+        return torch.cat([G.reshape(W, -1), H.reshape(W, -1),
+                          P.reshape(W, -1), X, q, rwr[:, None],
+                          ldn[:, None]], dim=-1)
+
+    def unpack(packed):
+        """The summed (W, L) -> ``(G, H, P, X, q, rwr)`` and ``logdet_n``."""
+        W = packed.shape[0]
+        G, H, P, X, q, rwr, ldn = torch.split(packed, sizes, dim=-1)
+        return (G.reshape(W, nb, nb), H.reshape(W, nb, ntm),
+                P.reshape(W, ntm, ntm), X, q, rwr[:, 0]), ldn[:, 0]
+
+    def evaluate_core(theta, with_health=False, gm=None):
+        """One sharded evaluation: the held shards' bodies, THE collective,
+        then the Sigma stage replicated (the same words on every rank)."""
+        gm = gm or b["gram_mode"]
+        megakernel.LAST_REJECT[0] = None
+        theta_f = grad_all_reduce(theta, group)
+        local = None
+        for sh in shards.values():
+            part = shard_packed(theta_f, sh, gm)
+            local = part if local is None else local + part
+        if local is None:
+            # a rank past the last shard adds zeros (and still joins the
+            # gradient's sum)
+            local = theta_f.new_zeros((theta.shape[0], sum(sizes))) \
+                + 0.0 * theta_f.sum(dim=1, keepdim=True)
+        grams, logdet_n = unpack(all_reduce_sum(local, group))
+        if gm in ("split", "f32") and tm_refs is None and not with_health:
+            # the likelihood kernel forms its own Gram from whole rows
+            megakernel.mega_like_route(
+                rows, nb, device,
+                decline="blocked" if b["blocked"] else "toa-sharded")
+        out = sigma_stage(grams, eval_phi(theta, b["bb_static"], b["cs2"]),
+                          logdet_n, schur_tm=tm_refs is None, gram_mode=gm,
+                          refine=b["n_refine"], with_health=with_health,
+                          blocked=b["blocked"])
+        lnl, hw = out if with_health else (out, None)
+        return finish(lnl, hw, with_health)
+
+    return evaluate_core, shards, (nshard, ntoa + n_pad)

@@ -30,6 +30,12 @@ through the solve megakernel (``ops/megakernel.py``). CPU tensors always
 take the classic chain — the reference's non-TPU behaviour. Gradients of
 either megakernel route re-derive through the classic chain, whose fused
 preconditioner is the third kernel (``ops/cholfuse.py``).
+
+``blocked=True`` (``EWT_BLOCKED_CHOL=1`` at build time) declines all
+three kernels under the route ``blocked`` and factors the classic chain's
+preconditioner through :func:`blocked_cholesky`. :func:`sigma_stage` is
+the evaluation after the Gram stage, on Gram blocks summed elsewhere (the
+TOA axis across processes, ``models/build.py``).
 """
 
 from __future__ import annotations
@@ -313,6 +319,40 @@ def gram_blocks(nw, r_w, M_w, T_w, mask=None, gram_mode="split",
 # factorizations and the mixed solve
 # --------------------------------------------------------------------
 
+def blocked_cholesky(S, block=16):
+    """Left-looking blocked Cholesky factor of a batch of symmetric
+    matrices ``S`` (..., n, n): ``n / block`` steps, each a panel update
+    by batched products, a small factor of the diagonal block and one
+    triangular solve for the rows below it. Rows padded up to a multiple
+    of ``block`` get unit pivots and are cut off again. An indefinite
+    diagonal block factors to NaN (:func:`cholesky_nan`), which every
+    later panel inherits, so the caller's finiteness-gated jitter retry
+    works unchanged. The reference's (XLA) factor, batched over the
+    leading axes; built from new tensors, so it differentiates."""
+    n = S.shape[-1]
+    n_pad = (-n) % block
+    m = n + n_pad
+    if n_pad:
+        S = F.pad(S, (0, n_pad, 0, n_pad))
+        idx = torch.arange(n, m, device=S.device)
+        S[..., idx, idx] = 1.0
+    cols = []
+    for k in range(0, m, block):
+        Lk = torch.cat(cols, dim=-1) if cols \
+            else S.new_zeros(S.shape[:-1] + (0,))
+        panel = Lk[..., k:k + block, :]
+        Lkk = cholesky_nan(S[..., k:k + block, k:k + block]
+                           - panel @ _t(panel))
+        parts = [S.new_zeros(S.shape[:-2] + (k, block)), Lkk]
+        if k + block < m:
+            Ark = S[..., k + block:, k:k + block] \
+                - Lk[..., k + block:, :] @ _t(panel)
+            parts.append(_t(torch.linalg.solve_triangular(
+                Lkk, _t(Ark), upper=False)))
+        cols.append(torch.cat(parts, dim=-2))
+    return torch.cat(cols, dim=-1)[..., :n, :n]
+
+
 def equilibrated_cholesky(S, jitter, with_health=False):
     """Cholesky of symmetric PD ``S`` (batched) via unit-diagonal
     equilibration, with an on-failure jitter fallback. Returns
@@ -340,7 +380,8 @@ def equilibrated_cholesky(S, jitter, with_health=False):
 
 
 def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
-                            delta_mode="tree", mega=None, with_health=False):
+                            delta_mode="tree", mega=None, with_health=False,
+                            blocked=False):
     """Solve ``S Z = B`` and compute ``log|S|`` for a batch of symmetric
     PD float64 matrices ``S`` (W, n, n) in mixed precision.
 
@@ -363,6 +404,12 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
       from ``ops/cholfuse.py:chol_precond`` (one CUDA launch on the
       card) instead of factoring, inverting and forming ``E`` step by
       step; same tiers, same precision class.
+
+    ``blocked=True`` (the reference's precedence: an explicit blocked
+    factor outranks both auto-routes) declines the solve megakernel and
+    the fused preconditioner, each recorded in ``ROUTES`` as
+    ``blocked``, and the classic chain's jittered tiers factor through
+    :func:`blocked_cholesky`.
 
     ``with_health=True`` appends the health word ``(W, 3)`` and returns
     ``(Z, logdet, hw)``. It pins the classic chain (the solve megakernel
@@ -387,7 +434,7 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
             # version, an opt-out, over-cap) is counted in ROUTES; the
             # health word pins the classic chain either way
             from .megakernel import mega_solve_route
-            mega_solve_route(n, S.device)
+            mega_solve_route(n, S.device, blocked)
         mega = False
     if jitter2 is None:
         jitter2 = 30.0 * jitter
@@ -403,7 +450,7 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
         dim1=-2, dim2=-1)
     if mega is None and delta_mode == "split":
         from .megakernel import mega_solve_route
-        mega = mega_solve_route(n, S.device)
+        mega = mega_solve_route(n, S.device, blocked)
     if mega:
         from .megakernel import mega_solve_logdet
         Bn32 = (s[..., None] * B).to(torch.float32)
@@ -414,6 +461,10 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
         return s[..., None] * Z32.to(f64), logdet
     from .cholfuse import fused_chol_enabled
     fused = delta_mode == "split" and fused_chol_enabled()
+    if fused and blocked:
+        from .routes import route
+        route("chol_precond", False, S.device, why="blocked")
+        fused = False
 
     Sn32 = Sn.to(torch.float32)
     eye = _eye(n, Sn32)
@@ -430,10 +481,11 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
             x = _t(Vu) @ R.to(torch.float32)
             return (Vu @ x).to(f64)
     else:
-        L = cholesky_nan(Sn32 + float(jitter) * eye)
+        factor = blocked_cholesky if blocked else cholesky_nan
+        L = factor(Sn32 + float(jitter) * eye)
         bad = ~_all_finite(L)
         L = torch.where(bad[..., None, None],
-                        cholesky_nan(Sn32 + float(jitter2) * eye), L)
+                        factor(Sn32 + float(jitter2) * eye), L)
         # health: tier 2 or the identity substituted (tier 1's jitter is
         # the designed preconditioner and does not count)
         engaged = bad | ~_all_finite(L)
@@ -499,7 +551,7 @@ def _mixed_psd_solve_logdet(S, B, jitter, jitter2=None, refine=2,
 
 def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
                          pair_program=None, refine=3, grams=None,
-                         mega=None, with_health=False):
+                         mega=None, with_health=False, blocked=False):
     """Marginalized GP log-likelihood for one pulsar at W parameter points.
 
     Parameters
@@ -533,10 +585,12 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
         joined over the Sigma solve and the timing-model Schur factor. It
         pins the classic chain end to end (an explicit ``mega=True``
         raises).
+    blocked : the ``EWT_BLOCKED_CHOL`` pin: the auto-routes of all three
+        kernels decline as ``blocked`` and the classic chain factors
+        through :func:`blocked_cholesky`.
 
     Returns lnL (W,) up to a theta-independent constant.
     """
-    f64 = r_w.dtype
     solve_mega = False if mega is False else None
     if with_health:
         if mega:
@@ -549,7 +603,8 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
                 and M_w is not None:
             from .megakernel import mega_like_route
             mega = mega_like_route(T_w.shape[-2], T_w.shape[-1], T_w.device,
-                                   T_w.dim() == 3)
+                                   T_w.dim() == 3,
+                                   "blocked" if blocked else None)
         else:
             mega = False
     if mega:
@@ -564,12 +619,33 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
                                          refine)
     W = nw.shape[0]
     if grams is not None:
-        G, H, P, X, q, rwr = (g.expand((W,) + tuple(g.shape))
-                              for g in grams)
+        grams = tuple(g.expand((W,) + tuple(g.shape)) for g in grams)
     else:
-        G, H, P, X, q, rwr = gram_blocks(nw, r_w, M_w, T_w, mask=mask,
-                                         gram_mode=gram_mode,
-                                         pair_program=pair_program)
+        grams = gram_blocks(nw, r_w, M_w, T_w, mask=mask,
+                            gram_mode=gram_mode, pair_program=pair_program)
+    logn = torch.log(nw) if mask is None else torch.log(nw) * mask
+    return sigma_stage(grams, b, _row_sum(logn), schur_tm=M_w is not None,
+                       gram_mode=gram_mode, refine=refine,
+                       solve_mega=solve_mega, with_health=with_health,
+                       blocked=blocked)
+
+
+def sigma_stage(grams, b, logdet_n, schur_tm=True, gram_mode="split",
+                refine=3, solve_mega=None, with_health=False, blocked=False):
+    """The evaluation after the Gram stage: ``Sigma = G + diag(1/b)``, its
+    solve and log-determinant, the timing-model Schur stage and lnL (W,)
+    (``(lnL, hw)`` with ``with_health``).
+
+    ``grams`` is ``(G, H, P, X, q, rwr)`` per walker, (W, ...), and
+    ``logdet_n`` (W,) the masked ``sum log nw``, wherever they were
+    summed: :func:`marginalized_loglike` passes its own, the TOA axis
+    across processes the sum of every shard's (``models/build.py``).
+    ``schur_tm=False`` is the sampled-timing-model likelihood (``H``,
+    ``P`` and ``q`` without columns). ``solve_mega`` is the Sigma solve's
+    kernel pin (None: its own decision); ``blocked`` as in
+    :func:`marginalized_loglike`."""
+    G, H, P, X, q, rwr = grams
+    f64 = X.dtype
     b = b.to(f64)
     Sigma = G.to(f64) + torch.diag_embed(1.0 / b)
 
@@ -588,14 +664,15 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
         out = _mixed_psd_solve_logdet(A, R, CHOL_JITTER[gram_mode],
                                       refine=refine, delta_mode="split",
                                       mega=solve_mega,
-                                      with_health=with_health)
+                                      with_health=with_health,
+                                      blocked=blocked)
         if with_health:
             hw = out[2] if hw is None else torch.maximum(hw, out[2])
         return out[0], out[1]
 
     hw = None
     logdet_a = 0.0
-    if M_w is None:
+    if not schur_tm:
         # no-TM path: C_n-only quadratic form and determinant
         if gram_mode == "f64":
             L, sS, logdet_sigma = chol(Sigma, 0.0)
@@ -631,8 +708,6 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
                                           upper=False)[..., 0]
         quad = rwr - _row_sum(X * zx) - _row_sum(z * z)
 
-    logn = torch.log(nw) if mask is None else torch.log(nw) * mask
-    logdet_n = _row_sum(logn)
     logdet_b = _row_sum(torch.log(b))
     lnl = -0.5 * (quad + logdet_n + logdet_b + logdet_sigma + logdet_a)
     return (lnl, hw) if with_health else lnl

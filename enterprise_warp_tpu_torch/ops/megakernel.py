@@ -78,23 +78,30 @@ def mega_solve_fits(n):
     return n <= _MEGA_MAX_N
 
 
-def mega_like_route(ntoa, nb, device, per_walker=False):
+def mega_like_route(ntoa, nb, device, per_walker=False, decline=None):
     """Whether ``marginalized_loglike`` sends a whole evaluation through
     the likelihood megakernel: CUDA tensors, kernels enabled, shape
     within the caps, one basis shared by the batch. A decline keeps the
     classic chain; a per-walker basis (``per_walker``, a sampled
     chromatic index) is declined as ``per-walker-basis``, where the
     reference's kernel route raises (its ``vmap`` rule takes a static
-    basis only)."""
+    basis only). ``decline`` names a reason the caller already holds
+    (``blocked``: the ``EWT_BLOCKED_CHOL`` pin; ``toa-sharded``: Gram
+    blocks summed across processes), which takes precedence."""
+    if decline is not None:
+        return route("mega_like", False, device, why=decline) == "kernel"
     if per_walker:
         return route("mega_like", False, device,
                      why="per-walker-basis") == "kernel"
     return route("mega_like", mega_like_fits(ntoa, nb), device) == "kernel"
 
 
-def mega_solve_route(n, device):
+def mega_solve_route(n, device, blocked=False):
     """Whether ``_mixed_psd_solve_logdet`` sends its post-equilibration
-    chain through the solve megakernel (same contract)."""
+    chain through the solve megakernel (same contract; ``blocked``, the
+    ``EWT_BLOCKED_CHOL`` pin, declines as ``blocked``)."""
+    if blocked:
+        return route("mega_solve", False, device, why="blocked") == "kernel"
     return route("mega_solve", mega_solve_fits(n), device) == "kernel"
 
 

@@ -3,10 +3,15 @@
 Every routing decision of the three kernels (``mega_solve``,
 ``mega_like``, ``chol_precond``) goes through :func:`route` and records
 the path it took in ``ROUTES`` under ``(kernel, path)``, path one of
-``kernel`` (CUDA launch), ``plain-cpu``, ``over-cap``, ``disabled`` and,
-for the likelihood kernel, ``per-walker-basis`` (a sampled chromatic
-index gives each walker its own basis, which the kernel does not take) —
-the counterpart of the reference's ``pallas_path{kernel,path}`` counter.
+``kernel`` (CUDA launch), ``plain-cpu``, ``over-cap``, ``disabled``,
+``blocked`` (the ``EWT_BLOCKED_CHOL=1`` build pin declines all three
+kernels: the classic chain then factors through
+``ops/kernel.py:blocked_cholesky``) and, for the likelihood kernel,
+``per-walker-basis`` (a sampled chromatic index gives each walker its
+own basis, which the kernel does not take) and ``toa-sharded`` (Gram
+blocks summed across processes, which the kernel, forming its own Gram
+from whole rows, cannot take) — the counterpart of the reference's
+``pallas_path{kernel,path}`` counter.
 A launch adds one to ``LAUNCHES[kernel]`` and to the ``kernel`` route at
 the launch site (:func:`record_launch`) and nowhere else; a kernel with
 two designs also counts the one it launched in ``DESIGNS`` under

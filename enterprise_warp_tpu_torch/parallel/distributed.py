@@ -36,6 +36,10 @@ over ranks, one rank per process:
   pulsars and sums every cross-pulsar quantity in ONE packed
   :func:`all_reduce_sum` per evaluation (:func:`scatter_to_global` builds
   the sum-ready global buffers).
+- **TOA axis**: ``parallel.make_toa_mesh`` is a layout of ``axis="toa"``
+  and width the group size; ``models/build.py:build_pulsar_likelihood``
+  gives each rank a block of one pulsar's TOA rows and sums its Gram
+  partials in ONE :func:`all_reduce_sum` per evaluation.
 
 Environment contract (set by the launcher, one process per rank)::
 
@@ -214,7 +218,7 @@ def device_stamp(mesh=None) -> dict:
 class ShardLayout:
     """The port's counterpart of a 1-D device mesh: ``nshard`` shards
     over the ranks ``0 .. nshard-1`` of ``group`` along ``axis``
-    (``"psr"`` or ``"chain"``), this process being ``rank``. A rank at or
+    (``"psr"``, ``"toa"`` or ``"chain"``), this process being ``rank``. A rank at or
     above ``nshard`` holds no shard and adds zeros to each sum.
 
     ``group`` None is a layout without a process group (one process); the

@@ -378,7 +378,12 @@ def test_no_source_names_jax_or_the_reference():
             os.path.join(PKG, "utils", "metricsexport.py"),
             os.path.join(PKG, "parallel", "distributed.py"),
             os.path.join(PKG, "utils", "compilecache.py"),
-            os.path.join(PKG, "samplers", "cem.py")} | {
+            os.path.join(PKG, "samplers", "cem.py"),
+            os.path.join(PKG, "models", "build.py"),
+            os.path.join(PKG, "ops", "kernel.py"),
+            os.path.join(PKG, "ops", "megakernel.py"),
+            os.path.join(PKG, "ops", "routes.py"),
+            os.path.join(PKG, "parallel", "__init__.py")} | {
         os.path.join(PKG, "serve", f"{m}.py")
         for m in ("__init__", "aot", "packer", "admission", "slo", "driver",
                   "cli")} | {
