@@ -395,8 +395,22 @@ Phases (any failure exits non-zero before the result line):
    kernel 1 at (8, 80, 80) k 4 from each rank's last PT step and kernel 3
    from the health twin held against their plain versions and timed
    (rows ``mega_solve@toa_shard_r0``/``_r1``,
-   ``chol_precond@toa_shard_health``);
-17. the ``kernels`` JSON line, one entry per kernel and main path that
+   ``chol_precond@toa_shard_health``); the sharded lnL within
+   :data:`TOA_F64_GAP` of float64 on the CPU;
+17. the dispatch census (:func:`phase_census`, in a process of its own,
+   :func:`census_worker`): ``ops/megakernel.py:dispatch_ab_counts`` at
+   the reference's fixture (batch 64, seed 7) on
+   the north star's pulsar (S (334, 80): kernel 2 takes ``full_mega``)
+   and on ``system_noise --num 0`` (nb 250: kernel 2 declines as
+   ``over-cap``, so ``full_mega`` is the classic chain with kernel 1):
+   each record's ``aten_ops``, ``dispatch_ops`` (GPU kernels under
+   ``torch.profiler``) and ``kernels`` (launches), the GPU kernels by
+   name and ``dispatch_reduction`` of ``full`` and ``solve`` printed; a
+   kernel-side record without its kernel's launch, or with launches the
+   profiler did not record (:data:`LAUNCH_SIGNATURES`), fails; the two
+   sides' lnL on the same fixture in the smoke's lnL class, their solves
+   within ATOL;
+18. the ``kernels`` JSON line, one entry per kernel and main path that
    runs it (``name`` is ``kernel@path``), each with that path's launches,
    error, times and bound at that path's shapes; then the result line
    ``{"ok": true, "device": {...}}``, after the smoke's wall time.
@@ -5052,6 +5066,10 @@ TOA_POINTS = 8
 #: (the reference's megakernel tolerance); whether the gap is within 1e-3
 #: is reported beside it
 TOA_F64_CLASS = (5e-2, 1e-3)
+#: the sharded lnL's largest gap from float64 on the CPU at these points:
+#: about 2.5x the JAX package's own split gap there (1.89e-3 on the CPU,
+#: the pair program off; PERF.md, the split class)
+TOA_F64_GAP = 5e-3
 
 
 def toa_problem(dev, gram_mode="split", mesh=None, ntoa=TOA_NTOA):
@@ -5307,6 +5325,54 @@ def toa_axis_rank(spec_path):
     return 0
 
 
+def toa_split_stages(dev, oracle, l64, smi):
+    """16.4: where the unsharded split build at :data:`TOA_NTOA` TOAs (the
+    pair program off) leaves float64 on the card, stage by stage at
+    :func:`toa_points`: its Gram against float64's (relative to max|G|),
+    and lnL through the Sigma stage on the solve kernel's route (the
+    default), on the classic chain (``solve_mega=False``) and on the
+    kernel's route with the quadratic forms taken to first order (``B^T
+    Z``, as the reference's kernel route takes them), each against
+    ``l64``, float64 on the CPU (``oracle``). Printed, not held."""
+    import numpy as np
+    import torch
+    from enterprise_warp_tpu_torch.ops import kernel as K
+    old = os.environ.get("EWT_PAIR_PROGRAM")
+    os.environ["EWT_PAIR_PROGRAM"] = "0"
+    try:
+        like = toa_problem(dev, ntoa=TOA_NTOA)
+    finally:
+        os.environ.pop("EWT_PAIR_PROGRAM")
+        if old is not None:
+            os.environ["EWT_PAIR_PROGRAM"] = old
+    pts = toa_points(oracle)
+    st, so = like.static, oracle.static
+    nw, b = like.eval_nw(pts), like.eval_phi(pts)
+    grams = K.gram_blocks(nw, st["r_w"], st["M_w"], st["T_w"])
+    G64 = K.gram_blocks(oracle.eval_nw(pts), so["r_w"], so["M_w"],
+                        so["T_w"], gram_mode="f64")[0]
+    gerr = float(((grams[0].cpu() - G64).abs().amax(dim=(-2, -1))
+                  / G64.abs().amax(dim=(-2, -1))).max())
+    ldn = K._row_sum(torch.log(nw))
+
+    def gap(**kw):
+        lnl = K.sigma_stage(grams, b, ldn, **kw).cpu().numpy()
+        return float(np.abs(lnl - l64).max())
+
+    kern, classic = gap(), gap(solve_mega=False)
+    quad_forms = K._quad_forms
+    K._quad_forms = lambda B, Z, Sigma: K._t(B) @ Z
+    try:
+        first = gap()
+    finally:
+        K._quad_forms = quad_forms
+    print(f"16.4 the unsharded split build at {TOA_NTOA} TOAs on the card "
+          f"against float64 on the CPU, stage by stage: G {gerr:.3e} of "
+          f"max|G|; lnL through kernel 1 {kern:.3e}, through the classic "
+          f"chain {classic:.3e}, through kernel 1 with the first-order "
+          f"quadratic forms B^T Z {first:.3e} [{smi}]")
+
+
 def phase_toa_axis(tmp, dev, smi, results, h):
     """Phase 16, the TOA axis across processes (module docstring): two gloo
     ranks sharing the card beside one NCCL rank (:func:`toa_axis_rank`),
@@ -5380,6 +5446,12 @@ def phase_toa_axis(tmp, dev, smi, results, h):
           f"split Gram's gradient class at this size is not established)")
     if not np.all(g64 <= TOA_F64_CLASS[0] + TOA_F64_CLASS[1] * np.abs(l64)):
         fail("16.1: the sharded lnL disagrees with float64 on the CPU")
+    toa_split_stages(dev, oracle, l64, smi)
+    print(f"16.1 the sharded lnL's largest gap from float64 {g64.max():.3e} "
+          f"against the split Gram's hold {TOA_F64_GAP:g}")
+    if not g64.max() <= TOA_F64_GAP:
+        fail(f"16.1: the sharded lnL lies more than {TOA_F64_GAP:g} from "
+             "float64 on the CPU")
     hx = [x["16.1"]["health"] for x in pair]
     hgap = float(np.abs(np.asarray(hx[0]["lnl"]) - ls).max())
     print(f"16.1 the health twin: collectives {hx[0]['coll']} launches "
@@ -5465,6 +5537,159 @@ def phase_toa_axis(tmp, dev, smi, results, h):
         run="toa_shard_health", shape=f"Sn {tuple(S_.shape)}",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=bby, launches=hx[0]["launches"]["chol_precond"])
+
+
+# ---- phase 17: the dispatch census ---------------------------------------- #
+
+#: the reference's census fixture (``dispatch_ab_counts``'s defaults)
+CENSUS = dict(batch=64, seed=7, solve_refine=3)
+#: the GPU kernel that one launch of each of the port's kernels runs
+#: exactly once: the solve pipeline's factor, the likelihood's Gram, the
+#: preconditioner (either design)
+LAUNCH_SIGNATURES = {"mega_solve": ("solve_factor_kernel",),
+                     "mega_like": ("like_gram_tile_kernel",),
+                     "chol_precond": ("chol_precond_smem_kernel",
+                                      "chol_precond_kernel")}
+
+
+def _kernel_base(name):
+    """A profiled GPU kernel's bare function name: its demangled name
+    without return type, namespaces, template arguments (which may hold
+    parentheses: ``<(int)4>``) and parameters."""
+    import re
+    s, prev = name.replace("(anonymous namespace)", ""), None
+    while s != prev:
+        prev, s = s, re.sub(r"<[^<>]*>", "", s)
+    return re.split(r"[\s:]+", s.split("(")[0].strip())[-1]
+
+
+def profiled_launches(device_kernels, kernel):
+    """How many of the profiled GPU kernels ``{name: count}`` are launches
+    of the port's ``kernel`` (:data:`LAUNCH_SIGNATURES`, matched on the
+    bare function name)."""
+    return sum(n for name, n in device_kernels.items()
+               if _kernel_base(name) in LAUNCH_SIGNATURES[kernel])
+
+
+def census_worker(spec_path):
+    """Phase 17's census in a process of its own (:func:`_launch_ranks`,
+    one rank): late in a long process a ``torch.profiler`` session can
+    miss GPU kernels its call launched (CUPTI hands its records over by
+    the buffer; PERF.md, PR 21), and a fresh process's sessions count
+    every one. For each pulsar: ``dispatch_ab_counts`` at :data:`CENSUS`
+    with the launches and routes it made, then the classic and kernel
+    sides' outputs on the same fixture compared. Writes
+    ``<dir>/rank0.json``; ``spec["device"]`` ``"cpu"`` rehearses it (no
+    kernel side there)."""
+    import torch
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    sys.path.insert(0, HERE)
+    from enterprise_warp_tpu_torch.ops import cuda_lib, routes
+    from enterprise_warp_tpu_torch.ops import megakernel as mk
+    dev = spec["device"]
+    if dev == "cuda":
+        cuda_lib.load_library()
+    problems = (("17.1 the north star's pulsar",
+                 lambda: north_star_problem("split", dev)),
+                ("17.2 system_noise --num 0",
+                 lambda: load_likes(spec["pf"], 0, dev)[1][0]))
+    out = []
+    for label, build in problems:
+        st = build().static
+        args = (st["r_w"], st["M_w"], st["T_w"], st["cs2"])
+        ntoa, nb = (int(n) for n in st["T_w"].shape)
+        routes.reset_counts()
+        t0 = time.perf_counter()
+        counts = mk.dispatch_ab_counts(*args, **CENSUS, device=dev)
+        rec = dict(label=label, ntoa=ntoa, nb=nb,
+                   ntm=int(st["M_w"].shape[1]),
+                   fits=mk.mega_like_fits(ntoa, nb),
+                   wall=time.perf_counter() - t0, counts=counts,
+                   launches=dict(routes.LAUNCHES),
+                   routes={f"{k}/{p}": n
+                           for (k, p), n in routes.ROUTES.items()})
+        calls = mk.census_calls(*args, **CENSUS, device=dev)
+        o = {k: c[0](*c[1]) for k, c in calls.items() if c is not None}
+        if len(o) == 4:
+            lc, lm = o["full_classic"], o["full_mega"]
+            (Zc, ldc), (Zm, ldm) = o["solve_classic"], o["solve_mega"]
+            rec.update(
+                finite=all(bool(torch.isfinite(t).all())
+                           for t in (lc, lm, Zc, ldc, Zm, ldm)),
+                lnl_gap=float((lc - lm).abs().max()),
+                lnl_max=float(lc.abs().max()),
+                lnl_in_class=bool(((lc - lm).abs() <= LNL_ATOL + LNL_RTOL
+                                   * lc.abs()).all()),
+                z_gap=float((Zc - Zm).abs().max()),
+                z_max=float(Zc.abs().max()),
+                ld_gap=float((ldc - ldm).abs().max()))
+        out.append(rec)
+    with open(os.path.join(spec["dir"], "rank0.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def phase_census(tmp, dev, smi):
+    """Phase 17, the dispatch census (module docstring): for the north
+    star's pulsar (kernel 2 fits) and ``system_noise --num 0`` (nb 250:
+    kernel 2 declines as ``over-cap``), :func:`census_worker` in a process
+    of its own; its four records and the two reductions printed, each
+    kernel-side record's launches held against the profiled GPU kernels,
+    and the classic and kernel sides' outputs on the same fixture held in
+    the smoke's classes."""
+    import torch
+    from enterprise_warp_tpu_torch.ops import megakernel as mk
+    pf = write_paramfile(tmp, "system_noise.dat", dest="census_sn.dat")
+    spec = dict(dir=os.path.join(tmp, "census"), pf=pf,
+                device=torch.device(dev).type)
+    (reports,), = _launch_ranks(
+        [(spec, 1, "17 the dispatch census (a process of its own)")],
+        max(1, (os.cpu_count() or 1) // 2), worker="census_worker")
+    for r in reports:
+        label, counts = r["label"], r["counts"]
+        side = ("kernel 2" if r["fits"] else
+                f"the classic chain with kernel 1 (kernel 2 declined as "
+                f"over-cap: nb {r['nb']} > {mk._MEGA_MAX_M})")
+        print(f"{label}: S ({r['ntoa']}, {r['nb']}), {r['ntm']} "
+              f"timing-model columns, batch {CENSUS['batch']}, seed "
+              f"{CENSUS['seed']}, solve refine {CENSUS['solve_refine']}; "
+              f"full_mega through {side}; the census {r['wall']:.2f} s, "
+              f"launches {r['launches']}, routes {r['routes']} [{smi}]")
+        for key, rec in counts.items():
+            names = collections.Counter()
+            for name, n in rec["device_kernels"].items():
+                names[_kernel_base(name)] += n
+            print(f"{label} {key}: aten_ops {rec['aten_ops']} dispatch_ops "
+                  f"{rec['dispatch_ops']} kernels {rec['kernels']}; GPU "
+                  f"kernels by name {dict(names.most_common())} [{smi}]")
+        for ph in ("full", "solve"):
+            print(f"{label} dispatch_reduction {ph}: dispatch_ops "
+                  f"{mk.dispatch_reduction(counts, ph)}, aten_ops "
+                  f"{mk.dispatch_reduction(counts, ph, 'aten_ops')} [{smi}]")
+        for key, kern in (("full_mega", "mega_like" if r["fits"] else
+                           "mega_solve"), ("solve_mega", "mega_solve")):
+            if not counts[key]["kernels"][kern]:
+                fail(f"{label}: the {key} record shows no launch of "
+                     f"{kern}")
+        for key, rec in counts.items():
+            for kern, n in rec["kernels"].items():
+                seen = profiled_launches(rec["device_kernels"], kern)
+                if seen < n:
+                    fail(f"{label}: {key} counted {n} {kern} launches, the "
+                         f"profiler recorded {seen}")
+        print(f"{label} classic against the kernel route on the fixture: "
+              f"lnL largest gap {r['lnl_gap']:.3e} (|lnL| up to "
+              f"{r['lnl_max']:.4e}); the solve's Z {r['z_gap']:.3e} (max|Z| "
+              f"{r['z_max']:.3e}), logdet {r['ld_gap']:.3e}")
+        if not r["finite"]:
+            fail(f"{label}: non-finite census outputs")
+        if not r["lnl_in_class"]:
+            fail(f"{label}: the classic and kernel-route lnL differ beyond "
+                 f"atol {LNL_ATOL} + rtol {LNL_RTOL}")
+        if r["z_gap"] > ATOL or r["ld_gap"] > ATOL:
+            fail(f"{label}: the classic and kernel solves differ by more "
+                 f"than atol {ATOL}")
 
 
 def main():
@@ -7206,6 +7431,10 @@ def main():
         phase_toa_axis(tmp, dev, smi, results, types.SimpleNamespace(
             hold_solve=hold_solve, solve_calls=solve_calls))
         lap("16")
+
+        # ---- phase 17: the dispatch census -------------------------------
+        phase_census(tmp, dev, smi)
+        lap("17")
 
     kernels = []
     for entry, r in results.items():

@@ -36,9 +36,9 @@ import torch
 
 from .. import F64, resolve_device
 from ..ops import megakernel, quantization_matrix
-from ..ops.kernel import (_CHUNK, _row_sum, build_pair_program,
-                          gram_blocks, marginalized_loglike, sigma_stage,
-                          whiten_inputs)
+from ..ops.kernel import (_CHUNK, _gram_rows, _row_sum,
+                          build_pair_program, gram_blocks,
+                          marginalized_loglike, sigma_stage, whiten_inputs)
 from ..ops.spectra import (broken_powerlaw_psd, df_from_freqs,
                            free_spectrum_psd, powerlaw_psd)
 from .prior_mixin import PriorMixin
@@ -739,7 +739,8 @@ def _toa_sharded_core(layout, device, b, finish):
         # there, so they add nothing unmasked, and the weights' square
         # root stays differentiable (a masked weight of 0 would give the
         # gradient 0 * inf)
-        G, H, P, X, q, rwr = gram_blocks(nw, r_eff, M, T_eff, gram_mode=gm)
+        G, H, P, X, q, rwr = gram_blocks(nw, r_eff, M, T_eff, gram_mode=gm,
+                                         rows=_gram_rows(ntoa))
         W = theta.shape[0]
         ldn = _row_sum(torch.log(nw) * sh["mask"])
         return torch.cat([G.reshape(W, -1), H.reshape(W, -1),

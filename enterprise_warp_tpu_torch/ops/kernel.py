@@ -47,6 +47,31 @@ import torch
 import torch.nn.functional as F
 
 _CHUNK = 256  # TOA-axis chunk length for f64 accumulation of f32 partials
+#: rows of one float32 partial of the hi*hi product of the likelihood's
+#: (T, T) Gram (:func:`gram_blocks`, :func:`pair_program_grams`) over more
+#: than :data:`_SUB_ABOVE` TOAs; hi*hi is the only product of the three
+#: whose rounding reaches float64. A BLAS float32 GEMM (MKL or OpenBLAS
+#: on the CPU, cuBLAS on the card) sums its contraction in one sequential
+#: pass, so a 256-row partial rounds like a 256-term running sum; XLA's
+#: CPU dot, which the reference runs, does the same at some widths and
+#: keeps several partial sums at others (nb 80 among them), landing
+#: closer. The rounding reaches lnL in proportion to the TOA count.
+#: Partials of 32 rows, summed in float64, put the port's G below the
+#: reference's error on the CPU and round the same on the card (PERF.md,
+#: the split class, with the figures at 1024 to 32768 TOAs).
+_SUB = 32
+#: TOA counts up to this keep the reference's :data:`_CHUNK`-row
+#: partials: the split class holds there, and the port's partials are
+#: then the reference's bit for bit wherever XLA's dot sums in one pass.
+#: So do the mixed solve's refinement products and the joint front end's
+#: split Gram, which reproduces the reference's.
+_SUB_ABOVE = 1024
+
+
+def _gram_rows(ntoa):
+    """The hi*hi partial length of the likelihood's Gram for a pulsar of
+    ``ntoa`` TOAs (its whole count, also for one shard of its rows)."""
+    return _SUB if ntoa > _SUB_ABOVE else _CHUNK
 
 # Preconditioner jitter per gram mode, applied to the unit-diagonal
 # equilibrated float32 cast in ``_mixed_psd_solve_logdet``; it must
@@ -176,20 +201,24 @@ def _pad_rows(x, n_pad):
 
 # ewt: allow-precision — the Gram island: float32 chunk products summed
 # in float64, so a long TOA axis adds no float32 rounding
-def _chunked_f32_gram(x, y):
+def _chunked_f32_gram(x, y, rows=_CHUNK):
     """x^T y of two float32 row-padded matrices (leading batch axes
-    allowed), with per-chunk partials accumulated in float64."""
-    nc = x.shape[-2] // _CHUNK
-    xc = x.reshape(x.shape[:-2] + (nc, _CHUNK, x.shape[-1]))
-    yc = y.reshape(y.shape[:-2] + (nc, _CHUNK, y.shape[-1]))
+    allowed), with the float32 partials of ``rows`` rows each (a divisor
+    of :data:`_CHUNK`) accumulated in float64."""
+    nc = x.shape[-2] // rows
+    xc = x.reshape(x.shape[:-2] + (nc, rows, x.shape[-1]))
+    yc = y.reshape(y.shape[:-2] + (nc, rows, y.shape[-1]))
     parts = torch.einsum("...cik,...cil->...ckl", xc, yc)
     return parts.to(torch.float64).sum(dim=-3)
 
 
-def _gram_pair(S, B, mode):
+def _gram_pair(S, B, mode, rows=_CHUNK):
     """S^T B over the TOA axis: (..., ntoa, k) x (..., ntoa, l) ->
     (..., k, l). ``mode``: 'f64' direct; 'f32' single-pass float32;
-    'split' hi/lo products with chunked float64 accumulation."""
+    'split' hi/lo products with chunked float64 accumulation, the hi*hi
+    product's float32 partials ``rows`` rows long (the reference's
+    :data:`_CHUNK` by default; the likelihood's (T, T) Gram takes
+    :func:`_gram_rows`)."""
     if mode == "f64":
         return torch.einsum("...ik,...il->...kl", S, B)
     if mode == "f32":
@@ -200,7 +229,7 @@ def _gram_pair(S, B, mode):
     B = _pad_rows(B, (-B.shape[-2]) % _CHUNK)
     Sh, Sl = _split_hi_lo(S)
     Bh, Bl = _split_hi_lo(B)
-    return (_chunked_f32_gram(Sh, Bh) + _chunked_f32_gram(Sh, Bl)
+    return (_chunked_f32_gram(Sh, Bh, rows) + _chunked_f32_gram(Sh, Bl)
             + _chunked_f32_gram(Sl, Bh))
 
 
@@ -243,7 +272,7 @@ def build_pair_program(r_w, M_w, T_w, device="cuda"):
 
     return dict(Qtt_h=dev(Qtt_h), Qtt_l=dev(Qtt_l), Qtu=dev(Qtu),
                 Quu=dev(Quu), nb=nb, ntm=nu - 1, nu=nu, ntoa=ntoa,
-                n_pad=n_pad)
+                n_pad=n_pad, rows=_gram_rows(ntoa))
 
 
 # ewt: allow-precision — the Gram island: split-precision products of
@@ -260,10 +289,19 @@ def pair_program_grams(w, prog):
     wc = wp.reshape(W, nc, _CHUNK)
     wh = wc.to(torch.float32)
     wl = (wc - wh.to(w.dtype)).to(torch.float32)
-    parts = (torch.einsum("wci,cik->wck", wh, prog["Qtt_h"])
-             + torch.einsum("wci,cik->wck", wh, prog["Qtt_l"])
-             + torch.einsum("wci,cik->wck", wl, prog["Qtt_h"]))
-    G = parts.to(torch.float64).sum(dim=1).reshape(W, nb, nb)
+    # hi*hi in partials of the program's rows (_gram_rows); the two cross
+    # products, 2^-24 of it, each converted before the sum (in float32
+    # they would round into hi*hi's last bit)
+    rows = prog["rows"]
+    ns = nc * _CHUNK // rows
+    hh = torch.einsum("wci,cik->wck", wh.reshape(W, ns, rows),
+                      prog["Qtt_h"].reshape(ns, rows, -1))
+    parts = (hh.to(torch.float64).sum(dim=1)
+             + torch.einsum("wci,cik->wck", wh, prog["Qtt_l"]).to(
+                 torch.float64).sum(dim=1)
+             + torch.einsum("wci,cik->wck", wl, prog["Qtt_h"]).to(
+                 torch.float64).sum(dim=1))
+    G = parts.reshape(W, nb, nb)
     HX = (w @ prog["Qtu"]).reshape(W, nb, nu)
     Pq = (w @ prog["Quu"]).reshape(W, nu, nu)
     H, X = HX[..., :ntm], HX[..., ntm]
@@ -272,14 +310,17 @@ def pair_program_grams(w, prog):
 
 
 def gram_blocks(nw, r_w, M_w, T_w, mask=None, gram_mode="split",
-                pair_program=None):
+                pair_program=None, rows=None):
     """The Gram stage of :func:`marginalized_loglike` on its own:
     ``(G, H, P, X, q, rwr)`` for the weights ``w = mask / nw``
     (``nw`` is (W, ntoa)). Factored out so fixed-white-noise builds can
     constant-fold it at build time through this same code path.
     ``M_w=None`` is the sampled-timing-model likelihood: the caller has
     subtracted the timing-model delay from ``r_w`` (then (W, ntoa), one
-    row per walker), and ``H``, ``P`` and ``q`` have no columns."""
+    row per walker), and ``H``, ``P`` and ``q`` have no columns. ``rows``
+    is the split (T, T) Gram's hi*hi partial length (default
+    :func:`_gram_rows` of ``T_w``'s row count; a shard of a pulsar's rows
+    passes its whole pulsar's)."""
     w = 1.0 / nw
     if mask is not None:
         w = w * mask
@@ -290,7 +331,8 @@ def gram_blocks(nw, r_w, M_w, T_w, mask=None, gram_mode="split",
     Ts = T_w * sqw[..., None]
     Ms = None if M_w is None else M_w * sqw[..., None]
     rs = r_w * sqw
-    G = _gram_pair(Ts, Ts, gram_mode)
+    G = _gram_pair(Ts, Ts, gram_mode,
+                   rows=_gram_rows(T_w.shape[-2]) if rows is None else rows)
     if gram_mode == "split":
         # the M/r side feeds A = P - H^T Sigma^-1 H, whose cancellation
         # amplifies Gram error by up to ~1e8: genuine float64
@@ -630,6 +672,19 @@ def marginalized_loglike(nw, b, r_w, M_w, T_w, mask=None, gram_mode="split",
                        blocked=blocked)
 
 
+def _quad_forms(B, Z, Sigma):
+    """``B^T Sigma^-1 B`` (W, k, k) from a solve ``Z`` of ``Sigma Z = B``,
+    taken variationally: ``2 B^T Z - Z^T Sigma Z``, symmetrized. Its error
+    is second order in the solve's residual ``B - Sigma Z``, where
+    ``B^T Z`` is first order: the solve kernel hands back a float32 ``Z``,
+    whose rounding would otherwise reach the quadratic forms (of order
+    ``ntoa``) as u |B^T Z| (on an NVIDIA H100, 7.9e-3 of lnL at 32768
+    TOAs, against 1.1e-3 from the split Gram; PERF.md, the split class).
+    A departure from the reference, whose kernel route keeps ``B^T Z``."""
+    W = 2.0 * (_t(B) @ Z) - _t(Z) @ (Sigma @ Z)
+    return (W + _t(W)) / 2
+
+
 def sigma_stage(grams, b, logdet_n, schur_tm=True, gram_mode="split",
                 refine=3, solve_mega=None, with_health=False, blocked=False):
     """The evaluation after the Gram stage: ``Sigma = G + diag(1/b)``, its
@@ -681,7 +736,7 @@ def sigma_stage(grams, b, logdet_n, schur_tm=True, gram_mode="split",
             quad = rwr - _row_sum(u * u)
         else:
             zx, logdet_sigma = solve(Sigma, X[..., None])
-            quad = rwr - _row_sum(X * zx[..., 0])
+            quad = rwr - _quad_forms(X[..., None], zx, Sigma)[..., 0, 0]
     elif gram_mode == "f64":
         L, sS, logdet_sigma = chol(Sigma, 0.0)
         u = torch.linalg.solve_triangular(L, (sS * X)[..., None],
@@ -695,18 +750,18 @@ def sigma_stage(grams, b, logdet_n, schur_tm=True, gram_mode="split",
                                           upper=False)[..., 0]
         quad = rwr - _row_sum(u * u) - _row_sum(z * z)
     else:
-        ZXH, logdet_sigma = solve(Sigma, torch.cat([X[..., None], H],
-                                                   dim=-1))
-        zx, ZH = ZXH[..., 0], ZXH[..., 1:]
-        A = P - _t(H) @ ZH
-        y = q - (_t(ZH) @ X[..., None])[..., 0]
+        XH = torch.cat([X[..., None], H], dim=-1)
+        ZXH, logdet_sigma = solve(Sigma, XH)
+        W = _quad_forms(XH, ZXH, Sigma)
+        A = P - W[..., 1:, 1:]
+        y = q - W[..., 1:, 0]
         # split mode's float64 sides leave A accurate (no jitter); f32
         # mode's Gram noise can make A indefinite, so it keeps a retry
         jitter_a = CHOL_JITTER["f32"] if gram_mode == "f32" else 0.0
         LA, sA, logdet_a = chol(A, jitter_a)
         z = torch.linalg.solve_triangular(LA, (sA * y)[..., None],
                                           upper=False)[..., 0]
-        quad = rwr - _row_sum(X * zx) - _row_sum(z * z)
+        quad = rwr - W[..., 0, 0] - _row_sum(z * z)
 
     logdet_b = _row_sum(torch.log(b))
     lnl = -0.5 * (quad + logdet_n + logdet_b + logdet_sigma + logdet_a)

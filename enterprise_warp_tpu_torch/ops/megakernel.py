@@ -53,7 +53,11 @@ through the classic chain ``marginalized_loglike(..., mega=False)``,
 whose fused preconditioner is the third kernel, ``chol_precond``
 (``ops/cholfuse.py``).
 
-Routing and launch counts: ``ops/routes.py``.
+Routing and launch counts: ``ops/routes.py``. The dispatch census
+(:func:`dispatch_ab_counts`, :func:`dispatch_reduction`) counts one
+evaluation's ATen ops, device dispatches and kernel launches on the
+classic chain and on the kernel route; the reference's ``force_route``
+has no counterpart, since ``mega=True`` pins the kernel route.
 """
 
 from __future__ import annotations
@@ -476,3 +480,105 @@ def schur_reject(evA, quad):
     is."""
     emax = evA.abs().amax(dim=-1)
     return (evA.amin(dim=-1) < -SCHUR_REJECT_C * emax) | (quad < 0.0)
+
+
+# --------------------------------------------------------------------
+# the dispatch census
+# --------------------------------------------------------------------
+
+# ewt: allow-host-sync,precision — the census's whitened inputs come back
+# to the host once, in float64, as the reference's protocol takes them
+def _host(a):
+    """A float64 numpy copy of a host array or a tensor."""
+    import numpy as np
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
+# ewt: allow-host-sync,precision — the census uploads its seeded float64
+# fixture (the reference's draws) once, before anything is counted
+def census_calls(r_w, M_w, T_w, cs2, batch=64, seed=7, solve_refine=3,
+                 device=None):
+    """The four calls the dispatch census counts, ``{name: (fn, args)}``
+    under :func:`dispatch_ab_counts`'s keys, on the reference's fixture:
+    one ``numpy.random.default_rng(seed)`` draws ``nw`` (batch, ntoa),
+    ``b`` (batch, nb) and the solve fixture ``Gs`` (batch, nb, nb),
+    symmetric positive definite, with right-hand sides ``RHS`` (batch,
+    nb, ntm + 1), in the reference's order.
+
+    ``full_*`` is the whole evaluation ``nw, b -> lnL``, ``solve_*`` the
+    mixed Sigma solve alone (``_mixed_psd_solve_logdet``, jitter 3e-6,
+    ``solve_refine`` passes). The classic side pins the classic chain
+    (``mega=False``; the full one on the pair-program Gram, its Sigma
+    solve with the fused preconditioner, kernel 3 on the card). The
+    kernel side takes the kernel route (``mega=True``): the likelihood
+    kernel where the shape fits its caps, else the auto route, which
+    declines it as ``over-cap`` and sends the Sigma solve through the
+    solve kernel. CPU tensors have no kernel route: the two ``*_mega``
+    entries are None there, since a plain version is no kernel."""
+    from .. import resolve_device
+    from .kernel import (_mixed_psd_solve_logdet, build_pair_program,
+                         marginalized_loglike)
+    import numpy as np
+
+    dev = resolve_device(device or "cuda")
+    r_w, M_w, T_w = _host(r_w), _host(M_w), _host(T_w)
+    ntoa, nb = T_w.shape
+    nu = M_w.shape[1] + 1
+    rng = np.random.default_rng(seed)
+    nw = np.exp(0.1 * rng.standard_normal((batch, ntoa)))
+    b = 10.0 ** rng.uniform(-2, 2, (batch, nb)) * _host(cs2)
+    A = rng.standard_normal((batch, nb, nb))
+    Gs = np.einsum("bij,bkj->bik", A, A) / nb + 3.0 * np.eye(nb)[None]
+    RHS = rng.standard_normal((batch, nb, nu))
+    nw, b, Gs, RHS, r_t, M_t, T_t = (
+        torch.as_tensor(a, dtype=torch.float64, device=dev)
+        for a in (nw, b, Gs, RHS, r_w, M_w, T_w))
+    prog = build_pair_program(r_w, M_w, T_w, device=dev)
+
+    def full(mega, pair=None):
+        return lambda nwb, bb: marginalized_loglike(
+            nwb, bb, r_t, M_t, T_t, pair_program=pair, mega=mega)
+
+    def solve(mega):
+        return lambda Sb, Rb: _mixed_psd_solve_logdet(
+            Sb, Rb, 3e-6, refine=solve_refine, delta_mode="split",
+            mega=mega)
+
+    card = dev.type == "cuda"
+    like_mega = True if mega_like_fits(ntoa, nb) else None
+    return {"full_classic": (full(False, prog), (nw, b)),
+            "full_mega": (full(like_mega), (nw, b)) if card else None,
+            "solve_classic": (solve(False), (Gs, RHS)),
+            "solve_mega": (solve(True), (Gs, RHS)) if card else None}
+
+
+def dispatch_ab_counts(r_w, M_w, T_w, cs2, batch=64, seed=7,
+                       solve_refine=3, device=None):
+    """Classic-against-kernel dispatch census of one evaluation, the
+    reference's protocol on its fixture (:func:`census_calls`): each of
+    ``{"full_classic", "full_mega", "solve_classic", "solve_mega"}`` is a
+    ``utils/telemetry.py:dispatch_stats`` record of one call, or None for
+    a kernel side on CPU tensors.
+
+    Departures from the reference: the records count what the eager
+    program dispatched (no ``hlo_*`` keys: nothing is compiled), and no
+    ``force_route`` is needed, since ``mega=True``/``mega=False`` pin the
+    two sides; ``EWT_PALLAS=0`` still turns every kernel off."""
+    from ..utils.telemetry import dispatch_stats
+    calls = census_calls(r_w, M_w, T_w, cs2, batch=batch, seed=seed,
+                         solve_refine=solve_refine, device=device)
+    return {k: None if c is None else dispatch_stats(c[0], *c[1])
+            for k, c in calls.items()}
+
+
+def dispatch_reduction(counts, phase, key="dispatch_ops"):
+    """``classic / kernel`` of one phase (``full`` or ``solve``) of a
+    :func:`dispatch_ab_counts` record, rounded to 2 places; None where a
+    side is missing, None or zero."""
+    cl = (counts.get(f"{phase}_classic") or {}).get(key)
+    mg = (counts.get(f"{phase}_mega") or {}).get(key)
+    if not cl or not mg:
+        return None
+    return round(cl / mg, 2)

@@ -33,7 +33,9 @@ The port has no jit, so the reference's ``traced`` wrapper and the
 counterpart here; its one ``compile`` event is the serving layer's AOT
 warm-up (``serve/aot.py``). :class:`RingWindow` is the fixed-shape
 sliding window of the serving SLO engine (``serve/slo.py``). ``pallas_path`` in a heartbeat is the port's
-route counter ``ops/routes.py:ROUTES``.
+route counter ``ops/routes.py:ROUTES``. :func:`dispatch_stats` is the
+dispatch census of one call (ATen ops, device dispatches, kernel
+launches), the counterpart of the reference's jaxpr census.
 
 ``EWT_TELEMETRY=0`` turns everything off: recorders become no-ops and the
 registry hands out no-op metrics. Heartbeats are emitted only at the
@@ -53,8 +55,8 @@ import uuid
 __all__ = ["enabled", "registry", "MetricsRegistry", "Counter", "Gauge",
            "Histogram", "RingWindow", "RunRecorder", "run_scope", "active_recorder",
            "set_flight_hook", "last_lineage", "LINEAGE_REASONS",
-           "route_summary", "KNOWN_EVENT_TYPES", "KNOWN_HEARTBEAT_FIELDS",
-           "check_stream"]
+           "route_summary", "dispatch_stats", "KNOWN_EVENT_TYPES",
+           "KNOWN_HEARTBEAT_FIELDS", "check_stream"]
 
 
 def enabled() -> bool:
@@ -286,6 +288,101 @@ def route_summary():
     for (kernel, path), count in sorted(ROUTES.items()):
         out.setdefault(kernel, {})[path] = int(count)
     return out
+
+
+#: ATen ops that allocate or relabel a tensor without touching its data
+#: (views are told apart by their schema: an aliased, unwritten return)
+_NO_WORK_OPS = frozenset({"empty", "empty_like", "empty_strided",
+                          "new_empty", "new_empty_strided", "lift_fresh"})
+
+
+def _does_work(func):
+    """Whether an ATen overload reads or writes tensor data: not a view
+    (every aliased return is read-only) and not an allocation."""
+    rets = func._schema.returns
+    if rets and all(r.alias_info is not None and not r.alias_info.is_write
+                    for r in rets):
+        return False
+    return func.overloadpacket.__name__ not in _NO_WORK_OPS
+
+
+def _kernel_names(prof):
+    """``{name: count}`` of the GPU kernels a finished ``torch.profiler``
+    session recorded (memory copies and sets left out), read from the
+    raw activity records, so kernels launched outside ATen (the port's
+    own, through ctypes) are counted with the rest."""
+    import collections
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    out = collections.Counter()
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        if name.startswith(("Memcpy", "Memset")):
+            continue
+        out[name] += 1
+    return dict(out)
+
+
+def dispatch_stats(fn, *args, **kwargs):
+    """Dispatch statistics of ONE call ``fn(*args, **kwargs)``: the
+    counterpart of the reference's jaxpr census, counted on what the
+    eager program really dispatches (the port has no trace to read).
+
+    Returns ``{"aten_ops", "dispatch_ops", "kernels", "device_kernels"}``:
+
+    - ``aten_ops``: every ATen op dispatched (a ``TorchDispatchMode``
+      sees composite ops such as ``einsum`` as the ops they decompose
+      into), the counterpart of ``jaxpr_ops``;
+    - ``dispatch_ops``: the device dispatches. With a card, the GPU
+      kernel launches ``torch.profiler`` records during the call
+      (``ProfilerActivity.CUDA``: cuBLAS and cuSOLVER kernels and the
+      port's own kernels launched through ctypes alike). Without one,
+      the ATen ops that do work: views and allocations are left out,
+      since on a CPU tensor each of the others is one kernel call;
+    - ``kernels``: the change of ``ops/routes.py:LAUNCHES`` over the
+      call, ``{kernel: launches}``;
+    - ``device_kernels``: with a card, ``{kernel name: launches}`` of the
+      profiled GPU kernels; None without one.
+
+    Late in a long process that has profiled before, a session can miss
+    kernels its call launched (CUPTI hands its records over by the
+    buffer), so count in a process of its own, as phase 17 of
+    ``chip_smoke.py`` does. The reference's ``hlo_*`` and
+    ``compile_error`` keys have no counterpart: nothing is compiled."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ..ops.routes import LAUNCHES
+
+    ops = []
+
+    class _Census(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    before = dict(LAUNCHES)
+    card = torch.cuda.is_available() and any(
+        isinstance(a, torch.Tensor) and a.is_cuda
+        for a in list(args) + list(kwargs.values()))
+    if card:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with _Census():
+                fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        names = _kernel_names(prof)
+        dispatch = sum(names.values())
+    else:
+        with _Census():
+            fn(*args, **kwargs)
+        names = None
+        dispatch = sum(1 for f in ops if _does_work(f))
+    return {"aten_ops": len(ops), "dispatch_ops": dispatch,
+            "kernels": {k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+            "device_kernels": names}
 
 
 # ------------------------------------------------------------------ #
